@@ -1,0 +1,60 @@
+"""DDIM sampling with classifier-free guidance (port of
+``distdiff_tpu/sampling/sampler.py``). The denoise loop is a Python loop
+over plan indices; latents are NHWC ``[B, h, w, 4]``."""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Callable, Tuple
+
+import torch
+
+from distdiff_tpu_torch.sampling.conditioning import cond_concat
+from distdiff_tpu_torch.schedulers import (
+    DDIMSchedule,
+    add_noise,
+    ddim_step,
+    img2img_start_index,
+)
+
+
+@dataclasses.dataclass(frozen=True)
+class SamplerConfig:
+    guidance_scale: float = 7.5
+    do_classifier_free_guidance: bool = True
+
+
+def make_eps_fn(unet: Callable, cfg: SamplerConfig) -> Callable:
+    """eps(x, t, cond, uncond): one CFG-merged UNet evaluation, with the
+    uncond/cond pair batched through a single UNet call."""
+
+    def eps_fn(x, t, cond, uncond):
+        if cfg.do_classifier_free_guidance:
+            out = unet(torch.cat([x, x], dim=0), t, cond_concat(uncond, cond))
+            eps_u, eps_t = out.chunk(2, dim=0)
+            return eps_u + cfg.guidance_scale * (eps_t - eps_u)
+        return unet(x, t, cond)
+
+    return eps_fn
+
+
+def denoise_range(sched: DDIMSchedule, eps_fn: Callable, latents, cond, uncond,
+                  start: int, stop: int) -> torch.Tensor:
+    """Run plan steps [start, stop)."""
+    x = latents
+    for i in range(start, stop):
+        e = eps_fn(x, int(sched.timesteps[i]), cond, uncond)
+        x, _ = ddim_step(sched, e, i, x)
+    return x
+
+
+def img2img_init(sched: DDIMSchedule, image_latents: torch.Tensor,
+                 noise: torch.Tensor, strength: float) -> Tuple[torch.Tensor, int]:
+    """SDEdit entry: noise the cached latents to the strength-indexed
+    timestep. ``noise`` (standard normal, latents' shape) is drawn by the
+    caller. Returns (latents, start_index)."""
+    start = img2img_start_index(sched, strength)
+    t_enc = int(sched.timesteps[start])
+    noisy = add_noise(sched, image_latents.float(), noise, t_enc)
+    return noisy.to(image_latents.dtype), start
+
