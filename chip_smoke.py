@@ -3,29 +3,44 @@
 
 Run from the repository root: ``python3 chip_smoke.py``. It needs one CUDA
 card, ``nvcc`` and ``nvidia-smi``; it imports nothing of JAX or of the JAX
-package. Five phases, any failure exits non-zero:
+package. Six phases, any failure exits non-zero:
 
 1. Device: the card's name and power limit, torch/CUDA versions, and the
-   time to build the CUDA kernels from ``distdiff_tpu_torch/csrc``.
-2. Kernels: every flash kernel at the main path's shapes, in bf16, held
-   against its plain PyTorch version (fp32, same bf16 inputs); median times
-   over CUDA events for the kernel, the plain version and
-   ``F.scaled_dot_product_attention`` (a yardstick the port never calls),
-   beside the least time the card could take (``bound_ms``).
+   time to build the CUDA kernels from ``distdiff_tpu_torch/csrc`` (one
+   ``nvcc`` a source, all at once).
+2. Kernels, each held against its plain PyTorch version on the same inputs:
+   every flash kernel at the main path's shapes in bf16 (against the plain
+   fp32 version; timed beside ``F.scaled_dot_product_attention``, a
+   yardstick the port never calls) and at ragged shapes; the four flash
+   kernels' fp32 instances at main-path widths and ragged shapes (timed at
+   the former); gn_fused, gn_stats and gn_apply at every GroupNorm shape of
+   the counted runs, in bf16 and fp32, channels-last and contiguous, with
+   and without SiLU, and at ragged shapes (timed in bf16 channels-last,
+   beside ``F.group_norm`` + ``F.silu``). Times are medians of CUDA events,
+   each beside the least time the card could take (``bound_ms``).
 3. Agreement: the guided expansion at a small geometry whose attention
-   reaches every kernel (576 tokens; UNet heads of 16, a VAE mid-block of
-   160), in bf16 through the kernels, in bf16 through the plain attention
-   and in fp32 through the plain attention, on the same weights and draws:
-   the kernels' run stays as close to the fp32 run as the plain bf16 run.
+   reaches every flash kernel, in bf16 through the kernels, in bf16 through
+   the plain attention and in fp32 through the plain attention, on the same
+   weights and draws: the kernels' run stays as close to the fp32 run as
+   the plain bf16 run. Then the fp32 ``tiny()`` pipeline's guided expand on
+   the card through every kernel (norms once by gn_fused, once by the
+   gn_stats + gn_apply pair) against the same port on the CPU.
 4. Path: the guided expansion at full SD-1.5 geometry (UNet 860M, VAE,
    ResNet-50 guide with 100 classes, seeded random weights) at batch 2:
    DDIM-50, strength 0.5, CFG 7.5, transform guidance at plan index 30 over
    2 steps. One warm-up call, then one counted and timed call (each
    kernel's launches in it, by shape, against the counts the step plan
-   implies) and two more timed calls.
-5. The card line, the kernels' JSON line (one entry per kernel; its times
-   are the means over that kernel's launches on the main path, and
-   ``shapes`` holds each main-path shape's own numbers), and the
+   implies, and the norms' memory formats) and two more timed calls.
+5. Front end (the path of ``cli/generate_data.py``): prompts through the
+   HashTokenizer and the CLIP-L text encoder, ``encode_images`` of 512^2
+   images, prototypes from the guide's features over 400 seeded images of
+   100 classes, then ``ExpansionDriver`` over
+   ``make_split_expand(guide_chunk=1)`` for 4 work units, writing PNGs
+   (their count, size and range, and each unit against its batch-1 run);
+   one counted SplitExpand call against the plan, three timed ones.
+6. The card line, the kernels' JSON line (one entry per kernel; its times
+   are the means over that kernel's launches in the counted runs, and
+   ``shapes`` holds each timed shape's own numbers), and the
    ``{"ok": true, ...}`` line.
 
 ``python3 chip_smoke.py --profile [--json PATH]`` runs phase 1, builds the
@@ -36,6 +51,7 @@ per-kernel table as JSON at PATH).
 
 from __future__ import annotations
 
+import collections
 import json
 import math
 import statistics
@@ -45,18 +61,32 @@ import time
 
 # H100 SXM data-sheet peaks (dense); recomputed beside the card nvidia-smi names.
 PEAK_BF16_FLOPS = 989e12
+PEAK_FP32_FLOPS = 67e12  # CUDA cores, outside the tensor cores
 PEAK_BYTES = 3.35e12
 # exp throughput of the special-function units (the FlashAttention-3 paper's figure)
 PEAK_EXP = 3.9e12
 
 BATCH = 2
-SOURCES = {"flash_fwd": "distdiff_tpu_torch/csrc/flash_fwd.cu"}
+SOURCES = {"flash_fwd": "distdiff_tpu_torch/csrc/flash_fwd.cu",
+           "flash_bwd_fused": "distdiff_tpu_torch/csrc/flash_bwd.cu",
+           "flash_bwd_dq": "distdiff_tpu_torch/csrc/flash_bwd.cu",
+           "flash_bwd_dkv": "distdiff_tpu_torch/csrc/flash_bwd.cu",
+           "gn_fused": "distdiff_tpu_torch/csrc/groupnorm.cu",
+           "gn_stats": "distdiff_tpu_torch/csrc/groupnorm.cu",
+           "gn_apply": "distdiff_tpu_torch/csrc/groupnorm.cu"}
 REPLACES = {
     "flash_fwd": "distdiff_tpu/ops/flash.py:131 _fwd_kernel_single, :157 _fwd_kernel",
     "flash_bwd_fused": "distdiff_tpu/ops/flash.py:348 _bwd_fused_kernel",
     "flash_bwd_dq": "distdiff_tpu/ops/flash.py:266 _dq_kernel",
     "flash_bwd_dkv": "distdiff_tpu/ops/flash.py:301 _dkv_kernel",
+    "gn_fused": "distdiff_tpu/ops/groupnorm.py:98 _gn_kernel",
+    "gn_stats": "distdiff_tpu/ops/groupnorm.py:153 _gn_stats_kernel",
+    "gn_apply": "distdiff_tpu/ops/groupnorm.py:190 _gn_apply_kernel",
 }
+GN_KERNELS = ("gn_fused", "gn_stats", "gn_apply")
+# shared memory a block may use on the H100 after opting in; the plan's
+# default (the run reads the card's own from gn_smem_optin)
+H100_SMEM_OPTIN = 232448
 # products (each 2*BH*Tq*Tk*D flops) and exps (BH*Tq*Tk) of each kernel
 PRODUCTS = {"flash_fwd": 2, "flash_bwd_fused": 5, "flash_bwd_dq": 3, "flash_bwd_dkv": 4}
 
@@ -74,8 +104,15 @@ def card_line() -> str:
     return out.stdout.strip().splitlines()[0]
 
 
+# a device-side spin queued before each timed call (~1 ms at the H100's
+# clocks), so that the host's enqueueing of the call is hidden behind it
+SPIN_CYCLES = 2_000_000
+
+
 def time_ms(fn, iters: int) -> float:
-    """Median of per-call CUDA-event times, after two warm-up calls."""
+    """Median of per-call CUDA-event times, after two warm-up calls. Each
+    call starts behind a device spin, so the events bracket the device's
+    work and not the host's launch gaps (which dominate µs-scale kernels)."""
     import torch
 
     for _ in range(2):
@@ -84,6 +121,7 @@ def time_ms(fn, iters: int) -> float:
     for _ in range(iters):
         a = torch.cuda.Event(enable_timing=True)
         b = torch.cuda.Event(enable_timing=True)
+        torch.cuda._sleep(SPIN_CYCLES)
         a.record()
         fn()
         b.record()
@@ -92,12 +130,13 @@ def time_ms(fn, iters: int) -> float:
     return statistics.median(times)
 
 
-def bound(name, bh, tq, tk, d):
+def bound(name, bh, tq, tk, d, itemsize=2):
     """(bound_ms, bound_by): the larger of the bytes the function must move
     (inputs read once, outputs written once) over the memory rate and its
-    operations (products on the bf16 tensor cores, exps on the
-    special-function units) over their peak rates."""
-    bf, f4 = 2, 4
+    operations (products on the bf16 tensor cores, or on the fp32 CUDA
+    cores for fp32 inputs; exps on the special-function units) over their
+    peak rates."""
+    bf, f4 = itemsize, 4
     q, kv = bh * tq * d * bf, bh * tk * d * bf
     row = bh * tq * f4
     nbytes = {
@@ -107,8 +146,8 @@ def bound(name, bh, tq, tk, d):
         "flash_bwd_dkv": 2 * q + 2 * kv + 2 * row + 2 * kv,
     }[name]
     t_bytes = nbytes / PEAK_BYTES
-    t_ops = max(PRODUCTS[name] * 2.0 * bh * tq * tk * d / PEAK_BF16_FLOPS,
-                bh * tq * tk / PEAK_EXP)
+    peak = PEAK_BF16_FLOPS if itemsize == 2 else PEAK_FP32_FLOPS
+    t_ops = max(PRODUCTS[name] * 2.0 * bh * tq * tk * d / peak, bh * tq * tk / PEAK_EXP)
     return (max(t_bytes, t_ops) * 1e3, "bytes" if t_bytes > t_ops else "operations")
 
 
@@ -207,8 +246,7 @@ def kernel_phase():
             b_ms, b_by = bound(name, bh, tq, tk, d)
             entry = {
                 "name": name, "route": "cuda",
-                "source": SOURCES.get(name, "distdiff_tpu_torch/csrc/flash_bwd.cu"),
-                "replaces": REPLACES[name],
+                "source": SOURCES[name], "replaces": REPLACES[name],
                 "shape": [bh, tq, tk, d], "cell": label,
                 "max_abs_err": max_err, "ms": ms, "plain_ms": plain_ms,
                 "bound_ms": b_ms, "bound_by": b_by, "library_ms": lib_ms,
@@ -223,10 +261,360 @@ def kernel_phase():
     return entries
 
 
-def expected_launches(pipe) -> dict:
-    """Kernel launches of one transform-guided expand call, from the plan:
-    UNet forwards = plain steps + 2 x period (rollout and its recompute in
-    the backward); VAE mid-block forwards = 2 x period + the final decode."""
+def flash_f32_phase() -> list:
+    """The four flash kernels on fp32 inputs (their fp32 instances,
+    csrc/flash_f32.cu) at main-path widths and at ragged shapes, against the
+    plain fp32 version; timed at the main-path widths. Returns one record
+    per timed (kernel, shape)."""
+    import torch
+    import torch.nn.functional as F
+
+    from distdiff_tpu_torch.ops import flash
+
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(5)
+    split = ["flash_bwd_dq", "flash_bwd_dkv"]
+    every = ["flash_fwd", "flash_bwd_fused"] + split
+    shapes = [
+        # (label, BH, Tq, Tk, D, kernels, timed)
+        ("unet64_f32", 32, 4096, 4096, 40, ["flash_fwd", "flash_bwd_fused"], True),
+        ("vae_mid_f32", 2, 4096, 4096, 512, ["flash_fwd"] + split, True),
+        ("tiny_f32", 4, 576, 576, 16, every, False),
+        ("ragged_f32", 3, 300, 130, 40, every, False),
+        ("odd_f32", 2, 129, 77, 160, ["flash_fwd"] + split, False),
+    ]
+    entries = []
+    for label, bh, tq, tk, d, names, timed in shapes:
+        q, do = (torch.randn(bh, tq, d, generator=gen, device=dev) for _ in range(2))
+        k, v = (torch.randn(bh, tk, d, generator=gen, device=dev) for _ in range(2))
+        o, lse = flash.flash_fwd(q, k, v)
+        ref_o, ref_lse = flash.flash_fwd_reference(q, k, v)
+        delta = flash.attention_delta(o, do)
+        ref = dict(zip(("dq", "dk", "dv"), flash.flash_bwd_reference(q, k, v, o, lse, do)))
+        calls = {
+            "flash_fwd": lambda: flash.flash_fwd(q, k, v),
+            "flash_bwd_fused": lambda: flash.flash_bwd_fused(q, k, v, do, lse, delta),
+            "flash_bwd_dq": lambda: (flash.flash_bwd_dq(q, k, v, do, lse, delta),),
+            "flash_bwd_dkv": lambda: flash.flash_bwd_dkv(q, k, v, do, lse, delta),
+        }
+        keys = {"flash_fwd": ("o", "lse"), "flash_bwd_fused": ("dq", "dk", "dv"),
+                "flash_bwd_dq": ("dq",), "flash_bwd_dkv": ("dk", "dv")}
+        want = dict(ref, o=ref_o, lse=ref_lse)
+        for name in names:
+            got = dict(zip(keys[name], calls[name]()))
+            torch.cuda.synchronize()
+            max_err = 0.0
+            for key, val in got.items():
+                require(val.dtype == torch.float32, f"{name} returned {val.dtype} on fp32")
+                err = (val - want[key]).abs().max().item()
+                scale = want[key].abs().max().item()
+                # fp32 products and sums throughout (CUDA-core FMA, no TF32,
+                # nothing rounded to bf16): only the summation order differs
+                # from the plain version, ~1e-6 relative; 1e-4 of the
+                # largest magnitude (lse: 1e-4 absolute) is the tolerance
+                tol = 1e-4 if key == "lse" else 1e-4 * scale
+                ok = math.isfinite(err) and err <= tol
+                print(f"  {name} {label} fp32 {key}: max_abs_err {err:.3e} (tol {tol:.3e}) "
+                      f"{'ok' if ok else 'FAIL'}")
+                if not ok:
+                    raise SystemExit(f"{name} (fp32) disagrees with its plain version at {label}")
+                if key != "lse":
+                    max_err = max(max_err, err)
+            if not timed:
+                continue
+            ms = time_ms(calls[name], 5)
+            plain = (lambda: flash.flash_fwd_reference(q, k, v)) if name == "flash_fwd" \
+                else (lambda: flash.flash_bwd_reference(q, k, v, o, lse, do))
+            plain_ms = time_ms(plain, 3)
+            q4, k4, v4 = (x.view(1, bh, -1, d) for x in (q, k, v))
+            if name == "flash_fwd":
+                lib_ms = time_ms(lambda: F.scaled_dot_product_attention(q4, k4, v4), 5)
+            else:
+                qg, kg, vg = (x.clone().requires_grad_(True) for x in (q4, k4, v4))
+                out = F.scaled_dot_product_attention(qg, kg, vg)
+                lib_ms = time_ms(lambda: torch.autograd.grad(
+                    out, (qg, kg, vg), do.view(1, bh, -1, d), retain_graph=True), 5)
+                del out, qg, kg, vg
+            b_ms, b_by = bound(name, bh, tq, tk, d, itemsize=4)
+            print(f"  {name} {label} [{bh},{tq},{d}] fp32: kernel {ms:.3f} ms, plain "
+                  f"{plain_ms:.3f} ms, sdpa {lib_ms:.3f} ms, bound {b_ms:.4f} ms ({b_by})")
+            entries.append({"name": name, "cell": label, "shape": [bh, tq, tk, d],
+                            "dtype": "fp32", "max_abs_err": max_err, "ms": ms,
+                            "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": b_by,
+                            "library_ms": lib_ms})
+        del ref, ref_o
+        torch.cuda.empty_cache()
+    return entries
+
+
+# ----------------------------------------------------------- GroupNorm plan
+
+def _down(side: int) -> int:
+    return (side + 1) // 2  # 3x3 stride-2 convolution, padding 1
+
+
+def unet_norms(ucfg, side: int) -> list:
+    """(C, side, act) of every GroupNorm of one UNet forward on a side^2
+    latent, in call order (models/unet.py)."""
+    boc, n = ucfg.block_out_channels, len(ucfg.block_out_channels)
+    out, skips, x_ch, s = [], [boc[0]], boc[0], side
+    for bi, ch in enumerate(boc):
+        for _ in range(ucfg.layers_per_block):
+            out += [(x_ch, s, "silu"), (ch, s, "silu")]
+            x_ch = ch
+            if ucfg.cross_attention[bi] and ucfg.depth_at(bi) > 0:
+                out.append((ch, s, None))
+            skips.append(ch)
+        if bi < n - 1:
+            skips.append(ch)
+            s = _down(s)
+    mid = boc[-1]
+    out += [(mid, s, "silu")] * 2 + [(mid, s, None)] + [(mid, s, "silu")] * 2
+    for ui in range(n):
+        bi = n - 1 - ui
+        ch = boc[bi]
+        for _ in range(ucfg.layers_per_block + 1):
+            out += [(x_ch + skips.pop(), s, "silu"), (ch, s, "silu")]
+            x_ch = ch
+            if ucfg.cross_attention[bi] and ucfg.depth_at(bi) > 0:
+                out.append((ch, s, None))
+        if bi > 0:
+            s *= 2
+    return out + [(boc[0], s, "silu")]
+
+
+def _vae_mid(c, s) -> list:
+    return [(c, s, "silu")] * 2 + [(c, s, None)] + [(c, s, "silu")] * 2
+
+
+def vae_decode_norms(vcfg, side: int) -> list:
+    """The same for one VAE decode of a side^2 latent (models/vae.py)."""
+    boc = vcfg.block_out_channels
+    out, x_ch, s = _vae_mid(boc[-1], side), boc[-1], side
+    for bi in reversed(range(len(boc))):
+        for _ in range(vcfg.layers_per_block + 1):
+            out += [(x_ch, s, "silu"), (boc[bi], s, "silu")]
+            x_ch = boc[bi]
+        if bi > 0:
+            s *= 2
+    return out + [(boc[0], s, "silu")]
+
+
+def vae_encode_norms(vcfg, side: int) -> list:
+    """The same for one VAE encode of a side^2 image."""
+    boc = vcfg.block_out_channels
+    out, x_ch, s = [], boc[0], side
+    for bi, ch in enumerate(boc):
+        for _ in range(vcfg.layers_per_block):
+            out += [(x_ch, s, "silu"), (ch, s, "silu")]
+            x_ch = ch
+        if bi < len(boc) - 1:
+            s = _down(s)
+    return out + _vae_mid(boc[-1], s) + [(boc[-1], s, "silu")]
+
+
+def gn_plan(calls, itemsize: int = 2, smem_limit: int = H100_SMEM_OPTIN):
+    """GroupNorm kernel launches by (kernel, (B, C, H, W)) of ``calls``, a
+    list of (times, batch, norms): gn_fused where a span fits a block's
+    shared memory, else the gn_stats + gn_apply pair."""
+    from distdiff_tpu_torch.models.layers import group_count
+    from distdiff_tpu_torch.ops.groupnorm import fused_fits
+
+    plan = collections.Counter()
+    for times, b, norms in calls:
+        for c, s, _ in norms:
+            shape = (b, c, s, s)
+            if fused_fits(c, group_count(c), s * s, itemsize, smem_limit):
+                plan[("gn_fused", shape)] += times
+            else:
+                plan[("gn_stats", shape)] += times
+                plan[("gn_apply", shape)] += times
+    return plan
+
+
+def expand_gn_calls(pipe, batch: int, guide_chunk=None) -> list:
+    """(times, batch, norms) of one transform-guided expand call at
+    ``batch``: the plain UNet steps on the CFG pair, the rollout's UNet
+    steps and VAE decodes on sub-batches of ``guide_chunk`` (each twice:
+    the rollout and its recompute in the backward), and the final decode."""
+    from distdiff_tpu_torch.schedulers import guidance_window, img2img_start_index
+
+    cfg, gcfg = pipe.config, pipe.guidance_cfg
+    n = pipe.sched.num_inference_steps
+    start = img2img_start_index(pipe.sched, pipe.strength)
+    g0, _ = guidance_window(pipe.sched, gcfg.guidance_step, gcfg.guidance_period)
+    chunk = guide_chunk or batch
+    units = batch // chunk
+    ls = cfg.latent_size
+    unet = unet_norms(cfg.unet, ls)
+    dec = vae_decode_norms(cfg.vae, ls)
+    period = gcfg.guidance_period
+    return [((g0 - start) + (n - g0), 2 * batch, unet),
+            (2 * period * units, 2 * chunk, unet),
+            (2 * period * units, chunk, dec),
+            (1, batch, dec)]
+
+
+def gn_shapes(calls) -> dict:
+    """Every distinct (B, C, H, W) of ``calls`` with the activations it
+    sees."""
+    from distdiff_tpu_torch.models.layers import group_count
+
+    shapes = {}
+    for _, b, norms in calls:
+        for c, s, act in norms:
+            shapes.setdefault((b, c, s, s), (group_count(c), set()))[1].add(act)
+    return shapes
+
+
+def gn_bound(name, shape, itemsize):
+    """(bound_ms, "bytes"): the slab's bytes over the memory rate, read once
+    and written once by gn_fused and gn_apply, read once by gn_stats."""
+    b, c, h, w = shape
+    passes = 1 if name == "gn_stats" else 2
+    return passes * b * c * h * w * itemsize / PEAK_BYTES * 1e3, "bytes"
+
+
+def gn_kernel_phase(shapes, timed=True) -> list:
+    """Hold gn_fused, gn_stats and gn_apply against the plain version at
+    every main-path shape ({(B, C, H, W): (groups, acts)}), each in bf16 and
+    fp32, channels-last and contiguous, with and without SiLU, and at
+    ragged shapes (odd H*W, 1 and 3 channels a group) where every kernel is
+    called directly. Timed (bf16, channels-last, the shape's own
+    activation): the kernel(s), the plain version, and F.group_norm + F.silu
+    (the library yardstick, never called by the port). Returns one record
+    per timed (kernel, shape)."""
+    import torch
+    import torch.nn.functional as F
+
+    from distdiff_tpu_torch.ops import groupnorm as gn
+
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(6)
+    smem_limit, sm_count = gn._device_limits(dev)
+
+    def data(shape, groups, dtype, cl):
+        b, c = shape[:2]
+        x = (torch.randn(shape, generator=gen, device=dev) * 1.5 + 0.3).to(dtype)
+        if cl:
+            x = x.to(memory_format=torch.channels_last)
+        scale = (1.0 + 0.5 * torch.randn(c, generator=gen, device=dev)).to(dtype)
+        bias = (0.5 * torch.randn(c, generator=gen, device=dev)).to(dtype)
+        return x, scale, bias
+
+    def tol_of(ref, dtype):
+        # bf16: the kernel and the plain version round a, b and y alike but
+        # sum in another order, so a or b may land one bf16 step apart:
+        # 2^-7 of the largest magnitude. fp32: 2e-4 absolute plus 2e-4 of
+        # each value, as tests/test_groupnorm_kernel.py holds the Pallas
+        # kernels.
+        if dtype == torch.bfloat16:
+            return 2.0 ** -7 * ref.float().abs().max().item(), 0.0
+        return 2e-4, 2e-4
+
+    def check(what, got, ref, dtype):
+        atol, rtol = tol_of(ref, dtype)
+        diff = (got.float() - ref.float()).abs()
+        err = diff.max().item()
+        excess = (diff - rtol * ref.float().abs()).max().item()
+        ok = math.isfinite(err) and excess <= atol
+        if not ok:
+            print(f"  {what}: max_abs_err {err:.3e} (atol {atol:.3e}, rtol {rtol}) FAIL")
+            raise SystemExit(f"groupnorm kernel disagrees with its plain version: {what}")
+        return err
+
+    entries, n_checks = [], 0
+    cases = []
+    for shape, (groups, acts) in sorted(shapes.items(), key=lambda kv: str(kv[0])):
+        main = "silu" if "silu" in acts else None
+        other = None if main == "silu" else "silu"
+        cases += [(shape, groups, torch.bfloat16, True, main, timed),
+                  (shape, groups, torch.bfloat16, False, other, False),
+                  (shape, groups, torch.float32, True, other, False),
+                  (shape, groups, torch.float32, False, main, False)]
+    ragged = [((2, 96, 7, 9), 32), ((3, 32, 5, 5), 32), ((1, 192, 33, 31), 64),
+              ((2, 40, 15, 17), 8)]
+    for shape, groups in ragged:
+        for dtype in (torch.bfloat16, torch.float32):
+            for cl in (True, False):
+                cases.append((shape, groups, dtype, cl, "silu" if cl else None, "direct"))
+    for shape, groups, dtype, cl, act, mode in cases:
+        x, scale, bias = data(shape, groups, dtype, cl)
+        tag = (f"{list(shape)} g{groups} {str(dtype)[6:]} {'nhwc' if cl else 'nchw'} "
+               f"act={act}")
+        ref_ab = gn.group_norm_stats_reference(x, scale, bias, groups, 1e-5)
+        ref = gn.group_norm_apply_reference(x, ref_ab, act)
+        if mode == "direct":  # every kernel, whatever the shared-memory rule says
+            y = torch.empty_like(x)
+            gn.gn_fused(x, scale, bias, groups, 1e-5, act, y)
+            check(f"gn_fused {tag}", y, ref, dtype)
+            ab = gn.gn_stats(x, scale, bias, groups, 1e-5, sm_count)
+            check(f"gn_stats {tag}", ab, ref_ab, torch.float32)
+            y2 = torch.empty_like(x)
+            gn.gn_apply(x, ref_ab, act, y2, sm_count)
+            check(f"gn_apply {tag}", y2, ref, dtype)
+            require(y.stride() == x.stride() and y2.stride() == x.stride(),
+                    f"output strides differ from the input's at {tag}")
+            n_checks += 3
+            continue
+        before = dict(gn.launch_counts)
+        y = gn.group_norm_forward(x, scale, bias, groups, 1e-5, act)
+        torch.cuda.synchronize()
+        ran = [k for k in GN_KERNELS if gn.launch_counts[k] > before[k]]
+        require(y.stride() == x.stride(), f"output strides differ from the input's at {tag}")
+        err = check(f"{'+'.join(ran)} {tag}", y, ref, dtype)
+        n_checks += 1
+        if not mode:
+            continue
+        itemsize = x.element_size()
+        w16 = scale.to(dtype), bias.to(dtype)
+
+        def lib():
+            out = F.group_norm(x, groups, w16[0], w16[1], 1e-5)
+            return F.silu(out) if act == "silu" else out
+
+        lib_ms = time_ms(lib, 10)
+        plain_ms = time_ms(lambda: gn.group_norm_reference(x, scale, bias, groups, 1e-5, act), 5)
+        if ran == ["gn_fused"]:
+            out = torch.empty_like(x)
+            runs = {"gn_fused": lambda: gn.gn_fused(x, scale, bias, groups, 1e-5, act, out)}
+            plains = {"gn_fused": plain_ms}
+            errs = {"gn_fused": err}
+        else:
+            ab = gn.gn_stats(x, scale, bias, groups, 1e-5, sm_count)
+            out = torch.empty_like(x)
+            gn.gn_apply(x, ab, act, out, sm_count)
+            torch.cuda.synchronize()
+            errs = {"gn_stats": check(f"gn_stats {tag}", ab, ref_ab, torch.float32),
+                    "gn_apply": check(f"gn_apply {tag}", out, gn.group_norm_apply_reference(
+                        x, ab, act), dtype)}
+            runs = {"gn_stats": lambda: gn.gn_stats(x, scale, bias, groups, 1e-5, sm_count),
+                    "gn_apply": lambda: gn.gn_apply(x, ab, act, out, sm_count)}
+            plains = {"gn_stats": time_ms(lambda: gn.group_norm_stats_reference(
+                          x, scale, bias, groups, 1e-5), 5),
+                      "gn_apply": time_ms(lambda: gn.group_norm_apply_reference(x, ab, act), 5)}
+        for name, run in runs.items():
+            ms = time_ms(run, 10)
+            b_ms, b_by = gn_bound(name, shape, itemsize)
+            print(f"  {name} {list(shape)} bf16 nhwc act={act}: kernel {ms:.4f} ms, plain "
+                  f"{plains[name]:.4f} ms, F.group_norm+silu {lib_ms:.4f} ms (whole norm), "
+                  f"bound {b_ms:.4f} ms ({b_by}), max_abs_err {errs[name]:.3e}")
+            entries.append({"name": name, "cell": "main", "shape": list(shape),
+                            "dtype": "bf16", "layout": "nhwc", "act": act,
+                            "max_abs_err": errs[name], "ms": ms, "plain_ms": plains[name],
+                            "bound_ms": b_ms, "bound_by": b_by, "library_ms": lib_ms})
+        del x, y, ref
+    print(f"  {n_checks} GroupNorm checks against the plain version: ok "
+          f"(shared-memory limit {smem_limit} bytes, {sm_count} SMs)")
+    torch.cuda.empty_cache()
+    return entries
+
+
+def expected_launches(pipe, units: int = 1) -> dict:
+    """Flash kernel launches of one transform-guided expand call, from the
+    plan: UNet forwards = plain steps + 2 x period (rollout and its
+    recompute in the backward) for each of ``units`` guidance sub-batches;
+    VAE mid-block forwards = 2 x period per sub-batch + the final decode."""
     from distdiff_tpu_torch.schedulers import guidance_window, img2img_start_index
 
     cfg, ucfg, gcfg = pipe.config, pipe.config.unet, pipe.guidance_cfg
@@ -241,13 +629,13 @@ def expected_launches(pipe) -> dict:
             per_unet += ucfg.depth_at(bi) * (2 * ucfg.layers_per_block + 1)
     vae_tokens = cfg.latent_size ** 2
     vae_flash = vae_tokens > 256
-    unet_fwd = (g0 - start) + 2 * period + (n - g0)
+    unet_fwd = (g0 - start) + 2 * period * units + (n - g0)
     vae_big_d = max(pipe.config.vae.block_out_channels) > 128
     return {
-        "flash_fwd": unet_fwd * per_unet + (2 * period + 1) * vae_flash,
-        "flash_bwd_fused": period * per_unet,
-        "flash_bwd_dq": period * vae_flash * vae_big_d,
-        "flash_bwd_dkv": period * vae_flash * vae_big_d,
+        "flash_fwd": unet_fwd * per_unet + (2 * period * units + 1) * vae_flash,
+        "flash_bwd_fused": period * per_unet * units,
+        "flash_bwd_dq": period * vae_flash * vae_big_d * units,
+        "flash_bwd_dkv": period * vae_flash * vae_big_d * units,
     }
 
 
@@ -339,27 +727,330 @@ def agreement_phase() -> None:
             raise SystemExit(f"the kernel path strays from the fp32 path on {what}")
 
 
+def fp32_agreement_phase() -> None:
+    """The fp32 tiny() pipeline's guided expand on the card, through every
+    kernel (flash in fp32; the VAE at width 160 so that its mid-block takes
+    the split dq/dkv pair), against the same port on the CPU (plain
+    versions) with the same weights and the same draws, made on the CPU.
+    The card runs it twice: with the card's shared-memory limit (every
+    norm fits gn_fused) and with the limit set to 0 (every norm takes
+    gn_stats + gn_apply)."""
+    import dataclasses
+
+    import torch
+
+    from distdiff_tpu_torch.config import GuidanceConfig, PipelineConfig, VAEConfig
+    from distdiff_tpu_torch.models.guide import create_model
+    from distdiff_tpu_torch.ops import flash
+    from distdiff_tpu_torch.ops import groupnorm as gn
+    from distdiff_tpu_torch.sampling import ExpansionPipeline, SamplerConfig
+    from distdiff_tpu_torch.sampling.pipeline import init_weights
+
+    dev = torch.device("cuda")
+    gen = torch.Generator().manual_seed(8)
+    cfg = dataclasses.replace(PipelineConfig.tiny(sample_size=48), vae=VAEConfig(
+        block_out_channels=(16, 160), layers_per_block=1, dtype=torch.float32))
+    guides = [create_model("tiny_resnet", num_classes=3, device=d) for d in ("cpu", dev)]
+    init_weights(guides[0].module, gen)
+    guides[1].module.load_state_dict(guides[0].module.state_dict())
+    fd = guides[0].feature_dim
+    gp, lp = torch.randn(3, fd, generator=gen), torch.randn(3, 2, fd, generator=gen)
+    pipes = [ExpansionPipeline.create(
+        cfg, sampler_cfg=SamplerConfig(guidance_scale=3.0),
+        guidance_cfg=GuidanceConfig(guidance_step=4, guidance_period=2, K=2,
+                                    guide_input_size=32, rho=0.5),
+        guide=g, global_protos=gp, local_protos=lp, strength=0.5, seed=8, device=d)
+        for g, d in zip(guides, ("cpu", dev))]
+    for name in ("unet", "vae", "text_encoder"):
+        getattr(pipes[1], name).load_state_dict(getattr(pipes[0], name).state_dict())
+    ls = cfg.latent_size
+    inputs = (torch.randn(2, ls, ls, 4, generator=gen) * 0.2,
+              torch.randn(2, 16, 32, generator=gen), torch.randn(2, 16, 32, generator=gen),
+              torch.tensor([1, 2]))
+    draws = dict(zip(("noise", "gamma0", "beta0"), pipes[0].draw_inputs(inputs[0], gen)))
+
+    def run(pipe, device):
+        img, aux = pipe.make_expand_fn()(
+            *(t.to(device) for t in inputs), return_aux=True,
+            **{k: v.to(device) for k, v in draws.items()})
+        return [t.float().cpu() for t in (img, aux["latents_after"], aux["score"])]
+
+    t0 = time.time()
+    want = run(pipes[0], "cpu")
+    cpu_s = time.time() - t0
+    idx = torch.cuda.current_device()
+    limit = gn._device_limits(dev)[0]
+    launched = {}
+    for label, smem in (("gn_fused", limit), ("gn_stats+gn_apply", 0)):
+        flash.reset_launch_counts()
+        gn.reset_launch_counts()
+        gn._smem_limit[idx] = smem
+        try:
+            got = run(pipes[1], dev)
+            torch.cuda.synchronize()
+        finally:
+            gn._smem_limit[idx] = limit
+        counts = dict(flash.launch_counts, **gn.launch_counts)
+        for k, c in counts.items():
+            launched[k] = launched.get(k, 0) + c
+        print(f"  fp32 tiny expand on the card, norms by {label}: launches {counts}; "
+              f"norm layouts {dict(gn.layout_counts)}")
+        # fp32 on both sides (TF32 off); only the summation order differs
+        # (cuDNN/cuBLAS and the kernels' tiles against the CPU's), ~1e-6 a
+        # layer; 1e-3 covers its growth through 7 UNet calls, the guidance
+        # gradient (rho 0.5) and the decode
+        for what, g, w in zip(("image", "updated latents", "guidance score"), got, want):
+            scale = float(w.abs().max()) if what == "guidance score" else 1.0
+            err = float((g - w).abs().max()) / scale
+            ok = math.isfinite(err) and err <= 1e-3
+            print(f"  {what}{' (relative)' if scale != 1.0 else ''}: card against CPU "
+                  f"{err:.3e} (tol 1.0e-03) {'ok' if ok else 'FAIL'}")
+            if not ok:
+                raise SystemExit(f"the fp32 card run strays from the CPU run on {what}")
+    print(f"  (CPU run {cpu_s:.1f} s)")
+    require(all(c > 0 for c in launched.values()), f"a kernel was not launched: {launched}")
+
+
+class SmokeDataset:
+    """What ExpansionDriver reads of a dataset: image_paths, per-item labels,
+    class_names, and items with latent, cond, uncond and target."""
+
+    def __init__(self, image_paths, labels, class_names, items):
+        self.image_paths, self.labels = image_paths, labels
+        self.class_names, self.items = class_names, items
+
+    def __getitem__(self, i):
+        return self.items[i]
+
+
+def main_gn_calls() -> list:
+    """(times, batch, norms) of every GroupNorm the counted runs make at
+    SD-1.5 geometry: the guided expand at batch 2 (phase 4), the same split
+    with guide_chunk=1 (phase 5), and the VAE encode of its 512^2 images."""
+    import types
+
+    from distdiff_tpu_torch.config import GuidanceConfig, PipelineConfig
+    from distdiff_tpu_torch.schedulers import make_schedule
+
+    cfg = PipelineConfig.sd15()
+    pipe = types.SimpleNamespace(config=cfg, guidance_cfg=GuidanceConfig(),
+                                 sched=make_schedule(cfg.num_inference_steps), strength=0.5)
+    return (expand_gn_calls(pipe, BATCH) + expand_gn_calls(pipe, BATCH, guide_chunk=1)
+            + [(1, BATCH, vae_encode_norms(cfg.vae, cfg.sample_size))])
+
+
+FRONT_CLASSES = 100
+FRONT_ITEMS = 2       # dataset images expanded
+FRONT_PER_PROMPT = 2  # images per dataset image: 4 work units
+FRONT_PROTO_IMAGES = 4  # guide images per class for the prototypes
+
+
+def frontend_phase(pipe) -> dict:
+    """The front of generate_data's path at full SD-1.5 width, on seeded
+    random weights and pixels: HashTokenizer prompts through the CLIP-L text
+    encoder (cond and the "" uncond), encode_images of 512^2 images,
+    prototypes from extract_features over 4 seeded 224^2 images for each of
+    100 classes (build_prototypes with K = 3, normalize_prototypes), then
+    ExpansionDriver over make_split_expand(guide_chunk=1) for 4 work units,
+    writing PNGs. Returns the counts of the run and its numbers."""
+    import os
+    import tempfile
+    import types
+
+    import numpy as np
+    import torch
+
+    from distdiff_tpu_torch.models import HashTokenizer
+    from distdiff_tpu_torch.ops import flash
+    from distdiff_tpu_torch.ops import groupnorm as gn
+    from distdiff_tpu_torch.parallel import ExpansionDriver, build_manifest, read_png
+    from distdiff_tpu_torch.parallel.driver import unit_seed
+    from distdiff_tpu_torch.prototypes import (
+        build_prototypes,
+        extract_features,
+        normalize_prototypes,
+    )
+
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(21)
+    cfg = pipe.config
+    classes = [f"class{i:03d}" for i in range(FRONT_CLASSES)]
+    labels = [7, 42][:FRONT_ITEMS]
+    paths = [f"images/{classes[lab]}/img{i:04d}.jpg" for i, lab in enumerate(labels)]
+    flash.reset_launch_counts()
+    gn.reset_launch_counts()
+    t0 = time.time()
+    tok = HashTokenizer(cfg.text_encoder.vocab_size, cfg.text_encoder.max_length)
+    cond = pipe.encode_text(torch.as_tensor(
+        tok([f"a photo of a {classes[lab]}" for lab in labels]), device=dev).long())
+    uncond = pipe.encode_text(torch.as_tensor(tok([""] * FRONT_ITEMS), device=dev).long())
+    size = cfg.sample_size
+    pixels = torch.rand(FRONT_ITEMS, size, size, 3, generator=gen, device=dev) * 2 - 1
+    latents = pipe.encode_images(pixels)
+    require(tuple(cond.shape) == (FRONT_ITEMS, 77, 768) and bool(torch.isfinite(cond).all()),
+            f"text context {tuple(cond.shape)} is not a finite [{FRONT_ITEMS}, 77, 768]")
+    require(tuple(latents.shape) == (FRONT_ITEMS, size // 8, size // 8, 4)
+            and bool(torch.isfinite(latents).all()), "latents are not finite [B, 64, 64, 4]")
+    gsize = pipe.guidance_cfg.guide_input_size
+    n_proto = FRONT_CLASSES * FRONT_PROTO_IMAGES
+    proto_labels = np.repeat(np.arange(FRONT_CLASSES), FRONT_PROTO_IMAGES)
+    batches = [(torch.rand(50, gsize, gsize, 3, generator=gen, device=dev),
+                proto_labels[i:i + 50]) for i in range(0, n_proto, 50)]
+    feats, flabels = extract_features(pipe.guide.encode_image, batches, device=dev)
+    gp, lp = normalize_prototypes(*build_prototypes(feats, flabels, FRONT_CLASSES,
+                                                    k=pipe.guidance_cfg.K))
+    pipe.global_protos = torch.as_tensor(gp, device=dev)
+    pipe.local_protos = torch.as_tensor(lp, device=dev)
+    front_s = time.time() - t0
+    print(f"  text encoder, encode_images and prototypes ({n_proto} guide images, "
+          f"{FRONT_CLASSES} classes, K={pipe.guidance_cfg.K}): {front_s:.2f} s; "
+          f"prototypes {gp.shape} {lp.shape}")
+
+    items = [types.SimpleNamespace(latent=latents[i], cond=cond[i], uncond=uncond[i],
+                                   target=labels[i]) for i in range(FRONT_ITEMS)]
+    sd = SmokeDataset(paths, labels, classes, items)
+    split = pipe.make_split_expand(guide_chunk=1)
+    root = os.path.dirname(os.path.abspath(__file__))
+    with tempfile.TemporaryDirectory(dir=root, prefix=".smoke_png_") as out:
+        driver = ExpansionDriver(split, sd, out, batch_size=BATCH, seed=0, device=dev)
+        try:
+            stats = driver.run(num_images_per_prompt=FRONT_PER_PROMPT)
+        finally:
+            driver.close()
+        torch.cuda.synchronize()
+        counts = dict(flash.launch_counts, **gn.launch_counts)
+        by_shape = collections.Counter(flash.launch_shapes) + collections.Counter(gn.launch_shapes)
+        layouts = dict(gn.layout_counts)
+        units = build_manifest(paths, [classes[lab] for lab in labels], out,
+                               FRONT_PER_PROMPT, skip_existing=False)
+        pngs = {u.out_path: read_png(u.out_path) for u in units}
+        print(f"  driver: {stats}")
+        require(stats["written"] == len(units) == FRONT_ITEMS * FRONT_PER_PROMPT,
+                f"{stats['written']} PNGs for {len(units)} work units")
+        for path, png in pngs.items():
+            require(png.shape == (size, size, 3) and png.dtype == np.uint8,
+                    f"{path}: {png.shape} {png.dtype}")
+            require(png.max() > png.min(), f"{path} is one flat colour")
+        # each unit's image against a batch-1 run of the same unit, and,
+        # as the contrast a wrong draw would give, against a batch-1 run of
+        # the first unit's image with another unit's seed
+        def alone(u, seed_unit):
+            it = items[u.dataset_index]
+            img = split(it.latent[None], it.cond[None], it.uncond[None],
+                        torch.tensor([it.target], device=dev),
+                        [torch.Generator(device=dev).manual_seed(unit_seed(0, seed_unit))])
+            return np.clip(img[0].float().cpu().numpy() * 255.0 + 0.5, 0, 255).astype(np.uint8)
+
+        def diff(a, b):
+            d = np.abs(a.astype(np.int32) - b.astype(np.int32))
+            return int(d.max()), float(d.mean())
+
+        diffs = [diff(pngs[u.out_path], alone(u, u)) for u in units]
+        contrast = diff(pngs[units[0].out_path], alone(units[0], units[1]))
+    # bf16 throughout: in a batch of 2 the UNet's and VAE's convolutions and
+    # matmuls may take other cuDNN/cuBLAS kernels than at batch 1, so the
+    # roundings differ and carry through 25 steps and the guidance; the
+    # draws and the guidance sub-batches are per unit in both. That drift
+    # stays within a mean of 4/255 and a largest pixel of 96/255, and below
+    # a third of the mean difference that another unit's draws make.
+    worst = max(d[0] for d in diffs)
+    mean = max(d[1] for d in diffs)
+    print(f"  units against their batch-1 runs: max |diff| {[d[0] for d in diffs]}/255, "
+          f"mean {[round(d[1], 3) for d in diffs]}/255 (tol max 96, mean 4); with another "
+          f"unit's draws: max {contrast[0]}/255, mean {contrast[1]:.3f}/255")
+    require(worst <= 96 and mean <= 4.0 and mean < contrast[1] / 3,
+            "a unit's image differs from its batch-1 run")
+    require(all(c > 0 for c in counts.values()), f"a kernel was not launched: {counts}")
+    print(f"  launches over the front-end run: {counts}; norm layouts {layouts}")
+    return {"counts": counts, "by_shape": by_shape, "split": split, "items": items,
+            "stats": stats, "front_s": front_s, "unit_diffs": diffs, "contrast": contrast}
+
+
+def split_call_phase(pipe, split, items) -> dict:
+    """One counted SplitExpand call at batch 2 (guide_chunk=1): each kernel's
+    launches by shape against the plan; then three timed warm calls (median)
+    and the peak memory."""
+    import torch
+
+    from distdiff_tpu_torch.ops import flash
+    from distdiff_tpu_torch.ops import groupnorm as gn
+
+    dev = torch.device("cuda")
+    lat = torch.stack([it.latent for it in items])
+    cond = torch.stack([it.cond for it in items])
+    uncond = torch.stack([it.uncond for it in items])
+    targets = torch.tensor([it.target for it in items], device=dev)
+
+    def call(seed):
+        gens = [torch.Generator(device=dev).manual_seed(seed + i) for i in range(len(items))]
+        img = split(lat, cond, uncond, targets, gens)
+        torch.cuda.synchronize()
+        return img
+
+    torch.cuda.reset_peak_memory_stats()
+    flash.reset_launch_counts()
+    gn.reset_launch_counts()
+    img = call(100)
+    peak = torch.cuda.max_memory_allocated()
+    require(bool(torch.isfinite(img).all()), "non-finite images from SplitExpand")
+    fcounts = dict(flash.launch_counts)
+    gshapes = dict(gn.launch_shapes)
+    want_f = expected_launches(pipe, units=len(items))
+    want_g = gn_plan(expand_gn_calls(pipe, len(items), guide_chunk=1),
+                     smem_limit=gn._device_limits(dev)[0])
+    for name in flash.launch_counts:
+        print(f"  {name}: {fcounts[name]} (plan: {want_f[name]})")
+        require(fcounts[name] == want_f[name],
+                f"{name}: {fcounts[name]} launches, the plan says {want_f[name]}")
+    check_gn_plan(gshapes, want_g)
+    print(f"  norm layouts {dict(gn.layout_counts)}")
+    runs = []
+    for seed in (200, 300, 400):
+        t0 = time.time()
+        call(seed)
+        runs.append(time.time() - t0)
+    warm = statistics.median(runs)
+    print(f"  SplitExpand batch {len(items)} (guide_chunk=1): warm {warm:.3f} s/batch (median "
+          f"of {[round(r, 3) for r in runs]}), peak memory {peak / 2**30:.2f} GiB")
+    return {"warm_s": warm, "runs": runs, "peak_bytes": peak}
+
+
+def check_gn_plan(got: dict, want) -> None:
+    """Every GroupNorm kernel's launches by shape against the plan."""
+    totals = {k: [0, 0] for k in GN_KERNELS}
+    for key in set(got) | set(want):
+        g, w = got.get(key, 0), want.get(key, 0)
+        totals[key[0]][0] += g
+        totals[key[0]][1] += w
+        require(g == w, f"{key[0]} {list(key[1])}: {g} launches, the plan says {w}")
+    for name, (g, w) in totals.items():
+        print(f"  {name}: {g} (plan: {w}, over {len([k for k in want if k[0] == name])} shapes)")
+        require(g > 0, f"{name} never launched on the main path")
+
+
 def summarize(records, by_shape) -> list:
     """One JSON entry per kernel. ``launches`` is its count in the counted
-    main-path call; ms, plain_ms, bound_ms and library_ms are the means over
-    those launches of each shape's own numbers (so ``launches * ms`` is the
-    kernel's time in one expand call); max_abs_err is the largest over the
-    shapes. ``shapes`` keeps every shape's record, the D=40 cross-check of
-    the split pair (no launches on the main path) included."""
+    main-path runs (every shape); ms, plain_ms, bound_ms and library_ms are
+    the means, over the launches at the timed shapes, of each shape's own
+    numbers (so ``launches * ms`` is about the kernel's time in those runs);
+    max_abs_err is the largest over the shapes. ``shapes`` keeps every
+    timed shape's record, those with no launch on the main path included."""
     entries = []
     for name in REPLACES:
         recs = [dict(r, launches=by_shape.get((name, tuple(r["shape"])), 0))
                 for r in records if r["name"] == name]
-        total = sum(r["launches"] for r in recs)
+        total = sum(c for (n, _), c in by_shape.items() if n == name)
         require(total > 0, f"{name} never launched on the main path")
+        timed = sum(r["launches"] for r in recs)
+        require(timed > 0, f"{name}: no timed shape was launched on the main path")
 
-        def mean(key, recs=recs, total=total):
-            return sum(r[key] * r["launches"] for r in recs) / total
+        def mean(key, recs=recs, timed=timed):
+            return sum(r[key] * r["launches"] for r in recs) / timed
 
         top = max(recs, key=lambda r: r["bound_ms"] * r["launches"])
         entries.append({
-            "name": name, "route": "cuda", "source": recs[0]["source"],
-            "replaces": REPLACES[name], "launches": total,
+            "name": name, "route": "cuda",
+            "source": SOURCES[name], "replaces": REPLACES[name], "launches": total,
             "max_abs_err": max(r["max_abs_err"] for r in recs),
             "ms": mean("ms"), "plain_ms": mean("plain_ms"),
             "bound_ms": mean("bound_ms"), "bound_by": top["bound_by"],
@@ -408,7 +1099,8 @@ def build_path():
 
 # kernel-name fragments -> the layer that launched them (first match wins)
 CATEGORIES = [
-    ("flash kernels (port)", ("flash::",)),
+    ("flash kernels (port)", ("flash::", "flash32::")),
+    ("groupnorm kernels (port)", ("gn::",)),
     ("convolution (cuDNN)", ("conv", "fprop", "dgrad", "wgrad", "implicit", "winograd")),
     ("matmul (cuBLAS)", ("gemm", "nvjet", "cutlass", "gemv", "splitk")),
     ("reduction (norm statistics, softmax)", ("reduce", "softmax", "norm", "bn_fw")),
@@ -441,13 +1133,15 @@ def profile_path(expand, inputs, json_path=None) -> None:
             rec[0] += 1
             rec[1] += ev.time_range.elapsed_us() / 1e3
     busy_ms = sum(ms for _, ms in kernels.values())
+    n_launches = sum(n for n, _ in kernels.values())
     by_cat = {}
     for name, (n, ms) in kernels.items():
         low = name.lower()
         cat = next((c for c, keys in CATEGORIES if any(k in low for k in keys)), "other")
         by_cat[cat] = by_cat.get(cat, 0.0) + ms
     print(f"  one warm expand call under the profiler: wall {wall_s * 1e3:.1f} ms, device "
-          f"busy {busy_ms:.1f} ms, idle share {1 - busy_ms / (wall_s * 1e3):.3f}")
+          f"busy {busy_ms:.1f} ms, idle share {1 - busy_ms / (wall_s * 1e3):.3f}, "
+          f"{n_launches} device kernels")
     for cat, ms in sorted(by_cat.items(), key=lambda kv: -kv[1]):
         print(f"  {cat}: {ms:.1f} ms ({ms / busy_ms:.3f} of device time)")
     top = sorted(kernels.items(), key=lambda kv: -kv[1][1])[:25]
@@ -458,6 +1152,7 @@ def profile_path(expand, inputs, json_path=None) -> None:
     os.makedirs(os.path.dirname(json_path) or ".", exist_ok=True)
     with open(json_path, "w") as f:
         json.dump({"card": card_line(), "wall_ms": wall_s * 1e3, "device_busy_ms": busy_ms,
+                   "device_kernels": n_launches,
                    "by_category_ms": by_cat,
                    "kernels": {k: {"launches": n, "ms": ms} for k, (n, ms) in kernels.items()}},
                   f, indent=1)
@@ -471,6 +1166,7 @@ def main(argv) -> int:
         return 2
     try:
         from distdiff_tpu_torch.ops import _build, flash
+        from distdiff_tpu_torch.ops import groupnorm as gn
     except ImportError as e:
         print(f"chip_smoke: run from the repository root ({e})", file=sys.stderr)
         return 2
@@ -496,9 +1192,15 @@ def main(argv) -> int:
 
     print("== 2. kernels")
     records = kernel_phase()
+    print("  -- fp32 flash")
+    fp32_records = flash_f32_phase()
+    print("  -- GroupNorm")
+    records += gn_kernel_phase(gn_shapes(main_gn_calls()))
 
     print("== 3. agreement at a small geometry")
     agreement_phase()
+    print("  -- fp32 on the card against the CPU")
+    fp32_agreement_phase()
 
     print("== 4. path")
     pipe, expand, inputs = build_path()
@@ -509,12 +1211,15 @@ def main(argv) -> int:
     cold_s = time.time() - t0
     torch.cuda.reset_peak_memory_stats()
     flash.reset_launch_counts()
+    gn.reset_launch_counts()
     t0 = time.time()
     img, aux = expand(*inputs, torch.Generator(device=dev).manual_seed(2), return_aux=True)
     torch.cuda.synchronize()
     warm_s = time.time() - t0
     counts = dict(flash.launch_counts)
-    by_shape = dict(flash.launch_shapes)
+    by_shape = collections.Counter(flash.launch_shapes) + collections.Counter(gn.launch_shapes)
+    gn_shapes_run = dict(gn.launch_shapes)
+    layouts = dict(gn.layout_counts)
     peak = torch.cuda.max_memory_allocated()
     warm_runs = [warm_s]
     for seed in (3, 4):  # the host clock spreads between calls: two more
@@ -548,12 +1253,24 @@ def main(argv) -> int:
                 f"{name}: {counts[name]} launches, the plan says {want[name]}")
         require(counts[name] > 0, f"{name} never launched on the main path")
     for (name, shape), c in sorted(by_shape.items()):
-        print(f"  {name} {list(shape)}: {c}")
+        if name in flash.launch_counts:
+            print(f"  {name} {list(shape)}: {c}")
+    check_gn_plan(gn_shapes_run, gn_plan(expand_gn_calls(pipe, BATCH),
+                                         smem_limit=gn._device_limits(dev)[0]))
+    print(f"  norms by memory format: {layouts}")
 
-    print("== 5. result")
+    print("== 5. front-end path (generate_data): text, encode, prototypes, driver")
+    front = frontend_phase(pipe)
+    split = split_call_phase(pipe, front["split"], front["items"])
+
+    print("== 6. result")
     print(card)
-    print(json.dumps({"kernels": summarize(records, by_shape), "expand_warm_s": warm_s,
-                      "expand_warm_s_runs": warm_runs, "expand_peak_bytes": peak}))
+    print(json.dumps({
+        "kernels": summarize(records, by_shape + front["by_shape"]),
+        "fp32_flash": fp32_records, "expand_warm_s": warm_s,
+        "expand_warm_s_runs": warm_runs, "expand_peak_bytes": peak,
+        "split_expand_warm_s": split["warm_s"], "split_expand_warm_s_runs": split["runs"],
+        "split_expand_peak_bytes": split["peak_bytes"], "driver": front["stats"]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

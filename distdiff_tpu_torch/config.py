@@ -1,8 +1,9 @@
 """Model / pipeline configuration dataclasses (port of
 ``distdiff_tpu/config.py``).
 
-Only the SD-1.x and tiny geometries of the guided expansion path are
-carried over; dtypes are ``torch.dtype``s.
+Only the SD-1.x and tiny geometries of the guided expansion path (the UNet,
+the VAE, the CLIP text encoder) are carried over; dtypes are
+``torch.dtype``s. SDXL's pooled projection (``embed_dim``) waits for SDXL.
 """
 
 from __future__ import annotations
@@ -83,11 +84,39 @@ class VAEConfig:
 
 
 @dataclasses.dataclass(frozen=True)
+class TextEncoderConfig:
+    """CLIP text transformer (SD-1.x uses CLIP ViT-L/14's text tower)."""
+
+    vocab_size: int = 49408
+    hidden_size: int = 768
+    num_layers: int = 12
+    num_heads: int = 12
+    mlp_ratio: int = 4
+    max_length: int = 77
+    # CLIP uses quick_gelu; newer OpenCLIP text towers use gelu.
+    activation: str = "quick_gelu"
+    dtype: torch.dtype = torch.bfloat16
+
+    @staticmethod
+    def sd15() -> "TextEncoderConfig":
+        return TextEncoderConfig()
+
+    @staticmethod
+    def tiny() -> "TextEncoderConfig":
+        return TextEncoderConfig(
+            vocab_size=1000, hidden_size=32, num_layers=2, num_heads=2,
+            max_length=16, dtype=torch.float32,
+        )
+
+
+@dataclasses.dataclass(frozen=True)
 class PipelineConfig:
     """Everything needed to assemble the expansion pipeline."""
 
     unet: UNetConfig = dataclasses.field(default_factory=UNetConfig.sd15)
     vae: VAEConfig = dataclasses.field(default_factory=VAEConfig.sd15)
+    text_encoder: TextEncoderConfig = dataclasses.field(
+        default_factory=TextEncoderConfig.sd15)
     sample_size: int = 512  # pixel resolution
     num_inference_steps: int = 50
     prediction_type: str = "epsilon"
@@ -111,6 +140,7 @@ class PipelineConfig:
         return PipelineConfig(
             unet=UNetConfig.tiny(),
             vae=VAEConfig.tiny(),
+            text_encoder=TextEncoderConfig.tiny(),
             sample_size=sample_size,
             num_inference_steps=10,
             max_text_length=16,

@@ -33,6 +33,14 @@ SIGNATURES = {
     "flash_bwd_fused": ("flash_bwd", [_P] * 9 + [_I] * 4 + [_F, _P]),
     "flash_bwd_dq": ("flash_bwd", [_P] * 7 + [_I] * 4 + [_F, _P]),
     "flash_bwd_dkv": ("flash_bwd", [_P] * 8 + [_I] * 4 + [_F, _P]),
+    "flash_fwd_f32": ("flash_f32", [_P] * 5 + [_I] * 4 + [_F, _P]),
+    "flash_bwd_fused_f32": ("flash_f32", [_P] * 9 + [_I] * 4 + [_F, _P]),
+    "flash_bwd_dq_f32": ("flash_f32", [_P] * 7 + [_I] * 4 + [_F, _P]),
+    "flash_bwd_dkv_f32": ("flash_f32", [_P] * 8 + [_I] * 4 + [_F, _P]),
+    "gn_fused": ("groupnorm", [_P] * 4 + [_I] * 6 + [_F] + [_I] * 4 + [_P]),
+    "gn_stats": ("groupnorm", [_P] * 6 + [_I] * 6 + [_F] + [_I] * 3 + [_P]),
+    "gn_apply": ("groupnorm", [_P] * 3 + [_I] * 8 + [_P]),
+    "gn_smem_optin": ("groupnorm", [_I]),
 }
 
 _LOCK = threading.Lock()

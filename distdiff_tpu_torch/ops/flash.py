@@ -9,11 +9,14 @@ CUDA kernels for Hopper (``csrc/flash_fwd.cu``, ``csrc/flash_bwd.cu``):
   ``flash_bwd_dkv``    <- ``_dkv_kernel``        }
 
 Each wrapper below takes contiguous ``[BH, T, D]`` tensors. On a CUDA tensor
-it checks what the kernel takes (bf16, contiguous, matching shapes), launches
-on the current stream, raises if the launch failed, and adds one to its
-launch count. On a CPU tensor, and only there, it runs the plain PyTorch
-version (``flash_fwd_reference`` / ``flash_bwd_reference``), which computes
-the same function in fp32. There is no fallback from the kernel.
+it checks what the kernel takes (bf16 or fp32, one type throughout,
+contiguous, matching shapes), launches on the current stream, raises if the
+launch failed, and adds one to its launch count. bf16 goes to the
+tensor-core kernels; fp32 goes to their fp32 instances (``csrc/flash_f32.cu``,
+CUDA-core fp32 FMA, no TF32), with fp32 outputs: fp32 is never rounded to
+bf16. On a CPU tensor, and only there, it runs the plain PyTorch version
+(``flash_fwd_reference`` / ``flash_bwd_reference``), which computes the same
+function in fp32. There is no fallback from the kernel.
 
 ``FlashAttention`` is the ``torch.autograd.Function``; ``flash_attention``
 (``[B, T, H, D]``) and ``flash_attention_hm`` (``[B, H, T, D]``) are the
@@ -34,8 +37,9 @@ from distdiff_tpu_torch.ops import _build
 launch_counts: Dict[str, int] = {
     "flash_fwd": 0, "flash_bwd_fused": 0, "flash_bwd_dq": 0, "flash_bwd_dkv": 0,
 }
-# The same launches by (kernel, (BH, Tq, Tk, D)).
+# The same launches by (kernel, (BH, Tq, Tk, D)), both types together.
 launch_shapes: collections.Counter = collections.Counter()
+DTYPES = (torch.bfloat16, torch.float32)
 # The reference's rule (flash.py:466): fused backward up to this head width.
 FUSED_BWD_MAX_D = 128
 MAX_D = 512
@@ -101,28 +105,32 @@ def _check(q, k, v, *rest):
             raise ValueError(f"{name} is on {x.device}, q on {q.device}")
         if not x.is_contiguous():
             raise ValueError(f"{name} must be contiguous")
+    if q.dtype not in DTYPES:
+        raise TypeError(f"flash kernels take bf16 or fp32, q is {q.dtype}")
     for name, x in (("q", q), ("k", k), ("v", v)):
-        if x.dtype != torch.bfloat16:
-            raise TypeError(f"flash kernels take bf16, {name} is {x.dtype}")
+        if x.dtype != q.dtype:
+            raise TypeError(f"{name} is {x.dtype}, q is {q.dtype}")
         if x.ndim != 3:
             raise ValueError(f"{name} must be [BH, T, D], got {tuple(x.shape)}")
     bh, tq, d = q.shape
     if k.shape != v.shape or k.shape[0] != bh or k.shape[2] != d:
         raise ValueError(f"shapes q {tuple(q.shape)} k {tuple(k.shape)} "
                          f"v {tuple(v.shape)} do not match")
-    if rest and (rest[0].dtype != torch.bfloat16 or rest[0].shape != q.shape):
-        raise ValueError(f"do must be bf16 of q's shape {tuple(q.shape)}")
+    if rest and (rest[0].dtype != q.dtype or rest[0].shape != q.shape):
+        raise ValueError(f"do must be {q.dtype} of q's shape {tuple(q.shape)}")
     if not (0 < d <= MAX_D) or bh > 65535:
         raise ValueError(f"unsupported head width {d} or batch*heads {bh}")
     return bh, tq, k.shape[1], d
 
 
 def _launch(name: str, shape: Tuple[int, int, int, int], *tensors) -> None:
-    """Launch kernel ``name`` on the current stream: the tensors' pointers,
-    then (BH, Tq, Tk, D), the softmax scale and the stream."""
+    """Launch kernel ``name`` on the current stream (its fp32 instance when
+    the first tensor is fp32): the tensors' pointers, then (BH, Tq, Tk, D),
+    the softmax scale and the stream."""
     stream = torch.cuda.current_stream().cuda_stream
     ptrs = [t.data_ptr() for t in tensors]
-    rc = _build.kernel(name)(*ptrs, *shape, _scale(shape[3]), stream)
+    entry = name + "_f32" if tensors[0].dtype == torch.float32 else name
+    rc = _build.kernel(entry)(*ptrs, *shape, _scale(shape[3]), stream)
     if rc != 0:
         raise RuntimeError(f"{name} launch failed with CUDA error {rc}")
     launch_counts[name] += 1

@@ -1,24 +1,78 @@
-"""GroupNorm with fp32 statistics (port of ``xla_group_norm`` in
-``distdiff_tpu/ops/groupnorm.py``).
+"""GroupNorm(+SiLU) with fp32 statistics on hand-written CUDA kernels.
 
-Only the plain version is ported: the reference keeps its Pallas GroupNorm
-kernels off on its default path (``groupnorm.py:265-286``). Works on NCHW
-tensors (the reference is NHWC; the statistics are the same).
+Port of ``distdiff_tpu/ops/groupnorm.py``. The Pallas TPU kernels become
+three CUDA kernels for Hopper (``csrc/groupnorm.cu``):
+
+  ``gn_fused``  <- ``_gn_kernel``        (the span fits a block's shared memory)
+  ``gn_stats``  <- ``_gn_stats_kernel``  } the two-pass path, for the
+  ``gn_apply``  <- ``_gn_apply_kernel``  } VAE's big slabs
+
+``group_norm`` is the op every GroupNorm of the UNet and the VAE calls. On a
+CUDA tensor it always runs the kernels (the reference keeps its Pallas
+GroupNorm off by default because XLA fuses the norm into the neighbouring
+convolutions, which eager PyTorch does not); on a CPU tensor, and only
+there, the plain version ``group_norm_reference`` (the reference's
+``xla_group_norm``). There is no fallback from the kernels: a build or
+launch failure raises.
+
+Tensors are NCHW in shape. On the card they arrive either contiguous or
+channels-last (the models enter through a permute of NHWC, and cuDNN keeps
+that memory format); the kernels read both in place and the output keeps
+the input's memory format. Any other stride pattern raises: a copy to
+contiguous would hide an extra read and write of the slab.
+
+The backward is the reference's (``_gn_bwd``): the kernels have none, and
+``GroupNormFunction`` saves only ``(x, scale, bias)`` and differentiates the
+plain formula, recomputed, in its backward.
 """
 
 from __future__ import annotations
 
-from typing import Optional
+import collections
+import math
+from typing import Dict, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
 
+from distdiff_tpu_torch.ops import _build
 
-def group_norm(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor,
-               groups: int, eps: float = 1e-5, act: Optional[str] = None
-               ) -> torch.Tensor:
-    """fp32 per-group mean/variance folded into a per-channel (a, b), cast
-    to x's dtype before ``x * a + b``; the optional SiLU runs in fp32."""
+# Launches of each kernel since the last reset_launch_counts().
+launch_counts: Dict[str, int] = {"gn_fused": 0, "gn_stats": 0, "gn_apply": 0}
+# The same launches by (kernel, (B, C, H, W)).
+launch_shapes: collections.Counter = collections.Counter()
+# Norms run on the card by memory format ("nchw" contiguous, "nhwc"
+# channels-last).
+layout_counts: collections.Counter = collections.Counter()
+DTYPES = (torch.bfloat16, torch.float32)
+ACTS = {None: 0, "silu": 1}
+# gn_fused's shared bytes before the span: 68 floats of block reduction,
+# then a and b of each channel of the group (csrc/groupnorm.cu)
+_RED_FLOATS = 68
+# pass 1 aims at this many blocks per SM, and gives a block at least
+# _MIN_SPLIT elements (NCHW) or _MIN_ROWS pixel rows (NHWC)
+_BLOCKS_PER_SM = 4
+_MIN_SPLIT = 8192
+_MIN_ROWS = 16
+
+_smem_limit: Dict[int, int] = {}
+_sm_count: Dict[int, int] = {}
+
+
+def reset_launch_counts() -> None:
+    for name in launch_counts:
+        launch_counts[name] = 0
+    launch_shapes.clear()
+    layout_counts.clear()
+
+
+# ------------------------------------------------------------ plain version
+
+def group_norm_stats_reference(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor,
+                               groups: int, eps: float = 1e-5) -> torch.Tensor:
+    """The fp32 per-channel (a, b) as ``[B, 2, C]``: fp32 per-group mean and
+    variance (E[x^2] - mean^2), inv = rsqrt(var + eps), a = inv * scale,
+    b = bias - mean * inv * scale."""
     b, c = x.shape[:2]
     cpg = c // groups
     x32 = x.float()
@@ -34,12 +88,234 @@ def group_norm(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor,
     mean_c = mean_g.repeat_interleave(cpg, dim=1)
     inv_c = inv_g.repeat_interleave(cpg, dim=1)
     s32 = scale.float()[None, :]
-    a = (inv_c * s32).to(x.dtype)
-    b_ = (bias.float()[None, :] - mean_c * inv_c * s32).to(x.dtype)
-    shape = (b, c) + (1,) * (x.ndim - 2)
-    y = x * a.reshape(shape) + b_.reshape(shape)
+    return torch.stack([inv_c * s32, bias.float()[None, :] - mean_c * inv_c * s32], dim=1)
+
+
+def group_norm_apply_reference(x: torch.Tensor, ab: torch.Tensor,
+                               act: Optional[str] = None) -> torch.Tensor:
+    """act(x * a + b) with a and b cast to x's dtype; SiLU in fp32."""
+    shape = (x.shape[0], x.shape[1]) + (1,) * (x.ndim - 2)
+    a = ab[:, 0].to(x.dtype).reshape(shape)
+    b_ = ab[:, 1].to(x.dtype).reshape(shape)
+    y = x * a + b_
     if act is None:
         return y
     if act == "silu":
         return F.silu(y.float()).to(y.dtype)
     raise ValueError(f"unsupported groupnorm activation {act!r}")
+
+
+def group_norm_reference(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor,
+                         groups: int, eps: float = 1e-5, act: Optional[str] = None
+                         ) -> torch.Tensor:
+    """The plain GroupNorm: fp32 statistics folded into a per-channel
+    (a, b), cast to x's dtype before ``x * a + b``; the optional SiLU in
+    fp32 (the reference's ``xla_group_norm``)."""
+    return group_norm_apply_reference(
+        x, group_norm_stats_reference(x, scale, bias, groups, eps), act)
+
+
+# ------------------------------------------------------------ kernel wrappers
+
+def _on_cpu(x: torch.Tensor) -> bool:
+    if x.device.type == "cpu":
+        return True
+    if x.device.type != "cuda":
+        raise ValueError(f"groupnorm kernels take CUDA or CPU tensors, got {x.device}")
+    return False
+
+
+def layout(x: torch.Tensor) -> str:
+    """``"nchw"`` (contiguous) or ``"nhwc"`` (channels-last); any other
+    stride pattern raises. A tensor that is both (one pixel, or one
+    channel) counts as NCHW."""
+    if x.is_contiguous():
+        return "nchw"
+    if x.ndim == 4 and x.is_contiguous(memory_format=torch.channels_last):
+        return "nhwc"
+    raise ValueError(f"groupnorm kernels take contiguous or channels-last tensors, "
+                     f"got shape {tuple(x.shape)} strides {x.stride()}")
+
+
+def fused_header_bytes(cpg: int) -> int:
+    return (4 * (_RED_FLOATS + 2 * cpg) + 15) // 16 * 16
+
+
+def fused_fits(c: int, groups: int, spatial: int, itemsize: int, smem_limit: int) -> bool:
+    """Whether one (batch row, group) span and gn_fused's header fit a
+    block's shared memory (232448 bytes on the H100: spans up to ~116k bf16
+    elements, so the UNet's 64^2 x 640 but not 64^2 x 960)."""
+    cpg = c // groups
+    return fused_header_bytes(cpg) + cpg * spatial * itemsize <= smem_limit
+
+
+def vector_width(itemsize: int, divisors, *tensors) -> int:
+    """Elements per load and store: the largest of 16, 8, 4, 2 bytes' worth
+    (down to one element) that divides every count in ``divisors`` and
+    whose byte width aligns every tensor's address."""
+    v = 16 // itemsize
+    while v > 1:
+        if all(n % v == 0 for n in divisors) and \
+                all(t.data_ptr() % (v * itemsize) == 0 for t in tensors):
+            return v
+        v //= 2
+    return 1
+
+
+def _device_limits(dev: torch.device) -> Tuple[int, int]:
+    idx = dev.index if dev.index is not None else torch.cuda.current_device()
+    if idx not in _smem_limit:
+        limit = _build.kernel("gn_smem_optin")(idx)
+        if limit <= 0:
+            raise RuntimeError(f"gn_smem_optin failed with CUDA error {-limit}")
+        _smem_limit[idx] = limit
+        _sm_count[idx] = torch.cuda.get_device_properties(idx).multi_processor_count
+    return _smem_limit[idx], _sm_count[idx]
+
+
+def _check(x, scale, bias, groups):
+    if x.dtype not in DTYPES:
+        raise TypeError(f"groupnorm kernels take bf16 or fp32, x is {x.dtype}")
+    if x.ndim < 3:
+        raise ValueError(f"groupnorm kernels take [B, C, ...], got {tuple(x.shape)}")
+    c = x.shape[1]
+    if groups <= 0 or c % groups:
+        raise ValueError(f"{c} channels do not split into {groups} groups")
+    for name, p in (("scale", scale), ("bias", bias)):
+        if p.device != x.device or p.shape != (c,) or not p.is_contiguous():
+            raise ValueError(f"{name} must be a contiguous [{c}] tensor on {x.device}")
+        if p.dtype != scale.dtype or p.dtype not in DTYPES:
+            raise TypeError(f"scale and bias must both be bf16 or fp32, {name} is {p.dtype}")
+    if x.numel() >= 2 ** 31:
+        raise ValueError(f"groupnorm kernels take fewer than 2^31 elements, got {x.numel()}")
+
+
+def _record(name: str, x: torch.Tensor) -> None:
+    launch_counts[name] += 1
+    launch_shapes[(name, tuple(x.shape))] += 1
+
+
+def _raise_on(rc: int, name: str) -> None:
+    if rc != 0:
+        raise RuntimeError(f"{name} launch failed with CUDA error {rc}")
+
+
+def gn_fused(x, scale, bias, groups: int, eps: float, act, y) -> None:
+    """One block per (group, batch row): y = act(x a + b) in one pass."""
+    lay = layout(x)
+    b, c = x.shape[:2]
+    s = x.numel() // (b * c)
+    cpg = c // groups
+    dims = (cpg,) if lay == "nhwc" else (cpg * s,)
+    v = vector_width(x.element_size(), dims, x, y)
+    rc = _build.kernel("gn_fused")(
+        x.data_ptr(), scale.data_ptr(), bias.data_ptr(), y.data_ptr(),
+        int(x.dtype == torch.bfloat16), int(scale.dtype == torch.bfloat16),
+        b, c, s, groups, eps, int(lay == "nhwc"), ACTS[act], fused_header_bytes(cpg), v,
+        torch.cuda.current_stream().cuda_stream)
+    _raise_on(rc, "gn_fused")
+    _record("gn_fused", x)
+
+
+def split_count(lay: str, b: int, groups: int, cpg: int, s: int, sm_count: int) -> int:
+    """Blocks per (batch row, group) span in NCHW, per batch row in NHWC:
+    enough for ``_BLOCKS_PER_SM`` blocks an SM, and no more than leaves each
+    block ``_MIN_SPLIT`` elements (``_MIN_ROWS`` rows)."""
+    target = _BLOCKS_PER_SM * sm_count
+    if lay == "nchw":
+        want, most = math.ceil(target / (b * groups)), (cpg * s) // _MIN_SPLIT
+    else:
+        want, most = math.ceil(target / b), s // _MIN_ROWS
+    return max(1, min(want, most, 65535))
+
+
+def gn_stats(x, scale, bias, groups: int, eps: float, sm_count: int) -> torch.Tensor:
+    """Pass 1: the fp32 per-channel (a, b) as ``[B, 2, C]``."""
+    lay = layout(x)
+    b, c = x.shape[:2]
+    s = x.numel() // (b * c)
+    cpg = c // groups
+    nsplit = split_count(lay, b, groups, cpg, s, sm_count)
+    dims = (c,) if lay == "nhwc" else (cpg * s,)
+    v = vector_width(x.element_size(), dims, x)
+    part = torch.empty((b, nsplit, groups, 2), device=x.device, dtype=torch.float32)
+    counter = torch.zeros((b,), device=x.device, dtype=torch.int32)
+    ab = torch.empty((b, 2, c), device=x.device, dtype=torch.float32)
+    rc = _build.kernel("gn_stats")(
+        x.data_ptr(), scale.data_ptr(), bias.data_ptr(), part.data_ptr(),
+        counter.data_ptr(), ab.data_ptr(), int(x.dtype == torch.bfloat16),
+        int(scale.dtype == torch.bfloat16), b, c, s, groups, eps, int(lay == "nhwc"),
+        nsplit, v, torch.cuda.current_stream().cuda_stream)
+    _raise_on(rc, "gn_stats")
+    _record("gn_stats", x)
+    return ab
+
+
+def gn_apply(x, ab, act, y, sm_count: int) -> None:
+    """Pass 2: y = act(x a + b), a and b rounded to x's dtype."""
+    lay = layout(x)
+    b, c = x.shape[:2]
+    s = x.numel() // (b * c)
+    if ab.dtype != torch.float32 or tuple(ab.shape) != (b, 2, c) or not ab.is_contiguous():
+        raise ValueError(f"ab must be a contiguous fp32 [{b}, 2, {c}] tensor")
+    v = vector_width(x.element_size(), (c,) if lay == "nhwc" else (s,), x, y)
+    rc = _build.kernel("gn_apply")(
+        x.data_ptr(), ab.data_ptr(), y.data_ptr(), int(x.dtype == torch.bfloat16), b, c, s,
+        int(lay == "nhwc"), ACTS[act], sm_count, v, torch.cuda.current_stream().cuda_stream)
+    _raise_on(rc, "gn_apply")
+    _record("gn_apply", x)
+
+
+def group_norm_forward(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor,
+                       groups: int, eps: float = 1e-5, act: Optional[str] = None
+                       ) -> torch.Tensor:
+    """The forward without autograd: the kernels on a CUDA tensor (one
+    ``gn_fused`` when a span fits a block's shared memory, else ``gn_stats``
+    then ``gn_apply``), the plain version on a CPU tensor."""
+    if act not in ACTS:
+        raise ValueError(f"unsupported groupnorm activation {act!r}")
+    if _on_cpu(x):
+        return group_norm_reference(x, scale, bias, groups, eps, act)
+    _check(x, scale, bias, groups)
+    lay = layout(x)
+    y = torch.empty_like(x)  # keeps x's memory format
+    smem_limit, sm_count = _device_limits(x.device)
+    b, c = x.shape[:2]
+    if fused_fits(c, groups, x.numel() // (b * c), x.element_size(), smem_limit):
+        gn_fused(x, scale, bias, groups, eps, act, y)
+    else:
+        gn_apply(x, gn_stats(x, scale, bias, groups, eps, sm_count), act, y, sm_count)
+    layout_counts[lay] += 1
+    return y
+
+
+class GroupNormFunction(torch.autograd.Function):
+    """``group_norm_forward``, differentiated as the reference's
+    ``custom_vjp`` is: the backward re-runs the plain formula on the saved
+    ``(x, scale, bias)`` and returns its vector-Jacobian product."""
+
+    @staticmethod
+    def forward(ctx, x, scale, bias, groups, eps, act):
+        ctx.save_for_backward(x, scale, bias)
+        ctx.cfg = (groups, eps, act)
+        return group_norm_forward(x, scale, bias, groups, eps, act)
+
+    @staticmethod
+    def backward(ctx, g):
+        x, scale, bias = ctx.saved_tensors
+        want = ctx.needs_input_grad[:3]
+        inputs = [t.detach().requires_grad_(w) for t, w in zip((x, scale, bias), want)]
+        with torch.enable_grad():
+            y = group_norm_reference(*inputs, *ctx.cfg)
+            grads = torch.autograd.grad(
+                y, [t for t, w in zip(inputs, want) if w], g, allow_unused=True)
+        it = iter(grads)
+        return tuple(next(it) if w else None for w in want) + (None, None, None)
+
+
+def group_norm(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor,
+               groups: int, eps: float = 1e-5, act: Optional[str] = None
+               ) -> torch.Tensor:
+    """GroupNorm over ``[B, C, ...]`` with fp32 statistics, folded into a
+    per-channel (a, b) in x's dtype, and an optional fused SiLU (fp32)."""
+    return GroupNormFunction.apply(x, scale, bias, groups, eps, act)

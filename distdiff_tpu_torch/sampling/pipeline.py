@@ -1,15 +1,16 @@
 """End-to-end guided expansion pipeline (port of
 ``distdiff_tpu/sampling/pipeline.py``: ``ExpansionPipeline.create``,
-``make_expand_fn`` and the pieces they use).
+``encode_images``, ``encode_text``, ``make_expand_fn``, ``SplitExpand`` and
+the pieces they use).
 
 Noise cached latents to the img2img start, denoise with CFG, splice the
 DistDiff guidance in at the window, decode to images in [0, 1]. Eager
 PyTorch: the plain denoise runs without autograd, the guidance leg with it.
 
-Precision: the UNet and VAE run in their config's dtype (bf16 at SD-1.5
-geometry; ``cast_params_bf16`` also stores their weights in bf16); all
-normalisation statistics and the scheduler tables are fp32; the guide
-ResNet-50 and the energy run in fp32 (with TF32 off on CUDA, see
+Precision: the UNet, VAE and text encoder run in their config's dtype (bf16
+at SD-1.5 geometry; ``cast_params_bf16`` also stores their weights in
+bf16); all normalisation statistics and the scheduler tables are fp32; the
+guide ResNet-50 and the energy run in fp32 (with TF32 off on CUDA, see
 ``device.disable_tf32``).
 """
 
@@ -17,7 +18,7 @@ from __future__ import annotations
 
 import dataclasses
 import math
-from typing import Callable, Dict, Optional, Tuple, Union
+from typing import Callable, Dict, Optional, Sequence, Tuple, Union
 
 import torch
 import torch.nn as nn
@@ -31,8 +32,10 @@ from distdiff_tpu_torch.guidance.optimize import (
     transform_guidance,
 )
 from distdiff_tpu_torch.models.guide.factory import GuideModel
+from distdiff_tpu_torch.models.text_encoder import CLIPTextEncoder
 from distdiff_tpu_torch.models.unet import UNet2DConditionModel
 from distdiff_tpu_torch.models.vae import AutoencoderKL
+from distdiff_tpu_torch.sampling.conditioning import cond_slice
 from distdiff_tpu_torch.sampling.sampler import (
     SamplerConfig,
     denoise_range,
@@ -78,9 +81,11 @@ def resize_bicubic(img: torch.Tensor, size: int) -> torch.Tensor:
 def init_weights(module: nn.Module, generator: torch.Generator) -> None:
     """The reference's initialisers: lecun-normal (truncated at 2 sigma)
     kernels, zero biases, unit norm scales; BatchNorm running mean 0 and
-    variance 1."""
+    variance 1; embeddings normal with std 0.02."""
     for m in module.modules():
-        if isinstance(m, (nn.Conv2d, nn.Linear)):
+        if isinstance(m, nn.Embedding):
+            nn.init.normal_(m.weight, std=0.02, generator=generator)
+        elif isinstance(m, (nn.Conv2d, nn.Linear)):
             fan_in = m.weight[0].numel()
             std = math.sqrt(1.0 / fan_in) / 0.87962566103423978
             nn.init.trunc_normal_(m.weight, std=std, a=-2 * std, b=2 * std,
@@ -97,10 +102,11 @@ def init_weights(module: nn.Module, generator: torch.Generator) -> None:
 
 
 def cast_params_bf16(pipe: "ExpansionPipeline") -> None:
-    """Store the UNet's and VAE's weights as bf16, in place. Normalisation
-    statistics stay fp32 (computed from fp32 casts); the guide stays fp32."""
-    pipe.unet.to(torch.bfloat16)
-    pipe.vae.to(torch.bfloat16)
+    """Store the UNet's, VAE's and text encoder's weights as bf16, in place.
+    Normalisation statistics stay fp32 (computed from fp32 casts); the guide
+    stays fp32."""
+    for m in (pipe.unet, pipe.vae, pipe.text_encoder):
+        m.to(torch.bfloat16)
 
 
 @dataclasses.dataclass
@@ -111,6 +117,7 @@ class ExpansionPipeline:
     sched: DDIMSchedule
     unet: UNet2DConditionModel
     vae: AutoencoderKL
+    text_encoder: CLIPTextEncoder
     device: torch.device
     guide: Optional[GuideModel] = None
     global_protos: Optional[torch.Tensor] = None
@@ -129,8 +136,9 @@ class ExpansionPipeline:
         seed: int = 0,
         device: Union[str, torch.device] = "cuda",
     ) -> "ExpansionPipeline":
-        """Build the pipeline with seeded random UNet/VAE weights (load real
-        or converted weights with ``load_state_dict`` afterwards)."""
+        """Build the pipeline with seeded random UNet/VAE/text-encoder
+        weights (load real or converted weights with ``load_state_dict``
+        afterwards)."""
         device = resolve_device(device)
         if device.type == "cuda":
             disable_tf32()
@@ -141,8 +149,9 @@ class ExpansionPipeline:
                               prediction_type=config.prediction_type)
         unet = UNet2DConditionModel(config.unet, device=device)
         vae = AutoencoderKL(config.vae, device=device)
+        text_encoder = CLIPTextEncoder(config.text_encoder, device=device)
         gen = torch.Generator(device=device).manual_seed(seed)
-        for m in (unet, vae):
+        for m in (unet, vae, text_encoder):
             init_weights(m, gen)
             m.requires_grad_(False)
             m.eval()
@@ -153,7 +162,8 @@ class ExpansionPipeline:
 
         return ExpansionPipeline(
             config=config, sampler_cfg=sampler_cfg, guidance_cfg=guidance_cfg,
-            sched=sched, unet=unet, vae=vae, device=device, guide=guide,
+            sched=sched, unet=unet, vae=vae, text_encoder=text_encoder,
+            device=device, guide=guide,
             global_protos=protos(global_protos), local_protos=protos(local_protos),
             strength=strength,
         )
@@ -161,6 +171,19 @@ class ExpansionPipeline:
     # ---- building blocks ----
     def eps_fn(self) -> Callable:
         return make_eps_fn(self.unet, self.sampler_cfg)
+
+    @torch.no_grad()
+    def encode_images(self, images: torch.Tensor,
+                      generator: Optional[torch.Generator] = None) -> torch.Tensor:
+        """[-1, 1] NHWC images -> scaled latents (the cached-latent
+        convention): the posterior's mean, or a sample drawn with
+        ``generator``, times the VAE's scaling factor."""
+        return self.vae.encode(images, generator) * self.config.vae.scaling_factor
+
+    @torch.no_grad()
+    def encode_text(self, input_ids: torch.Tensor) -> torch.Tensor:
+        """Token ids ``[B, T]`` -> the text context ``[B, T, D]`` (fp32)."""
+        return self.text_encoder(input_ids)
 
     def decode_latents(self, latents: torch.Tensor) -> torch.Tensor:
         """Latents -> images in [-1, 1] (fp32, NHWC)."""
@@ -190,16 +213,37 @@ class ExpansionPipeline:
 
     def guidance_active(self) -> bool:
         """Whether the guidance window survives clamping to the img2img start
-        under this pipeline's step plan and strength."""
-        gcfg = self.guidance_cfg
-        if gcfg.guidance_type not in ("transform_guidance", "direct_guidance"):
-            return False
-        start = img2img_start_index(self.sched, self.strength)
-        g0, g1 = guidance_window(self.sched, gcfg.guidance_step, gcfg.guidance_period)
-        guided, _, _ = _clamp_window(gcfg.guidance_type, start, g0, g1,
-                                     step_in_plan=gcfg.step_in_plan,
-                                     n=self.sched.num_inference_steps)
-        return guided
+        index under this pipeline's step plan and strength."""
+        return self.window()[2]
+
+    def window(self) -> Tuple[int, int, bool, int, int]:
+        """(start, n, guided, g0, g1): the img2img start index, the plan
+        length, and the guidance window clamped to the start."""
+        sched, gcfg = self.sched, self.guidance_cfg
+        start = img2img_start_index(sched, self.strength)
+        n = sched.num_inference_steps
+        guided = gcfg.guidance_type in ("transform_guidance", "direct_guidance")
+        g0 = g1 = n
+        if guided:
+            g0, g1 = guidance_window(sched, gcfg.guidance_step, gcfg.guidance_period)
+            guided, g0, g1 = _clamp_window(gcfg.guidance_type, start, g0, g1,
+                                           step_in_plan=gcfg.step_in_plan, n=n)
+        return start, n, guided, g0, g1
+
+    def draw_unit_inputs(self, image_latents: torch.Tensor,
+                         generators: Sequence[torch.Generator]
+                         ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+        """``draw_inputs`` with one generator per sample (per work unit), so
+        that a sample's draws do not depend on the batch it is in."""
+        draws = [self.draw_inputs(image_latents[i:i + 1], g) for i, g in enumerate(generators)]
+        return tuple(torch.cat(d, dim=0) for d in zip(*draws))
+
+    def make_split_expand(self, guide_chunk: Optional[int] = None,
+                          decode_chunk: Optional[int] = None) -> "SplitExpand":
+        """The expansion as its three parts (see ``SplitExpand``), with the
+        guidance update and the final span + decode run on sub-batches of
+        ``guide_chunk`` and ``decode_chunk`` samples."""
+        return SplitExpand(self, guide_chunk=guide_chunk, decode_chunk=decode_chunk)
 
     def draw_inputs(self, image_latents: torch.Tensor, generator: torch.Generator
                     ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
@@ -227,14 +271,7 @@ class ExpansionPipeline:
         sched = self.sched
         eps_fn = self.eps_fn()
         gcfg = self.guidance_cfg
-        start = img2img_start_index(sched, self.strength)
-        n = sched.num_inference_steps
-        guided = gcfg.guidance_type in ("transform_guidance", "direct_guidance")
-        g0 = g1 = n
-        if guided:
-            g0, g1 = guidance_window(sched, gcfg.guidance_step, gcfg.guidance_period)
-            guided, g0, g1 = _clamp_window(gcfg.guidance_type, start, g0, g1,
-                                           step_in_plan=gcfg.step_in_plan, n=n)
+        start, n, guided, g0, g1 = self.window()
         ctx = self.guidance_context() if guided else None
 
         @torch.no_grad()
@@ -272,3 +309,86 @@ class ExpansionPipeline:
             return (img, aux) if return_aux else img
 
         return expand
+
+
+class SplitExpand:
+    """The expansion as three parts (port of the reference's ``SplitExpand``,
+    single device): init + the plain span to the window, the guidance
+    update, then the span from the window + the decode.
+
+    ``guide_chunk`` runs the guidance update, and ``decode_chunk`` the final
+    span + decode, on sub-batches of that many samples; samples are
+    independent, so the result is the same, and the peak memory of the
+    guidance backward (or of the 512^2 decode) falls with the chunk.
+
+    The random draws come from one ``torch.Generator`` per sample
+    (``draw_unit_inputs``), in place of the reference's per-sample threefry
+    keys, so a sample's image does not depend on the batch it was in; or
+    all of noise, gamma0 and beta0 are handed in, as to ``make_expand_fn``.
+    """
+
+    def __init__(self, pipe: ExpansionPipeline, guide_chunk: Optional[int] = None,
+                 decode_chunk: Optional[int] = None):
+        self.pipe = pipe
+        self.guide_chunk = guide_chunk
+        self.decode_chunk = decode_chunk
+        self.start, self.n, self.guided, self.g0, self.g1 = pipe.window()
+        self.eps_fn = pipe.eps_fn()
+        self.ctx = pipe.guidance_context() if self.guided else None
+        transform = pipe.guidance_cfg.guidance_type == "transform_guidance"
+        self.resume = self.g0 if transform else self.g1
+
+    @staticmethod
+    def _chunks(b: int, chunk: Optional[int]):
+        c = b if chunk is None or chunk >= b else chunk
+        if b % c:
+            raise ValueError(f"batch {b} is not a multiple of the chunk {c}")
+        return [(i, i + c) for i in range(0, b, c)]
+
+    def _span(self, x, cond, uncond, lo, hi):
+        return denoise_range(self.pipe.sched, self.eps_fn, x, cond, uncond, lo, hi)
+
+    def init_span(self, image_latents, cond, uncond, noise, hi):
+        """img2img noising, then plain steps [start, hi)."""
+        x, _ = img2img_init(self.pipe.sched, image_latents, noise, self.pipe.strength)
+        return self._span(x, cond, uncond, self.start, hi)
+
+    def guide(self, x, cond, uncond, targets, gamma0, beta0):
+        """The guidance update on one (sub-)batch."""
+        if self.pipe.guidance_cfg.guidance_type == "transform_guidance":
+            return transform_guidance(self.ctx, x, cond, uncond, targets, self.g0,
+                                      gamma0, beta0)[0]
+        return direct_guidance(self.ctx, x, cond, uncond, targets, (self.g0, self.g1))[0]
+
+    def span_decode(self, x, cond, uncond, lo):
+        """Plain steps [lo, n), then the decode to images in [0, 1]."""
+        x = self._span(x, cond, uncond, lo, self.n)
+        return torch.clamp(self.pipe.decode_latents(x) / 2.0 + 0.5, 0.0, 1.0)
+
+    @torch.no_grad()
+    def __call__(self, image_latents, cond, uncond, targets,
+                 generators: Optional[Sequence[torch.Generator]] = None, *,
+                 noise=None, gamma0=None, beta0=None) -> torch.Tensor:
+        given = [t is not None for t in (noise, gamma0, beta0)]
+        if not all(given):
+            if any(given) or generators is None:
+                raise ValueError("pass one generator per sample, or all of noise, "
+                                 "gamma0 and beta0")
+            if len(generators) != image_latents.shape[0]:
+                raise ValueError(f"{len(generators)} generators for a batch of "
+                                 f"{image_latents.shape[0]}")
+            noise, gamma0, beta0 = self.pipe.draw_unit_inputs(image_latents, generators)
+        b = image_latents.shape[0]
+        if not self.guided:
+            x = self.init_span(image_latents, cond, uncond, noise, self.start)
+            lo = self.start
+        else:
+            x = self.init_span(image_latents, cond, uncond, noise, self.g0)
+            x = torch.cat([
+                self.guide(x[i:j], cond_slice(cond, i, j), cond_slice(uncond, i, j),
+                           targets[i:j], gamma0[i:j], beta0[i:j])
+                for i, j in self._chunks(b, self.guide_chunk)], dim=0)
+            lo = self.resume
+        return torch.cat([
+            self.span_decode(x[i:j], cond_slice(cond, i, j), cond_slice(uncond, i, j), lo)
+            for i, j in self._chunks(b, self.decode_chunk)], dim=0)

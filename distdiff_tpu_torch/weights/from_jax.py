@@ -1,10 +1,11 @@
 """JAX parameter trees -> state dicts of the port's modules.
 
 Walks the port's own ``state_dict()`` keys (diffusers' names for the UNet and
-VAE, torchvision's for the guide ResNet), maps each to its path in the JAX
-tree with copies of the reference's key maps (``weights/convert.py``
-``map_unet_key``/``map_vae_key``, ``models/guide/factory.py``
-``_torch_key_to_ours``), and undoes the reference's layout transform
+VAE, transformers' for the CLIP text encoder, torchvision's for the guide
+ResNet), maps each to its path in the JAX tree with copies of the
+reference's key maps (``weights/convert.py`` ``map_unet_key``/``map_vae_key``/
+``map_text_key``, ``models/guide/factory.py`` ``_torch_key_to_ours``), and
+undoes the reference's layout transform
 (``convert.py:transform_tensor``): HWIO -> OIHW, ``[in, out]`` -> ``[out, in]``,
 a channel ``Dense`` -> ``[O, I, 1, 1]`` where diffusers stores a 1x1 conv, and
 BatchNorm ``mean``/``var`` -> ``running_mean``/``running_var``.
@@ -22,10 +23,10 @@ from typing import Any, Callable, Dict, Optional, Tuple, Union
 import numpy as np
 import torch
 
-from distdiff_tpu_torch.config import UNetConfig, VAEConfig
+from distdiff_tpu_torch.config import TextEncoderConfig, UNetConfig, VAEConfig
 from distdiff_tpu_torch.models.guide.resnet import ResNet, ResNetConfig
 
-Config = Union[UNetConfig, VAEConfig, ResNetConfig]
+Config = Union[UNetConfig, VAEConfig, TextEncoderConfig, ResNetConfig]
 
 
 # ------------------------------------------------ key maps (reference copies)
@@ -83,6 +84,21 @@ def map_vae_key(key: str) -> Optional[str]:
     k = re.sub(r"norm(\d)\.", r"norm\1/", k)
     k = k.replace("conv_shortcut.", "conv_shortcut/")
     k = re.sub(r"conv(\d)\.", r"conv\1/", k)
+    return None if "." in k else k
+
+
+def map_text_key(key: str) -> Optional[str]:
+    """transformers CLIPTextModel name -> the JAX CLIPTextEncoder path."""
+    k = key.replace("text_model.", "")
+    if k == "embeddings.token_embedding.weight":
+        return "token_embedding/embedding"
+    if k == "embeddings.position_embedding.weight":
+        return "position_embedding"
+    k = re.sub(r"^encoder\.layers\.(\d+)\.", r"layers_\1/", k)
+    k = k.replace("self_attn.", "").replace("mlp.", "")
+    k = re.sub(r"(q_proj|k_proj|v_proj|out_proj|fc1|fc2)\.", r"\1/", k)
+    k = re.sub(r"layer_norm(\d)\.", r"layer_norm\1/", k)
+    k = k.replace("final_layer_norm.", "final_layer_norm/")
     return None if "." in k else k
 
 
@@ -148,7 +164,7 @@ def _entry(kind: str, key: str, shape: Tuple[int, ...]) -> Entry:
             path, jshape, inv = _weight_entry(mapped, shape)
             return f"params/{path}", jshape, inv
         return f"params/{mapped}", shape, _identity
-    mapped = (map_unet_key if kind == "unet" else map_vae_key)(key)
+    mapped = {"unet": map_unet_key, "vae": map_vae_key, "text": map_text_key}[kind](key)
     if mapped is None:
         return None, shape, _identity
     if mapped.endswith("/weight"):
@@ -157,9 +173,12 @@ def _entry(kind: str, key: str, shape: Tuple[int, ...]) -> Entry:
 
 
 def _port_model(config: Config):
+    from distdiff_tpu_torch.models.text_encoder import CLIPTextEncoder
     from distdiff_tpu_torch.models.unet import UNet2DConditionModel
     from distdiff_tpu_torch.models.vae import AutoencoderKL
 
+    if isinstance(config, TextEncoderConfig):
+        return "text", CLIPTextEncoder(config, device="meta")
     if isinstance(config, UNetConfig):
         return "unet", UNet2DConditionModel(config, device="meta")
     if isinstance(config, VAEConfig):

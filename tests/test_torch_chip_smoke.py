@@ -69,3 +69,56 @@ def test_summary_has_one_entry_per_kernel_with_launch_weighted_means(smoke):
     assert fwd["max_abs_err"] == pytest.approx(0.04)
     with pytest.raises(SystemExit, match="never launched"):
         smoke.summarize(records, {})
+
+
+def _sd15_pipe(strength=0.5):
+    return types.SimpleNamespace(config=PipelineConfig.sd15(), guidance_cfg=GuidanceConfig(),
+                                 sched=make_schedule(50), strength=strength)
+
+
+def test_groupnorm_counts_per_model_call(smoke):
+    cfg = PipelineConfig.sd15()
+    unet = smoke.unet_norms(cfg.unet, 64)
+    assert len(unet) == 61 and sum(act is None for _, _, act in unet) == 16
+    assert unet[0] == (320, 64, "silu") and unet[-1] == (320, 64, "silu")
+    assert (960, 64, "silu") in unet and (2560, 8, "silu") in unet
+    assert len(smoke.vae_decode_norms(cfg.vae, 64)) == 30
+    assert smoke.vae_decode_norms(cfg.vae, 64)[-1] == (128, 512, "silu")
+    enc = smoke.vae_encode_norms(cfg.vae, 512)
+    assert len(enc) == 22 and enc[-1] == (512, 64, "silu")
+
+
+@pytest.mark.parametrize("guide_chunk,want", [
+    # 29 UNet forwards (61 norms) + 5 VAE decodes (30 norms); the 64^2 x 960
+    # norms and the VAE's stages from 128^2 up take the pair
+    (None, {"gn_fused": 1795, "gn_stats": 124, "gn_apply": 124}),
+    # the rollout and its recompute per unit: 25 + 2 x 4 UNet forwards,
+    # 2 x 4 + 1 decodes
+    (1, {"gn_fused": 2079, "gn_stats": 204, "gn_apply": 204}),
+])
+def test_groupnorm_launch_plan_of_the_sd15_recipe(smoke, guide_chunk, want):
+    plan = smoke.gn_plan(smoke.expand_gn_calls(_sd15_pipe(), 2, guide_chunk))
+    totals = {k: sum(n for (name, _), n in plan.items() if name == k) for k in want}
+    assert totals == want
+    assert plan[("gn_stats", (4, 960, 64, 64))] == (29 if guide_chunk is None else 25)
+    assert plan[("gn_fused", (4, 640, 64, 64))] > 0
+    # fp32 spans are twice the bytes: the 64^2 x 640 norms no longer fit
+    assert smoke.gn_plan(smoke.expand_gn_calls(_sd15_pipe(), 2), itemsize=4)[
+        ("gn_stats", (4, 640, 64, 64))] > 0
+
+
+def test_split_expand_flash_plan_and_main_shapes(smoke):
+    assert smoke.expected_launches(_sd15_pipe(), units=2) == {
+        "flash_fwd": 339, "flash_bwd_fused": 40, "flash_bwd_dq": 4, "flash_bwd_dkv": 4}
+    shapes = smoke.gn_shapes(smoke.main_gn_calls())
+    assert len(shapes) == 42
+    assert shapes[(4, 320, 64, 64)] == (32, {"silu", None})
+    assert shapes[(2, 128, 512, 512)] == (32, {"silu"})
+
+
+def test_gn_bound_counts_slab_passes(smoke):
+    shape = (2, 128, 512, 512)
+    one = 2 * 128 * 512 * 512 * 2 / smoke.PEAK_BYTES * 1e3
+    assert smoke.gn_bound("gn_stats", shape, 2) == (pytest.approx(one), "bytes")
+    assert smoke.gn_bound("gn_apply", shape, 2)[0] == pytest.approx(2 * one)
+    assert smoke.gn_bound("gn_fused", shape, 4)[0] == pytest.approx(4 * one)

@@ -1,0 +1,194 @@
+"""The port's GroupNorm against the JAX package's Pallas GroupNorm kernels,
+run in interpret mode on the CPU (single pass ``_pallas_group_norm`` and the
+chunked two-pass ``_pallas_group_norm_chunked`` with small chunks, so that
+several run), in both memory formats the port sees (contiguous NCHW and
+channels-last), with and without SiLU; the autograd.Function's gradient
+against the JAX ``custom_vjp``'s; and the host side of the CUDA wrappers
+(layout, shared-memory rule, vector width, split count, launch arguments)
+on meta tensors with the kernel entry point replaced by a recorder."""
+
+import types
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+import distdiff_tpu.ops.groupnorm as jgn
+from distdiff_tpu_torch.ops import _build
+from distdiff_tpu_torch.ops import groupnorm as gn
+
+torch.set_num_threads(1)
+
+SHAPES = [  # (B, H, W, C, groups): cpg 4, 8, 1 and 3; odd H*W
+    (2, 8, 8, 128, 32),
+    (1, 6, 10, 256, 32),
+    (2, 5, 7, 32, 32),
+    (1, 9, 3, 96, 32),
+]
+
+
+def _inputs(b, h, w, c, seed):
+    rng = np.random.RandomState(seed)
+    x = (rng.randn(b, h, w, c) * 1.5 + 0.3).astype(np.float32)
+    scale = (1.0 + 0.5 * rng.randn(c)).astype(np.float32)
+    bias = (0.5 * rng.randn(c)).astype(np.float32)
+    return x, scale, bias
+
+
+def _port(x_nhwc, scale, bias, groups, act, channels_last):
+    x = torch.from_numpy(x_nhwc).permute(0, 3, 1, 2)  # channels-last strides
+    if not channels_last:
+        x = x.contiguous()
+    assert gn.layout(x) == ("nhwc" if channels_last and x.shape[1] > 1 else "nchw")
+    y = gn.group_norm(x, torch.from_numpy(scale), torch.from_numpy(bias), groups, 1e-5, act)
+    assert y.stride() == x.stride()  # the output keeps the input's memory format
+    return y.permute(0, 2, 3, 1).numpy()
+
+
+@pytest.mark.parametrize("channels_last", [True, False])
+@pytest.mark.parametrize("act", [None, "silu"])
+@pytest.mark.parametrize("shape", SHAPES)
+def test_matches_single_pass_pallas_kernel(monkeypatch, shape, act, channels_last):
+    monkeypatch.setattr(jgn, "INTERPRET", True)
+    b, h, w, c, groups = shape
+    x, scale, bias = _inputs(b, h, w, c, seed=c + h)
+    want = np.asarray(jgn._pallas_group_norm(jnp.asarray(x), jnp.asarray(scale),
+                                             jnp.asarray(bias), groups, 1e-5, act))
+    got = _port(x, scale, bias, groups, act, channels_last)
+    # fp32 statistics summed in another order: 2e-4, as the JAX package's
+    # own kernel tests hold the Pallas kernels against xla_group_norm
+    np.testing.assert_allclose(got, want, atol=2e-4, rtol=2e-4)
+
+
+@pytest.mark.parametrize("channels_last", [True, False])
+@pytest.mark.parametrize("act", [None, "silu"])
+def test_matches_chunked_two_pass_pallas_kernels(monkeypatch, act, channels_last):
+    monkeypatch.setattr(jgn, "INTERPRET", True)
+    b, h, w, c, groups = 2, 12, 8, 128, 32
+    monkeypatch.setattr(jgn, "_CHUNK_BYTES", 16 * c * 4)  # 16 rows a chunk
+    assert h * w // jgn._chunk_rows(h * w, c, 4) == 6  # six chunks run
+    x, scale, bias = _inputs(b, h, w, c, seed=7)
+    want = np.asarray(jgn._pallas_group_norm_chunked(
+        jnp.asarray(x), jnp.asarray(scale), jnp.asarray(bias), groups, 1e-5, act))
+    got = _port(x, scale, bias, groups, act, channels_last)
+    np.testing.assert_allclose(got, want, atol=2e-4, rtol=2e-4)
+
+
+def test_bf16_matches_xla_group_norm():
+    """bf16 in, bf16 out: a and b rounded to bf16 before x * a + b, as the
+    reference rounds them."""
+    x, scale, bias = _inputs(2, 4, 4, 64, seed=3)
+    want = np.asarray(jgn.xla_group_norm(jnp.asarray(x, jnp.bfloat16), jnp.asarray(scale),
+                                         jnp.asarray(bias), 32, 1e-5, "silu"), np.float32)
+    xt = torch.from_numpy(x).to(torch.bfloat16).permute(0, 3, 1, 2)
+    got = gn.group_norm(xt, torch.from_numpy(scale), torch.from_numpy(bias), 32, 1e-5, "silu")
+    assert got.dtype == torch.bfloat16
+    # one bf16 rounding step of the largest value (2^-8 relative) at most
+    np.testing.assert_allclose(got.float().permute(0, 2, 3, 1).numpy(), want,
+                               atol=2.0 ** -7 * np.abs(want).max(), rtol=0)
+
+
+@pytest.mark.parametrize("act", [None, "silu"])
+def test_gradient_matches_jax_custom_vjp(monkeypatch, act):
+    monkeypatch.setattr(jgn, "INTERPRET", True)
+    b, h, w, c, groups = 1, 4, 4, 128, 32
+    x, scale, bias = _inputs(b, h, w, c, seed=11)
+    wgt = np.random.RandomState(12).randn(b, h, w, c).astype(np.float32)
+
+    def loss(xx, ss, bb):
+        return jnp.sum(jgn.group_norm(xx, ss, bb, groups, 1e-5, act) * wgt)
+
+    want = jax.grad(loss, argnums=(0, 1, 2))(jnp.asarray(x), jnp.asarray(scale),
+                                             jnp.asarray(bias))
+    xt = torch.from_numpy(x).permute(0, 3, 1, 2).requires_grad_(True)
+    st = torch.from_numpy(scale).requires_grad_(True)
+    bt = torch.from_numpy(bias).requires_grad_(True)
+    y = gn.group_norm(xt, st, bt, groups, 1e-5, act)
+    assert y.grad_fn is not None and "GroupNormFunction" in type(y.grad_fn).__name__
+    (y * torch.from_numpy(wgt).permute(0, 3, 1, 2)).sum().backward()
+    got = (xt.grad.permute(0, 2, 3, 1).numpy(), st.grad.numpy(), bt.grad.numpy())
+    # both differentiate the plain fp32 formula: summation order only
+    for g, wnt in zip(got, want):
+        np.testing.assert_allclose(g, np.asarray(wnt), atol=2e-4, rtol=2e-4)
+
+
+def test_layout_and_shared_memory_rule():
+    x = torch.empty(2, 64, 8, 8, device="meta")
+    assert gn.layout(x) == "nchw"
+    assert gn.layout(x.to(memory_format=torch.channels_last)) == "nhwc"
+    with pytest.raises(ValueError, match="contiguous or channels-last"):
+        gn.layout(x.transpose(2, 3))
+    with pytest.raises(ValueError, match="contiguous or channels-last"):
+        gn.layout(torch.empty(2, 64, 8, 16, device="meta")[..., ::2])
+    limit = 232448  # the H100's opt-in shared memory per block
+    assert gn.fused_fits(640, 32, 64 * 64, 2, limit)       # 160 KB span
+    assert not gn.fused_fits(960, 32, 64 * 64, 2, limit)   # 240 KB
+    assert not gn.fused_fits(512, 32, 128 * 128, 2, limit)  # the VAE decoder at 128^2
+    assert not gn.fused_fits(640, 32, 64 * 64, 4, limit)   # fp32 doubles the span
+    assert gn.fused_header_bytes(10) % 16 == 0
+
+
+def test_vector_width_and_split_count():
+    t = types.SimpleNamespace(data_ptr=lambda: 4096)
+    odd = types.SimpleNamespace(data_ptr=lambda: 4098)
+    assert gn.vector_width(2, (40,), t) == 8
+    assert gn.vector_width(2, (10,), t) == 2
+    assert gn.vector_width(2, (3,), t) == 1
+    assert gn.vector_width(4, (64,), t) == 4
+    assert gn.vector_width(2, (64,), odd) == 1
+    # NHWC: a batch row's pixel rows over 4 blocks per SM; NCHW: per span
+    assert gn.split_count("nhwc", 2, 32, 4, 512 * 512, 132) == 264
+    assert gn.split_count("nchw", 2, 32, 4, 512 * 512, 132) == 9
+    assert gn.split_count("nhwc", 1, 32, 1, 20, 132) == 1
+
+
+@pytest.fixture
+def recorder(monkeypatch):
+    """Replace the kernels' entry points: record each call, return 0."""
+    calls = []
+
+    def kernel(name):
+        if name == "gn_smem_optin":
+            return lambda dev: 232448
+        return lambda *args: calls.append((name, args)) or 0
+
+    monkeypatch.setattr(_build, "kernel", kernel)
+    monkeypatch.setattr(torch.cuda, "current_stream",
+                        lambda: types.SimpleNamespace(cuda_stream=0))
+    gn.reset_launch_counts()
+    yield calls
+    gn.reset_launch_counts()
+
+
+def test_wrappers_pass_layout_vector_and_split_to_the_kernels(recorder):
+    cl = torch.empty(2, 640, 64, 64, device="meta", dtype=torch.bfloat16).to(
+        memory_format=torch.channels_last)
+    scale = torch.empty(640, device="meta", dtype=torch.bfloat16)
+    gn.gn_fused(cl, scale, scale, 32, 1e-5, "silu", torch.empty_like(cl))
+    name, args = recorder[-1]
+    # x, scale, bias, y, is_bf16, param_bf16, B, C, S, G, eps, nhwc, act, header, vec
+    assert name == "gn_fused"
+    assert args[4:10] == (1, 1, 2, 640, 4096, 32) and args[11:13] == (1, 1)
+    assert args[13] == gn.fused_header_bytes(20) and args[14] == 4  # cpg 20: 8-byte loads
+    ab = gn.gn_stats(cl, scale, scale, 32, 1e-5, 132)
+    assert tuple(ab.shape) == (2, 2, 640) and ab.dtype == torch.float32
+    name, args = recorder[-1]
+    # ..., is_bf16, param_bf16, B, C, S, G, eps, nhwc, nsplit, vec
+    assert name == "gn_stats" and args[13:16] == (1, 256, 8)  # 4096 rows, 16 a block
+    gn.gn_apply(cl, ab, None, torch.empty_like(cl), 132)
+    name, args = recorder[-1]
+    assert name == "gn_apply" and args[3:9] == (1, 2, 640, 4096, 1, 0)
+    x = torch.empty(1, 32, 9, 7, device="meta")  # NCHW fp32, odd H*W
+    f32 = torch.empty(32, device="meta")
+    gn.gn_apply(x, torch.empty(1, 2, 32, device="meta"), "silu", torch.empty_like(x), 132)
+    assert recorder[-1][1][7] == 0 and recorder[-1][1][-2] == 1  # NCHW, one element a load
+    gn.gn_stats(x, f32, f32, 32, 1e-5, 132)
+    assert recorder[-1][1][6] == 0  # fp32 x, fp32 params
+    assert gn.launch_counts == {"gn_fused": 1, "gn_stats": 2, "gn_apply": 2}
+    assert gn.launch_shapes[("gn_stats", (2, 640, 64, 64))] == 1
+    with pytest.raises(TypeError, match="bf16 or fp32"):
+        gn._check(x.half(), f32, f32, 32)
+    with pytest.raises(ValueError, match="groups"):
+        gn._check(x, f32, f32, 5)

@@ -4,15 +4,23 @@ tensor reaches a kernel's plain version."""
 
 import ast
 import os
+import types
 
 import numpy as np
 import pytest
 import torch
 
-from distdiff_tpu_torch.config import PipelineConfig, UNetConfig, VAEConfig
-from distdiff_tpu_torch.models import AutoencoderKL, UNet2DConditionModel
+from distdiff_tpu_torch.config import (
+    PipelineConfig,
+    TextEncoderConfig,
+    UNetConfig,
+    VAEConfig,
+)
+from distdiff_tpu_torch.models import AutoencoderKL, CLIPTextEncoder, UNet2DConditionModel
 from distdiff_tpu_torch.models.guide import create_model
-from distdiff_tpu_torch.ops import attention, flash
+from distdiff_tpu_torch.ops import _build, attention, flash
+from distdiff_tpu_torch.ops import groupnorm as gn
+from distdiff_tpu_torch.parallel import ExpansionDriver
 from distdiff_tpu_torch.sampling import ExpansionPipeline
 
 torch.set_num_threads(1)
@@ -56,7 +64,17 @@ def test_port_imports_no_jax_and_nothing_of_the_jax_package():
     assert not bad, "\n".join(bad)
 
 
-@pytest.mark.parametrize("entry", ["pipeline", "unet", "vae", "guide"])
+def test_port_imports_no_pil_and_no_torchvision():
+    """The machine with the card has neither: image I/O is the standard
+    library's (``parallel/driver.py``)."""
+    bad = [f"{os.path.relpath(path, ROOT)}:{lineno} imports {module}"
+           for path in _port_sources() for lineno, module in _imported_modules(path)
+           if module.split(".")[0] in ("PIL", "torchvision")]
+    assert not bad, "\n".join(bad)
+
+
+@pytest.mark.parametrize("entry", ["pipeline", "unet", "vae", "guide", "text_encoder",
+                                   "driver"])
 def test_entry_points_default_to_cuda_and_raise_without_it(monkeypatch, entry):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     build = {
@@ -64,6 +82,8 @@ def test_entry_points_default_to_cuda_and_raise_without_it(monkeypatch, entry):
         "unet": lambda: UNet2DConditionModel(UNetConfig.tiny()),
         "vae": lambda: AutoencoderKL(VAEConfig.tiny()),
         "guide": lambda: create_model("tiny_resnet", num_classes=3),
+        "text_encoder": lambda: CLIPTextEncoder(TextEncoderConfig.tiny()),
+        "driver": lambda: ExpansionDriver(None, None, "out"),
     }[entry]
     with pytest.raises(RuntimeError, match="device='cpu'"):
         build()
@@ -143,3 +163,74 @@ def test_plain_versions_are_reached_only_from_a_cpu_branch():
         assert not (names & plain), f"{src} reaches a plain flash version"
     build = open(os.path.join(PACKAGE, "ops", "_build.py")).read()
     assert "try:" not in build
+
+
+def test_flash_wrappers_take_fp32_and_launch_its_kernels(monkeypatch):
+    """fp32 q/k/v pass the wrappers' checks (they raised TypeError before)
+    and go to the fp32 entry points with fp32 outputs: nothing is cast to
+    bf16. Meta tensors stand in for CUDA ones; the kernel entry points are
+    replaced by a recorder."""
+    calls = []
+    monkeypatch.setattr(_build, "kernel",
+                        lambda name: lambda *args: calls.append(name) or 0)
+    monkeypatch.setattr(flash, "_on_cpu", lambda x: False)
+    monkeypatch.setattr(torch.cuda, "current_stream", lambda: types.SimpleNamespace(cuda_stream=0))
+    flash.reset_launch_counts()
+    for dtype, suffix in ((torch.float32, "_f32"), (torch.bfloat16, "")):
+        q, k, v, do = (x.to("meta", dtype) for x in _bh_inputs())
+        lse = delta = torch.empty(q.shape[:2], device="meta")
+        o, _ = flash.flash_fwd(q, k, v)
+        grads = flash.flash_bwd_fused(q, k, v, do, lse, delta)
+        grads += (flash.flash_bwd_dq(q, k, v, do, lse, delta),)
+        grads += flash.flash_bwd_dkv(q, k, v, do, lse, delta)
+        assert o.dtype == dtype and all(g.dtype == dtype for g in grads)
+        assert calls[-4:] == [n + suffix for n in ("flash_fwd", "flash_bwd_fused",
+                                                    "flash_bwd_dq", "flash_bwd_dkv")]
+    assert flash.launch_counts == {"flash_fwd": 2, "flash_bwd_fused": 2, "flash_bwd_dq": 2,
+                                   "flash_bwd_dkv": 2}
+    flash.reset_launch_counts()
+    with pytest.raises(TypeError, match="bf16 or fp32"):
+        flash._check(*(x.to("meta", torch.float16) for x in _bh_inputs()[:3]))
+    with pytest.raises(TypeError, match="k is"):
+        q, k, v, _ = (x.to("meta") for x in _bh_inputs())
+        flash._check(q, k.to(torch.bfloat16), v)
+
+
+def test_groupnorm_takes_the_plain_version_only_on_cpu_tensors():
+    gn.reset_launch_counts()
+    x = torch.from_numpy(np.random.RandomState(0).randn(2, 64, 5, 6).astype(np.float32))
+    w, b = torch.ones(64), torch.zeros(64)
+    y = gn.group_norm(x, w, b, 32, 1e-5, "silu")
+    torch.testing.assert_close(y, gn.group_norm_reference(x, w, b, 32, 1e-5, "silu"),
+                               rtol=0, atol=0)  # the same function on the same inputs
+    assert sum(gn.launch_counts.values()) == 0 and not gn.layout_counts
+    with pytest.raises(ValueError, match="CUDA or CPU"):
+        gn.group_norm(x.to("meta"), w.to("meta"), b.to("meta"), 32)
+    assert sum(gn.launch_counts.values()) == 0
+
+
+def test_groupnorm_plain_version_is_reached_only_from_a_cpu_branch():
+    """In ``ops/groupnorm.py`` the plain version is reached only inside an
+    ``if _on_cpu(...)`` branch and from the autograd backward (which
+    differentiates the plain formula, as the reference's custom_vjp does);
+    no ``try`` anywhere; no module of the port but chip_smoke.py names it."""
+    plain = {"group_norm_reference", "group_norm_stats_reference",
+             "group_norm_apply_reference"}
+    path = os.path.join(PACKAGE, "ops", "groupnorm.py")
+    tree = ast.parse(open(path).read())
+    assert not [n for n in ast.walk(tree) if isinstance(n, ast.Try)]
+    for fn in ast.walk(tree):
+        if not isinstance(fn, ast.FunctionDef) or fn.name in plain | {"backward"}:
+            continue
+        for stmt in fn.body:
+            if (isinstance(stmt, ast.If) and isinstance(stmt.test, ast.Call)
+                    and getattr(stmt.test.func, "id", None) == "_on_cpu"):
+                continue
+            assert not (_calls(stmt) & plain), f"{fn.name} reaches a plain version"
+    for src in _port_sources():
+        if src == path or os.path.basename(src) == "chip_smoke.py":
+            continue
+        tree = ast.parse(open(src).read())
+        names = {n.attr for n in ast.walk(tree) if isinstance(n, ast.Attribute)}
+        names |= {n.id for n in ast.walk(tree) if isinstance(n, ast.Name)}
+        assert not (names & plain), f"{src} reaches a plain GroupNorm"
