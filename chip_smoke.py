@@ -5,13 +5,18 @@ Run from the repository root: ``python3 chip_smoke.py``. It needs one CUDA
 card, ``nvcc`` and ``nvidia-smi``; it imports nothing of JAX or of the JAX
 package. Six phases, any failure exits non-zero:
 
-1. Device: the card's name and power limit, torch/CUDA versions, and the
+1. Device: the card's name and power limit, torch/CUDA versions, the
    time to build the CUDA kernels from ``distdiff_tpu_torch/csrc`` (one
-   ``nvcc`` a source, all at once).
+   ``nvcc`` a source, all at once), each kernel's registers and spills from
+   ``-Xptxas -v`` (a narrow flash kernel that spills fails the run) and the
+   narrow flash kernels' dynamic shared memory.
 2. Kernels, each held against its plain PyTorch version on the same inputs:
    every flash kernel at the main path's shapes in bf16 (against the plain
    fp32 version; timed beside ``F.scaled_dot_product_attention``, a
-   yardstick the port never calls) and at ragged shapes; the four flash
+   yardstick the port never calls) and at ragged shapes (the narrow
+   kernels also at every narrow head width, lengths one row on either side
+   of their tiles, the 77-token kv, and views off 16-byte alignment, which
+   take the staged loads); the four flash
    kernels' fp32 instances at main-path widths and ragged shapes (timed at
    the former); gn_fused, gn_stats and gn_apply at every GroupNorm shape of
    the counted runs, in bf16 and fp32, channels-last and contiguous, with
@@ -151,11 +156,36 @@ def bound(name, bh, tq, tk, d, itemsize=2):
     return (max(t_bytes, t_ops) * 1e3, "bytes" if t_bytes > t_ops else "operations")
 
 
+# the narrow (D <= 128) bf16 flash kernels: warp-specialised, TMA and wgmma
+NARROW_KERNELS = ("flash_fwd_narrow_kernel", "flash_bwd_fused_kernel")
+
+
+def ptxas_phase() -> None:
+    """Each kernel's registers and spills from ``-Xptxas -v``, and the
+    narrow flash kernels' dynamic shared memory; a narrow kernel that
+    spills fails the run."""
+    from distdiff_tpu_torch.ops import _build, flash
+
+    spilled = []
+    for src, log in _build.build_logs().items():
+        for name, regs, stack, st, ld in _build.ptxas_report(log):
+            print(f"  {src}: {name}: {regs} registers, {stack} B stack, spills {st} B stored / "
+                  f"{ld} B loaded")
+            if name.split("<")[0] in NARROW_KERNELS and (st or ld):
+                spilled.append(name)
+    smem = {dp: (_build.kernel("flash_fwd_narrow_smem")(dp),
+                 _build.kernel("flash_bwd_fused_smem")(dp)) for dp in flash.NARROW_WIDTHS}
+    print("  narrow kernels' dynamic shared memory (forward, fused backward) by padded "
+          f"width: {smem}")
+    require(not spilled, f"narrow flash kernels spill registers: {spilled}")
+
+
 def kernel_phase():
     """Hold every kernel against its plain version at the main-path shapes
     (timed), and at ragged shapes (checked only: q and kv lengths off the
-    64-row tiles, the 77-token kv of cross-attention, head widths off the
-    padded ones); returns one record per timed (kernel, shape)."""
+    tiles, the 77-token kv of cross-attention, head widths off the padded
+    ones, every narrow width, views off 16-byte alignment); returns one
+    record per timed (kernel, shape)."""
     import torch
     import torch.nn.functional as F
 
@@ -176,14 +206,42 @@ def kernel_phase():
         ("odd", 2, 1, 129, 70, 33, every, False),
         ("ragged512", 1, 1, 100, 333, 512, ["flash_fwd"] + split, False),
     ]
+    # the narrow kernels at every narrow width, with q and kv lengths one
+    # row on either side of their tiles (forward: 128 q rows, 128 kv rows,
+    # 64 past D = 80; fused backward: 128 kv rows, 64 q rows), at the
+    # 77-token kv, and on views whose storage offset is off 16 bytes (the
+    # staged route); checked only
+    narrow = ["flash_fwd", "flash_bwd_fused"]
+    shapes += [
+        ("w33", 1, 2, 127, 129, 33, narrow, False),
+        ("w40", 1, 2, 129, 127, 40, narrow, False),
+        ("w64", 1, 2, 63, 65, 64, narrow, False),
+        ("w80", 1, 2, 65, 63, 80, narrow, False),
+        ("w96", 1, 2, 127, 65, 96, narrow, False),
+        ("w128", 1, 2, 129, 63, 128, narrow, False),
+        ("cross40", 2, 2, 257, 77, 40, narrow, False),
+        ("cross80", 2, 2, 64, 77, 80, narrow, False),
+        ("offset40", 1, 3, 200, 150, 40, narrow, "offset"),
+        ("offset80", 1, 2, 129, 65, 80, narrow, "offset"),
+    ]
     entries = []
     for label, b, h, tq, tk, d, names, timed in shapes:
         bh = b * h
 
         def rnd(*s):
+            if timed == "offset":  # a contiguous view one element into its storage
+                n = math.prod(s)
+                return torch.randn(n + 1, generator=gen, device=dev).to(torch.bfloat16)[1:].view(*s)
             return torch.randn(*s, generator=gen, device=dev).to(torch.bfloat16)
 
         q, do, k, v = rnd(bh, tq, d), rnd(bh, tq, d), rnd(bh, tk, d), rnd(bh, tk, d)
+        if d <= flash.FUSED_BWD_MAX_D:
+            plan = flash.narrow_plan(d, q, k, v, do)
+            require(plan[1] == (0 if timed == "offset" or d % 8 else 1),
+                    f"{label}: load route {plan} for d={d}")
+            print(f"  {label} [{bh},{tq},{tk},{d}]: padded width {plan[0]}, "
+                  f"{'TMA' if plan[1] else 'staged'} loads")
+        timed = timed is True
         ref_o, ref_lse = flash.flash_fwd_reference(q, k, v)
         o, lse = flash.flash_fwd(q, k, v)
         torch.cuda.synchronize()
@@ -1178,10 +1236,7 @@ def main(argv) -> int:
     t0 = time.time()
     _build.kernel("flash_fwd")
     print(f"  kernel build {time.time() - t0:.1f} s ({_build.build_info})")
-    for src, log in _build.build_logs().items():
-        for line in log.splitlines():
-            if "registers" in line or "spill" in line:
-                print(f"  {src}: {line.strip()}")
+    ptxas_phase()
 
     if "--profile" in argv:
         print("== profile of the main path")

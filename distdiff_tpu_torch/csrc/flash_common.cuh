@@ -1,34 +1,34 @@
-// Shared pieces of the flash-attention kernels for Hopper (sm_90a).
+// Shared pieces of the bf16 flash-attention kernels for Hopper (sm_90a).
 //
 // Layout: every tensor is a contiguous [BH, T, D] slab (BH = batch * heads),
-// q/k/v/o/do in bf16, lse/delta/dq-scratch in fp32. Every kernel runs its
-// products on the tensor cores with mma.sync m16n8k16 (bf16 operands, fp32
-// accumulators) on bf16 tiles staged in shared memory. DMAX is the head
-// width rounded up to one the kernels are instantiated for; the ragged
-// head columns and the ragged sequence rows are zero-filled in shared
-// memory only (device memory stays unpadded).
+// q/k/v/o/do in bf16, lse/delta/dq-scratch in fp32. The ragged head
+// columns and sequence rows are zero-filled in shared memory only (device
+// memory stays unpadded).
 //
 // Two shapes of kernel:
-//   * narrow (D <= 128, the UNet's heads): four warps; a warp owns 16 rows
-//     of the output at the full (padded) head width and keeps them in
-//     registers, so scores and probabilities never leave registers;
-//   * wide (D up to 512, the VAE's single head): eight warps, two 16-row
-//     groups by four column quarters. A warp forms a 16 x 16 block of the
+//   * narrow (D <= 128, the UNet's heads; flash_fwd and flash_bwd_fused):
+//     warp-specialised, a producer warp that loads tiles by TMA (or stages
+//     them where TMA cannot describe the slab) into a ring of shared-memory
+//     stages with mbarriers, and two consumer warpgroups that run the
+//     products on wgmma (hopper.cuh holds the primitives and the
+//     shared-memory layout);
+//   * wide (D up to 512, the VAE's single head; flash_fwd, flash_bwd_dq,
+//     flash_bwd_dkv): eight warps, two 16-row groups by four column
+//     quarters, on mma.sync m16n8k16. A warp forms a 16 x 16 block of the
 //     score tile over the full head width, the tile goes through shared
 //     memory, and each warp then owns 16 rows x a quarter of the head
 //     width of the output (a 16 x 512 fp32 accumulator would not fit a
 //     warp's registers).
 //
-// Fragment layouts (PTX ISA, m16n8k16): with g = lane / 4 and t = lane % 4,
-// the accumulator c[0..3] holds rows g, g, g+8, g+8 and columns 2t, 2t+1,
-// 2t, 2t+1 of its 16 x 8 tile; the A operand a[0..3] holds the 16 x 16
-// tile's (rows 0-7, k 0-7), (rows 8-15, k 0-7), (rows 0-7, k 8-15),
-// (rows 8-15, k 8-15), two bf16 each; the B operand b[0..1] holds k 0-7 and
-// k 8-15 of its 16 x 8 tile. So the accumulators of two neighbouring
-// 8-column tiles are, packed to bf16, the A operand of the next product.
-// Operands come from shared memory through ldmatrix; bf16 tiles there have
-// a row stride of a multiple of 8 elements plus 8, so that the eight
-// 16-byte rows one ldmatrix phase reads fall in distinct bank groups.
+// Fragment layouts of mma.sync (PTX ISA, m16n8k16): with g = lane / 4 and
+// t = lane % 4, the accumulator c[0..3] holds rows g, g, g+8, g+8 and
+// columns 2t, 2t+1, 2t, 2t+1 of its 16 x 8 tile; the A operand a[0..3]
+// holds the 16 x 16 tile's (rows 0-7, k 0-7), (rows 8-15, k 0-7), (rows
+// 0-7, k 8-15), (rows 8-15, k 8-15), two bf16 each; the B operand b[0..1]
+// holds k 0-7 and k 8-15 of its 16 x 8 tile. Operands come from shared
+// memory through ldmatrix; bf16 tiles there have a row stride of a
+// multiple of 8 elements plus 8, so that the eight 16-byte rows one
+// ldmatrix phase reads fall in distinct bank groups.
 #pragma once
 
 #include <cuda_bf16.h>
@@ -36,24 +36,27 @@
 #include <math.h>
 #include <stddef.h>
 #include <stdint.h>
+#include <string.h>
+
+#include "hopper.cuh"
 
 namespace flash {
 
 typedef __nv_bfloat16 bf16;
 
-constexpr int NARROW_THREADS = 128;  // four warps
 constexpr int WIDE_THREADS = 256;    // eight warps
 constexpr float LOG2E = 1.4426950408889634f;
 constexpr float LN2 = 0.6931471805599453f;
 
-// Head width rounded up to a narrow kernel's (0: not a narrow width).
-inline int narrow_dmax(int d) {
-  if (d <= 0) return 0;
-  if (d <= 48) return 48;
-  if (d <= 64) return 64;
-  if (d <= 96) return 96;
-  if (d <= 128) return 128;
-  return 0;
+// The narrow kernels' TMA route needs rows of a multiple of 16 bytes and
+// 16-byte aligned bases (the caller chooses; this only refuses a wrong
+// choice).
+inline bool narrow_tma_ok(int d, int tma, const void* a, const void* b, const void* c,
+                          const void* e) {
+  if (!tma) return true;
+  const uintptr_t bases = reinterpret_cast<uintptr_t>(a) | reinterpret_cast<uintptr_t>(b) |
+                          reinterpret_cast<uintptr_t>(c) | reinterpret_cast<uintptr_t>(e);
+  return d % 8 == 0 && bases % 16 == 0;
 }
 
 // Head width rounded up to a wide kernel's: a multiple of 64, so that a
@@ -123,16 +126,6 @@ __device__ __forceinline__ void mma_bf16(float (&c)[4], const unsigned (&a)[4],
 __device__ __forceinline__ unsigned pack_bf16(float lo, float hi) {
   __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
   return *reinterpret_cast<unsigned*>(&v);
-}
-
-// The A operand of a product over 16 columns of an accumulator tile pair:
-// c0 holds columns 0-7, c1 columns 8-15.
-__device__ __forceinline__ void acc_to_a(unsigned (&a)[4], const float (&c0)[4],
-                                         const float (&c1)[4]) {
-  a[0] = pack_bf16(c0[0], c0[1]);
-  a[1] = pack_bf16(c0[2], c0[3]);
-  a[2] = pack_bf16(c1[0], c1[1]);
-  a[3] = pack_bf16(c1[2], c1[3]);
 }
 
 template <int N>

@@ -13,6 +13,7 @@ import ctypes
 import glob
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import threading
@@ -29,8 +30,8 @@ _I = ctypes.c_int
 _F = ctypes.c_float
 # C signatures of the entry points (see the sources)
 SIGNATURES = {
-    "flash_fwd": ("flash_fwd", [_P] * 5 + [_I] * 4 + [_F, _P]),
-    "flash_bwd_fused": ("flash_bwd", [_P] * 9 + [_I] * 4 + [_F, _P]),
+    "flash_fwd": ("flash_fwd", [_P] * 5 + [_I] * 6 + [_F, _P]),
+    "flash_bwd_fused": ("flash_bwd", [_P] * 9 + [_I] * 6 + [_F, _P]),
     "flash_bwd_dq": ("flash_bwd", [_P] * 7 + [_I] * 4 + [_F, _P]),
     "flash_bwd_dkv": ("flash_bwd", [_P] * 8 + [_I] * 4 + [_F, _P]),
     "flash_fwd_f32": ("flash_f32", [_P] * 5 + [_I] * 4 + [_F, _P]),
@@ -41,6 +42,8 @@ SIGNATURES = {
     "gn_stats": ("groupnorm", [_P] * 6 + [_I] * 6 + [_F] + [_I] * 3 + [_P]),
     "gn_apply": ("groupnorm", [_P] * 3 + [_I] * 8 + [_P]),
     "gn_smem_optin": ("groupnorm", [_I]),
+    "flash_fwd_narrow_smem": ("flash_fwd", [_I]),
+    "flash_bwd_fused_smem": ("flash_bwd", [_I]),
 }
 
 _LOCK = threading.Lock()
@@ -114,6 +117,35 @@ def kernel(name: str):
                 f.restype = ctypes.c_int
                 _FUNCS[fn] = f
         return _FUNCS[name]
+
+
+def ptxas_report(log: str):
+    """(kernel, registers, stack bytes, spill store bytes, spill load bytes)
+    of every kernel in one source's ``-Xptxas -v`` output, each kernel named
+    ``name<template arguments>`` from its mangled name."""
+    out = []
+    for line in log.splitlines():
+        m = re.search(r"Compiling entry function '(\S+)'", line)
+        if m:
+            mangled = m.group(1)
+            name, i = mangled, 3 if mangled.startswith("_ZN") else 2
+            while i < len(mangled) and mangled[i].isdigit():  # length-prefixed names
+                j = i
+                while mangled[j].isdigit():
+                    j += 1
+                n = int(mangled[i:j])
+                name, i = mangled[j:j + n], j + n
+            args = [a or b for a, b in re.findall(r"Li(\d+)E|Lb(\d)E", mangled)]
+            out.append([name + (f"<{','.join(args)}>" if args else ""), None, 0, 0, 0])
+        elif out:
+            m = re.search(r"(\d+) bytes stack frame, (\d+) bytes spill stores, "
+                          r"(\d+) bytes spill loads", line)
+            if m:
+                out[-1][2:] = [int(x) for x in m.groups()]
+            m = re.search(r"Used (\d+) registers", line)
+            if m:
+                out[-1][1] = int(m.group(1))
+    return [tuple(r) for r in out]
 
 
 def build_logs() -> Dict[str, str]:

@@ -12,7 +12,9 @@ Each wrapper below takes contiguous ``[BH, T, D]`` tensors. On a CUDA tensor
 it checks what the kernel takes (bf16 or fp32, one type throughout,
 contiguous, matching shapes), launches on the current stream, raises if the
 launch failed, and adds one to its launch count. bf16 goes to the
-tensor-core kernels; fp32 goes to their fp32 instances (``csrc/flash_f32.cu``,
+tensor-core kernels: at D <= 128 the warp-specialised TMA/wgmma kernels,
+whose padded width and load route ``narrow_plan`` chooses; fp32 goes to
+their fp32 instances (``csrc/flash_f32.cu``,
 CUDA-core fp32 FMA, no TF32), with fp32 outputs: fp32 is never rounded to
 bf16. On a CPU tensor, and only there, it runs the plain PyTorch version
 (``flash_fwd_reference`` / ``flash_bwd_reference``), which computes the same
@@ -43,6 +45,9 @@ DTYPES = (torch.bfloat16, torch.float32)
 # The reference's rule (flash.py:466): fused backward up to this head width.
 FUSED_BWD_MAX_D = 128
 MAX_D = 512
+# Head widths the narrow (D <= 128) bf16 kernels are built for; D is padded
+# to the next one in shared memory only (wgmma takes k-steps of 16).
+NARROW_WIDTHS = (48, 64, 80, 96, 128)
 
 
 def reset_launch_counts() -> None:
@@ -123,14 +128,36 @@ def _check(q, k, v, *rest):
     return bh, tq, k.shape[1], d
 
 
-def _launch(name: str, shape: Tuple[int, int, int, int], *tensors) -> None:
+def narrow_width(d: int) -> int:
+    """The narrow kernels' padded head width for ``d``; 0 past 128 (the
+    wide kernels)."""
+    return next((w for w in NARROW_WIDTHS if d <= w), 0)
+
+
+def tma_route(d: int, ptrs) -> bool:
+    """Whether TMA can load the tiles of bf16 ``[BH, T, d]`` slabs at these
+    addresses: rows of a multiple of 16 bytes and 16-byte aligned bases.
+    Otherwise the narrow kernels stage the tiles through their producer's
+    registers (the same kernels, another load path)."""
+    return d % 8 == 0 and all(p % 16 == 0 for p in ptrs)
+
+
+def narrow_plan(d: int, *tensors) -> Tuple[int, int]:
+    """(padded width, 1 for TMA loads or 0 for staged ones) of a bf16
+    launch over ``tensors``; (0, 0) past D = 128."""
+    dp = narrow_width(d)
+    return (dp, int(tma_route(d, [t.data_ptr() for t in tensors]))) if dp else (0, 0)
+
+
+def _launch(name: str, shape: Tuple[int, int, int, int], *tensors, plan=()) -> None:
     """Launch kernel ``name`` on the current stream (its fp32 instance when
     the first tensor is fp32): the tensors' pointers, then (BH, Tq, Tk, D),
-    the softmax scale and the stream."""
+    the bf16 kernels' ``plan`` (``narrow_plan``), the softmax scale and the
+    stream."""
     stream = torch.cuda.current_stream().cuda_stream
     ptrs = [t.data_ptr() for t in tensors]
     entry = name + "_f32" if tensors[0].dtype == torch.float32 else name
-    rc = _build.kernel(entry)(*ptrs, *shape, _scale(shape[3]), stream)
+    rc = _build.kernel(entry)(*ptrs, *shape, *plan, _scale(shape[3]), stream)
     if rc != 0:
         raise RuntimeError(f"{name} launch failed with CUDA error {rc}")
     launch_counts[name] += 1
@@ -152,7 +179,8 @@ def flash_fwd(q, k, v) -> Tuple[torch.Tensor, torch.Tensor]:
     shape = bh, tq, tk, d = _check(q, k, v)
     o = torch.empty_like(q)
     lse = torch.empty((bh, tq), device=q.device, dtype=torch.float32)
-    _launch("flash_fwd", shape, q, k, v, o, lse)
+    plan = narrow_plan(d, q, k, v) if q.dtype == torch.bfloat16 else ()
+    _launch("flash_fwd", shape, q, k, v, o, lse, plan=plan)
     return o, lse
 
 
@@ -164,10 +192,12 @@ def flash_bwd_fused(q, k, v, do, lse, delta):
     _check_stats(bh, tq, lse, delta)
     if d > FUSED_BWD_MAX_D:
         raise ValueError(f"flash_bwd_fused takes D <= {FUSED_BWD_MAX_D}, got {d}")
+    # dq's fp32 sum over the kv tiles, which add into it in any order
     dq32 = torch.zeros((bh, tq, d), device=q.device, dtype=torch.float32)
     dk = torch.empty_like(k)
     dv = torch.empty_like(v)
-    _launch("flash_bwd_fused", shape, q, k, v, do, lse, delta, dq32, dk, dv)
+    plan = narrow_plan(d, q, k, v, do, dq32) if q.dtype == torch.bfloat16 else ()
+    _launch("flash_bwd_fused", shape, q, k, v, do, lse, delta, dq32, dk, dv, plan=plan)
     return dq32.to(q.dtype), dk, dv
 
 

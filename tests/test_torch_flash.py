@@ -22,6 +22,8 @@ SHAPES = [
     (1, 128, 128, 2, 40),   # UNet head width, one kv block
     (1, 300, 130, 2, 40),   # ragged q and kv
     (1, 200, 77, 2, 64),    # cross-attention length
+    (1, 129, 65, 2, 80),    # the 32^2 head width, lengths off the Hopper kernels' tiles
+    (1, 127, 63, 1, 33),    # an odd head width (the kernels' staged loads)
     (2, 128, 128, 1, 160),  # D > 128: the reference's split backward
     (1, 256, 256, 1, 512),  # the VAE's single 512-wide head
 ]

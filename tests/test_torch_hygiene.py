@@ -3,6 +3,7 @@ package, its entry points refuse to run quietly on the CPU, and only a CPU
 tensor reaches a kernel's plain version."""
 
 import ast
+import math
 import os
 import types
 
@@ -234,3 +235,82 @@ def test_groupnorm_plain_version_is_reached_only_from_a_cpu_branch():
         names = {n.attr for n in ast.walk(tree) if isinstance(n, ast.Attribute)}
         names |= {n.id for n in ast.walk(tree) if isinstance(n, ast.Name)}
         assert not (names & plain), f"{src} reaches a plain GroupNorm"
+
+
+@pytest.mark.parametrize("d,want", [(1, 48), (16, 48), (33, 48), (40, 48), (48, 48), (49, 64),
+                                    (64, 64), (65, 80), (80, 80), (81, 96), (96, 96), (97, 128),
+                                    (128, 128), (129, 0), (512, 0)])
+def test_narrow_width_pads_the_head_to_a_built_instance(d, want):
+    assert flash.narrow_width(d) == want
+    assert want == 0 or (want in flash.NARROW_WIDTHS and want >= d and want % 16 == 0)
+
+
+@pytest.mark.parametrize("d,offset,want", [
+    (40, 0, (48, 1)),   # the UNet's 64^2 heads: TMA
+    (80, 0, (80, 1)),   # the UNet's 32^2 heads: TMA
+    (64, 0, (64, 1)),
+    (33, 0, (48, 0)),   # a row of 66 bytes: no TMA, staged loads
+    (40, 1, (48, 0)),   # a view one element into its storage: staged loads
+    (40, 8, (48, 1)),   # 16 bytes in: TMA again
+    (512, 0, (0, 0)),   # the wide kernel
+])
+def test_narrow_plan_by_width_and_alignment_on_meta_tensors(d, offset, want):
+    """The padded width and the load route the wrappers hand the kernels:
+    TMA needs rows of a multiple of 16 bytes and 16-byte aligned bases;
+    meta tensors carry their storage offset in data_ptr()."""
+    base = torch.empty(offset + 3 * 70 * d, device="meta", dtype=torch.bfloat16)
+    q = base[offset:].view(3, 70, d)
+    k = v = torch.empty(3, 50, d, device="meta", dtype=torch.bfloat16)
+    assert q.is_contiguous() and q.data_ptr() == 2 * offset
+    assert flash.narrow_plan(d, q, k, v) == want
+    assert flash.tma_route(d, [0, 16, 32]) == (d % 8 == 0)
+    assert not flash.tma_route(40, [0, 8])
+
+
+def _recorded_launches(monkeypatch):
+    calls = []
+    monkeypatch.setattr(_build, "kernel",
+                        lambda name: lambda *args: calls.append((name, args)) or 0)
+    monkeypatch.setattr(flash, "_on_cpu", lambda x: False)
+    monkeypatch.setattr(torch.cuda, "current_stream",
+                        lambda: types.SimpleNamespace(cuda_stream=0))
+    return calls
+
+
+@pytest.mark.parametrize("d,offset,plan", [(40, 0, (48, 1)), (80, 0, (80, 1)), (33, 0, (48, 0)),
+                                          (40, 1, (48, 0)), (128, 0, (128, 1))])
+def test_wrappers_hand_the_narrow_plan_to_the_kernels(monkeypatch, d, offset, plan):
+    """flash_fwd and flash_bwd_fused pass (BH, Tq, Tk, D), the plan, the
+    scale and the stream after the pointers, as many arguments as the
+    entry points' C signatures take; dq's fp32 scratch is [BH, Tq, D]."""
+    calls = _recorded_launches(monkeypatch)
+    flash.reset_launch_counts()
+
+    def bf16(*shape):
+        n = math.prod(shape)
+        return torch.empty(offset + n, device="meta", dtype=torch.bfloat16)[offset:].view(*shape)
+
+    q, do, k, v = bf16(2, 70, d), bf16(2, 70, d), bf16(2, 50, d), bf16(2, 50, d)
+    lse = delta = torch.empty(2, 70, device="meta")
+    flash.flash_fwd(q, k, v)
+    dq, dk, dv = flash.flash_bwd_fused(q, k, v, do, lse, delta)
+    assert dq.shape == q.shape and dq.dtype == torch.bfloat16 and dk.shape == k.shape
+    for name, args in calls:
+        n_ptr = 5 if name == "flash_fwd" else 9
+        assert len(args) == len(_build.SIGNATURES[name][1])
+        assert args[n_ptr:n_ptr + 6] == (2, 70, 50, d) + plan
+        assert args[n_ptr + 6] == pytest.approx(d ** -0.5)
+    assert [n for n, _ in calls] == ["flash_fwd", "flash_bwd_fused"]
+    assert calls[1][1][6] == 0  # the dq scratch: a fresh, aligned fp32 tensor
+
+
+def test_fp32_and_wide_launches_take_no_narrow_plan(monkeypatch):
+    calls = _recorded_launches(monkeypatch)
+    q, k, v = (torch.empty(2, 70, 40, device="meta") for _ in range(3))
+    flash.flash_fwd(q, k, v)  # fp32: its own instance, no plan
+    wide = [torch.empty(1, 64, 512, device="meta", dtype=torch.bfloat16) for _ in range(3)]
+    flash.flash_fwd(*wide)    # D = 512: the wide kernel, plan (0, 0)
+    (n32, a32), (n16, a16) = calls
+    assert n32 == "flash_fwd_f32" and len(a32) == len(_build.SIGNATURES[n32][1]) == 11
+    assert n16 == "flash_fwd" and a16[5:11] == (1, 64, 64, 512, 0, 0)
+    flash.reset_launch_counts()
