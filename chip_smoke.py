@@ -8,15 +8,16 @@ package. Six phases, any failure exits non-zero:
 1. Device: the card's name and power limit, torch/CUDA versions, the
    time to build the CUDA kernels from ``distdiff_tpu_torch/csrc`` (one
    ``nvcc`` a source, all at once), each kernel's registers and spills from
-   ``-Xptxas -v`` (a narrow flash kernel that spills fails the run) and the
-   narrow flash kernels' dynamic shared memory.
+   ``-Xptxas -v`` (a Hopper flash kernel that spills fails the run) and the
+   Hopper flash kernels' dynamic shared memory.
 2. Kernels, each held against its plain PyTorch version on the same inputs:
    every flash kernel at the main path's shapes in bf16 (against the plain
    fp32 version; timed beside ``F.scaled_dot_product_attention``, a
-   yardstick the port never calls) and at ragged shapes (the narrow
-   kernels also at every narrow head width, lengths one row on either side
-   of their tiles, the 77-token kv, and views off 16-byte alignment, which
-   take the staged loads); the four flash
+   yardstick the port never calls) and at ragged shapes (the Hopper
+   kernels also at every narrow head width and at wide ones from 129 to
+   512, lengths one row on either side of their tiles, the 77-token kv,
+   and views off 16-byte alignment, which take the staged loads); the four
+   flash
    kernels' fp32 instances at main-path widths and ragged shapes (timed at
    the former); gn_fused, gn_stats and gn_apply at every GroupNorm shape of
    the counted runs, in bf16 and fp32, channels-last and contiguous, with
@@ -156,13 +157,14 @@ def bound(name, bh, tq, tk, d, itemsize=2):
     return (max(t_bytes, t_ops) * 1e3, "bytes" if t_bytes > t_ops else "operations")
 
 
-# the narrow (D <= 128) bf16 flash kernels: warp-specialised, TMA and wgmma
-NARROW_KERNELS = ("flash_fwd_narrow_kernel", "flash_bwd_fused_kernel")
+# the bf16 flash kernels built for Hopper: warp-specialised, TMA and wgmma
+HOPPER_KERNELS = ("flash_fwd_narrow_kernel", "flash_fwd_wide_kernel", "flash_bwd_fused_kernel")
+WIDE_DMAX = (256, 512)  # the wide forward's instances
 
 
 def ptxas_phase() -> None:
     """Each kernel's registers and spills from ``-Xptxas -v``, and the
-    narrow flash kernels' dynamic shared memory; a narrow kernel that
+    Hopper flash kernels' dynamic shared memory; a Hopper kernel that
     spills fails the run."""
     from distdiff_tpu_torch.ops import _build, flash
 
@@ -171,21 +173,23 @@ def ptxas_phase() -> None:
         for name, regs, stack, st, ld in _build.ptxas_report(log):
             print(f"  {src}: {name}: {regs} registers, {stack} B stack, spills {st} B stored / "
                   f"{ld} B loaded")
-            if name.split("<")[0] in NARROW_KERNELS and (st or ld):
+            if name.split("<")[0] in HOPPER_KERNELS and (st or ld):
                 spilled.append(name)
-    smem = {dp: (_build.kernel("flash_fwd_narrow_smem")(dp),
+    smem = {dp: (_build.kernel("flash_fwd_smem")(dp),
                  _build.kernel("flash_bwd_fused_smem")(dp)) for dp in flash.NARROW_WIDTHS}
     print("  narrow kernels' dynamic shared memory (forward, fused backward) by padded "
           f"width: {smem}")
-    require(not spilled, f"narrow flash kernels spill registers: {spilled}")
+    wide = {dmax: _build.kernel("flash_fwd_smem")(dmax) for dmax in WIDE_DMAX}
+    print(f"  wide forward's dynamic shared memory by DMAX: {wide}")
+    require(not spilled, f"Hopper flash kernels spill registers: {spilled}")
 
 
 def kernel_phase():
     """Hold every kernel against its plain version at the main-path shapes
     (timed), and at ragged shapes (checked only: q and kv lengths off the
     tiles, the 77-token kv of cross-attention, head widths off the padded
-    ones, every narrow width, views off 16-byte alignment); returns one
-    record per timed (kernel, shape)."""
+    ones, every narrow width, wide widths from 129 to 512, views off
+    16-byte alignment); returns one record per timed (kernel, shape)."""
     import torch
     import torch.nn.functional as F
 
@@ -224,6 +228,21 @@ def kernel_phase():
         ("offset40", 1, 3, 200, 150, 40, narrow, "offset"),
         ("offset80", 1, 2, 129, 65, 80, narrow, "offset"),
     ]
+    # the wide forward (64-row q and kv tiles) at widths from 129 to 512,
+    # with lengths one row on either side of its tiles, and on a view one
+    # element into its storage at D = 512 (the staged route); checked only
+    wide = ["flash_fwd"]
+    shapes += [
+        ("w129", 1, 2, 65, 63, 129, wide, False),
+        ("w130", 1, 2, 63, 65, 130, wide, False),
+        ("w136", 1, 2, 129, 127, 136, wide, False),
+        ("w160", 1, 2, 127, 129, 160, wide, False),
+        ("w256", 2, 1, 64, 65, 256, wide, False),
+        ("w257", 1, 2, 65, 64, 257, wide, False),
+        ("w384", 1, 2, 128, 63, 384, wide, False),
+        ("w512", 1, 2, 63, 129, 512, wide, False),
+        ("offset512", 1, 1, 200, 150, 512, wide, "offset"),
+    ]
     entries = []
     for label, b, h, tq, tk, d, names, timed in shapes:
         bh = b * h
@@ -235,12 +254,12 @@ def kernel_phase():
             return torch.randn(*s, generator=gen, device=dev).to(torch.bfloat16)
 
         q, do, k, v = rnd(bh, tq, d), rnd(bh, tq, d), rnd(bh, tk, d), rnd(bh, tk, d)
-        if d <= flash.FUSED_BWD_MAX_D:
-            plan = flash.narrow_plan(d, q, k, v, do)
-            require(plan[1] == (0 if timed == "offset" or d % 8 else 1),
-                    f"{label}: load route {plan} for d={d}")
-            print(f"  {label} [{bh},{tq},{tk},{d}]: padded width {plan[0]}, "
-                  f"{'TMA' if plan[1] else 'staged'} loads")
+        plan = flash.bf16_plan(d, q, k, v, do)
+        require(plan[1] == (0 if timed == "offset" or d % 8 else 1),
+                f"{label}: load route {plan} for d={d}")
+        print(f"  {label} [{bh},{tq},{tk},{d}]: "
+              f"{f'padded width {plan[0]}' if plan[0] else 'wide kernel'}, "
+              f"{'TMA' if plan[1] else 'staged'} loads")
         timed = timed is True
         ref_o, ref_lse = flash.flash_fwd_reference(q, k, v)
         o, lse = flash.flash_fwd(q, k, v)

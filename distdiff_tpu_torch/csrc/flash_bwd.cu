@@ -693,7 +693,7 @@ extern "C" int flash_bwd_fused(const void* q, const void* k, const void* v,
                                float scale, void* stream) {
   using namespace flash;
   if (!FLASH_ARGS_OK(bh, tq, tk) || d <= 0 || d > dp) return (int)cudaErrorInvalidValue;
-  if (!narrow_tma_ok(d, tma, q, k, v, dout) || (tma && reinterpret_cast<uintptr_t>(dq) % 16))
+  if (!tma_ok(d, tma, q, k, v, dout) || (tma && reinterpret_cast<uintptr_t>(dq) % 16))
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = (cudaStream_t)stream;
   switch (dp) {

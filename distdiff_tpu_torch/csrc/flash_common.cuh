@@ -5,20 +5,19 @@
 // columns and sequence rows are zero-filled in shared memory only (device
 // memory stays unpadded).
 //
-// Two shapes of kernel:
-//   * narrow (D <= 128, the UNet's heads; flash_fwd and flash_bwd_fused):
-//     warp-specialised, a producer warp that loads tiles by TMA (or stages
-//     them where TMA cannot describe the slab) into a ring of shared-memory
-//     stages with mbarriers, and two consumer warpgroups that run the
-//     products on wgmma (hopper.cuh holds the primitives and the
-//     shared-memory layout);
-//   * wide (D up to 512, the VAE's single head; flash_fwd, flash_bwd_dq,
-//     flash_bwd_dkv): eight warps, two 16-row groups by four column
-//     quarters, on mma.sync m16n8k16. A warp forms a 16 x 16 block of the
-//     score tile over the full head width, the tile goes through shared
-//     memory, and each warp then owns 16 rows x a quarter of the head
-//     width of the output (a 16 x 512 fp32 accumulator would not fit a
-//     warp's registers).
+// Two families of kernel:
+//   * Hopper (flash_fwd at every width, flash_bwd_fused at D <= 128):
+//     warp-specialised, tiles loaded by TMA (or staged where TMA cannot
+//     describe the slab) into shared memory with mbarriers, and
+//     warpgroups that run the products on wgmma (hopper.cuh holds the
+//     primitives and the shared-memory layout);
+//   * the wide backward pair (D up to 512, the VAE's single head;
+//     flash_bwd_dq, flash_bwd_dkv): eight warps, two 16-row groups by four
+//     column quarters, on mma.sync m16n8k16 with the helpers below. A warp
+//     forms a 16 x 16 block of the score tile over the full head width,
+//     the tile goes through shared memory, and each warp then owns 16 rows
+//     x a quarter of the head width of the output (a 16 x 512 fp32
+//     accumulator would not fit a warp's registers).
 //
 // Fragment layouts of mma.sync (PTX ISA, m16n8k16): with g = lane / 4 and
 // t = lane % 4, the accumulator c[0..3] holds rows g, g, g+8, g+8 and
@@ -48,10 +47,10 @@ constexpr int WIDE_THREADS = 256;    // eight warps
 constexpr float LOG2E = 1.4426950408889634f;
 constexpr float LN2 = 0.6931471805599453f;
 
-// The narrow kernels' TMA route needs rows of a multiple of 16 bytes and
+// The Hopper kernels' TMA route needs rows of a multiple of 16 bytes and
 // 16-byte aligned bases (the caller chooses; this only refuses a wrong
 // choice).
-inline bool narrow_tma_ok(int d, int tma, const void* a, const void* b, const void* c,
+inline bool tma_ok(int d, int tma, const void* a, const void* b, const void* c,
                           const void* e) {
   if (!tma) return true;
   const uintptr_t bases = reinterpret_cast<uintptr_t>(a) | reinterpret_cast<uintptr_t>(b) |

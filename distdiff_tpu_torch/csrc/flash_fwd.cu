@@ -41,15 +41,49 @@
 //   * per score: one FMA (scale * log2 e and the row max folded together),
 //     one ex2, a max and an add; the kv mask only in the last, ragged tile.
 //
-// Wide kernel, D up to 512 (the VAE's single head), on mma.sync: a 32 x 512
-// fp32 output accumulator is 64 KB, so one block of eight warps per (32-row
-// q tile, b*h) splits it into two 16-row groups by four 128-column
-// quarters, 64 registers a thread. For each 64-row kv tile, warp (group,
-// quarter) forms the 16 x 16 block (group's rows, quarter's 16 kv columns)
-// of s over the full head width; s goes through shared memory, where 8
-// threads a row take the softmax and write p as bf16; then each warp adds
-// p v for its rows and columns. The q, k and v tiles (bf16, 32 + 64 + 64
-// rows of 520) take 166 KB of the 227 KB of dynamic shared memory.
+// Wide kernel, 128 < D <= 512 (the VAE mid-block's single 512-wide head;
+// built for DMAX = 256 and 512). What bounds it on this card: the two
+// products, 2 x 2 BH Tq Tk D flops (0.0695 ms at [2, 4096, 512] at the bf16
+// tensor-core peak), against exponentials at 1/1024 of that per score and
+// 32 MiB of device memory. In the way: a 64-row fp32 accumulator 512
+// columns wide is 256 registers a thread of one warpgroup; every q tile
+// reads all of K and V from L2 (1 GiB a launch at 64-row q tiles); and
+// shared memory holds q, one k and one v tile at D = 512 and little more.
+// Design, one block per (64-row q tile, b*h), 128 blocks at [2, 4096, 512]
+// (one wave on 132 SMs), five warpgroups:
+//   * four output warpgroups split o by columns: warpgroup w owns
+//     o[:, w DMAX/4 .. + DMAX/4] (64 fp32 registers a thread at D = 512)
+//     and adds p v[:, cols_w] as m64n128k16 (m64n64k16 at DMAX = 256)
+//     wgmma, p and v's column slice (MN-major) from shared memory. It loads
+//     its own columns of each v tile by TMA, which no other warpgroup
+//     reads, as soon as its product of the tile before is done;
+//   * one score warpgroup computes s of a whole 64 x 64 tile as m64n64k16
+//     wgmma (q and k K-major: full rate, where four warpgroups each taking
+//     16 kv columns re-read q from shared memory four times), owns whole
+//     rows for the online softmax (no row maxima to exchange), and hands p
+//     (bf16, in the layout wgmma reads) and the rescale alpha to the
+//     output warpgroups through two buffers with full/empty mbarriers;
+//   * k tiles are D / 64 chunks of 64 columns (128-byte rows and swizzle,
+//     zero fill past D and past T), each with its own mbarrier: s commits
+//     one group a chunk, and as each chunk's products finish, the next
+//     tile's chunk loads into it, under the rest of s and the softmax;
+//   * an output warpgroup starts p v of tile j only once s of tile j + 1 is
+//     done (s_done), so that p v fills the tensor cores during that tile's
+//     softmax instead of competing with its products;
+//   * no producer warp and no block-wide barrier: the score warpgroup's
+//     thread 0 loads q and k, each output warpgroup's thread 0 its v; where
+//     TMA cannot describe the slab, the same warpgroups stage their tiles
+//     element by element. A 640-thread block gets 96 registers a thread
+//     (five warps on an SM sub-partition): enough for 64 accumulators or a
+//     64-column score tile, not both (ptxas then serialises the wgmmas);
+//   * per score: one FMA (scale * log2 e and the row max folded together),
+//     one ex2; the kv mask only in the last, ragged tile. q rows past Tq
+//     are computed on TMA's zeros and never written.
+// What holds it at ~2.7x its bound (PERF.md): the score warpgroup's chain
+// of s, waits, softmax and hand-off, one warp on each sub-partition, and
+// the 1 GiB from L2. A second score warpgroup on alternate tiles needs 768
+// threads, 80 registers (the output product needs 90); k/v multicast over
+// a 2-block cluster puts a cross-block round trip on that chain.
 #include "flash_common.cuh"
 
 namespace flash {
@@ -369,136 +403,297 @@ flash_fwd_narrow_kernel(const __grid_constant__ CUtensorMap qmap,
   }
 }
 
+// ------------------------------------------ wide kernel (128 < D <= 512), Hopper
+
 template <int DMAX>
 struct WideFwdCfg {
-  static constexpr int BQ = 32, BK = 64;
-  static constexpr int LD = DMAX + 8;
-  static constexpr int LDP = BK + 8;  // p, bf16
-  static constexpr int LDS = BK + 4;  // s, fp32
-  static constexpr size_t SMEM = sizeof(bf16) * ((BQ + 2 * BK) * (size_t)LD + BQ * LDP) +
-                                 sizeof(float) * (BQ * LDS + 3 * BQ);
+  static constexpr int BQ = 64, BK = 64;
+  static constexpr int OUTS = 4;                    // output warpgroups
+  static constexpr int THREADS = 128 * (OUTS + 1);  // and the score warpgroup
+  static constexpr int CH = DMAX / 64;              // 64-column chunks of a q, k or v tile
+  static constexpr int ON = DMAX / OUTS;            // output columns of an output warpgroup
+  static constexpr int VCH = ON / 64;               // its chunks of v
+  static constexpr int CHUNK = 64 * 128;            // 64 rows x 64 columns, bf16
+  static constexpr int TILE = CH * CHUNK;
+  static constexpr int P_BYTES = BQ * BK * 2;       // p, bf16: one chunk
+  static constexpr int OFF_K = TILE;
+  static constexpr int OFF_V = OFF_K + TILE;
+  static constexpr int OFF_P = OFF_V + TILE;        // two p buffers
+  static constexpr int OFF_ALPHA = OFF_P + 2 * P_BYTES;  // [2][BQ] fp32: each p's rescale
+  static constexpr int OFF_L = OFF_ALPHA + 2 * BQ * 4;   // [BQ] fp32: the final row sums
+  static constexpr int OFF_BAR = OFF_L + BQ * 4;
+  // q_full, k_full[CH], v_full[OUTS], p_full[2], p_empty[2], l_full, s_done[2]
+  static constexpr int BARS = 1 + CH + OUTS + 2 + 2 + 1 + 2;
+  static constexpr size_t SMEM = OFF_BAR + 8 * BARS + 1024;  // + alignment
+  static_assert(SMEM <= 232448, "more shared memory than a block may have");
+  static_assert(ON % 64 == 0, "an output warpgroup's columns are whole chunks");
 };
 
-template <int DMAX>
-__global__ void __launch_bounds__(WIDE_THREADS, 1)
-flash_fwd_wide_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
-                      const bf16* __restrict__ v, bf16* __restrict__ o,
-                      float* __restrict__ lse, int tq, int tk, int d, float scale) {
-  typedef WideFwdCfg<DMAX> C;
-  constexpr int BQ = C::BQ, BK = C::BK, LD = C::LD, LDP = C::LDP, LDS = C::LDS;
-  constexpr int CW = DMAX / 4;  // output columns of a warp
-  constexpr int NT = CW / 8;
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  bf16* Qs = reinterpret_cast<bf16*>(smem_raw);
-  bf16* Ks = Qs + BQ * LD;
-  bf16* Vs = Ks + BK * LD;
-  bf16* Ps = Vs + BK * LD;
-  float* Ss = reinterpret_cast<float*>(Ps + BQ * LDP);
-  float* m_s = Ss + BQ * LDS;  // running max (log2 units)
-  float* l_s = m_s + BQ;       // running sum
-  float* a_s = l_s + BQ;       // this tile's rescale
+// Named barrier 1: the score warpgroup's 128 threads, before p is handed on.
+constexpr int SCORE_BAR = 1;
 
-  const int warp = threadIdx.x >> 5;
-  const int lane = threadIdx.x & 31;
-  const int g = lane >> 2;
-  const int t4 = lane & 3;
-  const int rg = warp >> 2;  // row group: rows rg*16 .. +16
-  const int cq = warp & 3;   // column quarter
+// A descriptor moved `bytes` further into shared memory: its address field
+// holds (address >> 4) in 14 bits, and no shared address reaches 2^18, so
+// the addition never carries out of the field.
+__device__ __forceinline__ uint64_t desc_at(uint64_t desc, uint32_t bytes) {
+  return desc + (bytes >> 4);
+}
+
+template <int DMAX, bool TMA>
+__global__ void __launch_bounds__(WideFwdCfg<DMAX>::THREADS, 1)
+flash_fwd_wide_kernel(const __grid_constant__ CUtensorMap qmap,
+                      const __grid_constant__ CUtensorMap kmap,
+                      const __grid_constant__ CUtensorMap vmap, const bf16* __restrict__ q,
+                      const bf16* __restrict__ k, const bf16* __restrict__ v,
+                      bf16* __restrict__ o, float* __restrict__ lse, int tq, int tk, int d,
+                      float scale) {
+  typedef WideFwdCfg<DMAX> C;
+  constexpr int BQ = C::BQ, BK = C::BK, CH = C::CH, ON = C::ON, VCH = C::VCH;
+  constexpr int CHUNK = C::CHUNK;
+  constexpr int LOADERS = TMA ? 1 : 128;  // arrivals that complete a load
+  extern __shared__ uint8_t smem_raw[];
+  uint8_t* smem = smem_raw + ((1024u - (hopper::smem_addr(smem_raw) & 1023u)) & 1023u);
+  uint8_t* Qt = smem;
+  uint8_t* Kt = smem + C::OFF_K;
+  uint8_t* Vt = smem + C::OFF_V;
+  uint8_t* Pt = smem + C::OFF_P;
+  float* alpha_s = reinterpret_cast<float*>(smem + C::OFF_ALPHA);
+  float* l_s = reinterpret_cast<float*>(smem + C::OFF_L);
+  uint64_t* q_full = reinterpret_cast<uint64_t*>(smem + C::OFF_BAR);
+  uint64_t* k_full = q_full + 1;
+  uint64_t* v_full = k_full + CH;
+  uint64_t* p_full = v_full + C::OUTS;
+  uint64_t* p_empty = p_full + 2;
+  uint64_t* l_full = p_empty + 2;
+  uint64_t* s_done = l_full + 1;
+
   const int bh = blockIdx.y;
   const int q0 = blockIdx.x * BQ;
-  const bf16* kb = k + (size_t)bh * tk * d;
+  const int nk = (tk + BK - 1) / BK;
+  if (threadIdx.x == 0) {
+    hopper::mbar_init(q_full, LOADERS);
+    for (int c = 0; c < CH; ++c) hopper::mbar_init(k_full + c, LOADERS);
+    for (int w = 0; w < C::OUTS; ++w) hopper::mbar_init(v_full + w, LOADERS);
+    for (int b = 0; b < 2; ++b) {
+      hopper::mbar_init(p_full + b, 1);        // the score warpgroup's thread 0
+      hopper::mbar_init(p_empty + b, C::OUTS);  // thread 0 of each output warpgroup
+    }
+    hopper::mbar_init(l_full, 128);
+    for (int b = 0; b < 2; ++b) hopper::mbar_init(s_done + b, 1);
+    hopper::mbar_init_fence();
+  }
+  __syncthreads();
+
+  const int wg = threadIdx.x / 128;
+  const int tid = threadIdx.x % 128;
+  const int warp = tid / 32, lane = tid % 32, g = lane / 4, t4 = lane % 4;
+  const int row0 = warp * 16 + g;  // this thread's rows of the q tile: row0 and row0 + 8
+  const uint32_t p_addr = hopper::smem_addr(Pt);
+  if (wg == C::OUTS) {
+    // ---- score warpgroup: s = q k^T of a whole 64 x 64 tile (m64n64k16,
+    // q and k K-major), its online softmax, and p and the rescale alpha
+    // handed to the output warpgroups through two buffers; it loads q and k
+    const bf16* kb = k + (size_t)bh * tk * d;
+    if (TMA) {
+      if (tid == 0) {
+        hopper::mbar_arrive_tx(q_full, C::TILE);
+        for (int c = 0; c < CH; ++c) {
+          hopper::tma_load_3d(Qt + c * CHUNK, &qmap, 64 * c, q0, bh, q_full);
+          hopper::mbar_arrive_tx(k_full + c, CHUNK);
+          hopper::tma_load_3d(Kt + c * CHUNK, &kmap, 64 * c, 0, bh, k_full + c);
+        }
+      }
+    } else {
+      hopper::stage_tile<BQ, DMAX, 128>(Qt, q + (size_t)bh * tq * d, q0, tq, d, tid, 128);
+      hopper::stage_tile<BK, DMAX, 128>(Kt, kb, 0, tk, d, tid, 128);
+      hopper::fence_proxy_async();
+      hopper::mbar_arrive(q_full);
+      for (int c = 0; c < CH; ++c) hopper::mbar_arrive(k_full + c);
+    }
+    const float sl2 = scale * LOG2E;  // scores to log2 units: one FMA with the row max
+    const uint64_t q_desc = hopper::desc<128>(hopper::smem_addr(Qt), 16, 1024);
+    const uint64_t k_desc = hopper::desc<128>(hopper::smem_addr(Kt), 16, 1024);
+    float s_acc[BK / 2];  // scores of this warp's 16 rows x 64 kv columns
+    float m[2] = {-INFINITY, -INFINITY};  // running max of rows row0, row0 + 8 (raw scores)
+    float l[2] = {0.f, 0.f};              // this thread's part of their running sums
+    hopper::mbar_wait(q_full, 0);
+    for (int j = 0; j < nk; ++j) {
+      // one commit group a chunk, in a loop that is not unrolled, so that
+      // the descriptors are formed a chunk at a time (unrolled, ptxas
+      // hoists all of them out of the tile loop and spills them)
+      uint64_t qd = q_desc, kd = k_desc;
+#pragma unroll 1
+      for (int c = 0; c < CH; ++c) {
+        hopper::mbar_wait(k_full + c, j & 1);
+        hopper::wgmma_fence();
+#pragma unroll
+        for (int i = 0; i < 4; ++i)
+          hopper::Wgmma<BK>::template ss<0, 0>(s_acc, desc_at(qd, i * 32), desc_at(kd, i * 32),
+                                               c > 0 || i > 0);
+        hopper::wgmma_commit();
+        qd = desc_at(qd, CHUNK);
+        kd = desc_at(kd, CHUNK);
+      }
+      // each k chunk is free once its products are done: tile j + 1's
+      // chunk loads into it under the rest of s and the softmax
+      if (TMA) {
+#pragma unroll
+        for (int c = 0; c < CH; ++c) {
+          hopper::wgmma_wait_n(CH - 1 - c);
+          if (tid == 0 && j + 1 < nk) {
+            hopper::mbar_arrive_tx(k_full + c, CHUNK);
+            hopper::tma_load_3d(Kt + c * CHUNK, &kmap, 64 * c, (j + 1) * BK, bh, k_full + c);
+          }
+        }
+      } else {
+        hopper::wgmma_wait<0>();
+        if (j + 1 < nk) {
+          hopper::stage_tile<BK, DMAX, 128>(Kt, kb, (j + 1) * BK, tk, d, tid, 128);
+          hopper::fence_proxy_async();
+          for (int c = 0; c < CH; ++c) hopper::mbar_arrive(k_full + c);
+        }
+      }
+      hopper::fence_regs(s_acc);
+      if (tid == 0) hopper::mbar_arrive(s_done + (j & 1));  // p v of tile j - 1 may go now
+      const int valid = tk - j * BK;
+      if (valid < BK) {
+#pragma unroll
+        for (int n = 0; n < BK / 8; ++n)
+#pragma unroll
+          for (int e = 0; e < 4; ++e)
+            if (n * 8 + 2 * t4 + (e & 1) >= valid) s_acc[4 * n + e] = -INFINITY;
+      }
+      float mx[2] = {m[0], m[1]}, alpha[2], mc[2], sum[2] = {0.f, 0.f};
+#pragma unroll
+      for (int n = 0; n < BK / 8; ++n)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) mx[e >> 1] = fmaxf(mx[e >> 1], s_acc[4 * n + e]);
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {  // a row's scores sit in the 4 lanes of a quad
+        mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 1));
+        mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 2));
+        alpha[r] = hopper::ex2((m[r] - mx[r]) * sl2);  // 0 on the first tile (m = -inf)
+        m[r] = mx[r];
+        mc[r] = mx[r] * sl2;
+      }
+#pragma unroll
+      for (int n = 0; n < BK / 8; ++n)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const float p = hopper::ex2(fmaf(s_acc[4 * n + e], sl2, -mc[e >> 1]));
+          s_acc[4 * n + e] = p;
+          sum[e >> 1] += p;
+        }
+#pragma unroll
+      for (int r = 0; r < 2; ++r) l[r] = l[r] * alpha[r] + sum[r];
+      // p (bf16, 128-byte swizzle: the A operand of p v) and alpha into
+      // buffer j % 2, once the output warpgroups are done with tile j - 2
+      const int b = j & 1;
+      hopper::mbar_wait(p_empty + b, ((j >> 1) & 1) ^ 1);
+      uint8_t* pb = Pt + b * C::P_BYTES;
+#pragma unroll
+      for (int n = 0; n < BK / 8; ++n)
+#pragma unroll
+        for (int r = 0; r < 2; ++r)
+          *reinterpret_cast<uint32_t*>(pb + hopper::swizzle_off<128>(row0 + 8 * r, (n * 8 + 2 * t4) * 2)) =
+              hopper::pack_bf16(s_acc[4 * n + 2 * r], s_acc[4 * n + 2 * r + 1]);
+      if (t4 == 0) {
+        alpha_s[b * BQ + row0] = alpha[0];
+        alpha_s[b * BQ + row0 + 8] = alpha[1];
+      }
+      // one arrival, once all 128 threads have written
+      hopper::fence_proxy_async();
+      hopper::named_sync(SCORE_BAR, 128);
+      if (tid == 0) hopper::mbar_arrive(p_full + b);
+    }
+    // the row sums for the output warpgroups, and lse
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      l[r] += __shfl_xor_sync(0xffffffffu, l[r], 1);
+      l[r] += __shfl_xor_sync(0xffffffffu, l[r], 2);
+      const int row = q0 + row0 + 8 * r;
+      if (t4 == 0) {
+        l_s[row0 + 8 * r] = l[r];
+        if (row < tq) lse[(size_t)bh * tq + row] = m[r] * scale + logf(l[r]);
+      }
+    }
+    hopper::mbar_arrive(l_full);
+    return;
+  }
+
+  // ---- output warpgroup w: o[:, ON w .. + ON] += p v[:, ON w .. + ON]
+  // (m64nONk16, p K-major and v MN-major from shared memory); it loads its
+  // own columns of each v tile, which no other warpgroup reads
+  const int w = wg;
   const bf16* vb = v + (size_t)bh * tk * d;
-  const float sl2 = scale * LOG2E;
-
-  stage_bf16<BQ, DMAX, LD, WIDE_THREADS>(Qs, q + (size_t)bh * tq * d, q0, tq, d);
-  for (int r = threadIdx.x; r < BQ; r += WIDE_THREADS) {
-    m_s[r] = -INFINITY;
-    l_s[r] = 0.f;
-  }
-  float acc[NT][4];
-  zero(acc);
-
-  for (int k0 = 0; k0 < tk; k0 += BK) {
-    __syncthreads();  // the previous tile's readers are done
-    stage_bf16<BK, DMAX, LD, WIDE_THREADS>(Ks, kb, k0, tk, d);
-    stage_bf16<BK, DMAX, LD, WIDE_THREADS>(Vs, vb, k0, tk, d);
-    __syncthreads();
-
-    float s[2][4];
-    warp_abt<DMAX>(s, Qs + rg * 16 * LD, LD, Ks + cq * 16 * LD, LD, lane);
-#pragma unroll
-    for (int n = 0; n < 2; ++n)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int row = rg * 16 + g + 8 * (e >> 1);
-        const int col = cq * 16 + n * 8 + 2 * t4 + (e & 1);
-        Ss[row * LDS + col] = k0 + col < tk ? s[n][e] * sl2 : -INFINITY;
+  uint8_t* Vw = Vt + w * VCH * CHUNK;
+  auto load_v = [&](int j) {
+    if (TMA) {
+      if (tid == 0) {
+        hopper::mbar_arrive_tx(v_full + w, VCH * CHUNK);
+        for (int i = 0; i < VCH; ++i)
+          hopper::tma_load_3d(Vw + i * CHUNK, &vmap, 64 * (w * VCH + i), j * BK, bh, v_full + w);
       }
-    __syncthreads();
-
-    {  // online softmax: 8 consecutive threads share one row
-      const int row = threadIdx.x >> 3;
-      const int c0 = (threadIdx.x & 7) * 8;
-      float x[8];
-      float mx = -INFINITY;
-#pragma unroll
-      for (int i = 0; i < 8; ++i) {
-        x[i] = Ss[row * LDS + c0 + i];
-        mx = fmaxf(mx, x[i]);
-      }
-#pragma unroll
-      for (int off = 4; off > 0; off >>= 1)
-        mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, off));
-      const float m_old = m_s[row];
-      const float m_new = fmaxf(m_old, mx);
-      float sum = 0.f;
-#pragma unroll
-      for (int i = 0; i < 8; i += 2) {
-        const float p0 = exp2f(x[i] - m_new);
-        const float p1 = exp2f(x[i + 1] - m_new);
-        sum += p0 + p1;
-        *reinterpret_cast<unsigned*>(Ps + row * LDP + c0 + i) = pack_bf16(p0, p1);
-      }
-#pragma unroll
-      for (int off = 4; off > 0; off >>= 1)
-        sum += __shfl_xor_sync(0xffffffffu, sum, off);
-      __syncwarp();
-      if ((threadIdx.x & 7) == 0) {
-        const float alpha = exp2f(m_old - m_new);  // 0 on the first tile
-        a_s[row] = alpha;
-        l_s[row] = l_s[row] * alpha + sum;
-        m_s[row] = m_new;
-      }
+    } else {
+      hopper::stage_tile<BK, ON, 128>(Vw, vb, j * BK, tk, d, tid, 128, w * ON);
+      hopper::fence_proxy_async();
+      hopper::mbar_arrive(v_full + w);
     }
-    __syncthreads();
-
-    const float a0 = a_s[rg * 16 + g];
-    const float a1 = a_s[rg * 16 + g + 8];
+  };
+  load_v(0);
+  const uint64_t p_desc = hopper::desc<128>(p_addr, 16, 1024);
+  const uint64_t v_desc = hopper::desc<128>(hopper::smem_addr(Vw), CHUNK, 1024);
+  float o_acc[ON / 2];  // this warp's 16 rows x ON
 #pragma unroll
-    for (int n = 0; n < NT; ++n) {
-      acc[n][0] *= a0;
-      acc[n][1] *= a0;
-      acc[n][2] *= a1;
-      acc[n][3] *= a1;
+  for (int i = 0; i < ON / 2; ++i) o_acc[i] = 0.f;
+  for (int j = 0; j < nk; ++j) {
+    const int b = j & 1;
+    hopper::mbar_wait(p_full + b, (j >> 1) & 1);
+    const float a0 = alpha_s[b * BQ + row0], a1 = alpha_s[b * BQ + row0 + 8];
+#pragma unroll
+    for (int n = 0; n < ON / 8; ++n) {
+      o_acc[4 * n] *= a0;
+      o_acc[4 * n + 1] *= a0;
+      o_acc[4 * n + 2] *= a1;
+      o_acc[4 * n + 3] *= a1;
     }
-    warp_ax<BK, NT>(acc, Ps + rg * 16 * LDP, LDP, Vs + cq * CW, LD, lane);
+    hopper::mbar_wait(v_full + w, j & 1);
+    // after s of tile j + 1, so that p v runs under that tile's softmax
+    // rather than beside its products. One barrier for each tile parity:
+    // the score warpgroup may finish s of tile j + 2 before this wait (it
+    // waits for p v of tile j only to write p of tile j + 2), and a single
+    // barrier two phases on would pass this parity wait wrongly.
+    if (j + 1 < nk) hopper::mbar_wait(s_done + ((j + 1) & 1), ((j + 1) >> 1) & 1);
+    hopper::fence_regs(o_acc);
+    hopper::wgmma_fence();
+#pragma unroll
+    for (int t = 0; t < BK / 16; ++t)
+      hopper::Wgmma<ON>::template ss<0, 1>(o_acc, desc_at(p_desc, b * C::P_BYTES + t * 32),
+                                           desc_at(v_desc, t * 2048), 1);
+    hopper::wgmma_commit();
+    hopper::wgmma_wait<0>();
+    hopper::fence_regs(o_acc);
+    if (tid == 0) hopper::mbar_arrive(p_empty + b);  // the warpgroup's products are done
+    if (j + 1 < nk) load_v(j + 1);
   }
-
+  hopper::mbar_wait(l_full, 0);
 #pragma unroll
   for (int r = 0; r < 2; ++r) {
-    const int lrow = rg * 16 + g + 8 * r;
-    const int row = q0 + lrow;
+    const int row = q0 + row0 + 8 * r;
     if (row >= tq) continue;
-    const float inv = 1.f / l_s[lrow];
+    const float inv = 1.f / l_s[row0 + 8 * r];
     bf16* orow = o + ((size_t)bh * tq + row) * d;
 #pragma unroll
-    for (int n = 0; n < NT; ++n) {
-      const int col = cq * CW + n * 8 + 2 * t4;
-      if (col < d) orow[col] = __float2bfloat16(acc[n][2 * r] * inv);
-      if (col + 1 < d) orow[col + 1] = __float2bfloat16(acc[n][2 * r + 1] * inv);
+    for (int n = 0; n < ON / 8; ++n) {
+      const int col = w * ON + n * 8 + 2 * t4;
+      const float a = o_acc[4 * n + 2 * r] * inv, b = o_acc[4 * n + 2 * r + 1] * inv;
+      if (d % 2 == 0) {  // rows of whole bf16 pairs: one 4-byte store
+        if (col < d) *reinterpret_cast<__nv_bfloat162*>(orow + col) = __floats2bfloat162_rn(a, b);
+      } else {
+        if (col < d) orow[col] = __float2bfloat16(a);
+        if (col + 1 < d) orow[col + 1] = __float2bfloat16(b);
+      }
     }
-    if (cq == 0 && t4 == 0)
-      lse[(size_t)bh * tq + row] = m_s[lrow] * LN2 + logf(l_s[lrow]);
   }
 }
 
@@ -526,17 +721,25 @@ static int launch_narrow(const void* q, const void* k, const void* v, void* o, v
 }
 
 template <int DMAX>
-static int launch_wide(const void* q, const void* k, const void* v, void* o,
-                       void* lse, int bh, int tq, int tk, int d, float scale,
+static int launch_wide(const void* q, const void* k, const void* v, void* o, void* lse,
+                       int bh, int tq, int tk, int d, int tma, float scale,
                        cudaStream_t stream) {
   typedef WideFwdCfg<DMAX> C;
-  auto kern = flash_fwd_wide_kernel<DMAX>;
+  CUtensorMap maps[3];
+  memset(maps, 0, sizeof(maps));
+  if (tma) {
+    int rc = hopper::tile_map(&maps[0], q, bh, tq, d, C::BQ, 64);
+    if (rc == 0) rc = hopper::tile_map(&maps[1], k, bh, tk, d, C::BK, 64);
+    if (rc == 0) rc = hopper::tile_map(&maps[2], v, bh, tk, d, C::BK, 64);
+    if (rc != 0) return rc;
+  }
+  auto kern = tma ? flash_fwd_wide_kernel<DMAX, true> : flash_fwd_wide_kernel<DMAX, false>;
   cudaError_t err = set_smem(kern, C::SMEM);
   if (err != cudaSuccess) return (int)err;
   dim3 grid((tq + C::BQ - 1) / C::BQ, bh);
-  kern<<<grid, WIDE_THREADS, C::SMEM, stream>>>(
-      (const bf16*)q, (const bf16*)k, (const bf16*)v, (bf16*)o, (float*)lse,
-      tq, tk, d, scale);
+  kern<<<grid, C::THREADS, C::SMEM, stream>>>(
+      maps[0], maps[1], maps[2], (const bf16*)q, (const bf16*)k, (const bf16*)v, (bf16*)o,
+      (float*)lse, tq, tk, d, scale);
   return (int)cudaGetLastError();
 }
 
@@ -544,18 +747,19 @@ static int launch_wide(const void* q, const void* k, const void* v, void* o,
 
 // q, k, v, o: bf16 [bh, t, d] contiguous; lse: fp32 [bh, tq]. dp: the
 // narrow kernel's padded head width (48, 64, 80, 96 or 128, at least d; the
-// caller's choice, ops/flash.py narrow_plan), or 0 for the wide kernel
-// (d up to 512); tma: 1 to load the narrow kernel's tiles by TMA (d % 8 == 0
-// and 16-byte aligned q, k, v), 0 to stage them through the producer's
-// registers. Returns the CUDA error code of the launch (0 on success).
+// caller's choice, ops/flash.py bf16_plan), or 0 for the wide kernel
+// (128 < d <= 512); tma: 1 to load the tiles by TMA (d % 8 == 0 and 16-byte
+// aligned q, k, v), 0 to stage them through the producer's registers.
+// Returns the CUDA error code of the launch (0 on success).
 extern "C" int flash_fwd(const void* q, const void* k, const void* v, void* o,
                          void* lse, int bh, int tq, int tk, int d, int dp, int tma,
                          float scale, void* stream) {
   using namespace flash;
   if (bh <= 0 || bh > 65535 || tq <= 0 || tk <= 0 || d <= 0) return (int)cudaErrorInvalidValue;
+  if (!tma_ok(d, tma, q, k, v, v)) return (int)cudaErrorInvalidValue;
   cudaStream_t s = (cudaStream_t)stream;
   if (dp != 0) {
-    if (d > dp || !narrow_tma_ok(d, tma, q, k, v, v)) return (int)cudaErrorInvalidValue;
+    if (d > dp) return (int)cudaErrorInvalidValue;
     switch (dp) {
       case 48: return launch_narrow<48>(q, k, v, o, lse, bh, tq, tk, d, tma, scale, s);
       case 64: return launch_narrow<64>(q, k, v, o, lse, bh, tq, tk, d, tma, scale, s);
@@ -565,16 +769,18 @@ extern "C" int flash_fwd(const void* q, const void* k, const void* v, void* o,
     }
     return (int)cudaErrorInvalidValue;
   }
+  if (d <= 128) return (int)cudaErrorInvalidValue;  // the narrow kernels' widths
   switch (wide_dmax(d)) {
-    case 256: return launch_wide<256>(q, k, v, o, lse, bh, tq, tk, d, scale, s);
-    case 512: return launch_wide<512>(q, k, v, o, lse, bh, tq, tk, d, scale, s);
+    case 256: return launch_wide<256>(q, k, v, o, lse, bh, tq, tk, d, tma, scale, s);
+    case 512: return launch_wide<512>(q, k, v, o, lse, bh, tq, tk, d, tma, scale, s);
   }
   return (int)cudaErrorInvalidValue;
 }
 
-// Dynamic shared memory of the narrow forward's block at padded width dp
-// (0: not a width it is built for).
-extern "C" int flash_fwd_narrow_smem(int dp) {
+// Dynamic shared memory of the forward's block: the narrow kernel's at
+// padded width dp, the wide kernel's at dp = 256 or 512 (its DMAX); 0 for
+// a width it is not built for.
+extern "C" int flash_fwd_smem(int dp) {
   using namespace flash;
   switch (dp) {
     case 48: return (int)NarrowFwdCfg<48>::SMEM;
@@ -582,6 +788,8 @@ extern "C" int flash_fwd_narrow_smem(int dp) {
     case 80: return (int)NarrowFwdCfg<80>::SMEM;
     case 96: return (int)NarrowFwdCfg<96>::SMEM;
     case 128: return (int)NarrowFwdCfg<128>::SMEM;
+    case 256: return (int)WideFwdCfg<256>::SMEM;
+    case 512: return (int)WideFwdCfg<512>::SMEM;
     default: return 0;
   }
 }

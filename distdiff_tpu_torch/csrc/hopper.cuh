@@ -1,6 +1,7 @@
-// Hopper (sm_90a) building blocks of the narrow flash kernels: mbarriers,
-// TMA tile loads, the bulk reduce-add, named barriers, and wgmma with its
-// shared-memory descriptors.
+// Hopper (sm_90a) building blocks of the flash kernels (the narrow forward
+// and fused backward, the wide forward): mbarriers, TMA tile loads, the
+// bulk reduce-add, named barriers, and wgmma with its shared-memory
+// descriptors.
 //
 // Shared-memory tiles. Every bf16 tile of R rows and a head width padded
 // to DP (a multiple of 16) is kept as DP / 16 column chunks, each an
@@ -17,7 +18,10 @@
 // The forward keeps tiles of D <= 64 as one chunk of 128-byte rows (64
 // columns) in the 128-byte swizzle instead (bits 4-6 ^= bits 7-9; layout
 // type 1): K-major k-steps start 32 B further along the rows, MN-major ones
-// 16 rows (2048 B) further down, SBO = 1024 B.
+// 16 rows (2048 B) further down, SBO = 1024 B. The wide forward keeps its
+// tiles (D up to 512) as D / 64 such chunks: a K-major k-step past column
+// 64 starts in the next chunk, and an MN-major operand wider than 64
+// columns reaches the next chunk through LBO = the chunk size.
 // Head columns past D are zero: TMA fills them (the tensor map's inner
 // extent is D), the staged loads write zeros.
 //
@@ -51,22 +55,23 @@ __device__ __forceinline__ uint32_t swizzle_off(int r, int b) {
   return SW == 128 ? off ^ (((off >> 7) & 7u) << 4) : off ^ (((off >> 7) & 1u) << 4);
 }
 
-// Rows [row0, row0 + ROWS) of a [n_rows, d] bf16 slab into the chunked,
-// swizzled layout at `dst` (TW / (SW / 2) chunks of ROWS x SW bytes, TW
-// columns in all), zero past n_rows and past column d: the staged
-// counterpart of a TMA load, for slabs TMA cannot describe (d % 8 != 0, or
-// a base off 16 bytes). Element by element, by `threads` threads from
-// index `tid`; neighbouring threads read neighbouring columns.
+// Rows [row0, row0 + ROWS) and columns [col0, col0 + TW) of a [n_rows, d]
+// bf16 slab into the chunked, swizzled layout at `dst` (TW / (SW / 2)
+// chunks of ROWS x SW bytes), zero past n_rows and past column d: the
+// staged counterpart of a TMA load, for slabs TMA cannot describe
+// (d % 8 != 0, or a base off 16 bytes). Element by element, by `threads`
+// threads from index `tid`; neighbouring threads read neighbouring columns.
 template <int ROWS, int TW, int SW = 32>
 __device__ __forceinline__ void stage_tile(uint8_t* dst, const __nv_bfloat16* __restrict__ src,
-                                           int row0, int n_rows, int d, int tid, int threads) {
+                                           int row0, int n_rows, int d, int tid, int threads,
+                                           int col0 = 0) {
   constexpr int CC = SW / 2;  // columns of a chunk
   for (int idx = tid; idx < ROWS * TW; idx += threads) {
     const int r = idx / TW;
     const int col = idx - r * TW;
     const int gr = row0 + r;
     __nv_bfloat16 val = __float2bfloat16(0.f);
-    if (gr < n_rows && col < d) val = src[(size_t)gr * d + col];
+    if (gr < n_rows && col0 + col < d) val = src[(size_t)gr * d + col0 + col];
     *reinterpret_cast<__nv_bfloat16*>(dst + (col / CC) * (ROWS * SW) +
                                       swizzle_off<SW>(r, (col % CC) * 2)) = val;
   }
@@ -192,6 +197,19 @@ __device__ __forceinline__ void wgmma_commit() {
 template <int N>
 __device__ __forceinline__ void wgmma_wait() {
   asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
+}
+// The same with n < 8 known only after unrolling (a constant there).
+__device__ __forceinline__ void wgmma_wait_n(int n) {
+  switch (n) {
+    case 0: wgmma_wait<0>(); break;
+    case 1: wgmma_wait<1>(); break;
+    case 2: wgmma_wait<2>(); break;
+    case 3: wgmma_wait<3>(); break;
+    case 4: wgmma_wait<4>(); break;
+    case 5: wgmma_wait<5>(); break;
+    case 6: wgmma_wait<6>(); break;
+    default: wgmma_wait<7>(); break;
+  }
 }
 
 // Keep the compiler from moving register reads or writes across an

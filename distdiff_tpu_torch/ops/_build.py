@@ -42,7 +42,7 @@ SIGNATURES = {
     "gn_stats": ("groupnorm", [_P] * 6 + [_I] * 6 + [_F] + [_I] * 3 + [_P]),
     "gn_apply": ("groupnorm", [_P] * 3 + [_I] * 8 + [_P]),
     "gn_smem_optin": ("groupnorm", [_I]),
-    "flash_fwd_narrow_smem": ("flash_fwd", [_I]),
+    "flash_fwd_smem": ("flash_fwd", [_I]),
     "flash_bwd_fused_smem": ("flash_bwd", [_I]),
 }
 

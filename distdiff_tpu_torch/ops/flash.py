@@ -12,11 +12,12 @@ Each wrapper below takes contiguous ``[BH, T, D]`` tensors. On a CUDA tensor
 it checks what the kernel takes (bf16 or fp32, one type throughout,
 contiguous, matching shapes), launches on the current stream, raises if the
 launch failed, and adds one to its launch count. bf16 goes to the
-tensor-core kernels: at D <= 128 the warp-specialised TMA/wgmma kernels,
-whose padded width and load route ``narrow_plan`` chooses; fp32 goes to
-their fp32 instances (``csrc/flash_f32.cu``,
-CUDA-core fp32 FMA, no TF32), with fp32 outputs: fp32 is never rounded to
-bf16. On a CPU tensor, and only there, it runs the plain PyTorch version
+tensor-core kernels: the forward at every width and the fused backward are
+warp-specialised TMA/wgmma kernels, whose padded width (0 for the wide
+forward) and load route ``bf16_plan`` chooses, and the split backward
+(D > 128) runs on mma.sync; fp32 goes to their fp32 instances
+(``csrc/flash_f32.cu``, CUDA-core fp32 FMA, no TF32), with fp32 outputs:
+fp32 is never rounded to bf16. On a CPU tensor, and only there, it runs the plain PyTorch version
 (``flash_fwd_reference`` / ``flash_bwd_reference``), which computes the same
 function in fp32. There is no fallback from the kernel.
 
@@ -137,22 +138,22 @@ def narrow_width(d: int) -> int:
 def tma_route(d: int, ptrs) -> bool:
     """Whether TMA can load the tiles of bf16 ``[BH, T, d]`` slabs at these
     addresses: rows of a multiple of 16 bytes and 16-byte aligned bases.
-    Otherwise the narrow kernels stage the tiles through their producer's
-    registers (the same kernels, another load path)."""
+    Otherwise the Hopper kernels stage the tiles element by element (the
+    same kernels, another load path)."""
     return d % 8 == 0 and all(p % 16 == 0 for p in ptrs)
 
 
-def narrow_plan(d: int, *tensors) -> Tuple[int, int]:
+def bf16_plan(d: int, *tensors) -> Tuple[int, int]:
     """(padded width, 1 for TMA loads or 0 for staged ones) of a bf16
-    launch over ``tensors``; (0, 0) past D = 128."""
-    dp = narrow_width(d)
-    return (dp, int(tma_route(d, [t.data_ptr() for t in tensors]))) if dp else (0, 0)
+    launch over ``tensors``; the width is 0 past D = 128, where the forward
+    takes its wide kernel."""
+    return narrow_width(d), int(tma_route(d, [t.data_ptr() for t in tensors]))
 
 
 def _launch(name: str, shape: Tuple[int, int, int, int], *tensors, plan=()) -> None:
     """Launch kernel ``name`` on the current stream (its fp32 instance when
     the first tensor is fp32): the tensors' pointers, then (BH, Tq, Tk, D),
-    the bf16 kernels' ``plan`` (``narrow_plan``), the softmax scale and the
+    the bf16 kernels' ``plan`` (``bf16_plan``), the softmax scale and the
     stream."""
     stream = torch.cuda.current_stream().cuda_stream
     ptrs = [t.data_ptr() for t in tensors]
@@ -179,7 +180,7 @@ def flash_fwd(q, k, v) -> Tuple[torch.Tensor, torch.Tensor]:
     shape = bh, tq, tk, d = _check(q, k, v)
     o = torch.empty_like(q)
     lse = torch.empty((bh, tq), device=q.device, dtype=torch.float32)
-    plan = narrow_plan(d, q, k, v) if q.dtype == torch.bfloat16 else ()
+    plan = bf16_plan(d, q, k, v) if q.dtype == torch.bfloat16 else ()
     _launch("flash_fwd", shape, q, k, v, o, lse, plan=plan)
     return o, lse
 
@@ -196,7 +197,7 @@ def flash_bwd_fused(q, k, v, do, lse, delta):
     dq32 = torch.zeros((bh, tq, d), device=q.device, dtype=torch.float32)
     dk = torch.empty_like(k)
     dv = torch.empty_like(v)
-    plan = narrow_plan(d, q, k, v, do, dq32) if q.dtype == torch.bfloat16 else ()
+    plan = bf16_plan(d, q, k, v, do, dq32) if q.dtype == torch.bfloat16 else ()
     _launch("flash_bwd_fused", shape, q, k, v, do, lse, delta, dq32, dk, dv, plan=plan)
     return dq32.to(q.dtype), dk, dv
 

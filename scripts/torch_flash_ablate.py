@@ -1,18 +1,21 @@
 #!/usr/bin/env python3
-"""Where the narrow flash kernels' time goes, on one NVIDIA GPU.
+"""Where the Hopper flash kernels' time goes, on one NVIDIA GPU.
 
 Builds the port's narrow (D <= 128) flash kernels (``flash_fwd`` and
-``flash_bwd_fused`` in ``distdiff_tpu_torch/csrc``) once as they are and
-once for each variant below, with one part taken out of the source, and
-times every build on the same inputs: the median of CUDA events around one
+``flash_bwd_fused`` in ``distdiff_tpu_torch/csrc``) and its wide forward
+(``flash_fwd`` past D = 128) once as they are and once for each variant
+below, with one part taken out of the source, and times every build on the
+same inputs (the narrow variants at the UNet's shapes, the wide ones at the
+VAE mid-block's): the median of CUDA events around one
 launch queued behind a device spin, the kernel alone (no wrapper, no dq
 zeroing or cast). A variant computes wrong numbers by design; only its
 time means something. Each build runs in its own process under a time
 limit, so a variant that stalls cannot hold the run.
 
 Run from the repository root on the machine with the card:
-``python3 scripts/torch_flash_ablate.py [--json PATH]``. It prints one line
-per (variant, shape) and, with ``--json``, writes them there too.
+``python3 scripts/torch_flash_ablate.py [--only TEXT] [--json PATH]``. It
+prints one line per (variant, shape) and, with ``--json``, writes them
+there too; ``--only`` keeps the variants whose name contains TEXT.
 """
 
 from __future__ import annotations
@@ -26,35 +29,65 @@ import tempfile
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC = os.path.join(ROOT, "distdiff_tpu_torch", "csrc")
-SHAPES = [(32, 4096, 40), (32, 1024, 80)]  # the UNet's 64^2 and 32^2 self-attention
+NARROW = [(32, 4096, 40), (32, 1024, 80)]  # the UNet's 64^2 and 32^2 self-attention
+WIDE = [(2, 4096, 512)]  # the VAE mid-block's single head
 
-# variant -> (source file, [(text, replacement)])
+# the wide forward's parts: its k and v tiles' loads (each replaced by a
+# bare arrival on its full barrier, the TMA route's count), its two products
+# and its exponentials
+_NO_WIDE_K = ("hopper::mbar_arrive_tx(k_full + c, CHUNK);\n"
+              "            hopper::tma_load_3d(Kt + c * CHUNK, &kmap, 64 * c, (j + 1) * BK, bh, k_full + c);",
+              "hopper::mbar_arrive(k_full + c);")
+_NO_WIDE_V = ("hopper::mbar_arrive_tx(v_full + w, VCH * CHUNK);\n"
+              "        for (int i = 0; i < VCH; ++i)\n"
+              "          hopper::tma_load_3d(Vw + i * CHUNK, &vmap, 64 * (w * VCH + i), j * BK, bh, v_full + w);",
+              "hopper::mbar_arrive(v_full + w);")
+_NO_WIDE_S = ("hopper::Wgmma<BK>::template ss<0, 0>(s_acc,",
+              "if (c < 0) hopper::Wgmma<BK>::template ss<0, 0>(s_acc,")
+_NO_WIDE_PV = ("hopper::Wgmma<ON>::template ss<0, 1>(o_acc,",
+               "if (t < 0) hopper::Wgmma<ON>::template ss<0, 1>(o_acc,")
+_NO_WIDE_EX2 = ("hopper::ex2(fmaf(s_acc[4 * n + e], sl2, -mc[e >> 1]))",
+                "fmaf(s_acc[4 * n + e], sl2, -mc[e >> 1])")
+
+# variant -> (source file, [(text, replacement)], shapes)
 VARIANTS = {
-    "fwd": ("flash_fwd.cu", []),
+    "fwd": ("flash_fwd.cu", [], NARROW),
     "fwd without k/v loads": ("flash_fwd.cu", [
         ("hopper::tma_load_3d(Ks", "if (0) hopper::tma_load_3d(Ks"),
         ("hopper::tma_load_3d(Vs", "if (0) hopper::tma_load_3d(Vs"),
         ("hopper::mbar_arrive_tx(k_full + s, C::KV_BYTES);", "hopper::mbar_arrive(k_full + s);"),
-        ("hopper::mbar_arrive_tx(v_full + s, C::KV_BYTES);", "hopper::mbar_arrive(v_full + s);")]),
+        ("hopper::mbar_arrive_tx(v_full + s, C::KV_BYTES);", "hopper::mbar_arrive(v_full + s);")],
+        NARROW),
     "fwd without exponentials": ("flash_fwd.cu", [
-        ("hopper::ex2(fmaf(s[4 * n + e], sl2, -mc[e >> 1]))", "fmaf(s[4 * n + e], sl2, -mc[e >> 1])")]),
+        ("hopper::ex2(fmaf(s[4 * n + e], sl2, -mc[e >> 1]))", "fmaf(s[4 * n + e], sl2, -mc[e >> 1])")],
+        NARROW),
     "fwd without softmax": ("flash_fwd.cu", [
         ("fwd_softmax<BK>(s_acc, m, l, alpha, j == nk - 1 ? tk - j * BK : BK, sl2, t4, c,\n"
          "                    pass_last || j < nk - 1);",
          "alpha[0] = alpha[1] = 1.f; hopper::named_sync(SCHED_BAR + c, 256);\n"
-         "    if (pass_last || j < nk - 1) hopper::named_arrive(SCHED_BAR + (1 - c), 256);")]),
-    "bwd": ("flash_bwd.cu", []),
+         "    if (pass_last || j < nk - 1) hopper::named_arrive(SCHED_BAR + (1 - c), 256);")],
+        NARROW),
+    "bwd": ("flash_bwd.cu", [], NARROW),
     "bwd without exponentials": ("flash_bwd.cu", [
         ("st[4 * n + e] = hopper::ex2(fmaf(st[4 * n + e], sl2, -((e & 1) ? ls.y : ls.x)));",
-         "st[4 * n + e] = fmaf(st[4 * n + e], sl2, -((e & 1) ? ls.y : ls.x));")]),
+         "st[4 * n + e] = fmaf(st[4 * n + e], sl2, -((e & 1) ? ls.y : ls.x));")], NARROW),
     "bwd without dq hand-off and reduce": ("flash_bwd.cu", [
         ("    const int q0 = i * BQ;\n    if (TMA) {",
          "    const int q0 = i * BQ;\n    if (TMA) {} else if (q0 < 0) {"),
         ("    if (!TMA) return;\n    const int lane = tid - 32;",
-         "    return;\n    const int lane = tid - 32;")]),
+         "    return;\n    const int lane = tid - 32;")], NARROW),
     "bwd without the dq product": ("flash_bwd.cu", [
         ("hopper::Wgmma<DH>::template ss<1, 1>(dq_acc,",
-         "if (0) hopper::Wgmma<DH>::template ss<1, 1>(dq_acc,")]),
+         "if (0) hopper::Wgmma<DH>::template ss<1, 1>(dq_acc,")], NARROW),
+    "wide fwd": ("flash_fwd.cu", [], WIDE),
+    "wide fwd without k loads": ("flash_fwd.cu", [_NO_WIDE_K], WIDE),
+    "wide fwd without v loads": ("flash_fwd.cu", [_NO_WIDE_V], WIDE),
+    "wide fwd without k and v loads": ("flash_fwd.cu", [_NO_WIDE_K, _NO_WIDE_V], WIDE),
+    "wide fwd without s": ("flash_fwd.cu", [_NO_WIDE_S], WIDE),
+    "wide fwd without p v": ("flash_fwd.cu", [_NO_WIDE_PV], WIDE),
+    "wide fwd without exponentials": ("flash_fwd.cu", [_NO_WIDE_EX2], WIDE),
+    "wide fwd without loads and products": ("flash_fwd.cu", [
+        _NO_WIDE_K, _NO_WIDE_V, _NO_WIDE_S, _NO_WIDE_PV], WIDE),
 }
 
 CHILD = r'''
@@ -78,7 +111,7 @@ for bh, t, d in shapes:
     lse = torch.randn(bh, t, device=dev).abs() + 5.0
     dq = torch.zeros(bh, t, d, device=dev)
     dk, dv = torch.empty_like(k), torch.empty_like(v)
-    dp = next(w for w in (48, 64, 80, 96, 128) if d <= w)
+    dp = next((w for w in (48, 64, 80, 96, 128) if d <= w), 0)  # 0: the wide kernel
     if stem == "flash_fwd":
         args = (q, k, v, o, lse)
     else:
@@ -113,7 +146,10 @@ def main(argv) -> int:
     print(card)
     work = tempfile.mkdtemp(prefix="flash_ablate_")
     builds = []
-    for i, (name, (src, subs)) in enumerate(VARIANTS.items()):
+    only = argv[argv.index("--only") + 1] if "--only" in argv else ""
+    for i, (name, (src, subs, shapes)) in enumerate(VARIANTS.items()):
+        if only not in name:
+            continue
         d = os.path.join(work, str(i))
         os.makedirs(d)
         for f in os.listdir(CSRC):
@@ -129,20 +165,20 @@ def main(argv) -> int:
         lib = os.path.join(d, "lib.so")
         cmd = [nvcc(), "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
                "-shared", "-Xcompiler", "-fPIC", "-o", lib, os.path.join(d, src)]
-        builds.append((name, src[:-3], lib, subprocess.Popen(
+        builds.append((name, src[:-3], lib, shapes, subprocess.Popen(
             cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)))
     rows = []
-    for name, stem, lib, proc in builds:
+    for name, stem, lib, shapes, proc in builds:
         log = proc.communicate()[0]
         if proc.returncode:
             raise SystemExit(f"{name}: nvcc failed\n{log[-3000:]}")
         try:
-            res = subprocess.run([sys.executable, "-c", CHILD, lib, stem, json.dumps(SHAPES)],
+            res = subprocess.run([sys.executable, "-c", CHILD, lib, stem, json.dumps(shapes)],
                                  capture_output=True, text=True, timeout=120)
             times = json.loads(res.stdout.strip().splitlines()[-1]) if res.returncode == 0 else {}
         except subprocess.TimeoutExpired:
             times = {}
-        for shape in SHAPES:
+        for shape in shapes:
             key = ",".join(map(str, shape))
             ms = times.get(key)
             rows.append({"variant": name, "shape": list(shape), "ms": ms, "card": card})

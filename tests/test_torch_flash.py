@@ -26,6 +26,8 @@ SHAPES = [
     (1, 127, 63, 1, 33),    # an odd head width (the kernels' staged loads)
     (2, 128, 128, 1, 160),  # D > 128: the reference's split backward
     (1, 256, 256, 1, 512),  # the VAE's single 512-wide head
+    (1, 65, 63, 1, 130),    # a wide width TMA cannot load, lengths off the 64-row tiles
+    (1, 63, 129, 1, 257),   # past 256: the wide forward's 512 instance
 ]
 
 

@@ -252,7 +252,10 @@ def test_narrow_width_pads_the_head_to_a_built_instance(d, want):
     (33, 0, (48, 0)),   # a row of 66 bytes: no TMA, staged loads
     (40, 1, (48, 0)),   # a view one element into its storage: staged loads
     (40, 8, (48, 1)),   # 16 bytes in: TMA again
-    (512, 0, (0, 0)),   # the wide kernel
+    (512, 0, (0, 1)),   # the wide forward at the VAE's width: TMA
+    (160, 0, (0, 1)),   # the wide forward's DMAX = 256 instance: TMA
+    (130, 0, (0, 0)),   # a row of 260 bytes: the wide forward's staged loads
+    (512, 1, (0, 0)),   # a view one element in: the wide forward's staged loads
 ])
 def test_narrow_plan_by_width_and_alignment_on_meta_tensors(d, offset, want):
     """The padded width and the load route the wrappers hand the kernels:
@@ -262,7 +265,7 @@ def test_narrow_plan_by_width_and_alignment_on_meta_tensors(d, offset, want):
     q = base[offset:].view(3, 70, d)
     k = v = torch.empty(3, 50, d, device="meta", dtype=torch.bfloat16)
     assert q.is_contiguous() and q.data_ptr() == 2 * offset
-    assert flash.narrow_plan(d, q, k, v) == want
+    assert flash.bf16_plan(d, q, k, v) == want
     assert flash.tma_route(d, [0, 16, 32]) == (d % 8 == 0)
     assert not flash.tma_route(40, [0, 8])
 
@@ -309,8 +312,42 @@ def test_fp32_and_wide_launches_take_no_narrow_plan(monkeypatch):
     q, k, v = (torch.empty(2, 70, 40, device="meta") for _ in range(3))
     flash.flash_fwd(q, k, v)  # fp32: its own instance, no plan
     wide = [torch.empty(1, 64, 512, device="meta", dtype=torch.bfloat16) for _ in range(3)]
-    flash.flash_fwd(*wide)    # D = 512: the wide kernel, plan (0, 0)
+    flash.flash_fwd(*wide)    # D = 512: the wide kernel, width 0, TMA loads
     (n32, a32), (n16, a16) = calls
     assert n32 == "flash_fwd_f32" and len(a32) == len(_build.SIGNATURES[n32][1]) == 11
-    assert n16 == "flash_fwd" and a16[5:11] == (1, 64, 64, 512, 0, 0)
+    assert n16 == "flash_fwd" and a16[5:11] == (1, 64, 64, 512, 0, 1)
+    flash.reset_launch_counts()
+
+
+@pytest.mark.parametrize("d,offset,route", [
+    (512, 0, 1),   # the VAE mid-block's head: TMA
+    (512, 1, 0),   # a view one element into its storage: staged
+    (512, 8, 1),   # 16 bytes in: TMA again
+    (136, 0, 1),   # the DMAX = 256 instance: TMA
+    (129, 0, 0),   # rows of 258 bytes: staged
+    (130, 0, 0),
+    (257, 0, 0),   # the DMAX = 512 instance, staged
+])
+def test_wide_forward_gets_width_zero_and_the_load_route(monkeypatch, d, offset, route):
+    """Past D = 128 flash_fwd hands its kernel width 0 (the wide kernel) and
+    the load route of q, k and v by width and storage offset, as many
+    arguments as the C signature takes; the backward pair takes no plan."""
+    calls = _recorded_launches(monkeypatch)
+    flash.reset_launch_counts()
+
+    def bf16(*shape):
+        n = math.prod(shape)
+        return torch.empty(offset + n, device="meta", dtype=torch.bfloat16)[offset:].view(*shape)
+
+    q, do, k, v = bf16(2, 70, d), bf16(2, 70, d), bf16(2, 50, d), bf16(2, 50, d)
+    lse = delta = torch.empty(2, 70, device="meta")
+    o, lse_out = flash.flash_fwd(q, k, v)
+    assert o.shape == q.shape and o.dtype == torch.bfloat16 and lse_out.shape == (2, 70)
+    flash.flash_bwd_dq(q, k, v, do, lse, delta)
+    (name, args), (bname, bargs) = calls
+    assert name == "flash_fwd" and len(args) == len(_build.SIGNATURES[name][1])
+    assert args[5:11] == (2, 70, 50, d, 0, route)
+    assert args[11] == pytest.approx(d ** -0.5)
+    assert bname == "flash_bwd_dq" and len(bargs) == len(_build.SIGNATURES[bname][1])
+    assert flash.launch_counts["flash_fwd"] == 1
     flash.reset_launch_counts()
