@@ -22,7 +22,10 @@ package. Six phases, any failure exits non-zero:
    the former); gn_fused, gn_stats and gn_apply at every GroupNorm shape of
    the counted runs, in bf16 and fp32, channels-last and contiguous, with
    and without SiLU, and at ragged shapes (timed in bf16 channels-last,
-   beside ``F.group_norm`` + ``F.silu``). Times are medians of CUDA events,
+   beside ``F.group_norm`` + ``F.silu``; gn_fused also at its edges: B = 1,
+   pixels one off its cluster's split, runs off 16 bytes, views off 16-byte
+   alignment, each printed with its route and cluster, and every gn_fused
+   result launched twice for the same bytes). Times are medians of CUDA events,
    each beside the least time the card could take (``bound_ms``).
 3. Agreement: the guided expansion at a small geometry whose attention
    reaches every flash kernel, in bf16 through the kernels, in bf16 through
@@ -30,7 +33,8 @@ package. Six phases, any failure exits non-zero:
    weights and draws: the kernels' run stays as close to the fp32 run as
    the plain bf16 run. Then the fp32 ``tiny()`` pipeline's guided expand on
    the card through every kernel (norms once by gn_fused, once by the
-   gn_stats + gn_apply pair) against the same port on the CPU.
+   gn_stats + gn_apply pair; then once with direct guidance) against the
+   same port on the CPU.
 4. Path: the guided expansion at full SD-1.5 geometry (UNet 860M, VAE,
    ResNet-50 guide with 100 classes, seeded random weights) at batch 2:
    DDIM-50, strength 0.5, CFG 7.5, transform guidance at plan index 30 over
@@ -157,8 +161,10 @@ def bound(name, bh, tq, tk, d, itemsize=2):
     return (max(t_bytes, t_ops) * 1e3, "bytes" if t_bytes > t_ops else "operations")
 
 
-# the bf16 flash kernels built for Hopper: warp-specialised, TMA and wgmma
-HOPPER_KERNELS = ("flash_fwd_narrow_kernel", "flash_fwd_wide_kernel", "flash_bwd_fused_kernel")
+# the kernels built for Hopper (the bf16 flash kernels: warp-specialised,
+# TMA and wgmma; gn_fused: clusters, TMA): none may spill
+HOPPER_KERNELS = ("flash_fwd_narrow_kernel", "flash_fwd_wide_kernel", "flash_bwd_fused_kernel",
+                  "gn_fused_kernel")
 WIDE_DMAX = (256, 512)  # the wide forward's instances
 
 
@@ -181,7 +187,29 @@ def ptxas_phase() -> None:
           f"width: {smem}")
     wide = {dmax: _build.kernel("flash_fwd_smem")(dmax) for dmax in WIDE_DMAX}
     print(f"  wide forward's dynamic shared memory by DMAX: {wide}")
-    require(not spilled, f"Hopper flash kernels spill registers: {spilled}")
+    gn_smem_phase()
+    require(not spilled, f"Hopper kernels spill registers: {spilled}")
+
+
+def gn_smem_phase() -> None:
+    """gn_fused's plan and dynamic shared memory a block at every main-path
+    GroupNorm shape it takes (bf16, channels-last, 16-byte aligned), from
+    the C side's geometry, which must equal the plan's own count."""
+    import torch
+
+    from distdiff_tpu_torch.models.layers import group_count
+    from distdiff_tpu_torch.ops import _build
+    from distdiff_tpu_torch.ops import groupnorm as gn
+
+    smem_limit, sm_count = gn._device_limits(torch.device("cuda"))
+    for b, c, h, w in sorted({k[1] for k in gn_plan(main_gn_calls()) if k[0] == "gn_fused"}):
+        g, s = group_count(c), h * w
+        plan = gn.fused_plan(b, c, s, g, 2, "nhwc", sm_count, smem_limit, 0, 0)
+        want = gn.fused_smem_bytes("nhwc", c, s, g, 2, plan)
+        got = _build.kernel("gn_fused_smem")(1, c, s, g, 1, *plan)
+        print(f"  gn_fused [{b},{c},{h},{w}]: {plan}, {got} B of dynamic shared memory a block, "
+              f"{b * g // plan.group_set * plan.cluster} blocks")
+        require(got == want, f"gn_fused's shared memory at [{b},{c},{h},{w}]: C {got}, plan {want}")
 
 
 def kernel_phase():
@@ -570,11 +598,16 @@ def gn_kernel_phase(shapes, timed=True) -> list:
     gen = torch.Generator(device=dev).manual_seed(6)
     smem_limit, sm_count = gn._device_limits(dev)
 
-    def data(shape, groups, dtype, cl):
+    def data(shape, groups, dtype, cl, offset=False):
         b, c = shape[:2]
         x = (torch.randn(shape, generator=gen, device=dev) * 1.5 + 0.3).to(dtype)
         if cl:
             x = x.to(memory_format=torch.channels_last)
+        if offset:  # the same layout, one element into its storage
+            flat = torch.empty(x.numel() + 1, device=dev, dtype=dtype)
+            v = flat[1:].as_strided(x.shape, x.stride())
+            v.copy_(x)
+            x = v
         scale = (1.0 + 0.5 * torch.randn(c, generator=gen, device=dev)).to(dtype)
         bias = (0.5 * torch.randn(c, generator=gen, device=dev)).to(dtype)
         return x, scale, bias
@@ -610,20 +643,54 @@ def gn_kernel_phase(shapes, timed=True) -> list:
                   (shape, groups, torch.float32, True, other, False),
                   (shape, groups, torch.float32, False, main, False)]
     ragged = [((2, 96, 7, 9), 32), ((3, 32, 5, 5), 32), ((1, 192, 33, 31), 64),
-              ((2, 40, 15, 17), 8)]
+              ((2, 40, 15, 17), 8),
+              # gn_fused's edges: B = 1; pixels one off its cluster's split
+              # (1023 and 1025; 4095 in a grid past 4 blocks an SM, by
+              # TMA); a group set whose run of channels is no multiple of
+              # 16 bytes (cpg 9); more channels a set than threads a block
+              # (a column loop)
+              ((1, 320, 64, 64), 32), ((1, 1280, 8, 8), 32), ((2, 640, 33, 31), 32),
+              ((2, 640, 25, 41), 32), ((4, 640, 65, 63), 32), ((2, 36, 15, 17), 4),
+              ((1, 602, 6, 5), 2)]
     for shape, groups in ragged:
         for dtype in (torch.bfloat16, torch.float32):
             for cl in (True, False):
                 cases.append((shape, groups, dtype, cl, "silu" if cl else None, "direct"))
+    # views one element into their storage: vector loads, whatever the shape
+    for shape, groups in (((2, 320, 32, 32), 32), ((1, 40, 9, 7), 8)):
+        for cl in (True, False):
+            cases.append((shape, groups, torch.bfloat16, cl, "silu", "offset"))
+
+    def fused_twice(x, scale, bias, groups, act, tag):
+        """gn_fused twice on one input: both outputs, the same bytes."""
+        y1, y2 = torch.empty_like(x), torch.empty_like(x)
+        for y in (y1, y2):
+            gn.gn_fused(x, scale, bias, groups, 1e-5, act, y, sm_count, smem_limit)
+        torch.cuda.synchronize()
+        require(same_bytes(y1, y2), f"gn_fused gave two results on one input at {tag}")
+        return y1
+
+    def same_bytes(a, b):
+        bits = torch.int16 if a.dtype == torch.bfloat16 else torch.int32
+        return torch.equal(a.view(bits), b.view(bits))
+
+    n_same = 0
     for shape, groups, dtype, cl, act, mode in cases:
-        x, scale, bias = data(shape, groups, dtype, cl)
+        x, scale, bias = data(shape, groups, dtype, cl, offset=mode == "offset")
         tag = (f"{list(shape)} g{groups} {str(dtype)[6:]} {'nhwc' if cl else 'nchw'} "
-               f"act={act}")
+               f"act={act}{' offset' if mode == 'offset' else ''}")
         ref_ab = gn.group_norm_stats_reference(x, scale, bias, groups, 1e-5)
         ref = gn.group_norm_apply_reference(x, ref_ab, act)
-        if mode == "direct":  # every kernel, whatever the shared-memory rule says
-            y = torch.empty_like(x)
-            gn.gn_fused(x, scale, bias, groups, 1e-5, act, y)
+        if mode in ("direct", "offset"):  # every kernel, whatever the shared-memory rule says
+            b, c = shape[:2]
+            plan = gn.fused_plan(b, c, x.numel() // (b * c), groups, x.element_size(),
+                                 gn.layout(x), sm_count, smem_limit, x.data_ptr(), x.data_ptr())
+            print(f"  gn_fused {tag}: {'TMA' if plan.tma else 'vector'} loads, cluster "
+                  f"{plan.cluster}, group set {plan.group_set}, {plan.vec} a load")
+            require(mode != "offset" or (plan.tma == 0 and plan.vec == 1),
+                    f"a view off 16 bytes took {plan} at {tag}")
+            y = fused_twice(x, scale, bias, groups, act, tag)
+            n_same += 1
             check(f"gn_fused {tag}", y, ref, dtype)
             ab = gn.gn_stats(x, scale, bias, groups, 1e-5, sm_count)
             check(f"gn_stats {tag}", ab, ref_ab, torch.float32)
@@ -653,8 +720,12 @@ def gn_kernel_phase(shapes, timed=True) -> list:
         lib_ms = time_ms(lib, 10)
         plain_ms = time_ms(lambda: gn.group_norm_reference(x, scale, bias, groups, 1e-5, act), 5)
         if ran == ["gn_fused"]:
+            require(same_bytes(fused_twice(x, scale, bias, groups, act, tag), y),
+                    f"gn_fused gave two results on one input at {tag}")
+            n_same += 1
             out = torch.empty_like(x)
-            runs = {"gn_fused": lambda: gn.gn_fused(x, scale, bias, groups, 1e-5, act, out)}
+            runs = {"gn_fused": lambda: gn.gn_fused(x, scale, bias, groups, 1e-5, act, out,
+                                                    sm_count, smem_limit)}
             plains = {"gn_fused": plain_ms}
             errs = {"gn_fused": err}
         else:
@@ -682,7 +753,8 @@ def gn_kernel_phase(shapes, timed=True) -> list:
                             "bound_ms": b_ms, "bound_by": b_by, "library_ms": lib_ms})
         del x, y, ref
     print(f"  {n_checks} GroupNorm checks against the plain version: ok "
-          f"(shared-memory limit {smem_limit} bytes, {sm_count} SMs)")
+          f"(shared-memory limit {smem_limit} bytes, {sm_count} SMs); gn_fused gave the same "
+          f"bytes twice at {n_same} of them")
     torch.cuda.empty_cache()
     return entries
 
@@ -811,7 +883,8 @@ def fp32_agreement_phase() -> None:
     versions) with the same weights and the same draws, made on the CPU.
     The card runs it twice: with the card's shared-memory limit (every
     norm fits gn_fused) and with the limit set to 0 (every norm takes
-    gn_stats + gn_apply)."""
+    gn_stats + gn_apply); then once with ``guidance_type="direct_guidance"``
+    against the CPU's direct-guided run."""
     import dataclasses
 
     import torch
@@ -850,7 +923,23 @@ def fp32_agreement_phase() -> None:
         img, aux = pipe.make_expand_fn()(
             *(t.to(device) for t in inputs), return_aux=True,
             **{k: v.to(device) for k, v in draws.items()})
+        if "latents_after" not in aux:  # direct guidance: the image and the score
+            return [t.float().cpu() for t in (img, aux["score"])]
         return [t.float().cpu() for t in (img, aux["latents_after"], aux["score"])]
+
+    def agree(what_got_want):
+        # fp32 on both sides (TF32 off); only the summation order differs
+        # (cuDNN/cuBLAS and the kernels' tiles against the CPU's), ~1e-6 a
+        # layer; 1e-3 covers its growth through 7 UNet calls, the guidance
+        # gradient (rho 0.5) and the decode
+        for what, g, w in what_got_want:
+            scale = float(w.abs().max()) if what == "guidance score" else 1.0
+            err = float((g - w).abs().max()) / scale
+            ok = math.isfinite(err) and err <= 1e-3
+            print(f"  {what}{' (relative)' if scale != 1.0 else ''}: card against CPU "
+                  f"{err:.3e} (tol 1.0e-03) {'ok' if ok else 'FAIL'}")
+            if not ok:
+                raise SystemExit(f"the fp32 card run strays from the CPU run on {what}")
 
     t0 = time.time()
     want = run(pipes[0], "cpu")
@@ -872,20 +961,25 @@ def fp32_agreement_phase() -> None:
             launched[k] = launched.get(k, 0) + c
         print(f"  fp32 tiny expand on the card, norms by {label}: launches {counts}; "
               f"norm layouts {dict(gn.layout_counts)}")
-        # fp32 on both sides (TF32 off); only the summation order differs
-        # (cuDNN/cuBLAS and the kernels' tiles against the CPU's), ~1e-6 a
-        # layer; 1e-3 covers its growth through 7 UNet calls, the guidance
-        # gradient (rho 0.5) and the decode
-        for what, g, w in zip(("image", "updated latents", "guidance score"), got, want):
-            scale = float(w.abs().max()) if what == "guidance score" else 1.0
-            err = float((g - w).abs().max()) / scale
-            ok = math.isfinite(err) and err <= 1e-3
-            print(f"  {what}{' (relative)' if scale != 1.0 else ''}: card against CPU "
-                  f"{err:.3e} (tol 1.0e-03) {'ok' if ok else 'FAIL'}")
-            if not ok:
-                raise SystemExit(f"the fp32 card run strays from the CPU run on {what}")
+        agree(zip(("image", "updated latents", "guidance score"), got, want))
     print(f"  (CPU run {cpu_s:.1f} s)")
     require(all(c > 0 for c in launched.values()), f"a kernel was not launched: {launched}")
+
+    # direct guidance (the latents' own gradient through the same kernels),
+    # once, the norms by gn_fused, against the CPU at the same tolerance
+    for pipe in pipes:
+        pipe.guidance_cfg = dataclasses.replace(pipe.guidance_cfg,
+                                                guidance_type="direct_guidance")
+    want = run(pipes[0], "cpu")
+    flash.reset_launch_counts()
+    gn.reset_launch_counts()
+    got = run(pipes[1], dev)
+    torch.cuda.synchronize()
+    counts = dict(flash.launch_counts, **gn.launch_counts)
+    print(f"  fp32 tiny expand with direct guidance on the card: launches {counts}")
+    require(counts["flash_bwd_fused"] > 0 and counts["gn_fused"] > 0,
+            f"direct guidance did not run through the kernels: {counts}")
+    agree(zip(("image", "guidance score"), got, want))
 
 
 class SmokeDataset:

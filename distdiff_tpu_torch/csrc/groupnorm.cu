@@ -13,9 +13,10 @@
 // multiply-add); optionally SiLU in fp32, rounded back.
 //
 // What bounds them on this card: bytes. A norm reads its slab and writes
-// it once at least; the arithmetic is a few operations an element.
-// gn_fused reads the slab once and writes it once; the pair reads it twice
-// and writes it once.
+// it once at least; gn_fused reads the slab once and writes it once, the
+// pair reads it twice and writes it once. Close behind come the SiLU's exp
+// and division and the roundings to bf16, which the SM issues at a fraction
+// of its fp32 rate: gn_fused rounds bf16 values in packed pairs.
 //
 // Layouts. The port's tensors are NCHW in shape, but the models enter
 // through a permute of NHWC and cuDNN keeps that memory format, so a norm
@@ -30,12 +31,28 @@
 // row chunks in VMEM scratch, and the per-group reduction was a 0/1-matrix
 // product on the MXU. Blocks on the card run in parallel, and a per-group
 // sum is a plain sum:
-//   * gn_fused: one block per (group, batch row) stages the whole span in
-//     shared memory while it sums it, reduces over the block, folds
-//     (a, b) per channel into shared memory and writes act(x a + b) from
-//     shared memory: one read and one write of device memory. It is taken
-//     when the span fits the block's shared memory (227 KB on the H100, so
-//     the UNet's spans up to 64^2 x 640 in bf16); the wrapper decides.
+//   * gn_fused: a unit is one batch row and a set of `gs` adjacent groups
+//     (so that in NHWC each pixel holds one contiguous run of gs * cpg
+//     channels). A thread-block cluster of `cl` blocks splits the unit's
+//     pixels (NCHW: each group's span) into slices; each block keeps its
+//     slice in its own shared memory while it sums it, the blocks add their
+//     per-group partial sums through distributed shared memory (each block
+//     gathers every rank's partials, one remote load a thread, then adds
+//     them in rank order, so every block gets the same bytes and the result
+//     does not depend on timing), fold (a, b) per channel, and each block
+//     writes act(x a + b) from its own slice: one read and one write of
+//     device memory, no partial sums in device memory, no atomics. bf16
+//     values are transformed in pairs (`affine_act_bf16x2`). In NHWC each
+//     thread keeps fixed channel columns (its channel-to-group map and a, b
+//     are computed once) and walks pixel rows; the slice arrives either by
+//     TMA (a 3-d tensor map over [B, S, C], boxes of chunk rows x the set's
+//     channels, each chunk on its own mbarrier and summed as it lands) or,
+//     where TMA cannot describe it (a run off 16 bytes, an unaligned base,
+//     NCHW), by the threads' own vector loads. The wrapper's plan
+//     (ops/groupnorm.py `fused_plan`) picks gs, cl, the vector width and the
+//     route, so that the main path's shapes fill the card. It is taken when
+//     one (row, group) span fits a block's shared memory (the route rule,
+//     unchanged); the wrapper decides.
 //   * gn_stats: the VAE has few (row, group) pairs and spans of up to
 //     4 MB, so each span is split over many blocks to fill the card: in
 //     NCHW a block takes a contiguous piece of one span; in NHWC a block
@@ -49,21 +66,32 @@
 //   * gn_apply: act(x a + b) over the whole tensor, a grid-stride loop of
 //     vector loads; a and b are rounded to x's type as the reference's
 //     pass 2 casts them.
+#include <cooperative_groups.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stddef.h>
 #include <stdint.h>
+#include <string.h>
+
+#include <type_traits>
+
+#include "hopper.cuh"
 
 namespace gn {
 
+namespace cg = cooperative_groups;
 typedef __nv_bfloat16 bf16;
 
-constexpr int FUSED_THREADS = 512;
+constexpr int FUSED_THREADS = 256;
+constexpr int MAX_CLUSTER = 16;
+constexpr int TMA_BOX_MAX = 256;  // rows or channels of one TMA box
+constexpr int TMA_CHUNKS = 4;     // a slice arrives in about this many chunks
 constexpr int STATS_THREADS = 256;
 constexpr int APPLY_THREADS = 256;
 constexpr int ACT_SILU = 1;
-// shared floats before gn_fused's span: 2 x 32 warp partials, mean and inv
+// shared floats of block_sum2 (2 x 32 warp partials and the two totals),
+// padded to 16 bytes
 constexpr int RED_FLOATS = 68;
 
 template <int NB> struct Raw;
@@ -99,6 +127,28 @@ __device__ __forceinline__ float affine_act(float x, float a, float b, int act) 
   return y;
 }
 
+// act(x * a + b) of V bf16 values in pairs, a and b already rounded to
+// bf16 (a2: the pairs of a): the product on bf16x2 (the exact product of
+// two bf16 values, rounded once, as rounding the fp32 product does), the
+// sum in fp32, each rounding to bf16 one packed conversion of two values.
+// The same bits as affine_act<bf16> with a quarter of its conversions.
+template <int V>
+__device__ __forceinline__ void affine_act_bf16x2(const bf16* e, const __nv_bfloat162* a2,
+                                                  const float* b, int act, bf16* o) {
+#pragma unroll
+  for (int j = 0; j < V / 2; ++j) {
+    const float2 p = __bfloat1622float2(__hmul2(reinterpret_cast<const __nv_bfloat162*>(e)[j],
+                                                a2[j]));
+    __nv_bfloat162 y2 = __floats2bfloat162_rn(__fadd_rn(p.x, b[2 * j]),
+                                              __fadd_rn(p.y, b[2 * j + 1]));
+    if (act == ACT_SILU) {
+      const float2 y = __bfloat1622float2(y2);
+      y2 = __floats2bfloat162_rn(y.x / (1.f + expf(-y.x)), y.y / (1.f + expf(-y.y)));
+    }
+    reinterpret_cast<__nv_bfloat162*>(o)[j] = y2;
+  }
+}
+
 // (a, b) of one channel from its group's statistics, rounded to T
 template <typename T>
 __device__ __forceinline__ void fold(float mean, float inv, float sc, float bi,
@@ -112,6 +162,15 @@ __device__ __forceinline__ void mean_inv(float s1, float s2, float n, float eps,
   mean = __fdiv_rn(s1, n);
   const float var = __fsub_rn(__fdiv_rn(s2, n), __fmul_rn(mean, mean));
   inv = rsqrtf(var + eps);
+}
+
+// The unit's barrier: the cluster's, or the block's where the cluster is
+// one block (a cluster barrier costs more than a block barrier)
+__device__ __forceinline__ void unit_sync(int cl) {
+  if (cl > 1)
+    cg::this_cluster().sync();
+  else
+    __syncthreads();
 }
 
 __device__ __forceinline__ float warp_sum(float v) {
@@ -148,66 +207,270 @@ __device__ __forceinline__ void block_sum2(float& a, float& b, float* red) {
 
 // ------------------------------------------------------------- gn_fused
 
-// Element i of the (b, g) span: i = c * S + s in NCHW, s * cpg + c in NHWC
-// (c the channel within the group).
-__device__ __forceinline__ size_t span_offset(size_t slab, int i, int g, int cpg,
-                                              int C, int S, int nhwc) {
-  return nhwc ? slab + (size_t)(i / cpg) * C + (size_t)g * cpg + (i % cpg)
-              : slab + (size_t)g * cpg * S + i;
+// The geometry of one gn_fused launch, from the plan (see fused_geom).
+struct FusedGeom {
+  int C, S, G, cpg;
+  int gs;        // groups in a unit (NCHW: 1)
+  int W;         // channels in a unit: gs * cpg
+  int cl;        // blocks in a cluster, each one slice of the unit
+  int P;         // a slice: pixel rows (NHWC) or elements of the span (NCHW)
+  int chunk;     // TMA: pixel rows of one box (a multiple of 8)
+  int nchunks;   // TMA: boxes of a slice
+  int nvt, rr;   // NHWC: vector columns walked at once, rows of threads
+  int param_bf16, nhwc, act;
+  float eps;
+  // shared memory: the slice (128-byte aligned), then the fp32 column sums
+  // (2 x rr x W; NCHW: block_sum2's), the group partials (2 gs), every
+  // rank's partials gathered (2 gs x cl), the group statistics (2 gs), a
+  // and b (W each), the mbarriers
+  int off_red, off_part, off_ab, off_bar, smem;
+};
+
+inline int round_up(int v, int m) { return (v + m - 1) / m * m; }
+
+// Completes the geometry from (C, S, G, gs, cl, itemsize, V, tma, nhwc);
+// returns 0, or cudaErrorInvalidValue for a plan the kernel cannot take.
+// ops/groupnorm.py `fused_smem_bytes` mirrors it.
+inline int fused_geom(FusedGeom& g, int C, int S, int G, int gs, int cl, int itemsize,
+                      int V, int tma, int nhwc) {
+  g.C = C, g.S = S, g.G = G, g.cpg = C / G, g.gs = gs, g.cl = cl, g.nhwc = nhwc;
+  g.W = gs * g.cpg;
+  if (gs <= 0 || G % gs || cl <= 0 || cl > MAX_CLUSTER || (!nhwc && (gs != 1 || tma)) ||
+      (tma && (g.W > TMA_BOX_MAX || (g.W * itemsize) % 16)))
+    return (int)cudaErrorInvalidValue;
+  long long slice, red;  // bytes
+  if (nhwc) {
+    if (g.W % V) return (int)cudaErrorInvalidValue;
+    g.nvt = g.W / V < FUSED_THREADS ? g.W / V : FUSED_THREADS;
+    g.rr = FUSED_THREADS / g.nvt;
+    g.P = (S + cl - 1) / cl;
+    g.chunk = round_up((g.P + TMA_CHUNKS - 1) / TMA_CHUNKS, 8);
+    if (g.chunk > TMA_BOX_MAX) g.chunk = TMA_BOX_MAX;
+    g.nchunks = tma ? (g.P + g.chunk - 1) / g.chunk : 0;
+    slice = (long long)(tma ? g.nchunks * g.chunk : g.P) * g.W * itemsize;
+    red = 4LL * 2 * g.rr * g.W;
+  } else {
+    const int n = g.cpg * S;
+    if (n % V) return (int)cudaErrorInvalidValue;
+    g.nvt = g.rr = 1;
+    g.P = round_up((n + cl - 1) / cl, V);
+    g.chunk = g.nchunks = 0;
+    slice = (long long)g.P * itemsize;
+    red = 4 * RED_FLOATS;
+  }
+  const long long total = slice + red + 8LL * (gs * (cl + 2) + g.W) + 8LL * g.nchunks + 512;
+  if (total > (1 << 28)) return (int)cudaErrorInvalidValue;
+  g.off_red = round_up((int)slice, 128);
+  g.off_part = g.off_red + (int)red;
+  g.off_ab = g.off_part + round_up(4 * 2 * gs * (cl + 2), 16);
+  g.off_bar = g.off_ab + round_up(4 * 2 * g.W, 16);
+  g.smem = g.off_bar + 8 * g.nchunks + 128;  // + alignment of the base
+  return 0;
 }
 
-template <typename T, int V>
+// One block: slice `rank` of unit (batch row blockIdx.y, group set
+// blockIdx.x / cl). TMA: the slice by tensor-map boxes (NHWC only).
+template <typename T, int V, bool TMA>
 __global__ void __launch_bounds__(FUSED_THREADS)
-gn_fused_kernel(const T* __restrict__ x, const void* __restrict__ scale,
-                const void* __restrict__ bias, int param_bf16, T* __restrict__ y,
-                int C, int S, int G, float eps, int nhwc, int act, int header_bytes) {
+gn_fused_kernel(const __grid_constant__ CUtensorMap map, const T* __restrict__ x,
+                const void* __restrict__ scale, const void* __restrict__ bias,
+                T* __restrict__ y, const FusedGeom g) {
   typedef typename Raw<sizeof(T) * V>::t R;
-  extern __shared__ __align__(16) unsigned char smem[];
-  float* red = reinterpret_cast<float*>(smem);
-  const int cpg = C / G;
-  float* a_s = red + RED_FLOATS;
-  float* b_s = a_s + cpg;
-  T* span = reinterpret_cast<T*>(smem + header_bytes);
-  const int g = blockIdx.x;
-  const size_t slab = (size_t)blockIdx.y * C * S;
-  const int n = cpg * S;
+  extern __shared__ uint8_t smem_raw[];
+  uint8_t* smem = smem_raw + ((128u - (hopper::smem_addr(smem_raw) & 127u)) & 127u);
+  T* slice = reinterpret_cast<T*>(smem);
+  float* red = reinterpret_cast<float*>(smem + g.off_red);
+  float* part = reinterpret_cast<float*>(smem + g.off_part);
+  float* gath = part + 2 * g.gs;
+  float* stat = gath + 2 * g.gs * g.cl;
+  float* a_s = reinterpret_cast<float*>(smem + g.off_ab);
+  float* b_s = a_s + g.W;
+  uint64_t* bars = reinterpret_cast<uint64_t*>(smem + g.off_bar);
+  cg::cluster_group cluster = cg::this_cluster();
+  const int rank = (int)cluster.block_rank();
+  const int set = blockIdx.x / g.cl;
+  const int b = blockIdx.y;
+  const int tid = threadIdx.x;
 
-  float s1 = 0.f, s2 = 0.f;
-#pragma unroll 4
-  for (int i = threadIdx.x * V; i < n; i += FUSED_THREADS * V) {
-    const R r = *reinterpret_cast<const R*>(x + span_offset(slab, i, g, cpg, C, S, nhwc));
-    *reinterpret_cast<R*>(span + i) = r;
-    const T* e = reinterpret_cast<const T*>(&r);
-#pragma unroll
-    for (int j = 0; j < V; ++j) {
-      const float f = to_f(e[j]);
-      s1 += f;
-      s2 += f * f;
+  // NHWC: thread (tx, ty) keeps the V channels of vector columns tx,
+  // tx + nvt, ... and walks pixel rows ty, ty + rr, ...; NCHW: vectors
+  // tid, tid + threads, ... of the slice.
+  const int nv = g.W / V;
+  const int tx = tid % g.nvt, ty = tid / g.nvt;
+  const int r0 = rank * g.P;                   // first row / element
+  const int n = g.nhwc ? g.S : g.cpg * g.S;
+  const int cnt = max(0, min(g.P, n - r0));    // rows / elements held
+  // the slice's first element (the tensor has fewer than 2^31 elements)
+  const int base = g.nhwc ? (b * g.S + r0) * g.C + set * g.W : (b * g.C + set * g.cpg) * g.S + r0;
+  const T* __restrict__ xs = x + base;
+  T* __restrict__ ys = y + base;
+
+  if constexpr (TMA) {
+    if (tid == 0) {
+      for (int k = 0; k < g.nchunks; ++k) hopper::mbar_init(bars + k, 1);
+      hopper::mbar_init_fence();
+    }
+    __syncthreads();
+    if (tid == 0) {
+      const uint32_t box = (uint32_t)g.chunk * g.W * sizeof(T);
+      for (int k = 0; k * g.chunk < cnt; ++k) {
+        hopper::mbar_arrive_tx(bars + k, box);
+        hopper::tma_load_3d(slice + k * g.chunk * g.W, &map, set * g.W,
+                            r0 + k * g.chunk, b, bars + k);
+      }
     }
   }
-  block_sum2(s1, s2, red);
-  float mean, inv;
-  mean_inv(s1, s2, (float)n, eps, mean, inv);
-  for (int j = threadIdx.x; j < cpg; j += FUSED_THREADS) {
-    const int c = g * cpg + j;
-    fold<T>(mean, inv, param(scale, c, param_bf16), param(bias, c, param_bf16),
-            a_s[j], b_s[j]);
+
+  if (g.nhwc) {
+    if (ty < g.rr) {
+      for (int cv = tx; cv < nv; cv += g.nvt) {
+        float a1[V], a2[V];
+#pragma unroll
+        for (int j = 0; j < V; ++j) a1[j] = a2[j] = 0.f;
+        int ready = 0;  // TMA: rows [0, ready) have landed
+#pragma unroll 4
+        for (int r = ty; r < cnt; r += g.rr) {
+          R raw;
+          if constexpr (TMA) {
+            if (r >= ready) {
+              const int k = r / g.chunk;
+              hopper::mbar_wait(bars + k, 0);
+              ready = (k + 1) * g.chunk;
+            }
+            raw = *reinterpret_cast<const R*>(slice + r * g.W + cv * V);
+          } else {
+            raw = *reinterpret_cast<const R*>(xs + r * g.C + cv * V);
+            *reinterpret_cast<R*>(slice + r * g.W + cv * V) = raw;
+          }
+          const T* e = reinterpret_cast<const T*>(&raw);
+#pragma unroll
+          for (int j = 0; j < V; ++j) {
+            const float f = to_f(e[j]);
+            a1[j] += f;
+            a2[j] += f * f;
+          }
+        }
+        // column sums by row of threads: s1 at red[ty][c], s2 at red[rr + ty][c]
+#pragma unroll
+        for (int j = 0; j < V; ++j) {
+          red[ty * g.W + cv * V + j] = a1[j];
+          red[(g.rr + ty) * g.W + cv * V + j] = a2[j];
+        }
+      }
+    }
+    __syncthreads();
+    for (int c = tid; c < g.W; c += FUSED_THREADS) {  // channel c over the rows, in order
+      float s1 = 0.f, s2 = 0.f;
+      for (int t = 0; t < g.rr; ++t) {
+        s1 += red[t * g.W + c];
+        s2 += red[(g.rr + t) * g.W + c];
+      }
+      red[c] = s1;  // only this thread reads column c
+      red[g.rr * g.W + c] = s2;
+    }
+    __syncthreads();
+    for (int q = tid; q < g.gs; q += FUSED_THREADS) {  // group q over its channels, in order
+      float s1 = 0.f, s2 = 0.f;
+      for (int c = q * g.cpg; c < (q + 1) * g.cpg; ++c) {
+        s1 += red[c];
+        s2 += red[g.rr * g.W + c];
+      }
+      part[2 * q] = s1;
+      part[2 * q + 1] = s2;
+    }
+  } else {
+    float s1 = 0.f, s2 = 0.f;
+#pragma unroll 4
+    for (int i = tid * V; i < cnt; i += FUSED_THREADS * V) {
+      const R raw = *reinterpret_cast<const R*>(xs + i);
+      *reinterpret_cast<R*>(slice + i) = raw;
+      const T* e = reinterpret_cast<const T*>(&raw);
+#pragma unroll
+      for (int j = 0; j < V; ++j) {
+        const float f = to_f(e[j]);
+        s1 += f;
+        s2 += f * f;
+      }
+    }
+    block_sum2(s1, s2, red);
+    if (tid == 0) {
+      part[0] = s1;
+      part[1] = s2;
+    }
+  }
+  unit_sync(g.cl);  // every block's partials are in its shared memory
+
+  // every rank's partials, one remote load a thread, all in flight at once
+  for (int i = tid; i < 2 * g.gs * g.cl; i += FUSED_THREADS)
+    gath[i] = cluster.map_shared_rank(part, i / (2 * g.gs))[i % (2 * g.gs)];
+  unit_sync(g.cl);  // gathered: no block reads another's shared memory after this
+  for (int q = tid; q < g.gs; q += FUSED_THREADS) {  // group q over the ranks, in order
+    float s1 = 0.f, s2 = 0.f;
+    for (int k = 0; k < g.cl; ++k) {
+      s1 += gath[2 * (k * g.gs + q)];
+      s2 += gath[2 * (k * g.gs + q) + 1];
+    }
+    mean_inv(s1, s2, (float)(g.cpg * g.S), g.eps, stat[2 * q], stat[2 * q + 1]);
   }
   __syncthreads();
+  for (int c = tid; c < g.W; c += FUSED_THREADS) {
+    const int q = c / g.cpg, gc = set * g.W + c;
+    fold<T>(stat[2 * q], stat[2 * q + 1], param(scale, gc, g.param_bf16),
+            param(bias, gc, g.param_bf16), a_s[c], b_s[c]);
+  }
+  __syncthreads();  // a and b are ready
 
-  for (int i = threadIdx.x * V; i < n; i += FUSED_THREADS * V) {
-    const R r = *reinterpret_cast<const R*>(span + i);
-    const T* e = reinterpret_cast<const T*>(&r);
-    R out;
-    T* o = reinterpret_cast<T*>(&out);
+  if (g.nhwc) {
+    if (ty < g.rr) {
+      constexpr bool PAIRS = std::is_same<T, bf16>::value && V % 2 == 0;
+      for (int cv = tx; cv < nv; cv += g.nvt) {
+        float av[V], bv[V];
+        __nv_bfloat162 a2[V / 2 > 0 ? V / 2 : 1];
 #pragma unroll
-    for (int j = 0; j < V; ++j) {
-      const int c = nhwc ? (i + j) % cpg : (i + j) / S;
-      o[j] = from_f<T>(affine_act<T>(to_f(e[j]), a_s[c], b_s[c], act));
+        for (int j = 0; j < V; ++j) {
+          av[j] = a_s[cv * V + j];
+          bv[j] = b_s[cv * V + j];
+        }
+        if constexpr (PAIRS) {
+#pragma unroll
+          for (int j = 0; j < V / 2; ++j) a2[j] = __floats2bfloat162_rn(av[2 * j], av[2 * j + 1]);
+        }
+#pragma unroll 4
+        for (int r = ty; r < cnt; r += g.rr) {
+          const R raw = *reinterpret_cast<const R*>(slice + r * g.W + cv * V);
+          const T* e = reinterpret_cast<const T*>(&raw);
+          R out;
+          T* o = reinterpret_cast<T*>(&out);
+          if constexpr (PAIRS) {
+            affine_act_bf16x2<V>(e, a2, bv, g.act, o);
+          } else {
+#pragma unroll
+            for (int j = 0; j < V; ++j)
+              o[j] = from_f<T>(affine_act<T>(to_f(e[j]), av[j], bv[j], g.act));
+          }
+          *reinterpret_cast<R*>(ys + r * g.C + cv * V) = out;
+        }
+      }
     }
-    *reinterpret_cast<R*>(y + span_offset(slab, i, g, cpg, C, S, nhwc)) = out;
+  } else {
+    for (int i = tid * V; i < cnt; i += FUSED_THREADS * V) {
+      const R raw = *reinterpret_cast<const R*>(slice + i);
+      const T* e = reinterpret_cast<const T*>(&raw);
+      R out;
+      T* o = reinterpret_cast<T*>(&out);
+#pragma unroll
+      for (int j = 0; j < V; ++j) {
+        const int c = (r0 + i + j) / g.S;
+        o[j] = from_f<T>(affine_act<T>(to_f(e[j]), a_s[c], b_s[c], g.act));
+      }
+      *reinterpret_cast<R*>(ys + i) = out;
+    }
   }
 }
+
+// An empty kernel of gn_fused's grid, cluster and block: the launch's own
+// latency, the floor under a small norm.
+__global__ void __launch_bounds__(FUSED_THREADS) gn_empty_kernel(int) {}
 
 // ------------------------------------------------------------- gn_stats
 
@@ -390,17 +653,71 @@ inline cudaError_t set_smem(K kernel, size_t bytes) {
                               (int)bytes);
 }
 
+// Launch `kern` over `grid` in clusters of `cl` blocks along x.
+template <typename K, typename... Args>
+cudaError_t launch_cluster(K kern, dim3 grid, int cl, size_t smem, cudaStream_t stream,
+                           Args... args) {
+  cudaError_t err = set_smem(kern, smem);
+  if (err == cudaSuccess && cl > 8)
+    err = cudaFuncSetAttribute(kern, cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
+  if (err != cudaSuccess) return err;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = grid;
+  cfg.blockDim = dim3(FUSED_THREADS);
+  cfg.dynamicSmemBytes = smem;
+  cfg.stream = stream;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = cl;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  err = cudaLaunchKernelEx(&cfg, kern, args...);
+  return err != cudaSuccess ? err : cudaGetLastError();
+}
+
+// Tensor map of an NHWC [B, S, C] tensor, read in boxes of W channels by
+// `rows` pixel rows of one batch row; rows past S read as zero. Needs a
+// 16-byte aligned base, C * itemsize and W * itemsize multiples of 16.
+inline int nhwc_map(CUtensorMap* map, const void* base, bool is_bf16, int B, int C, int S,
+                    int W, int rows) {
+  hopper::EncodeTiledFn fn = hopper::encode_tiled();
+  if (!fn) return (int)cudaErrorNotSupported;
+  const int isz = is_bf16 ? 2 : 4;
+  const cuuint64_t dims[3] = {(cuuint64_t)C, (cuuint64_t)S, (cuuint64_t)B};
+  const cuuint64_t strides[2] = {(cuuint64_t)C * isz, (cuuint64_t)S * C * isz};
+  const cuuint32_t box[3] = {(cuuint32_t)W, (cuuint32_t)rows, 1};
+  const cuuint32_t estr[3] = {1, 1, 1};
+  CUresult r = fn(map, is_bf16 ? CU_TENSOR_MAP_DATA_TYPE_BFLOAT16 : CU_TENSOR_MAP_DATA_TYPE_FLOAT32,
+                  3, const_cast<void*>(base), dims, strides, box, estr,
+                  CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_NONE,
+                  CU_TENSOR_MAP_L2_PROMOTION_L2_128B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  return r == CUDA_SUCCESS ? 0 : (int)cudaErrorInvalidValue;
+}
+
 template <typename T, int V>
 int launch_fused(const void* x, const void* scale, const void* bias, int param_bf16,
-                 void* y, int B, int C, int S, int G, float eps, int nhwc, int act,
-                 int header_bytes, cudaStream_t stream) {
-  const size_t smem = header_bytes + (size_t)(C / G) * S * sizeof(T);
-  auto kern = gn_fused_kernel<T, V>;
-  cudaError_t err = set_smem(kern, smem);
-  if (err != cudaSuccess) return (int)err;
-  kern<<<dim3(G, B), FUSED_THREADS, smem, stream>>>(
-      (const T*)x, scale, bias, param_bf16, (T*)y, C, S, G, eps, nhwc, act, header_bytes);
-  return (int)cudaGetLastError();
+                 void* y, int B, int C, int S, int G, float eps, int nhwc, int act, int gs,
+                 int cl, int tma, cudaStream_t stream) {
+  FusedGeom g;
+  int rc = fused_geom(g, C, S, G, gs, cl, sizeof(T), V, tma, nhwc);
+  if (rc) return rc;
+  g.param_bf16 = param_bf16, g.act = act, g.eps = eps;
+  CUtensorMap map;
+  memset(&map, 0, sizeof(map));
+  if (tma) {
+    if (reinterpret_cast<uintptr_t>(x) % 16) return (int)cudaErrorInvalidValue;
+    rc = nhwc_map(&map, x, sizeof(T) == 2, B, C, S, g.W, g.chunk);
+    if (rc) return rc;
+  }
+  const dim3 grid(cl * (G / gs), B);
+  const T* xt = static_cast<const T*>(x);
+  T* yt = static_cast<T*>(y);
+  return (int)(tma ? launch_cluster(gn_fused_kernel<T, V, true>, grid, cl, g.smem, stream, map,
+                                    xt, scale, bias, yt, g)
+                   : launch_cluster(gn_fused_kernel<T, V, false>, grid, cl, g.smem, stream,
+                                    map, xt, scale, bias, yt, g));
 }
 
 template <typename T, int V>
@@ -455,10 +772,10 @@ int launch_apply(const void* x, const void* ab, void* y, int B, int C, int S, in
 
 template <typename T>
 int fused_t(const void* x, const void* scale, const void* bias, int param_bf16, void* y,
-            int B, int C, int S, int G, float eps, int nhwc, int act, int header_bytes,
-            int vec, cudaStream_t s) {
+            int B, int C, int S, int G, float eps, int nhwc, int act, int gs, int cl,
+            int vec, int tma, cudaStream_t s) {
   GN_DISPATCH(T, vec, (launch_fused<T, V>(x, scale, bias, param_bf16, y, B, C, S, G, eps,
-                                          nhwc, act, header_bytes, s)))
+                                          nhwc, act, gs, cl, tma, s)))
 }
 
 template <typename T>
@@ -482,20 +799,41 @@ inline bool shape_ok(int B, int C, int S, int G) {
 }  // namespace gn
 
 // x, y: [B, C, S] (nhwc = 0) or [B, S, C] (nhwc = 1) in bf16 (is_bf16 = 1)
-// or fp32; scale, bias: [C] in bf16 (param_bf16 = 1) or fp32. header_bytes:
-// the shared bytes before the span (16-byte multiple, >= 4 * (68 + 2 C/G)).
-// Returns the CUDA error code of the launch (0 on success).
+// or fp32; scale, bias: [C] in bf16 (param_bf16 = 1) or fp32. The plan:
+// group_set adjacent groups a unit (NCHW: 1), cluster blocks a unit (1 to
+// 16), vec elements a load, tma = 1 to load NHWC slices by TMA. Returns the
+// CUDA error code of the launch (0 on success).
 extern "C" int gn_fused(const void* x, const void* scale, const void* bias, void* y,
                         int is_bf16, int param_bf16, int B, int C, int S, int G,
-                        float eps, int nhwc, int act, int header_bytes, int vec,
-                        void* stream) {
+                        float eps, int nhwc, int act, int group_set, int cluster, int vec,
+                        int tma, void* stream) {
   using namespace gn;
-  if (!shape_ok(B, C, S, G)) return (int)cudaErrorInvalidValue;
+  if (!shape_ok(B, C, S, G) || (long long)B * C * S >= (1LL << 31))
+    return (int)cudaErrorInvalidValue;
   cudaStream_t s = (cudaStream_t)stream;
   return is_bf16 ? fused_t<bf16>(x, scale, bias, param_bf16, y, B, C, S, G, eps, nhwc, act,
-                                 header_bytes, vec, s)
+                                 group_set, cluster, vec, tma, s)
                  : fused_t<float>(x, scale, bias, param_bf16, y, B, C, S, G, eps, nhwc,
-                                  act, header_bytes, vec, s);
+                                  act, group_set, cluster, vec, tma, s);
+}
+
+// gn_fused's shared bytes for a plan (< 0: a plan the kernel cannot take).
+extern "C" int gn_fused_smem(int is_bf16, int C, int S, int G, int nhwc, int group_set,
+                             int cluster, int vec, int tma) {
+  gn::FusedGeom g;
+  const int rc = gn::fused_geom(g, C, S, G, group_set, cluster, is_bf16 ? 2 : 4, vec, tma, nhwc);
+  return rc ? -rc : g.smem;
+}
+
+// An empty kernel over gn_fused's grid for a plan ((cluster * G / group_set,
+// B) blocks in clusters of `cluster`, `smem` dynamic shared bytes each):
+// the latency floor of a launch.
+extern "C" int gn_empty(int B, int G, int group_set, int cluster, int smem, void* stream) {
+  using namespace gn;
+  if (group_set <= 0 || G % group_set || cluster <= 0 || cluster > MAX_CLUSTER)
+    return (int)cudaErrorInvalidValue;
+  return (int)launch_cluster(gn_empty_kernel, dim3(cluster * (G / group_set), B), cluster,
+                             (size_t)smem, (cudaStream_t)stream, 0);
 }
 
 // part: fp32 [B, nsplit, G, 2] scratch; counter: int32 [B], zero (the last

@@ -38,7 +38,9 @@ SIGNATURES = {
     "flash_bwd_fused_f32": ("flash_f32", [_P] * 9 + [_I] * 4 + [_F, _P]),
     "flash_bwd_dq_f32": ("flash_f32", [_P] * 7 + [_I] * 4 + [_F, _P]),
     "flash_bwd_dkv_f32": ("flash_f32", [_P] * 8 + [_I] * 4 + [_F, _P]),
-    "gn_fused": ("groupnorm", [_P] * 4 + [_I] * 6 + [_F] + [_I] * 4 + [_P]),
+    "gn_fused": ("groupnorm", [_P] * 4 + [_I] * 6 + [_F] + [_I] * 6 + [_P]),
+    "gn_fused_smem": ("groupnorm", [_I] * 9),
+    "gn_empty": ("groupnorm", [_I] * 5 + [_P]),
     "gn_stats": ("groupnorm", [_P] * 6 + [_I] * 6 + [_F] + [_I] * 3 + [_P]),
     "gn_apply": ("groupnorm", [_P] * 3 + [_I] * 8 + [_P]),
     "gn_smem_optin": ("groupnorm", [_I]),

@@ -3,7 +3,8 @@
 Port of ``distdiff_tpu/ops/groupnorm.py``. The Pallas TPU kernels become
 three CUDA kernels for Hopper (``csrc/groupnorm.cu``):
 
-  ``gn_fused``  <- ``_gn_kernel``        (the span fits a block's shared memory)
+  ``gn_fused``  <- ``_gn_kernel``        (the span fits a block's shared memory;
+                                         a cluster of blocks per unit)
   ``gn_stats``  <- ``_gn_stats_kernel``  } the two-pass path, for the
   ``gn_apply``  <- ``_gn_apply_kernel``  } VAE's big slabs
 
@@ -46,9 +47,23 @@ launch_shapes: collections.Counter = collections.Counter()
 layout_counts: collections.Counter = collections.Counter()
 DTYPES = (torch.bfloat16, torch.float32)
 ACTS = {None: 0, "silu": 1}
-# gn_fused's shared bytes before the span: 68 floats of block reduction,
-# then a and b of each channel of the group (csrc/groupnorm.cu)
+# The route rule's header (``fused_fits``): 68 floats of block reduction,
+# then a and b of each channel of the group, as one block per span needed
 _RED_FLOATS = 68
+# gn_fused (csrc/groupnorm.cu): threads a block, blocks a cluster at most,
+# rows or channels of a TMA box at most, chunks a slice arrives in
+FUSED_THREADS = 256
+_MAX_CLUSTER = 16
+_TMA_BOX = 256
+_TMA_CHUNKS = 4
+# its plan: a group set's run of channels at each pixel spans at least
+# _RUN_BYTES (two 32-byte sectors), so that small grids get more units;
+# clusters grow until the grid has _CTAS_PER_SM blocks an SM, keeping each
+# slice >= _MIN_SLICE_BYTES; a grid of more blocks than that loads by TMA
+# (one that fits is as fast by the threads' own loads)
+_RUN_BYTES = 64
+_CTAS_PER_SM = 4
+_MIN_SLICE_BYTES = 8192
 # pass 1 aims at this many blocks per SM, and gives a block at least
 # _MIN_SPLIT elements (NCHW) or _MIN_ROWS pixel rows (NHWC)
 _BLOCKS_PER_SM = 4
@@ -153,13 +168,16 @@ def vector_width(itemsize: int, divisors, *tensors) -> int:
     """Elements per load and store: the largest of 16, 8, 4, 2 bytes' worth
     (down to one element) that divides every count in ``divisors`` and
     whose byte width aligns every tensor's address."""
+    return _vec(itemsize, math.gcd(*divisors), math.gcd(16, *(t.data_ptr() for t in tensors)))
+
+
+def _vec(itemsize: int, n: int, align: int) -> int:
+    """The largest of 16, 8, 4, 2 bytes' worth of elements (down to one)
+    that divides ``n`` and whose byte width divides ``align``."""
     v = 16 // itemsize
-    while v > 1:
-        if all(n % v == 0 for n in divisors) and \
-                all(t.data_ptr() % (v * itemsize) == 0 for t in tensors):
-            return v
+    while v > 1 and (n % v or align % (v * itemsize)):
         v //= 2
-    return 1
+    return v
 
 
 def _device_limits(dev: torch.device) -> Tuple[int, int]:
@@ -200,18 +218,105 @@ def _raise_on(rc: int, name: str) -> None:
         raise RuntimeError(f"{name} launch failed with CUDA error {rc}")
 
 
-def gn_fused(x, scale, bias, groups: int, eps: float, act, y) -> None:
-    """One block per (group, batch row): y = act(x a + b) in one pass."""
+class FusedPlan(collections.namedtuple("FusedPlan", "group_set cluster vec tma")):
+    """gn_fused's launch plan: ``group_set`` adjacent groups a unit (with
+    one batch row), ``cluster`` blocks splitting a unit, ``vec`` elements a
+    load and store, ``tma`` 1 where the slices arrive by TMA."""
+
+
+def _round_up(v: int, m: int) -> int:
+    return -(-v // m) * m
+
+
+def fused_smem_bytes(lay: str, c: int, s: int, groups: int, itemsize: int,
+                     plan: FusedPlan) -> int:
+    """gn_fused's shared bytes a block for ``plan`` (``fused_geom`` in
+    csrc/groupnorm.cu): the slice, the column sums, the group partials with
+    every rank's gathered and the group statistics, a and b, the
+    mbarriers, and 128 bytes of alignment."""
+    gs, cl, v, tma = plan
+    cpg = c // groups
+    w = gs * cpg
+    nchunks = 0
+    if lay == "nhwc":
+        p = -(-s // cl)
+        chunk = min(_round_up(-(-p // _TMA_CHUNKS), 8), _TMA_BOX)
+        nchunks = -(-p // chunk) if tma else 0
+        slice_bytes = (nchunks * chunk if tma else p) * w * itemsize
+        rr = FUSED_THREADS // min(w // v, FUSED_THREADS)
+        red = 4 * 2 * rr * w
+    else:
+        slice_bytes = _round_up(-(-(cpg * s) // cl), v) * itemsize
+        red = 4 * _RED_FLOATS
+    return (_round_up(slice_bytes, 128) + red + _round_up(8 * gs * (cl + 2), 16)
+            + _round_up(8 * w, 16) + 8 * nchunks + 128)
+
+
+def fused_plan(b: int, c: int, s: int, groups: int, itemsize: int, lay: str,
+               sm_count: int, smem_limit: int, x_ptr: int, y_ptr: int) -> FusedPlan:
+    """gn_fused's plan for a [B, C, S] norm (pure arithmetic on the shape,
+    the card's SM count and shared memory, and the pointers).
+
+    NHWC: the group set is the fewest adjacent groups whose run of channels
+    at a pixel is >= ``_RUN_BYTES`` and a multiple of 16 bytes (else just
+    >= ``_RUN_BYTES``, else every group), so that loads are whole 16-byte
+    vectors over whole sectors; TMA where the base is 16-byte aligned, the
+    row stride and the run are multiples of 16 bytes (at most 256
+    channels: one box) and the grid has more than ``_CTAS_PER_SM`` blocks
+    an SM, else the threads' vector loads. NCHW: one group a
+    unit (a span is contiguous), vector loads. The cluster doubles from 1
+    until the grid has ``_CTAS_PER_SM`` blocks an SM or a slice would fall
+    under ``_MIN_SLICE_BYTES``, and further until a block's shared memory
+    fits ``smem_limit``; where 16 blocks do not make it fit, the set shrinks
+    to the next divisor of the group count; ValueError if one group does
+    not fit either."""
+    cpg = c // groups
+    align = math.gcd(x_ptr, y_ptr, 16)
+    if lay == "nhwc":
+        sets = [d for d in range(1, groups + 1) if groups % d == 0]
+        run = [d for d in sets if d * cpg * itemsize >= _RUN_BYTES]
+        first = next((d for d in run if d * cpg * itemsize % 16 == 0), run[0] if run else groups)
+        # the set that shared memory cannot take shrinks to the next divisor
+        candidates = [first] + [d for d in reversed(sets) if d < first]
+    else:
+        candidates = [1]
+    for gs in candidates:
+        w = gs * cpg
+        if lay == "nhwc":
+            v = _vec(itemsize, w, align)
+            tma_ok = (x_ptr % 16 == 0 and c * itemsize % 16 == 0 and w * itemsize % 16 == 0
+                      and w <= _TMA_BOX)
+            unit_bytes = s * w * itemsize
+        else:
+            v, tma_ok = _vec(itemsize, cpg * s, align), False
+            unit_bytes = cpg * s * itemsize
+        units = b * groups // gs
+        cl = 1
+        while (cl < _MAX_CLUSTER and units * cl < _CTAS_PER_SM * sm_count
+               and unit_bytes // (2 * cl) >= _MIN_SLICE_BYTES):
+            cl *= 2
+        while cl <= _MAX_CLUSTER:
+            plan = FusedPlan(gs, cl, v, int(tma_ok and units * cl > _CTAS_PER_SM * sm_count))
+            if fused_smem_bytes(lay, c, s, groups, itemsize, plan) <= smem_limit:
+                return plan
+            cl *= 2
+    raise ValueError(f"gn_fused: a [{b}, {c}, {s}] slab in {groups} groups does not fit "
+                     f"{_MAX_CLUSTER} blocks' shared memory")
+
+
+def gn_fused(x, scale, bias, groups: int, eps: float, act, y, sm_count: int,
+             smem_limit: int) -> None:
+    """y = act(x a + b) in one pass: a cluster of blocks per (batch row,
+    group set), as ``fused_plan`` lays it out."""
     lay = layout(x)
     b, c = x.shape[:2]
     s = x.numel() // (b * c)
-    cpg = c // groups
-    dims = (cpg,) if lay == "nhwc" else (cpg * s,)
-    v = vector_width(x.element_size(), dims, x, y)
+    plan = fused_plan(b, c, s, groups, x.element_size(), lay, sm_count, smem_limit,
+                      x.data_ptr(), y.data_ptr())
     rc = _build.kernel("gn_fused")(
         x.data_ptr(), scale.data_ptr(), bias.data_ptr(), y.data_ptr(),
         int(x.dtype == torch.bfloat16), int(scale.dtype == torch.bfloat16),
-        b, c, s, groups, eps, int(lay == "nhwc"), ACTS[act], fused_header_bytes(cpg), v,
+        b, c, s, groups, eps, int(lay == "nhwc"), ACTS[act], *plan,
         torch.cuda.current_stream().cuda_stream)
     _raise_on(rc, "gn_fused")
     _record("gn_fused", x)
@@ -282,7 +387,7 @@ def group_norm_forward(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor,
     smem_limit, sm_count = _device_limits(x.device)
     b, c = x.shape[:2]
     if fused_fits(c, groups, x.numel() // (b * c), x.element_size(), smem_limit):
-        gn_fused(x, scale, bias, groups, eps, act, y)
+        gn_fused(x, scale, bias, groups, eps, act, y, sm_count, smem_limit)
     else:
         gn_apply(x, gn_stats(x, scale, bias, groups, eps, sm_count), act, y, sm_count)
     layout_counts[lay] += 1

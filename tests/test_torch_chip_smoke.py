@@ -122,3 +122,23 @@ def test_gn_bound_counts_slab_passes(smoke):
     assert smoke.gn_bound("gn_stats", shape, 2) == (pytest.approx(one), "bytes")
     assert smoke.gn_bound("gn_apply", shape, 2)[0] == pytest.approx(2 * one)
     assert smoke.gn_bound("gn_fused", shape, 4)[0] == pytest.approx(4 * one)
+
+
+def test_gn_fused_plan_at_every_main_path_shape(smoke):
+    """Every gn_fused shape of the counted runs (bf16, channels-last, 16-byte
+    aligned) takes 16-byte vectors over a run of at least 64 bytes at each
+    pixel, loads by TMA where its grid has more than 4 blocks an SM, and
+    fits an H100 block's shared memory."""
+    from distdiff_tpu_torch.models.layers import group_count
+    from distdiff_tpu_torch.ops import groupnorm as gn
+
+    shapes = sorted({s for name, s in smoke.gn_plan(smoke.main_gn_calls()) if name == "gn_fused"})
+    assert len(shapes) == 28
+    for b, c, h, w in shapes:
+        groups = group_count(c)
+        plan = gn.fused_plan(b, c, h * w, groups, 2, "nhwc", 132, smoke.H100_SMEM_OPTIN, 0, 0)
+        blocks = b * groups // plan.group_set * plan.cluster
+        assert plan.vec == 8 and plan.tma == (blocks > 4 * 132)
+        run = plan.group_set * (c // groups) * 2
+        assert run >= 64 and run % 16 == 0
+        assert gn.fused_smem_bytes("nhwc", c, h * w, groups, 2, plan) <= smoke.H100_SMEM_OPTIN

@@ -166,12 +166,20 @@ def test_wrappers_pass_layout_vector_and_split_to_the_kernels(recorder):
     cl = torch.empty(2, 640, 64, 64, device="meta", dtype=torch.bfloat16).to(
         memory_format=torch.channels_last)
     scale = torch.empty(640, device="meta", dtype=torch.bfloat16)
-    gn.gn_fused(cl, scale, scale, 32, 1e-5, "silu", torch.empty_like(cl))
+    gn.gn_fused(cl, scale, scale, 32, 1e-5, "silu", torch.empty_like(cl), 132, 232448)
     name, args = recorder[-1]
-    # x, scale, bias, y, is_bf16, param_bf16, B, C, S, G, eps, nhwc, act, header, vec
-    assert name == "gn_fused"
+    # x, scale, bias, y, is_bf16, param_bf16, B, C, S, G, eps, nhwc, act,
+    # group_set, cluster, vec, tma
+    assert name == "gn_fused" and len(args) == len(_build.SIGNATURES["gn_fused"][1])
     assert args[4:10] == (1, 1, 2, 640, 4096, 32) and args[11:13] == (1, 1)
-    assert args[13] == gn.fused_header_bytes(20) and args[14] == 4  # cpg 20: 8-byte loads
+    # 2 groups of 20 channels: 80-byte runs, 16 bytes a load, over 16-block
+    # clusters (2 rows x 16 sets x 16 = 512 blocks, within 4 an SM: the
+    # threads' own loads)
+    assert args[13:17] == (2, 16, 8, 0)
+    flat = torch.empty(2, 640, 64, 64, device="meta", dtype=torch.bfloat16)
+    gn.gn_fused(flat, scale, scale, 32, 1e-5, None, torch.empty_like(flat), 132, 232448)
+    # NCHW: one group a unit, vector loads over 16-block clusters
+    assert recorder[-1][1][11:17] == (0, 0, 1, 16, 8, 0)
     ab = gn.gn_stats(cl, scale, scale, 32, 1e-5, 132)
     assert tuple(ab.shape) == (2, 2, 640) and ab.dtype == torch.float32
     name, args = recorder[-1]
@@ -186,9 +194,74 @@ def test_wrappers_pass_layout_vector_and_split_to_the_kernels(recorder):
     assert recorder[-1][1][7] == 0 and recorder[-1][1][-2] == 1  # NCHW, one element a load
     gn.gn_stats(x, f32, f32, 32, 1e-5, 132)
     assert recorder[-1][1][6] == 0  # fp32 x, fp32 params
-    assert gn.launch_counts == {"gn_fused": 1, "gn_stats": 2, "gn_apply": 2}
+    assert gn.launch_counts == {"gn_fused": 2, "gn_stats": 2, "gn_apply": 2}
     assert gn.launch_shapes[("gn_stats", (2, 640, 64, 64))] == 1
     with pytest.raises(TypeError, match="bf16 or fp32"):
         gn._check(x.half(), f32, f32, 32)
     with pytest.raises(ValueError, match="groups"):
         gn._check(x, f32, f32, 5)
+
+
+H100 = (132, 232448)  # SMs, opt-in shared memory a block
+
+
+@pytest.mark.parametrize("shape, itemsize, lay, want", [
+    # the main path's shapes (bf16, channels-last, 16-byte aligned): runs of
+    # 80 bytes (cpg 10, 20, 40) or 64 (cpg 16); clusters grow until 4
+    # blocks an SM, keeping >= 8 KB a slice; TMA only where the grid has
+    # more blocks than that (1024 at 64^2 x 640)
+    ((4, 320, 64 * 64), 2, "nhwc", (4, 16, 8, 0)),
+    ((2, 320, 64 * 64), 2, "nhwc", (4, 16, 8, 0)),
+    ((4, 640, 64 * 64), 2, "nhwc", (2, 16, 8, 1)),
+    ((4, 640, 32 * 32), 2, "nhwc", (2, 8, 8, 0)),
+    ((4, 1280, 16 * 16), 2, "nhwc", (1, 2, 8, 0)),
+    ((4, 1280, 8 * 8), 2, "nhwc", (1, 1, 8, 0)),
+    ((1, 512, 64 * 64), 2, "nhwc", (2, 16, 8, 0)),
+    # fp32: twice the bytes a channel, so half the groups a set (and twice
+    # the blocks: TMA)
+    ((4, 320, 64 * 64), 4, "nhwc", (2, 16, 4, 1)),
+    # NCHW: one group a unit (its span is contiguous), vector loads only
+    ((4, 320, 64 * 64), 2, "nchw", (1, 8, 8, 0)),
+    ((4, 1280, 8 * 8), 4, "nchw", (1, 1, 4, 0)),
+    # cpg 9 in 4 groups: the one set of >= 64 bytes is all four (72 bytes,
+    # no multiple of 16): 8-byte loads, no TMA; two blocks of 9 KB
+    ((2, 36, 15 * 17), 2, "nhwc", (4, 2, 4, 0)),
+    # cpg 3: the smallest set of >= 64 bytes is 16 groups (96 bytes)
+    ((2, 96, 7 * 9), 2, "nhwc", (16, 1, 8, 0)),
+    # 5 groups of 10 (a group count with no set of >= 64 bytes but all):
+    # one 100-byte run, 4-byte loads
+    ((2, 50, 9 * 7), 2, "nhwc", (5, 1, 2, 0)),
+])
+def test_fused_plan(shape, itemsize, lay, want):
+    b, c, s = shape
+    groups = 4 if c == 36 else 5 if c == 50 else 32
+    plan = gn.fused_plan(b, c, s, groups, itemsize, lay, *H100, 4096, 8192)
+    assert tuple(plan) == want
+    assert gn.fused_smem_bytes(lay, c, s, groups, itemsize, plan) <= H100[1]
+
+
+@pytest.mark.parametrize("x_ptr, y_ptr, want", [
+    (4096 + 2, 8192, (2, 16, 1, 0)),   # x one element in: vector loads, 2 bytes each
+    (4096, 8192 + 8, (2, 16, 4, 1)),   # y off 16 bytes: TMA loads, 8-byte stores
+    (4096 + 16, 8192, (2, 16, 8, 1)),  # 16-byte aligned: as at the base
+])
+def test_fused_plan_follows_pointer_alignment(x_ptr, y_ptr, want):
+    # [4,640,64,64]: 1024 blocks, so TMA where the pointers allow it
+    assert tuple(gn.fused_plan(4, 640, 4096, 32, 2, "nhwc", *H100, x_ptr, y_ptr)) == want
+
+
+@pytest.mark.parametrize("shape, groups, smem_limit", [
+    ((4, 640, 64 * 64), 32, 48 * 1024),   # a small limit: clusters grow until a slice fits
+    ((1, 602, 6 * 5), 2, 232448),          # 301 channels a set: more vectors than threads
+    ((1, 64, 1), 32, 232448),              # one pixel
+])
+def test_fused_plan_fits_shared_memory(shape, groups, smem_limit):
+    b, c, s = shape
+    plan = gn.fused_plan(b, c, s, groups, 2, "nhwc", 132, smem_limit, 0, 0)
+    assert gn.fused_smem_bytes("nhwc", c, s, groups, 2, plan) <= smem_limit
+    assert plan.cluster <= 16 and groups % plan.group_set == 0
+
+
+def test_fused_plan_refuses_what_no_cluster_fits():
+    with pytest.raises(ValueError, match="does not fit"):
+        gn.fused_plan(1, 32, 512 * 512, 1, 4, "nhwc", 132, 48 * 1024, 0, 0)
