@@ -8,8 +8,9 @@ package. Six phases, any failure exits non-zero:
 1. Device: the card's name and power limit, torch/CUDA versions, the
    time to build the CUDA kernels from ``distdiff_tpu_torch/csrc`` (one
    ``nvcc`` a source, all at once), each kernel's registers and spills from
-   ``-Xptxas -v`` (a Hopper flash kernel that spills fails the run) and the
-   Hopper flash kernels' dynamic shared memory.
+   ``-Xptxas -v`` (a Hopper flash or GroupNorm kernel that spills fails the
+   run), the Hopper flash kernels' dynamic shared memory, and the GroupNorm
+   kernels' plans with their shared memory, held against the C side's.
 2. Kernels, each held against its plain PyTorch version on the same inputs:
    every flash kernel at the main path's shapes in bf16 (against the plain
    fp32 version; timed beside ``F.scaled_dot_product_attention``, a
@@ -25,8 +26,14 @@ package. Six phases, any failure exits non-zero:
    beside ``F.group_norm`` + ``F.silu``; gn_fused also at its edges: B = 1,
    pixels one off its cluster's split, runs off 16 bytes, views off 16-byte
    alignment, each printed with its route and cluster, and every gn_fused
-   result launched twice for the same bytes). Times are medians of CUDA events,
-   each beside the least time the card could take (``bound_ms``).
+   result launched twice for the same bytes; the gn_stats + gn_apply pair
+   at its shapes in all eight combinations of type, layout and SiLU and at
+   its edges: B = 1, pixel rows off the band, vectors of 4, 2 and 1,
+   column loops, many groups, each printed with its plan, the plan replayed
+   by ``check_pair_plan``, every pair result launched twice for the same
+   bytes, and the pair also timed as the main path runs it). Times are
+   medians of CUDA events, each beside the least time the card could take
+   (``bound_ms``).
 3. Agreement: the guided expansion at a small geometry whose attention
    reaches every flash kernel, in bf16 through the kernels, in bf16 through
    the plain attention and in fp32 through the plain attention, on the same
@@ -162,9 +169,11 @@ def bound(name, bh, tq, tk, d, itemsize=2):
 
 
 # the kernels built for Hopper (the bf16 flash kernels: warp-specialised,
-# TMA and wgmma; gn_fused: clusters, TMA): none may spill
+# TMA and wgmma; gn_fused: clusters, TMA; the gn_stats and gn_apply pair:
+# banded one-wave grids): none may spill
 HOPPER_KERNELS = ("flash_fwd_narrow_kernel", "flash_fwd_wide_kernel", "flash_bwd_fused_kernel",
-                  "gn_fused_kernel")
+                  "gn_fused_kernel", "gn_stats_nhwc_kernel", "gn_stats_nchw_kernel",
+                  "gn_apply_nhwc_kernel", "gn_apply_nchw_kernel")
 WIDE_DMAX = (256, 512)  # the wide forward's instances
 
 
@@ -194,7 +203,8 @@ def ptxas_phase() -> None:
 def gn_smem_phase() -> None:
     """gn_fused's plan and dynamic shared memory a block at every main-path
     GroupNorm shape it takes (bf16, channels-last, 16-byte aligned), from
-    the C side's geometry, which must equal the plan's own count."""
+    the C side's geometry, which must equal the plan's own count; the same
+    for the gn_stats + gn_apply pair's plan at every shape it takes."""
     import torch
 
     from distdiff_tpu_torch.models.layers import group_count
@@ -202,7 +212,8 @@ def gn_smem_phase() -> None:
     from distdiff_tpu_torch.ops import groupnorm as gn
 
     smem_limit, sm_count = gn._device_limits(torch.device("cuda"))
-    for b, c, h, w in sorted({k[1] for k in gn_plan(main_gn_calls()) if k[0] == "gn_fused"}):
+    plan_keys = gn_plan(main_gn_calls())
+    for b, c, h, w in sorted({k[1] for k in plan_keys if k[0] == "gn_fused"}):
         g, s = group_count(c), h * w
         plan = gn.fused_plan(b, c, s, g, 2, "nhwc", sm_count, smem_limit, 0, 0)
         want = gn.fused_smem_bytes("nhwc", c, s, g, 2, plan)
@@ -210,6 +221,66 @@ def gn_smem_phase() -> None:
         print(f"  gn_fused [{b},{c},{h},{w}]: {plan}, {got} B of dynamic shared memory a block, "
               f"{b * g // plan.group_set * plan.cluster} blocks")
         require(got == want, f"gn_fused's shared memory at [{b},{c},{h},{w}]: C {got}, plan {want}")
+    for b, c, h, w in sorted({k[1] for k in plan_keys if k[0] == "gn_stats"}):
+        g, s = group_count(c), h * w
+        plan = gn.pair_plan(b, c, s, 2, "nhwc", sm_count, 0, 0)
+        check_pair_plan(b, c, s, 2, "nhwc", plan, 0, 0)
+        want = gn.pair_smem_bytes("nhwc", c, g, plan)
+        got = _build.kernel("gn_stats_smem")(c, s, g, 1, *plan)
+        print(f"  gn_stats/gn_apply [{b},{c},{h},{w}]: {plan}, {got} B of dynamic shared memory "
+              f"a gn_stats block, {b * plan.bands} blocks")
+        require(got == want and got <= smem_limit,
+                f"gn_stats' shared memory at [{b},{c},{h},{w}]: C {got}, plan {want}")
+
+
+def check_pair_plan(b, c, s, itemsize, lay, plan, x_ptr, y_ptr) -> None:
+    """Replay the gn_stats and gn_apply kernels' index arithmetic for
+    ``plan`` (csrc/groupnorm.cu): every pixel row (NHWC, walked last to
+    first as gn_apply walks it) or plane element (NCHW) is covered exactly
+    once, and every vector column once; every access lies in bounds; the vector divides what it
+    must and aligns both pointers; the block and grid fit the card's
+    limits."""
+    import numpy as np
+
+    v, threads, bands, rows = plan
+    what = f"pair plan {tuple(plan)} at [{b},{c},{s}] {lay}"
+    require(0 < threads <= 256 and bands > 0 and rows > 0, f"{what}: block or bands")
+    require(x_ptr % (v * itemsize) == 0 and y_ptr % (v * itemsize) == 0 and v * itemsize <= 16,
+            f"{what}: vector off its alignment")
+    require(bands * rows >= s and (bands - 1) * rows < s, f"{what}: bands do not tile the rows")
+    require(b * c * s < 2 ** 31, f"{what}: 2^31 elements or more")
+    hits = np.zeros(s, np.int64)
+    if lay == "nhwc":
+        require(c % v == 0 and b <= 65535, f"{what}: vector does not divide C")
+        nv = c // v
+        nvt = min(nv, threads)
+        rr = threads // nvt
+        require(nvt * rr == threads, f"{what}: threads are no whole rows of columns")
+        cols = np.zeros(nv, np.int64)
+        for tx in range(nvt):
+            cols[tx::nvt] += 1  # vector columns tx, tx + nvt, ...
+        require(bool((cols == 1).all()), f"{what}: vector columns not covered once")
+        ty = np.arange(rr)
+        for band in range(bands):
+            r0, r1 = band * rows, min(s, band * rows + rows)
+            n = np.maximum(0, -(-(r1 - r0 - ty) // rr))  # PairThread::count
+            k = np.arange(int(n.max()))
+            r = r0 + ty[:, None] + (n[:, None] - 1 - k[None, :]) * rr  # last to first
+            r = r[k[None, :] < n[:, None]]
+            require(r.size == 0 or (r.min() >= r0 and r.max() < r1), f"{what}: row out of band")
+            np.add.at(hits, r, 1)
+    else:
+        require(s % v == 0 and rows % v == 0 and threads % 32 == 0 and bands <= 65535,
+                f"{what}: vector, band or block")
+        for band in range(bands):
+            lo = band * rows
+            n = min(rows, s - lo)
+            i = (np.arange(threads) * v)[:, None] + np.arange(-(-n // (threads * v)))[None, :] * (
+                threads * v)
+            i = i[i < n]
+            for j in range(v):
+                np.add.at(hits, lo + i + j, 1)
+    require(bool((hits == 1).all()), f"{what}: rows not covered exactly once")
 
 
 def kernel_phase():
@@ -642,6 +713,12 @@ def gn_kernel_phase(shapes, timed=True) -> list:
                   (shape, groups, torch.bfloat16, False, other, False),
                   (shape, groups, torch.float32, True, other, False),
                   (shape, groups, torch.float32, False, main, False)]
+        b, c, h, w = shape
+        if not gn.fused_fits(c, groups, h * w, 2, smem_limit):  # the pair's: every combination
+            cases += [(shape, groups, torch.bfloat16, True, other, False),
+                      (shape, groups, torch.bfloat16, False, main, False),
+                      (shape, groups, torch.float32, True, main, False),
+                      (shape, groups, torch.float32, False, other, False)]
     ragged = [((2, 96, 7, 9), 32), ((3, 32, 5, 5), 32), ((1, 192, 33, 31), 64),
               ((2, 40, 15, 17), 8),
               # gn_fused's edges: B = 1; pixels one off its cluster's split
@@ -651,13 +728,20 @@ def gn_kernel_phase(shapes, timed=True) -> list:
               # (a column loop)
               ((1, 320, 64, 64), 32), ((1, 1280, 8, 8), 32), ((2, 640, 33, 31), 32),
               ((2, 640, 25, 41), 32), ((4, 640, 65, 63), 32), ((2, 36, 15, 17), 4),
-              ((1, 602, 6, 5), 2)]
+              ((1, 602, 6, 5), 2),
+              # the pair's edges: B = 1 at the UNet's 960 channels; pixel
+              # rows no multiple of the band (10000 in bands of 38); vectors
+              # of 2 and 1 bf16 values (C = 50, 45); more vector columns
+              # than threads (C = 2560); more groups than the finish has
+              # threads (192 groups, 384 columns)
+              ((1, 960, 64, 64), 32), ((2, 256, 100, 100), 32), ((2, 50, 17, 19), 5),
+              ((1, 45, 16, 16), 5), ((1, 2560, 9, 9), 32), ((2, 384, 20, 20), 192)]
     for shape, groups in ragged:
         for dtype in (torch.bfloat16, torch.float32):
             for cl in (True, False):
                 cases.append((shape, groups, dtype, cl, "silu" if cl else None, "direct"))
     # views one element into their storage: vector loads, whatever the shape
-    for shape, groups in (((2, 320, 32, 32), 32), ((1, 40, 9, 7), 8)):
+    for shape, groups in (((2, 320, 32, 32), 32), ((1, 40, 9, 7), 8), ((2, 128, 64, 64), 32)):
         for cl in (True, False):
             cases.append((shape, groups, torch.bfloat16, cl, "silu", "offset"))
 
@@ -670,11 +754,37 @@ def gn_kernel_phase(shapes, timed=True) -> list:
         require(same_bytes(y1, y2), f"gn_fused gave two results on one input at {tag}")
         return y1
 
+    def pair_plans(x, y, tag):
+        """The pair's plans for x (gn_stats) and x -> y (gn_apply), each
+        replayed by check_pair_plan and printed."""
+        b, c = x.shape[:2]
+        s = x.numel() // (b * c)
+        lay = gn.layout(x)
+        plans = [gn.pair_plan(b, c, s, x.element_size(), lay, sm_count, x.data_ptr(), p)
+                 for p in (x.data_ptr(), y.data_ptr())]
+        for plan, p in zip(plans, (x.data_ptr(), y.data_ptr())):
+            check_pair_plan(b, c, s, x.element_size(), lay, plan, x.data_ptr(), p)
+        print(f"  gn_stats/gn_apply {tag}: {tuple(plans[0])}"
+              + (f" / {tuple(plans[1])}" if plans[1] != plans[0] else ""))
+
+    def pair_twice(x, scale, bias, groups, act, tag):
+        """gn_stats and gn_apply twice on one input: both (a, b) and both
+        outputs, the same bytes."""
+        abs_, ys = [], []
+        for _ in range(2):
+            abs_.append(gn.gn_stats(x, scale, bias, groups, 1e-5, sm_count))
+            ys.append(torch.empty_like(x))
+            gn.gn_apply(x, abs_[-1], act, ys[-1], sm_count)
+        torch.cuda.synchronize()
+        require(same_bytes(*abs_) and same_bytes(*ys),
+                f"gn_stats/gn_apply gave two results on one input at {tag}")
+        return abs_[0], ys[0]
+
     def same_bytes(a, b):
         bits = torch.int16 if a.dtype == torch.bfloat16 else torch.int32
         return torch.equal(a.view(bits), b.view(bits))
 
-    n_same = 0
+    n_same = n_same_pair = 0
     for shape, groups, dtype, cl, act, mode in cases:
         x, scale, bias = data(shape, groups, dtype, cl, offset=mode == "offset")
         tag = (f"{list(shape)} g{groups} {str(dtype)[6:]} {'nhwc' if cl else 'nchw'} "
@@ -692,9 +802,11 @@ def gn_kernel_phase(shapes, timed=True) -> list:
             y = fused_twice(x, scale, bias, groups, act, tag)
             n_same += 1
             check(f"gn_fused {tag}", y, ref, dtype)
-            ab = gn.gn_stats(x, scale, bias, groups, 1e-5, sm_count)
-            check(f"gn_stats {tag}", ab, ref_ab, torch.float32)
             y2 = torch.empty_like(x)
+            pair_plans(x, y2, tag)
+            ab, _ = pair_twice(x, scale, bias, groups, act, tag)
+            n_same_pair += 1
+            check(f"gn_stats {tag}", ab, ref_ab, torch.float32)
             gn.gn_apply(x, ref_ab, act, y2, sm_count)
             check(f"gn_apply {tag}", y2, ref, dtype)
             require(y.stride() == x.stride() and y2.stride() == x.stride(),
@@ -708,6 +820,11 @@ def gn_kernel_phase(shapes, timed=True) -> list:
         require(y.stride() == x.stride(), f"output strides differ from the input's at {tag}")
         err = check(f"{'+'.join(ran)} {tag}", y, ref, dtype)
         n_checks += 1
+        if ran != ["gn_fused"]:
+            pair_plans(x, y, tag)
+            ab, y2 = pair_twice(x, scale, bias, groups, act, tag)
+            n_same_pair += 1
+            require(same_bytes(y2, y), f"gn_stats/gn_apply gave two results on one input at {tag}")
         if not mode:
             continue
         itemsize = x.element_size()
@@ -729,7 +846,6 @@ def gn_kernel_phase(shapes, timed=True) -> list:
             plains = {"gn_fused": plain_ms}
             errs = {"gn_fused": err}
         else:
-            ab = gn.gn_stats(x, scale, bias, groups, 1e-5, sm_count)
             out = torch.empty_like(x)
             gn.gn_apply(x, ab, act, out, sm_count)
             torch.cuda.synchronize()
@@ -741,6 +857,11 @@ def gn_kernel_phase(shapes, timed=True) -> list:
             plains = {"gn_stats": time_ms(lambda: gn.group_norm_stats_reference(
                           x, scale, bias, groups, 1e-5), 5),
                       "gn_apply": time_ms(lambda: gn.group_norm_apply_reference(x, ab, act), 5)}
+        if "gn_apply" in runs:  # the pair as the main path runs it: gn_apply right behind
+            pair_ms = time_ms(lambda: (runs["gn_stats"](), runs["gn_apply"]()), 10)
+            pair_bound = gn_bound("gn_stats", shape, 2)[0] + gn_bound("gn_apply", shape, 2)[0]
+            print(f"  gn_stats + gn_apply {list(shape)} bf16 nhwc act={act}: pair "
+                  f"{pair_ms:.4f} ms, bound {pair_bound:.4f} ms")
         for name, run in runs.items():
             ms = time_ms(run, 10)
             b_ms, b_by = gn_bound(name, shape, itemsize)
@@ -754,7 +875,7 @@ def gn_kernel_phase(shapes, timed=True) -> list:
         del x, y, ref
     print(f"  {n_checks} GroupNorm checks against the plain version: ok "
           f"(shared-memory limit {smem_limit} bytes, {sm_count} SMs); gn_fused gave the same "
-          f"bytes twice at {n_same} of them")
+          f"bytes twice at {n_same} of them, gn_stats + gn_apply at {n_same_pair}")
     torch.cuda.empty_cache()
     return entries
 

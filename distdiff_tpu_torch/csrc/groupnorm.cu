@@ -53,19 +53,27 @@
 //     route, so that the main path's shapes fill the card. It is taken when
 //     one (row, group) span fits a block's shared memory (the route rule,
 //     unchanged); the wrapper decides.
-//   * gn_stats: the VAE has few (row, group) pairs and spans of up to
-//     4 MB, so each span is split over many blocks to fill the card: in
-//     NCHW a block takes a contiguous piece of one span; in NHWC a block
-//     takes a band of pixel rows of one batch row with every channel
-//     (coalesced), each thread keeping fixed channels, and adds its sums
-//     into per-group shared sums. Each block writes its fp32 partial sums
-//     (no atomics in device memory, so the result is deterministic); the
-//     last block of a batch row (an atomic counter) adds the partials in
-//     a fixed order and writes (a, b) as fp32 [B, 2, C], as the
-//     reference's pass 1 does.
-//   * gn_apply: act(x a + b) over the whole tensor, a grid-stride loop of
-//     vector loads; a and b are rounded to x's type as the reference's
-//     pass 2 casts them.
+//   * gn_stats and gn_apply: the pair for spans no cluster's shared memory
+//     holds (the VAE decoder's slabs of up to 268 MB, the UNet's
+//     960-channel norm at 64^2). Both take one launch plan
+//     (ops/groupnorm.py `pair_plan`): in NHWC a block takes a band of pixel
+//     rows of one batch row with every channel, 4 blocks an SM in one
+//     wave; each thread keeps fixed channel columns (tx) and walks the
+//     band's rows ty, ty + rr, ..., with a few 16-byte loads in flight. In
+//     NCHW a block takes a band of one channel plane.
+//     gn_stats keeps each thread's column sums in registers, adds them over
+//     the block's rows of threads and then over each group's channels in
+//     shared memory in a fixed order (no atomics), and writes the block's
+//     per-group partials; the last block of a batch row (an atomic counter,
+//     which it sets back to zero) reads the row's partials as float4
+//     columns with all its threads at once, adds them in a fixed order,
+//     and writes (a, b) as fp32 [B, 2, C], as the reference's pass 1 does.
+//     Two launches give the same bytes. gn_apply loads and rounds a and b
+//     once per column (bf16: pairs, `affine_act_bf16x2`), so no division
+//     runs per vector, and walks each band's rows last to first: the rows
+//     gn_stats read last are the likeliest still in L2. It is launched as
+//     a programmatic dependent of gn_stats, so its launch overlaps
+//     gn_stats' last block.
 #include <cooperative_groups.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -87,8 +95,9 @@ constexpr int FUSED_THREADS = 256;
 constexpr int MAX_CLUSTER = 16;
 constexpr int TMA_BOX_MAX = 256;  // rows or channels of one TMA box
 constexpr int TMA_CHUNKS = 4;     // a slice arrives in about this many chunks
-constexpr int STATS_THREADS = 256;
-constexpr int APPLY_THREADS = 256;
+constexpr int PAIR_THREADS = 256;  // gn_stats and gn_apply: most threads a block
+constexpr int STATS_UNROLL = 4;    // NHWC: 16-byte loads in flight a thread
+constexpr int APPLY_UNROLL = 2;
 constexpr int ACT_SILU = 1;
 // shared floats of block_sum2 (2 x 32 warp partials and the two totals),
 // padded to 16 bytes
@@ -472,16 +481,101 @@ gn_fused_kernel(const __grid_constant__ CUtensorMap map, const T* __restrict__ x
 // latency, the floor under a small norm.
 __global__ void __launch_bounds__(FUSED_THREADS) gn_empty_kernel(int) {}
 
-// ------------------------------------------------------------- gn_stats
+// ------------------------------------------------------ gn_stats, gn_apply
 
-// The last block of batch row b adds the partial sums [nsplit, G, 2] in a
-// fixed order and writes (a, b) as fp32 ab[b, 0, :] and ab[b, 1, :].
-// stats: 2 * G shared floats.
-template <typename T>
-__device__ void finish_row(const float* __restrict__ part, int* __restrict__ counter,
+// Programmatic dependent launch (sm_90): gn_stats lets gn_apply's grid
+// launch once each of its blocks has written its partials, and gn_apply
+// waits for gn_stats' whole grid (and its memory) before it reads (a, b),
+// so gn_apply's launch overlaps gn_stats' last block. Without a
+// programmatic predecessor the wait returns at once.
+__device__ __forceinline__ void launch_dependents() {
+  asm volatile("griddepcontrol.launch_dependents;" ::: "memory");
+}
+__device__ __forceinline__ void wait_prerequisites() {
+  asm volatile("griddepcontrol.wait;" ::: "memory");
+}
+
+// NHWC: a block of nvt x rr threads; thread (tx, ty) keeps vector columns
+// tx, tx + nvt, ... and walks its band's rows ty, ty + rr, ...
+struct PairThread {
+  int nv, nvt, rr, tx, ty;
+  __device__ __forceinline__ PairThread(int C, int V) {
+    nv = C / V;
+    nvt = min(nv, (int)blockDim.x);
+    rr = blockDim.x / nvt;
+    tx = threadIdx.x % nvt;
+    ty = threadIdx.x / nvt;
+  }
+  // the rows of [r0, r1) this thread walks
+  __device__ __forceinline__ int count(int r0, int r1) const {
+    const int n = r1 - r0 - ty;
+    return n > 0 ? (n + rr - 1) / rr : 0;
+  }
+};
+
+// The last block of batch row b to finish (an atomic counter) adds the
+// partial sums in a fixed order and writes (a, b) as fp32 ab[b, 0, :] and
+// ab[b, 1, :]. Group g's k-th partial pair (k < K) is at
+// part_row[g * gstride + k * kstride + {0, 1}]. The 2G columns (a group's
+// s1 or s2) are read W at a time (W = 4, one 16-byte load, where the
+// columns of a partial are contiguous: gstride 2); thread t adds column
+// set t % (2G / W) over k = phase, phase + ph, ... (phase = t / (2G / W),
+// ph phases where the sets are fewer than the threads), 8 loads in flight,
+// so that all of the row's partials are read in a few round trips; the
+// phases are then added in order. fsm: max(threads * W, 2G) floats.
+template <int W>
+__device__ void finish_cols(const float* __restrict__ part_row, int K, int gstride, int kstride,
+                            int cols, float* fsm) {
+  typedef typename std::conditional<W == 4, float4, float>::type F;
+  const int T = blockDim.x, tid = threadIdx.x;
+  const int sets = cols / W;
+  const int ph = sets < T ? T / sets : 1;
+  const int phase = tid / sets;
+  if (phase < ph) {
+    for (int q = tid % sets; q < sets; q += (ph > 1 ? sets : T)) {
+      const int col = q * W;
+      const F* p = reinterpret_cast<const F*>(part_row + (size_t)(col >> 1) * gstride + (col & 1));
+      const size_t kst = (size_t)kstride / W;  // W = 4: kstride % 4 == 0
+      float s[W];
+#pragma unroll
+      for (int j = 0; j < W; ++j) s[j] = 0.f;
+      int k = phase;
+      for (; k + 7 * ph < K; k += 8 * ph) {
+        F v[8];
+#pragma unroll
+        for (int u = 0; u < 8; ++u) v[u] = __ldcg(p + (k + u * ph) * kst);
+#pragma unroll
+        for (int u = 0; u < 8; ++u) {
+          const float* e = reinterpret_cast<const float*>(&v[u]);
+#pragma unroll
+          for (int j = 0; j < W; ++j) s[j] += e[j];
+        }
+      }
+      for (; k < K; k += ph) {
+        const F v = __ldcg(p + k * kst);
+        const float* e = reinterpret_cast<const float*>(&v);
+#pragma unroll
+        for (int j = 0; j < W; ++j) s[j] += e[j];
+      }
+#pragma unroll
+      for (int j = 0; j < W; ++j) fsm[phase * cols + col + j] = s[j];
+    }
+  }
+  __syncthreads();
+  if (ph > 1) {
+    for (int col = tid; col < cols; col += T) {  // the phases of column col, in order
+      float s = fsm[col];
+      for (int q = 1; q < ph; ++q) s += fsm[q * cols + col];
+      fsm[col] = s;
+    }
+    __syncthreads();
+  }
+}
+
+__device__ void finish_row(const float* __restrict__ part_row, int* __restrict__ counter,
                            float* __restrict__ ab, const void* scale, const void* bias,
-                           int param_bf16, int b, int blocks_per_row, int nsplit, int C,
-                           int S, int G, float eps, float* stats) {
+                           int param_bf16, int b, int blocks_per_row, int K, int gstride,
+                           int kstride, int C, int S, int G, float eps, float* fsm) {
   __shared__ int is_last;
   __threadfence();
   __syncthreads();
@@ -489,55 +583,133 @@ __device__ void finish_row(const float* __restrict__ part, int* __restrict__ cou
   __syncthreads();
   if (!is_last) return;
   __threadfence();
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int nw = blockDim.x >> 5;
-  const int cpg = C / G;
-  const float n = (float)cpg * (float)S;
-  for (int gg = warp; gg < G; gg += nw) {
-    float s1 = 0.f, s2 = 0.f;
-    for (int sp = lane; sp < nsplit; sp += 32) {
-      const float* p = part + ((size_t)(b * nsplit + sp) * G + gg) * 2;
-      s1 += __ldcg(p);
-      s2 += __ldcg(p + 1);
-    }
-    s1 = warp_sum(s1);
-    s2 = warp_sum(s2);
-    if (lane == 0) mean_inv(s1, s2, n, eps, stats[2 * gg], stats[2 * gg + 1]);
+  const int T = blockDim.x, tid = threadIdx.x;
+  const int cols = 2 * G;
+  if (gstride == 2 && cols % 4 == 0 && kstride % 4 == 0 &&
+      reinterpret_cast<uintptr_t>(part_row) % 16 == 0)
+    finish_cols<4>(part_row, K, gstride, kstride, cols, fsm);
+  else
+    finish_cols<1>(part_row, K, gstride, kstride, cols, fsm);
+  const float n = (float)(C / G) * (float)S;
+  for (int g = tid; g < G; g += T) {
+    float mean, inv;
+    mean_inv(fsm[2 * g], fsm[2 * g + 1], n, eps, mean, inv);
+    fsm[2 * g] = mean;
+    fsm[2 * g + 1] = inv;
   }
   __syncthreads();
-  for (int c = threadIdx.x; c < C; c += blockDim.x) {
-    const int gg = c / cpg;
-    const float mean = stats[2 * gg], inv = stats[2 * gg + 1];
+  const int cpg = C / G;
+  for (int c = tid; c < C; c += T) {
+    const int g = c / cpg;
+    const float mean = fsm[2 * g], inv = fsm[2 * g + 1];
     const float sc = param(scale, c, param_bf16), bi = param(bias, c, param_bf16);
     // fp32, as the reference's pass 1 emits them; gn_apply rounds to T
     ab[(size_t)(2 * b) * C + c] = __fmul_rn(inv, sc);
     ab[(size_t)(2 * b + 1) * C + c] = __fsub_rn(bi, __fmul_rn(__fmul_rn(mean, inv), sc));
   }
-  if (threadIdx.x == 0) counter[b] = 0;
+  if (tid == 0) counter[b] = 0;
 }
 
-// NCHW: block (split, g, b) sums elements [split * chunk, +chunk) of the
-// contiguous (b, g) span.
 template <typename T, int V>
-__global__ void __launch_bounds__(STATS_THREADS)
-gn_stats_nchw_kernel(const T* __restrict__ x, const void* __restrict__ scale,
-                     const void* __restrict__ bias, int param_bf16,
-                     float* __restrict__ part, int* __restrict__ counter,
-                     float* __restrict__ ab, int C, int S, int G, float eps, int nsplit,
-                     int chunk) {
+__device__ __forceinline__ void add_sq(const T* e, float* a1, float* a2) {
+#pragma unroll
+  for (int j = 0; j < V; ++j) {
+    const float f = to_f(e[j]);
+    a1[j] += f;
+    a2[j] += f * f;
+  }
+}
+
+// NHWC: block (band, b) sums pixel rows [band * rows, +rows) of batch row b
+// with every channel into part[b, band, G, 2]. fsm: the column sums
+// [2][rr][C] (the s1 rows, then the s2 rows), later the finish's.
+template <typename T, int V>
+__global__ void __launch_bounds__(PAIR_THREADS, 4)
+gn_stats_nhwc_kernel(const T* __restrict__ x, const void* __restrict__ scale,
+                     const void* __restrict__ bias, int param_bf16, float* __restrict__ part,
+                     int* __restrict__ counter, float* __restrict__ ab, int C, int S, int G,
+                     float eps, int rows) {
   typedef typename Raw<sizeof(T) * V>::t R;
-  extern __shared__ __align__(16) float fsm[];  // red (66) then stats (2G)
-  const int split = blockIdx.x, g = blockIdx.y, b = blockIdx.z;
+  extern __shared__ __align__(16) float fsm[];
+  const int band = blockIdx.x, b = blockIdx.y, bands = gridDim.x;
+  const PairThread t(C, V);
+  const int r0 = band * rows, r1 = min(S, r0 + rows);
+  const int n = t.count(r0, r1);
+  const int step = t.rr * C;
+  for (int cv = t.tx; cv < t.nv; cv += t.nvt) {
+    float a1[V], a2[V];
+#pragma unroll
+    for (int j = 0; j < V; ++j) a1[j] = a2[j] = 0.f;
+    // the tensor has fewer than 2^31 elements
+    const T* p = x + (b * S + r0 + t.ty) * C + cv * V;
+    int k = 0;
+    for (; k + STATS_UNROLL <= n; k += STATS_UNROLL) {
+      R raw[STATS_UNROLL];
+#pragma unroll
+      for (int u = 0; u < STATS_UNROLL; ++u) raw[u] = *reinterpret_cast<const R*>(p + u * step);
+#pragma unroll
+      for (int u = 0; u < STATS_UNROLL; ++u)
+        add_sq<T, V>(reinterpret_cast<const T*>(&raw[u]), a1, a2);
+      p += STATS_UNROLL * step;
+    }
+    for (; k < n; ++k, p += step) {
+      const R raw = *reinterpret_cast<const R*>(p);
+      add_sq<T, V>(reinterpret_cast<const T*>(&raw), a1, a2);
+    }
+#pragma unroll
+    for (int j = 0; j < V; ++j) {
+      fsm[t.ty * C + cv * V + j] = a1[j];
+      fsm[(t.rr + t.ty) * C + cv * V + j] = a2[j];
+    }
+  }
+  __syncthreads();
+  for (int c = threadIdx.x; c < C; c += blockDim.x) {  // channel c over the rows of threads
+    float s1 = 0.f, s2 = 0.f;
+    for (int r = 0; r < t.rr; ++r) {
+      s1 += fsm[r * C + c];
+      s2 += fsm[(t.rr + r) * C + c];
+    }
+    fsm[c] = s1;  // only this thread reads column c
+    fsm[t.rr * C + c] = s2;
+  }
+  __syncthreads();
   const int cpg = C / G;
-  const int n = cpg * S;
-  const T* base = x + ((size_t)b * C + (size_t)g * cpg) * S;
-  const int lo = split * chunk;
-  const int hi = min(n, lo + chunk);
+  float* prow = part + (size_t)(b * bands + band) * 2 * G;
+  for (int g = threadIdx.x; g < G; g += blockDim.x) {  // group g over its channels, in order
+    float s1 = 0.f, s2 = 0.f;
+    for (int c = g * cpg; c < (g + 1) * cpg; ++c) {
+      s1 += fsm[c];
+      s2 += fsm[t.rr * C + c];
+    }
+    prow[2 * g] = s1;
+    prow[2 * g + 1] = s2;
+  }
+  launch_dependents();
+  finish_row(part + (size_t)b * bands * 2 * G, counter, ab, scale, bias, param_bf16, b, bands,
+             bands, 2, 2 * G, C, S, G, eps, fsm);
+}
+
+// NCHW: block (plane = b * C + c, band) sums elements [band * rows, +rows)
+// of channel plane c of batch row b into part[b, c, band, 2], so that each
+// group's partials are one run of cpg * bands pairs.
+template <typename T, int V>
+__global__ void __launch_bounds__(PAIR_THREADS)
+gn_stats_nchw_kernel(const T* __restrict__ x, const void* __restrict__ scale,
+                     const void* __restrict__ bias, int param_bf16, float* __restrict__ part,
+                     int* __restrict__ counter, float* __restrict__ ab, int C, int S, int G,
+                     float eps, int rows) {
+  typedef typename Raw<sizeof(T) * V>::t R;
+  extern __shared__ __align__(16) float fsm[];  // block_sum2's, later the finish's
+  const int plane = blockIdx.x, band = blockIdx.y, bands = gridDim.y;
+  const int b = plane / C;
+  const int lo = band * rows;
+  const int n = min(rows, S - lo);
+  const T* base = x + plane * S + lo;
   float s1 = 0.f, s2 = 0.f;
 #pragma unroll 4
-  for (int i = lo + threadIdx.x * V; i < hi; i += STATS_THREADS * V) {
-    const R r = *reinterpret_cast<const R*>(base + i);
-    const T* e = reinterpret_cast<const T*>(&r);
+  for (int i = threadIdx.x * V; i < n; i += blockDim.x * V) {
+    const R raw = *reinterpret_cast<const R*>(base + i);
+    const T* e = reinterpret_cast<const T*>(&raw);
 #pragma unroll
     for (int j = 0; j < V; ++j) {
       const float f = to_f(e[j]);
@@ -547,101 +719,110 @@ gn_stats_nchw_kernel(const T* __restrict__ x, const void* __restrict__ scale,
   }
   block_sum2(s1, s2, fsm);
   if (threadIdx.x == 0) {
-    float* p = part + ((size_t)(b * nsplit + split) * G + g) * 2;
+    float* p = part + (size_t)(plane * bands + band) * 2;
     p[0] = s1;
     p[1] = s2;
   }
-  finish_row<T>(part, counter, ab, scale, bias, param_bf16, b, nsplit * G, nsplit, C, S,
-                G, eps, fsm + RED_FLOATS);
+  launch_dependents();
+  const int cpg = C / G;
+  finish_row(part + (size_t)b * C * bands * 2, counter, ab, scale, bias, param_bf16, b,
+             C * bands, cpg * bands, 2 * cpg * bands, 2, C, S, G, eps, fsm);
 }
 
-// NHWC: block (split, b) takes pixel rows [split * rows, +rows) of batch
-// row b with every channel. Thread (tx, ty) keeps the V channels of
-// vector column cv = tx (+ NVT ...) fixed and walks rows ty, ty + R, ...
+// act(x * a + b) of the V elements at e into o, a and b already rounded to
+// T (a2: a's pairs, for bf16)
 template <typename T, int V>
-__global__ void __launch_bounds__(STATS_THREADS)
-gn_stats_nhwc_kernel(const T* __restrict__ x, const void* __restrict__ scale,
-                     const void* __restrict__ bias, int param_bf16,
-                     float* __restrict__ part, int* __restrict__ counter,
-                     float* __restrict__ ab, int C, int S, int G, float eps, int nsplit,
-                     int rows) {
+__device__ __forceinline__ void apply_vec(const T* e, const float* av, const float* bv,
+                                          const __nv_bfloat162* a2, int act, T* o) {
+  if constexpr (std::is_same<T, bf16>::value && V % 2 == 0) {
+    affine_act_bf16x2<V>(e, a2, bv, act, o);
+  } else {
+#pragma unroll
+    for (int j = 0; j < V; ++j) o[j] = from_f<T>(affine_act<T>(to_f(e[j]), av[j], bv[j], act));
+  }
+}
+
+// NHWC: block (band, b) writes act(x a + b) over pixel rows [band * rows,
+// +rows) of batch row b; each thread walks its rows last to first, so that
+// the rows gn_stats read last, the likeliest still in L2, come first.
+template <typename T, int V>
+__global__ void __launch_bounds__(PAIR_THREADS, 4)
+gn_apply_nhwc_kernel(const T* __restrict__ x, const float* __restrict__ ab, T* __restrict__ y,
+                     int C, int S, int act, int rows) {
   typedef typename Raw<sizeof(T) * V>::t R;
-  extern __shared__ __align__(16) float fsm[];  // group sums (2G) then stats (2G)
-  float* gs = fsm;
-  const int split = blockIdx.x, b = blockIdx.z;
-  const int cpg = C / G;
-  const int nv = C / V;
-  const int nvt = min(nv, STATS_THREADS);
-  const int rr = STATS_THREADS / nvt;
-  const int tx = threadIdx.x % nvt, ty = threadIdx.x / nvt;
-  const int r0 = split * rows;
-  const int r1 = min(S, r0 + rows);
-  for (int i = threadIdx.x; i < 2 * G; i += STATS_THREADS) gs[i] = 0.f;
-  __syncthreads();
-  const T* slab = x + (size_t)b * S * C;
-  for (int cv = tx; cv < nv; cv += nvt) {
-    float a1[V], a2[V];
-#pragma unroll
-    for (int j = 0; j < V; ++j) a1[j] = a2[j] = 0.f;
-    if (ty < rr) {
-#pragma unroll 4
-      for (int r = r0 + ty; r < r1; r += rr) {
-        const R raw = *reinterpret_cast<const R*>(slab + (size_t)r * C + cv * V);
-        const T* e = reinterpret_cast<const T*>(&raw);
-#pragma unroll
-        for (int j = 0; j < V; ++j) {
-          const float f = to_f(e[j]);
-          a1[j] += f;
-          a2[j] += f * f;
-        }
-      }
-    }
+  const int band = blockIdx.x, b = blockIdx.y;
+  const PairThread t(C, V);
+  const int r0 = band * rows, r1 = min(S, r0 + rows);
+  const int n = t.count(r0, r1);
+  const int step = -t.rr * C;
+  const float* a_row = ab + (size_t)(2 * b) * C;
+  const float* b_row = a_row + C;
+  wait_prerequisites();  // gn_stats has written ab
+  for (int cv = t.tx; cv < t.nv; cv += t.nvt) {
+    float av[V], bv[V];
+    __nv_bfloat162 a2[V / 2 > 0 ? V / 2 : 1];
 #pragma unroll
     for (int j = 0; j < V; ++j) {
-      const int gg = (cv * V + j) / cpg;
-      atomicAdd(gs + 2 * gg, a1[j]);
-      atomicAdd(gs + 2 * gg + 1, a2[j]);
+      av[j] = rnd<T>(__ldg(a_row + cv * V + j));
+      bv[j] = rnd<T>(__ldg(b_row + cv * V + j));
+    }
+#pragma unroll
+    for (int j = 0; j < V / 2; ++j) a2[j] = __floats2bfloat162_rn(av[2 * j], av[2 * j + 1]);
+    // the tensor has fewer than 2^31 elements
+    int off = (b * S + r0 + t.ty + (n > 0 ? (n - 1) * t.rr : 0)) * C + cv * V;
+    int k = 0;
+    for (; k + APPLY_UNROLL <= n; k += APPLY_UNROLL) {
+      R raw[APPLY_UNROLL];
+#pragma unroll
+      for (int u = 0; u < APPLY_UNROLL; ++u)
+        raw[u] = *reinterpret_cast<const R*>(x + off + u * step);
+#pragma unroll
+      for (int u = 0; u < APPLY_UNROLL; ++u) {
+        R out;
+        apply_vec<T, V>(reinterpret_cast<const T*>(&raw[u]), av, bv, a2, act,
+                        reinterpret_cast<T*>(&out));
+        *reinterpret_cast<R*>(y + off + u * step) = out;
+      }
+      off += APPLY_UNROLL * step;
+    }
+    for (; k < n; ++k, off += step) {
+      const R raw = *reinterpret_cast<const R*>(x + off);
+      R out;
+      apply_vec<T, V>(reinterpret_cast<const T*>(&raw), av, bv, a2, act,
+                      reinterpret_cast<T*>(&out));
+      *reinterpret_cast<R*>(y + off) = out;
     }
   }
-  __syncthreads();
-  for (int i = threadIdx.x; i < 2 * G; i += STATS_THREADS)
-    part[(size_t)(b * nsplit + split) * G * 2 + i] = gs[i];
-  finish_row<T>(part, counter, ab, scale, bias, param_bf16, b, nsplit, nsplit, C, S, G,
-                eps, fsm + 2 * G);
 }
 
-// ------------------------------------------------------------- gn_apply
-
+// NCHW: block (plane = b * C + c, band) writes act(x a + b) over elements
+// [band * rows, +rows) of the plane, with a and b of channel c.
 template <typename T, int V>
-__global__ void __launch_bounds__(APPLY_THREADS)
-gn_apply_kernel(const T* __restrict__ x, const float* __restrict__ ab, T* __restrict__ y,
-                int C, int S, int nhwc, int act, long long nvec) {
+__global__ void __launch_bounds__(PAIR_THREADS)
+gn_apply_nchw_kernel(const T* __restrict__ x, const float* __restrict__ ab, T* __restrict__ y,
+                     int C, int S, int act, int rows) {
   typedef typename Raw<sizeof(T) * V>::t R;
-  const long long row = (long long)C * S;
-  for (long long vi = (long long)blockIdx.x * APPLY_THREADS + threadIdx.x; vi < nvec;
-       vi += (long long)gridDim.x * APPLY_THREADS) {
-    const long long e0 = vi * V;
-    const int b = (int)(e0 / row);
-    const long long w = e0 - (long long)b * row;
-    const float* a_row = ab + (size_t)(2 * b) * C;
-    const float* b_row = a_row + C;
-    const R raw = *reinterpret_cast<const R*>(x + e0);
-    const T* e = reinterpret_cast<const T*>(&raw);
+  const int plane = blockIdx.x, band = blockIdx.y;
+  const int b = plane / C, c = plane - b * C;
+  float av[V], bv[V];
+  __nv_bfloat162 a2[V / 2 > 0 ? V / 2 : 1];
+  wait_prerequisites();  // gn_stats has written ab
+  const float a = rnd<T>(__ldg(ab + (size_t)(2 * b) * C + c));
+  const float bb = rnd<T>(__ldg(ab + (size_t)(2 * b + 1) * C + c));
+#pragma unroll
+  for (int j = 0; j < V; ++j) av[j] = a, bv[j] = bb;
+#pragma unroll
+  for (int j = 0; j < V / 2; ++j) a2[j] = __floats2bfloat162_rn(a, a);
+  const int lo = band * rows;
+  const int n = min(rows, S - lo);
+  const int base = plane * S + lo;
+#pragma unroll 4
+  for (int i = threadIdx.x * V; i < n; i += blockDim.x * V) {
+    const R raw = *reinterpret_cast<const R*>(x + base + i);
     R out;
-    T* o = reinterpret_cast<T*>(&out);
-    if (nhwc) {
-      const int c0 = (int)(w % C);
-#pragma unroll
-      for (int j = 0; j < V; ++j)
-        o[j] = from_f<T>(affine_act<T>(to_f(e[j]), rnd<T>(__ldg(a_row + c0 + j)),
-                                       rnd<T>(__ldg(b_row + c0 + j)), act));
-    } else {
-      const int c = (int)(w / S);
-      const float a = rnd<T>(__ldg(a_row + c)), bb = rnd<T>(__ldg(b_row + c));
-#pragma unroll
-      for (int j = 0; j < V; ++j) o[j] = from_f<T>(affine_act<T>(to_f(e[j]), a, bb, act));
-    }
-    *reinterpret_cast<R*>(y + e0) = out;
+    apply_vec<T, V>(reinterpret_cast<const T*>(&raw), av, bv, a2, act,
+                    reinterpret_cast<T*>(&out));
+    *reinterpret_cast<R*>(y + base + i) = out;
   }
 }
 
@@ -720,42 +901,76 @@ int launch_fused(const void* x, const void* scale, const void* bias, int param_b
                                     map, xt, scale, bias, yt, g));
 }
 
+// The pair's plan, checked (ops/groupnorm.py `pair_plan`, `pair_smem_bytes`):
+// V elements a load, `threads` a block, `bands` blocks a batch row (NHWC) or
+// a channel plane (NCHW) of `rows` pixel rows (elements) each. Returns
+// gn_stats' dynamic shared bytes (its column sums, or block_sum2's, and the
+// finish's max(4 threads, 2G) floats), or -1 for a plan the kernels cannot
+// take.
+inline long long pair_smem(int C, int S, int G, int nhwc, int V, int threads, int bands,
+                           int rows) {
+  if (V <= 0 || threads <= 0 || threads > PAIR_THREADS || bands <= 0 || rows <= 0 ||
+      (long long)(bands - 1) * rows >= S || (long long)bands * rows < S)
+    return -1;
+  const long long fin = 4LL * threads > 2 * G ? 4LL * threads : 2 * G;
+  if (nhwc) {
+    if (C % V) return -1;
+    const int nvt = C / V < threads ? C / V : threads;
+    if (threads % nvt) return -1;
+    const long long red = 2LL * (threads / nvt) * C;
+    return 4 * (red > fin ? red : fin);
+  }
+  if (S % V || rows % V || bands > 65535 || threads % 32) return -1;
+  return 4 * (fin > RED_FLOATS ? fin : (long long)RED_FLOATS);
+}
+
+inline bool aligned(const void* p, size_t bytes) {
+  return reinterpret_cast<uintptr_t>(p) % bytes == 0;
+}
+
 template <typename T, int V>
 int launch_stats(const void* x, const void* scale, const void* bias, int param_bf16,
                  void* part, void* counter, void* ab, int B, int C, int S, int G,
-                 float eps, int nhwc, int nsplit, cudaStream_t stream) {
-  if (nhwc) {
-    const size_t smem = sizeof(float) * 4 * G;
-    auto kern = gn_stats_nhwc_kernel<T, V>;
-    cudaError_t err = set_smem(kern, smem);
+                 float eps, int nhwc, int threads, int bands, int rows, cudaStream_t stream) {
+  const long long smem = pair_smem(C, S, G, nhwc, V, threads, bands, rows);
+  if (smem < 0 || smem > (1 << 28) || !aligned(x, sizeof(T) * V))
+    return (int)cudaErrorInvalidValue;
+  decltype(&gn_stats_nhwc_kernel<T, V>) kern =
+      nhwc ? &gn_stats_nhwc_kernel<T, V> : &gn_stats_nchw_kernel<T, V>;
+  if (smem > 48 * 1024) {
+    cudaError_t err = set_smem(kern, (size_t)smem);
     if (err != cudaSuccess) return (int)err;
-    const int rows = (S + nsplit - 1) / nsplit;
-    kern<<<dim3(nsplit, 1, B), STATS_THREADS, smem, stream>>>(
-        (const T*)x, scale, bias, param_bf16, (float*)part, (int*)counter, (float*)ab, C,
-        S, G, eps, nsplit, rows);
-  } else {
-    const size_t smem = sizeof(float) * (RED_FLOATS + 2 * G);
-    auto kern = gn_stats_nchw_kernel<T, V>;
-    cudaError_t err = set_smem(kern, smem);
-    if (err != cudaSuccess) return (int)err;
-    const int n = (C / G) * S;
-    const int chunk = ((n + nsplit - 1) / nsplit + V - 1) / V * V;
-    kern<<<dim3(nsplit, G, B), STATS_THREADS, smem, stream>>>(
-        (const T*)x, scale, bias, param_bf16, (float*)part, (int*)counter, (float*)ab, C,
-        S, G, eps, nsplit, chunk);
   }
+  const dim3 grid = nhwc ? dim3(bands, B) : dim3(B * C, bands);
+  kern<<<grid, threads, (size_t)smem, stream>>>((const T*)x, scale, bias, param_bf16,
+                                                (float*)part, (int*)counter, (float*)ab, C,
+                                                S, G, eps, rows);
   return (int)cudaGetLastError();
 }
 
 template <typename T, int V>
 int launch_apply(const void* x, const void* ab, void* y, int B, int C, int S, int nhwc,
-                 int act, int sm_count, cudaStream_t stream) {
-  const long long nvec = (long long)B * C * S / V;
-  const long long want = (nvec + APPLY_THREADS - 1) / APPLY_THREADS;
-  const int grid = (int)(want < 16LL * sm_count ? want : 16LL * sm_count);
-  gn_apply_kernel<T, V><<<grid, APPLY_THREADS, 0, stream>>>(
-      (const T*)x, (const float*)ab, (T*)y, C, S, nhwc, act, nvec);
-  return (int)cudaGetLastError();
+                 int act, int threads, int bands, int rows, cudaStream_t stream) {
+  if (pair_smem(C, S, 1, nhwc, V, threads, bands, rows) < 0 || !aligned(x, sizeof(T) * V) ||
+      !aligned(y, sizeof(T) * V))
+    return (int)cudaErrorInvalidValue;
+  // a programmatic dependent of the kernel before it (gn_stats)
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = nhwc ? dim3(bands, B) : dim3(B * C, bands);
+  cfg.blockDim = dim3(threads);
+  cfg.stream = stream;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeProgrammaticStreamSerialization;
+  attr[0].val.programmaticStreamSerializationAllowed = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  const T* xt = static_cast<const T*>(x);
+  const float* abt = static_cast<const float*>(ab);
+  T* yt = static_cast<T*>(y);
+  const cudaError_t err =
+      nhwc ? cudaLaunchKernelEx(&cfg, gn_apply_nhwc_kernel<T, V>, xt, abt, yt, C, S, act, rows)
+           : cudaLaunchKernelEx(&cfg, gn_apply_nchw_kernel<T, V>, xt, abt, yt, C, S, act, rows);
+  return (int)(err != cudaSuccess ? err : cudaGetLastError());
 }
 
 // vec: elements per load (1, 2, 4, or 8 for bf16); 16 bytes at most
@@ -781,15 +996,16 @@ int fused_t(const void* x, const void* scale, const void* bias, int param_bf16, 
 template <typename T>
 int stats_t(const void* x, const void* scale, const void* bias, int param_bf16,
             void* part, void* counter, void* ab, int B, int C, int S, int G, float eps,
-            int nhwc, int nsplit, int vec, cudaStream_t s) {
+            int nhwc, int vec, int threads, int bands, int rows, cudaStream_t s) {
   GN_DISPATCH(T, vec, (launch_stats<T, V>(x, scale, bias, param_bf16, part, counter, ab, B,
-                                          C, S, G, eps, nhwc, nsplit, s)))
+                                          C, S, G, eps, nhwc, threads, bands, rows, s)))
 }
 
 template <typename T>
 int apply_t(const void* x, const void* ab, void* y, int B, int C, int S, int nhwc, int act,
-            int sm_count, int vec, cudaStream_t s) {
-  GN_DISPATCH(T, vec, (launch_apply<T, V>(x, ab, y, B, C, S, nhwc, act, sm_count, s)))
+            int vec, int threads, int bands, int rows, cudaStream_t s) {
+  GN_DISPATCH(T, vec, (launch_apply<T, V>(x, ab, y, B, C, S, nhwc, act, threads, bands, rows,
+                                          s)))
 }
 
 inline bool shape_ok(int B, int C, int S, int G) {
@@ -836,30 +1052,42 @@ extern "C" int gn_empty(int B, int G, int group_set, int cluster, int smem, void
                              (size_t)smem, (cudaStream_t)stream, 0);
 }
 
-// part: fp32 [B, nsplit, G, 2] scratch; counter: int32 [B], zero (the last
-// block of a row sets it back to zero); ab: fp32 [B, 2, C] out.
+// The pair's plan (see pair_smem): vec elements a load, threads a block,
+// bands blocks a batch row (NHWC) or a channel plane (NCHW) of rows pixel
+// rows (elements) each. part: fp32 scratch of B * bands * G * 2 (NHWC) or
+// B * C * bands * 2 (NCHW) floats; counter: int32 [B], zero (the last block
+// of a row sets it back to zero); ab: fp32 [B, 2, C] out.
 extern "C" int gn_stats(const void* x, const void* scale, const void* bias, void* part,
                         void* counter, void* ab, int is_bf16, int param_bf16, int B, int C,
-                        int S, int G, float eps, int nhwc, int nsplit, int vec,
-                        void* stream) {
+                        int S, int G, float eps, int nhwc, int vec, int threads, int bands,
+                        int rows, void* stream) {
   using namespace gn;
-  if (!shape_ok(B, C, S, G) || nsplit <= 0 || nsplit > 65535)
+  if (!shape_ok(B, C, S, G) || (long long)B * C * S >= (1LL << 31))
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = (cudaStream_t)stream;
   return is_bf16 ? stats_t<bf16>(x, scale, bias, param_bf16, part, counter, ab, B, C, S, G,
-                                 eps, nhwc, nsplit, vec, s)
+                                 eps, nhwc, vec, threads, bands, rows, s)
                  : stats_t<float>(x, scale, bias, param_bf16, part, counter, ab, B, C, S,
-                                  G, eps, nhwc, nsplit, vec, s);
+                                  G, eps, nhwc, vec, threads, bands, rows, s);
 }
 
-// ab: fp32 [B, 2, C] from gn_stats.
+// gn_stats' dynamic shared bytes for a plan (< 0: a plan it cannot take).
+extern "C" int gn_stats_smem(int C, int S, int G, int nhwc, int vec, int threads, int bands,
+                             int rows) {
+  const long long b = gn::pair_smem(C, S, G, nhwc, vec, threads, bands, rows);
+  return b < 0 || b > (1 << 28) ? -(int)cudaErrorInvalidValue : (int)b;
+}
+
+// ab: fp32 [B, 2, C] from gn_stats; the plan as gn_stats'.
 extern "C" int gn_apply(const void* x, const void* ab, void* y, int is_bf16, int B, int C,
-                        int S, int nhwc, int act, int sm_count, int vec, void* stream) {
+                        int S, int nhwc, int act, int vec, int threads, int bands, int rows,
+                        void* stream) {
   using namespace gn;
-  if (!shape_ok(B, C, S, 1) || sm_count <= 0) return (int)cudaErrorInvalidValue;
+  if (!shape_ok(B, C, S, 1) || (long long)B * C * S >= (1LL << 31))
+    return (int)cudaErrorInvalidValue;
   cudaStream_t s = (cudaStream_t)stream;
-  return is_bf16 ? apply_t<bf16>(x, ab, y, B, C, S, nhwc, act, sm_count, vec, s)
-                 : apply_t<float>(x, ab, y, B, C, S, nhwc, act, sm_count, vec, s);
+  return is_bf16 ? apply_t<bf16>(x, ab, y, B, C, S, nhwc, act, vec, threads, bands, rows, s)
+                 : apply_t<float>(x, ab, y, B, C, S, nhwc, act, vec, threads, bands, rows, s);
 }
 
 // The shared memory one block may use, after opting in (232448 bytes on the

@@ -41,8 +41,9 @@ SIGNATURES = {
     "gn_fused": ("groupnorm", [_P] * 4 + [_I] * 6 + [_F] + [_I] * 6 + [_P]),
     "gn_fused_smem": ("groupnorm", [_I] * 9),
     "gn_empty": ("groupnorm", [_I] * 5 + [_P]),
-    "gn_stats": ("groupnorm", [_P] * 6 + [_I] * 6 + [_F] + [_I] * 3 + [_P]),
-    "gn_apply": ("groupnorm", [_P] * 3 + [_I] * 8 + [_P]),
+    "gn_stats": ("groupnorm", [_P] * 6 + [_I] * 6 + [_F] + [_I] * 5 + [_P]),
+    "gn_stats_smem": ("groupnorm", [_I] * 8),
+    "gn_apply": ("groupnorm", [_P] * 3 + [_I] * 10 + [_P]),
     "gn_smem_optin": ("groupnorm", [_I]),
     "flash_fwd_smem": ("flash_fwd", [_I]),
     "flash_bwd_fused_smem": ("flash_bwd", [_I]),

@@ -5,8 +5,8 @@ three CUDA kernels for Hopper (``csrc/groupnorm.cu``):
 
   ``gn_fused``  <- ``_gn_kernel``        (the span fits a block's shared memory;
                                          a cluster of blocks per unit)
-  ``gn_stats``  <- ``_gn_stats_kernel``  } the two-pass path, for the
-  ``gn_apply``  <- ``_gn_apply_kernel``  } VAE's big slabs
+  ``gn_stats``  <- ``_gn_stats_kernel``  } the two-pass path, for spans no
+  ``gn_apply``  <- ``_gn_apply_kernel``  } cluster holds (one wave of bands)
 
 ``group_norm`` is the op every GroupNorm of the UNet and the VAE calls. On a
 CUDA tensor it always runs the kernels (the reference keeps its Pallas
@@ -64,11 +64,14 @@ _TMA_CHUNKS = 4
 _RUN_BYTES = 64
 _CTAS_PER_SM = 4
 _MIN_SLICE_BYTES = 8192
-# pass 1 aims at this many blocks per SM, and gives a block at least
-# _MIN_SPLIT elements (NCHW) or _MIN_ROWS pixel rows (NHWC)
-_BLOCKS_PER_SM = 4
-_MIN_SPLIT = 8192
-_MIN_ROWS = 16
+# the pair (gn_stats, gn_apply): at most _PAIR_THREADS threads a block, in
+# one wave of _PAIR_BLOCKS_PER_SM blocks an SM, each block at least
+# _PAIR_MIN_ROWS pixel rows (NHWC) or _PAIR_MIN_SPLIT elements of a plane
+# (NCHW)
+_PAIR_THREADS = 256
+_PAIR_BLOCKS_PER_SM = 4
+_PAIR_MIN_ROWS = 16
+_PAIR_MIN_SPLIT = 8192
 
 _smem_limit: Dict[int, int] = {}
 _sm_count: Dict[int, int] = {}
@@ -162,13 +165,6 @@ def fused_fits(c: int, groups: int, spatial: int, itemsize: int, smem_limit: int
     elements, so the UNet's 64^2 x 640 but not 64^2 x 960)."""
     cpg = c // groups
     return fused_header_bytes(cpg) + cpg * spatial * itemsize <= smem_limit
-
-
-def vector_width(itemsize: int, divisors, *tensors) -> int:
-    """Elements per load and store: the largest of 16, 8, 4, 2 bytes' worth
-    (down to one element) that divides every count in ``divisors`` and
-    whose byte width aligns every tensor's address."""
-    return _vec(itemsize, math.gcd(*divisors), math.gcd(16, *(t.data_ptr() for t in tensors)))
 
 
 def _vec(itemsize: int, n: int, align: int) -> int:
@@ -322,51 +318,104 @@ def gn_fused(x, scale, bias, groups: int, eps: float, act, y, sm_count: int,
     _record("gn_fused", x)
 
 
-def split_count(lay: str, b: int, groups: int, cpg: int, s: int, sm_count: int) -> int:
-    """Blocks per (batch row, group) span in NCHW, per batch row in NHWC:
-    enough for ``_BLOCKS_PER_SM`` blocks an SM, and no more than leaves each
-    block ``_MIN_SPLIT`` elements (``_MIN_ROWS`` rows)."""
-    target = _BLOCKS_PER_SM * sm_count
-    if lay == "nchw":
-        want, most = math.ceil(target / (b * groups)), (cpg * s) // _MIN_SPLIT
-    else:
-        want, most = math.ceil(target / b), s // _MIN_ROWS
-    return max(1, min(want, most, 65535))
+class PairPlan(collections.namedtuple("PairPlan", "vec threads bands rows")):
+    """gn_stats' and gn_apply's launch plan: ``vec`` elements a load and
+    store, ``threads`` a block, ``bands`` blocks a batch row (NHWC: each
+    ``rows`` pixel rows with every channel) or a channel plane (NCHW: each
+    ``rows`` elements of it). Both kernels take the same bands; in NHWC
+    gn_apply walks each band's rows last to first, so that it reads first
+    the rows gn_stats read last, which are likeliest in L2."""
+
+
+def pair_plan(b: int, c: int, s: int, itemsize: int, lay: str, sm_count: int,
+              x_ptr: int, y_ptr: int) -> PairPlan:
+    """The pair's plan for a [B, C, S] norm (pure arithmetic on the shape,
+    the card's SM count and the pointers: gn_stats passes x's twice):
+    ``_PAIR_BLOCKS_PER_SM`` blocks an SM, in one wave.
+
+    NHWC: the largest vector that divides C and aligns both pointers; a
+    block of nvt x rr threads (nvt vector columns, at most 256, and as many
+    rows of threads as fill 256); bands of at least ``_PAIR_MIN_ROWS``
+    rows. NCHW: the vector divides S, so none crosses a plane; bands of at
+    least ``_PAIR_MIN_SPLIT`` elements, a multiple of the vector; a block of
+    as many warps as one band's vectors need, up to 8."""
+    align = math.gcd(x_ptr, y_ptr, 16)
+    target = _PAIR_BLOCKS_PER_SM * sm_count
+    if lay == "nhwc":
+        v = _vec(itemsize, c, align)
+        nvt = min(c // v, _PAIR_THREADS)
+        threads = nvt * (_PAIR_THREADS // nvt)
+        bands = max(1, min(-(-target // b), s // _PAIR_MIN_ROWS))
+        rows = -(-s // bands)
+        return PairPlan(v, threads, -(-s // rows), rows)
+    v = _vec(itemsize, s, align)
+    bands = max(1, min(-(-target // (b * c)), s // _PAIR_MIN_SPLIT, 65535))
+    rows = _round_up(-(-s // bands), v)
+    threads = min(_PAIR_THREADS, _round_up(rows // v, 32))
+    return PairPlan(v, threads, -(-s // rows), rows)
+
+
+def pair_smem_bytes(lay: str, c: int, groups: int, plan: PairPlan) -> int:
+    """gn_stats' dynamic shared bytes a block (``pair_smem`` in
+    csrc/groupnorm.cu): NHWC, the column sums of every row of threads; NCHW,
+    the block reduction's floats; either, at least the finish's
+    max(4 threads, 2G) floats."""
+    fin = max(4 * plan.threads, 2 * groups)
+    if lay == "nhwc":
+        nvt = min(c // plan.vec, plan.threads)
+        return 4 * max(2 * (plan.threads // nvt) * c, fin)
+    return 4 * max(_RED_FLOATS, fin)
+
+
+# per (device, stream): gn_stats' row counters, zero between launches (the
+# last block of a row sets its counter back to zero), so that a launch
+# needs no fill kernel before it
+_counters: Dict[Tuple[str, int], torch.Tensor] = {}
+
+
+def _row_counter(dev: torch.device, stream: int, b: int) -> torch.Tensor:
+    key = (str(dev), stream)
+    cnt = _counters.get(key)
+    if cnt is None or cnt.numel() < b:
+        cnt = _counters[key] = torch.zeros((max(b, 64),), device=dev, dtype=torch.int32)
+    return cnt
 
 
 def gn_stats(x, scale, bias, groups: int, eps: float, sm_count: int) -> torch.Tensor:
-    """Pass 1: the fp32 per-channel (a, b) as ``[B, 2, C]``."""
+    """Pass 1: the fp32 per-channel (a, b) as ``[B, 2, C]``, by the plan
+    ``pair_plan`` makes (a plan whose ``pair_smem_bytes`` exceed the card's
+    shared memory fails to launch and raises)."""
     lay = layout(x)
     b, c = x.shape[:2]
     s = x.numel() // (b * c)
-    cpg = c // groups
-    nsplit = split_count(lay, b, groups, cpg, s, sm_count)
-    dims = (c,) if lay == "nhwc" else (cpg * s,)
-    v = vector_width(x.element_size(), dims, x)
-    part = torch.empty((b, nsplit, groups, 2), device=x.device, dtype=torch.float32)
-    counter = torch.zeros((b,), device=x.device, dtype=torch.int32)
+    plan = pair_plan(b, c, s, x.element_size(), lay, sm_count, x.data_ptr(), x.data_ptr())
+    npart = b * plan.bands * 2 * (groups if lay == "nhwc" else c)
+    part = torch.empty((npart,), device=x.device, dtype=torch.float32)
+    stream = torch.cuda.current_stream().cuda_stream
+    counter = _row_counter(x.device, stream, b)
     ab = torch.empty((b, 2, c), device=x.device, dtype=torch.float32)
     rc = _build.kernel("gn_stats")(
         x.data_ptr(), scale.data_ptr(), bias.data_ptr(), part.data_ptr(),
         counter.data_ptr(), ab.data_ptr(), int(x.dtype == torch.bfloat16),
         int(scale.dtype == torch.bfloat16), b, c, s, groups, eps, int(lay == "nhwc"),
-        nsplit, v, torch.cuda.current_stream().cuda_stream)
+        *plan, stream)
     _raise_on(rc, "gn_stats")
     _record("gn_stats", x)
     return ab
 
 
 def gn_apply(x, ab, act, y, sm_count: int) -> None:
-    """Pass 2: y = act(x a + b), a and b rounded to x's dtype."""
+    """Pass 2: y = act(x a + b), a and b rounded to x's dtype, by the plan
+    ``pair_plan`` makes."""
     lay = layout(x)
     b, c = x.shape[:2]
     s = x.numel() // (b * c)
     if ab.dtype != torch.float32 or tuple(ab.shape) != (b, 2, c) or not ab.is_contiguous():
         raise ValueError(f"ab must be a contiguous fp32 [{b}, 2, {c}] tensor")
-    v = vector_width(x.element_size(), (c,) if lay == "nhwc" else (s,), x, y)
+    plan = pair_plan(b, c, s, x.element_size(), lay, sm_count, x.data_ptr(), y.data_ptr())
     rc = _build.kernel("gn_apply")(
         x.data_ptr(), ab.data_ptr(), y.data_ptr(), int(x.dtype == torch.bfloat16), b, c, s,
-        int(lay == "nhwc"), ACTS[act], sm_count, v, torch.cuda.current_stream().cuda_stream)
+        int(lay == "nhwc"), ACTS[act], *plan, torch.cuda.current_stream().cuda_stream)
     _raise_on(rc, "gn_apply")
     _record("gn_apply", x)
 

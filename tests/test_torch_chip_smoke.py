@@ -142,3 +142,73 @@ def test_gn_fused_plan_at_every_main_path_shape(smoke):
         run = plan.group_set * (c // groups) * 2
         assert run >= 64 and run % 16 == 0
         assert gn.fused_smem_bytes("nhwc", c, h * w, groups, 2, plan) <= smoke.H100_SMEM_OPTIN
+
+
+# the gn_stats + gn_apply shapes of the counted runs (main_gn_calls)
+PAIR_SHAPES = [
+    (1, 128, 512, 512), (1, 256, 256, 256), (1, 256, 512, 512), (1, 512, 128, 128),
+    (1, 512, 256, 256), (2, 128, 256, 256), (2, 128, 512, 512), (2, 256, 128, 128),
+    (2, 256, 256, 256), (2, 256, 512, 512), (2, 512, 128, 128), (2, 512, 256, 256),
+    (2, 960, 64, 64), (4, 960, 64, 64)]
+
+
+def test_pair_shapes_are_the_main_paths(smoke):
+    assert sorted({s for name, s in smoke.gn_plan(smoke.main_gn_calls())
+                   if name == "gn_stats"}) == PAIR_SHAPES
+
+
+@pytest.mark.parametrize("shape", PAIR_SHAPES)
+def test_pair_plan_at_every_main_path_shape(smoke, shape):
+    """In both layouts and both types: the kernels' walk covers every row
+    once, in bounds, with vectors that divide and align; bf16 channels-last
+    (the main path) takes 16-byte vectors, one block of 240 or 256 threads
+    per band, one wave of about 4 blocks an SM, and gn_stats' shared memory
+    fits."""
+    from distdiff_tpu_torch.models.layers import group_count
+    from distdiff_tpu_torch.ops import groupnorm as gn
+
+    b, c, h, w = shape
+    for lay in ("nhwc", "nchw"):
+        for itemsize in (2, 4):
+            plan = gn.pair_plan(b, c, h * w, itemsize, lay, 132, 4096, 8192)
+            smoke.check_pair_plan(b, c, h * w, itemsize, lay, plan, 4096, 8192)
+            assert gn.pair_smem_bytes(lay, c, group_count(c), plan) <= smoke.H100_SMEM_OPTIN
+    plan = gn.pair_plan(b, c, h * w, 2, "nhwc", 132, 0, 0)
+    assert plan.vec == 8 and plan.threads in (240, 256)
+    assert 4 * 132 * 0.95 <= b * plan.bands <= 4 * 132
+
+
+# B = 1; rows no multiple of the band; vectors of 4, 2 and 1; pointers off
+# 16 bytes; fp32; a column loop; one pixel; NCHW (test_torch_groupnorm.py
+# holds the plans' values)
+PAIR_EDGES = [
+    (1, 960, 4096, 2, "nhwc", 0, 0), (2, 256, 10000, 2, "nhwc", 0, 0),
+    (2, 36, 255, 2, "nhwc", 0, 0), (2, 50, 323, 2, "nhwc", 0, 0), (1, 45, 256, 2, "nhwc", 0, 0),
+    (2, 128, 4096, 2, "nhwc", 4098, 8192), (2, 128, 4096, 2, "nhwc", 4096, 8200),
+    (2, 128, 512 * 512, 4, "nhwc", 0, 0), (1, 2560, 81, 2, "nhwc", 0, 0),
+    (1, 64, 1, 2, "nhwc", 0, 0), (2, 128, 512 * 512, 2, "nchw", 0, 0),
+    (1, 32, 63, 4, "nchw", 0, 0), (3, 32, 25, 2, "nchw", 0, 0),
+    (2, 128, 4096, 2, "nchw", 4098, 4096), (1, 1280, 64, 4, "nchw", 0, 0)]
+
+
+@pytest.mark.parametrize("case", PAIR_EDGES)
+def test_pair_plan_replays_at_edges(smoke, case):
+    from distdiff_tpu_torch.ops import groupnorm as gn
+
+    b, c, s, itemsize, lay, x_ptr, y_ptr = case
+    plan = gn.pair_plan(b, c, s, itemsize, lay, 132, x_ptr, y_ptr)
+    smoke.check_pair_plan(b, c, s, itemsize, lay, plan, x_ptr, y_ptr)
+
+
+@pytest.mark.parametrize("field, value, fault", [
+    ("bands", 263, "bands do not tile"),     # one band short of the rows
+    ("vec", 16, "vector"),                   # 32 bytes a load
+    ("threads", 250, "threads are no whole rows"),
+    ("rows", 1000, "bands do not tile"),     # the last band empty
+])
+def test_pair_plan_replay_catches_faults(smoke, field, value, fault):
+    from distdiff_tpu_torch.ops import groupnorm as gn
+
+    plan = gn.pair_plan(2, 128, 512 * 512, 2, "nhwc", 132, 0, 0)._replace(**{field: value})
+    with pytest.raises(SystemExit, match=fault):
+        smoke.check_pair_plan(2, 128, 512 * 512, 2, "nhwc", plan, 0, 0)

@@ -131,17 +131,18 @@ def test_layout_and_shared_memory_rule():
 
 
 def test_vector_width_and_split_count():
-    t = types.SimpleNamespace(data_ptr=lambda: 4096)
-    odd = types.SimpleNamespace(data_ptr=lambda: 4098)
-    assert gn.vector_width(2, (40,), t) == 8
-    assert gn.vector_width(2, (10,), t) == 2
-    assert gn.vector_width(2, (3,), t) == 1
-    assert gn.vector_width(4, (64,), t) == 4
-    assert gn.vector_width(2, (64,), odd) == 1
-    # NHWC: a batch row's pixel rows over 4 blocks per SM; NCHW: per span
-    assert gn.split_count("nhwc", 2, 32, 4, 512 * 512, 132) == 264
-    assert gn.split_count("nchw", 2, 32, 4, 512 * 512, 132) == 9
-    assert gn.split_count("nhwc", 1, 32, 1, 20, 132) == 1
+    """The pair's vector (16 bytes where the channel count or the plane and
+    both pointers allow) and its bands (about 4 blocks an SM in one wave,
+    at least 16 pixel rows a block)."""
+    assert gn._vec(2, 40, 16) == 8
+    assert gn._vec(2, 10, 16) == 2
+    assert gn._vec(2, 3, 16) == 1
+    assert gn._vec(4, 64, 16) == 4
+    assert gn._vec(2, 64, 2) == 1
+    # NHWC: a batch row's pixel rows over 4 blocks an SM; NCHW: per plane
+    assert gn.pair_plan(2, 128, 512 * 512, 2, "nhwc", 132, 0, 0).bands == 264
+    assert gn.pair_plan(2, 128, 512 * 512, 2, "nchw", 132, 0, 0).bands == 3
+    assert gn.pair_plan(1, 32, 20, 2, "nhwc", 132, 0, 0).bands == 1
 
 
 @pytest.fixture
@@ -183,18 +184,28 @@ def test_wrappers_pass_layout_vector_and_split_to_the_kernels(recorder):
     ab = gn.gn_stats(cl, scale, scale, 32, 1e-5, 132)
     assert tuple(ab.shape) == (2, 2, 640) and ab.dtype == torch.float32
     name, args = recorder[-1]
-    # ..., is_bf16, param_bf16, B, C, S, G, eps, nhwc, nsplit, vec
-    assert name == "gn_stats" and args[13:16] == (1, 256, 8)  # 4096 rows, 16 a block
+    # ..., is_bf16, param_bf16, B, C, S, G, eps, nhwc, vec, threads, bands, rows
+    assert name == "gn_stats" and len(args) == len(_build.SIGNATURES["gn_stats"][1])
+    # 80 vector columns x 3 rows of threads; 4096 rows in 256 bands of 16
+    assert args[6:12] == (1, 1, 2, 640, 4096, 32) and args[13:18] == (1, 8, 240, 256, 16)
     gn.gn_apply(cl, ab, None, torch.empty_like(cl), 132)
     name, args = recorder[-1]
-    assert name == "gn_apply" and args[3:9] == (1, 2, 640, 4096, 1, 0)
+    # x, ab, y, is_bf16, B, C, S, nhwc, act, vec, threads, bands, rows
+    assert name == "gn_apply" and len(args) == len(_build.SIGNATURES["gn_apply"][1])
+    assert args[3:13] == (1, 2, 640, 4096, 1, 0, 8, 240, 256, 16)
     x = torch.empty(1, 32, 9, 7, device="meta")  # NCHW fp32, odd H*W
     f32 = torch.empty(32, device="meta")
     gn.gn_apply(x, torch.empty(1, 2, 32, device="meta"), "silu", torch.empty_like(x), 132)
-    assert recorder[-1][1][7] == 0 and recorder[-1][1][-2] == 1  # NCHW, one element a load
+    # NCHW, one element a load, one band of each 63-element plane, two warps
+    assert recorder[-1][1][7:13] == (0, 1, 1, 64, 1, 63)
     gn.gn_stats(x, f32, f32, 32, 1e-5, 132)
-    assert recorder[-1][1][6] == 0  # fp32 x, fp32 params
+    assert recorder[-1][1][6:8] == (0, 0)  # fp32 x, fp32 params
+    assert recorder[-1][1][13:18] == (0, 1, 64, 1, 63)
+    plan = gn.pair_plan(1, 32, 63, 4, "nchw", 132, 0, 0)
+    assert gn.pair_smem_bytes("nchw", 32, 32, plan) == 4 * 4 * 64  # the finish's 4 x 64 floats
     assert gn.launch_counts == {"gn_fused": 2, "gn_stats": 2, "gn_apply": 2}
+    # the row counters are made once per stream and set back by the kernel
+    assert len(gn._counters) == 1
     assert gn.launch_shapes[("gn_stats", (2, 640, 64, 64))] == 1
     with pytest.raises(TypeError, match="bf16 or fp32"):
         gn._check(x.half(), f32, f32, 32)
@@ -265,3 +276,84 @@ def test_fused_plan_fits_shared_memory(shape, groups, smem_limit):
 def test_fused_plan_refuses_what_no_cluster_fits():
     with pytest.raises(ValueError, match="does not fit"):
         gn.fused_plan(1, 32, 512 * 512, 1, 4, "nhwc", 132, 48 * 1024, 0, 0)
+
+
+PAIR_EDGES = [
+    # (B, C, S, itemsize, layout, x_ptr, y_ptr) -> (vec, threads, bands, rows)
+    # B = 1 at the UNet's 960 channels: 120 vector columns x 2 rows of threads
+    ((1, 960, 4096, 2, "nhwc", 0, 0), (8, 240, 256, 16)),
+    # 10000 pixel rows in bands of 38: the last band holds 6
+    ((2, 256, 10000, 2, "nhwc", 0, 0), (8, 256, 264, 38)),
+    # C = 36, 50, 45: vectors of 4, 2 and 1 bf16 values
+    ((2, 36, 255, 2, "nhwc", 0, 0), (4, 252, 15, 17)),
+    ((2, 50, 323, 2, "nhwc", 0, 0), (2, 250, 19, 17)),
+    ((1, 45, 256, 2, "nhwc", 0, 0), (1, 225, 16, 16)),
+    # x one element off 16 bytes: one element a load; y off 8: four (for
+    # gn_apply, which writes y)
+    ((2, 128, 4096, 2, "nhwc", 4098, 8192), (1, 256, 256, 16)),
+    ((2, 128, 4096, 2, "nhwc", 4096, 8200), (4, 256, 256, 16)),
+    # fp32: four values a load, the same bands
+    ((2, 128, 512 * 512, 4, "nhwc", 0, 0), (4, 256, 264, 993)),
+    # 320 vector columns: 256 threads in one row, a column loop
+    ((1, 2560, 81, 2, "nhwc", 0, 0), (8, 256, 5, 17)),
+    # one pixel
+    ((1, 64, 1, 2, "nhwc", 0, 0), (8, 256, 1, 1)),
+    # NCHW: bands of each plane, a multiple of the vector; as many warps as
+    # a band's vectors need
+    ((2, 128, 512 * 512, 2, "nchw", 0, 0), (8, 256, 3, 87384)),
+    ((1, 32, 63, 4, "nchw", 0, 0), (1, 64, 1, 63)),
+    ((3, 32, 25, 2, "nchw", 0, 0), (1, 32, 1, 25)),
+    ((2, 128, 4096, 2, "nchw", 4098, 4096), (1, 256, 1, 4096)),
+    ((1, 1280, 64, 4, "nchw", 0, 0), (4, 32, 1, 64)),
+]
+
+
+@pytest.mark.parametrize("case, want", PAIR_EDGES)
+def test_pair_plan(case, want):
+    """gn_apply's plan (x -> y); gn_stats' (x alone) has the same bands, so
+    that gn_apply finds the rows gn_stats read last still in L2."""
+    b, c, s, itemsize, lay, x_ptr, y_ptr = case
+    plan = gn.pair_plan(b, c, s, itemsize, lay, 132, x_ptr, y_ptr)
+    assert tuple(plan) == want
+    stats = gn.pair_plan(b, c, s, itemsize, lay, 132, x_ptr, x_ptr)
+    if lay == "nhwc":  # the bands follow from the shape alone
+        assert (stats.bands, stats.rows) == (plan.bands, plan.rows)
+    if x_ptr % 16 == y_ptr % 16:
+        assert stats == plan
+    groups = 5 if c in (45, 50) else 4 if c == 36 else 32
+    assert gn.pair_smem_bytes(lay, c, groups, stats) <= 232448
+
+
+def _ab_script():
+    import importlib.util
+    import pathlib
+
+    path = pathlib.Path(__file__).resolve().parents[1] / "scripts" / "torch_gn_ab.py"
+    spec = importlib.util.spec_from_file_location("torch_gn_ab", path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+AB_PATCHES = [
+    ("ABLATIONS", "no_loads"), ("ABLATIONS", "no_stores"), ("ABLATIONS", "no_apply_math"),
+    ("ABLATIONS", "no_cluster"), ("PAIR_ABLATIONS", "no_finish"),
+    ("PAIR_ABLATIONS", "no_stores"), ("PAIR_ABLATIONS", "apply_empty"),
+    ("PAIR_BUILDS", "forward"), ("PAIR_BUILDS", "stcs"),
+]
+
+
+@pytest.mark.parametrize("table, name", AB_PATCHES)
+def test_ab_script_patches_apply_to_the_kernel_source(table, name):
+    """scripts/torch_gn_ab.py builds its ablations and source variants by
+    replacing text of csrc/groupnorm.cu: each text is still there, and the
+    patched source differs from the tree's (the cases are all the script's
+    patches)."""
+    ab = _ab_script()
+    assert sorted(getattr(ab, table)) == sorted(n for t, n in AB_PATCHES if t == table)
+    text = open(ab.os.path.join(ab.CSRC, "groupnorm.cu")).read()
+    patched = text
+    for old, new in getattr(ab, table)[name]:
+        assert old in patched, f"{table}[{name!r}]: {old[:60]!r} is not in groupnorm.cu"
+        patched = patched.replace(old, new)
+    assert patched != text
