@@ -9,7 +9,8 @@ package. Six phases, any failure exits non-zero:
    time to build the CUDA kernels from ``distdiff_tpu_torch/csrc`` (one
    ``nvcc`` a source, all at once), each kernel's registers and spills from
    ``-Xptxas -v`` (a Hopper flash or GroupNorm kernel that spills fails the
-   run), the Hopper flash kernels' dynamic shared memory, and the GroupNorm
+   run), the Hopper flash kernels' dynamic shared memory (the split
+   backward pair's held against its Python count), and the GroupNorm
    kernels' plans with their shared memory, held against the C side's.
 2. Kernels, each held against its plain PyTorch version on the same inputs:
    every flash kernel at the main path's shapes in bf16 (against the plain
@@ -17,7 +18,8 @@ package. Six phases, any failure exits non-zero:
    yardstick the port never calls) and at ragged shapes (the Hopper
    kernels also at every narrow head width and at wide ones from 129 to
    512, lengths one row on either side of their tiles, the 77-token kv,
-   and views off 16-byte alignment, which take the staged loads); the four
+   and views off 16-byte alignment, which take the staged loads; the split
+   backward pair launched twice for the same bytes); the four
    flash
    kernels' fp32 instances at main-path widths and ragged shapes (timed at
    the former); gn_fused, gn_stats and gn_apply at every GroupNorm shape of
@@ -172,7 +174,7 @@ def bound(name, bh, tq, tk, d, itemsize=2):
 # TMA and wgmma; gn_fused: clusters, TMA; the gn_stats and gn_apply pair:
 # banded one-wave grids): none may spill
 HOPPER_KERNELS = ("flash_fwd_narrow_kernel", "flash_fwd_wide_kernel", "flash_bwd_fused_kernel",
-                  "gn_fused_kernel", "gn_stats_nhwc_kernel", "gn_stats_nchw_kernel",
+                  "flash_bwd_dq_kernel", "flash_bwd_dkv_kernel", "gn_fused_kernel", "gn_stats_nhwc_kernel", "gn_stats_nchw_kernel",
                   "gn_apply_nhwc_kernel", "gn_apply_nchw_kernel")
 WIDE_DMAX = (256, 512)  # the wide forward's instances
 
@@ -196,6 +198,12 @@ def ptxas_phase() -> None:
           f"width: {smem}")
     wide = {dmax: _build.kernel("flash_fwd_smem")(dmax) for dmax in WIDE_DMAX}
     print(f"  wide forward's dynamic shared memory by DMAX: {wide}")
+    split = {dmax: _build.kernel("flash_bwd_split_smem")(dmax) for dmax in flash.SPLIT_DMAX}
+    print(f"  split backward pair's dynamic shared memory by DMAX: {split}")
+    for dmax, got in split.items():
+        want = flash.split_smem_bytes(dmax)
+        require(got == want and got <= H100_SMEM_OPTIN,
+                f"split backward's shared memory at DMAX {dmax}: C {got}, Python {want}")
     gn_smem_phase()
     require(not spilled, f"Hopper kernels spill registers: {spilled}")
 
@@ -327,10 +335,11 @@ def kernel_phase():
         ("offset40", 1, 3, 200, 150, 40, narrow, "offset"),
         ("offset80", 1, 2, 129, 65, 80, narrow, "offset"),
     ]
-    # the wide forward (64-row q and kv tiles) at widths from 129 to 512,
-    # with lengths one row on either side of its tiles, and on a view one
-    # element into its storage at D = 512 (the staged route); checked only
-    wide = ["flash_fwd"]
+    # the wide forward and the split backward pair (64-row tiles on both
+    # sides) at widths from 129 to 512, with lengths one row on either side
+    # of their tiles, and on a view one element into its storage at D = 512
+    # (the staged route); checked only
+    wide = ["flash_fwd"] + split
     shapes += [
         ("w129", 1, 2, 65, 63, 129, wide, False),
         ("w130", 1, 2, 63, 65, 130, wide, False),
@@ -385,12 +394,19 @@ def kernel_phase():
                                    flash.flash_bwd_fused(q, k, v, do, lse, delta)))
                     run = lambda: flash.flash_bwd_fused(q, k, v, do, lse, delta)  # noqa: E731
                 elif name == "flash_bwd_dq":
-                    got = {"dq": flash.flash_bwd_dq(q, k, v, do, lse, delta)}
-                    run = lambda: flash.flash_bwd_dq(q, k, v, do, lse, delta)  # noqa: E731
+                    run = lambda: (flash.flash_bwd_dq(q, k, v, do, lse, delta),)  # noqa: E731
+                    got = dict(zip(("dq",), run()))
                 else:
-                    got = dict(zip(("dk", "dv"), flash.flash_bwd_dkv(q, k, v, do, lse, delta)))
                     run = lambda: flash.flash_bwd_dkv(q, k, v, do, lse, delta)  # noqa: E731
+                    got = dict(zip(("dk", "dv"), run()))
                 torch.cuda.synchronize()
+                if name in split:  # no atomics: the same bytes on a second launch
+                    again = run()
+                    torch.cuda.synchronize()
+                    same = all(torch.equal(a, b) for a, b in zip(got.values(), again))
+                    print(f"  {name} {label}: {'the same' if same else 'OTHER'} bytes on two "
+                          f"launches")
+                    require(same, f"{name} gives other bytes on a second launch at {label}")
                 ref = dict(zip(("dq", "dk", "dv"), ref_grads))
                 outs = {key: (val, ref[key]) for key, val in got.items()}
                 plain = lambda: flash.flash_bwd_reference(q, k, v, o, lse, do)  # noqa: E731

@@ -50,17 +50,57 @@
 //     and k/v rows past tk are zero (their p never reaches dq; their dk and
 //     dv rows are not written).
 //
-// flash_bwd_dq / flash_bwd_dkv (wide, D up to 512), on mma.sync: a 32 x 512
-// fp32 accumulator is 64 KB, so a block of eight warps splits it into two
-// 16-row groups by four column quarters (64 registers a thread; dkv holds
-// two). flash_bwd_dq takes a 32-row q tile and loops over 64-row kv tiles;
-// flash_bwd_dkv takes a 32-row kv tile and loops over 64-row q tiles. Warp
-// (group, quarter) forms the 16 x 16 block of s and dp (of s^T and dp^T in
-// dkv) over the full head width; p and ds go through shared memory as
-// bf16; each warp then adds its rows and columns of ds k (of p^T do and
-// ds^T q). The bf16 tiles (32 + 32 + 64 + 64 rows of 520) take 200 KB of
-// the 227 KB of dynamic shared memory.
+// flash_bwd_dq / flash_bwd_dkv (the split pair, D up to 512; the VAE's
+// single 512-wide head). What bounds them on this card: their products, 3
+// (dq) and 4 (dk, dv) of 2 BH Tq Tk D flops (0.104 and 0.139 ms at [2, 4096,
+// 4096, 512] at the bf16 tensor-core peak). In the way: a 64 x 512 fp32
+// accumulator is 128 KB of registers, so a block cannot hold dk and dv of
+// one 64-row kv tile (256 KB, the whole register file); a 64-row bf16 tile
+// is 64 KB, so shared memory holds three and little more; and every block
+// reads all of the other side's tiles from L2 (1 GiB a launch at 64-row
+// tiles). Design, one block template (split_block) in three roles, a
+// block owning 64 rows and walking 64-row tiles of the other side:
+//   * roles: dq (q rows: s, dp, dq += ds k), dk (kv rows: s^T, dp^T,
+//     dk += ds^T q) and dv (kv rows: s^T, dv += p^T do). flash_bwd_dkv
+//     launches dk and dv blocks in one grid (z = 2): each recomputes s^T,
+//     5 products for dk and dv together where the reference's one pass
+//     forms 4, but the accumulators of either fit;
+//   * warp specialisation as in the wide forward: one score warpgroup
+//     forms the 64 x 64 score tiles (m64n64k16, both operands K-major in
+//     the 128-byte swizzle), the exponentials and ds, and hands ds (p in
+//     dv) as bf16 to D / 128 output warpgroups through mbarriers; output
+//     warpgroup w adds ds X[:, 128 w .. + 128] (two m64n64k16, one a
+//     chunk, X MN-major) into 64 fp32 registers a thread. 640 threads at
+//     D = 512 get 96 registers each;
+//   * shared memory: the block's A1 and A2 tiles (q and do, or k and v)
+//     stay for the whole walk. The stream passes through one ring of
+//     64-column chunks (11 slots at D = 512, 16 narrower): per tile the
+//     chunks of the operand only the score product reads (v, do, or q in
+//     dv), then those of X, the tile the output product reads (k, q or do;
+//     the score product reads it too outside dv). Whoever reads a chunk
+//     last loads the chunk 11 further into its slot: the score warpgroup
+//     for the first kind, output warpgroup w for X's chunks 2w and 2w + 1.
+//     So loads of the next tile start while this one's outputs are still
+//     waiting, and no slot sits empty for a fixed role. ds takes one
+//     buffer; dv, which has no A2, keeps a second in A2's space so that
+//     its next s^T runs under the outputs. 226 KB at D = 512;
+//   * order in the score warpgroup: the first kind's product (dp) first,
+//     then s over X's chunks as they arrive, so that dp fills the tensor
+//     cores while the outputs of the tile before finish. (A resident X
+//     tile beside a ring of three chunks leaves the loads' latency in the
+//     chain: each tile waits for eight ring refills, three at a time, and
+//     X reloads only after the outputs: 18% slower for dq, 24% for dkv);
+//   * no masks and no padding in device memory: rows past T are zero in
+//     shared memory (TMA's fill, the staged loads' zeros), so p and ds
+//     there meet zero rows of the output product's operand; lse and delta
+//     past tq read as 0; rows of the block past T are not written;
+//   * deterministic: each output element is one block's sum in a fixed
+//     order, no atomics. Slabs TMA cannot describe are staged element by
+//     element, each chunk by the warpgroup that would have loaded it.
 #include "flash_common.cuh"
+
+#define FLASH_ARGS_OK(bh, tq, tk) \
+  ((bh) > 0 && (bh) <= 65535 && (tq) > 0 && (tk) > 0)
 
 namespace flash {
 
@@ -437,186 +477,366 @@ flash_bwd_fused_kernel(const __grid_constant__ CUtensorMap qmap,
 
 // ---------------------------------------------------- split pair (wide)
 
+// The three roles of a split-backward block. A block owns 64 rows of one
+// side and walks 64-row tiles of the other (the stream):
+//   DQ: q rows (A1 = q, A2 = do), stream kv: s = q k^T, dp = do v^T,
+//       dq += ds k;
+//   DK: kv rows (A1 = k, A2 = v), stream q: s^T = k q^T, dp^T = v do^T,
+//       dk += ds^T q;
+//   DV: kv rows (A1 = k), stream q: s^T = k q^T, dv += p^T do.
+// X is the stream tile that the output product reads (k, q or do): resident
+// for the tile, one mbarrier a 64-column chunk. The ring carries the
+// stream's other operand (v, do or q) a 64-column chunk at a time.
+enum SplitMode { SPLIT_DQ = 0, SPLIT_DK = 1, SPLIT_DV = 2 };
+
 template <int DMAX>
-struct WideBwdCfg {
-  static constexpr int BR = 32;  // rows this block owns (q for dq, kv for dkv)
-  static constexpr int BT = 64;  // rows of the tiles it loops over
-  static constexpr int LD = DMAX + 8;
-  static constexpr int LDP = BT + 8;
-  static constexpr size_t SMEM = sizeof(bf16) * (2 * (BR + BT) * (size_t)LD +
-                                                 2 * BR * LDP) +
-                                 sizeof(float) * 2 * BT;
+struct SplitBwdCfg {
+  static constexpr int BR = 64, BT = 64;   // the block's rows, a stream tile's rows
+  static constexpr int OUTS = DMAX / 128;  // output warpgroups, 128 columns each
+  static constexpr int THREADS = 128 * (OUTS + 1);  // and the score warpgroup
+  static constexpr int CH = DMAX / 64;     // 64-column chunks of a tile
+  static constexpr int ON = 128;           // output columns of an output warpgroup
+  static constexpr int CHUNK = 64 * 128;   // 64 rows x 64 columns, bf16
+  static constexpr int TILE = CH * CHUNK;
+  static constexpr int RING = DMAX == 512 ? 11 : 16;  // ring slots, one chunk each
+  static constexpr int OFF_A2 = TILE;
+  static constexpr int OFF_R = 2 * TILE;
+  static constexpr int OFF_DS = OFF_R + RING * CHUNK;  // ds (p in DV), bf16
+  static constexpr int OFF_VEC = OFF_DS + CHUNK;       // [2][lse2, delta][BT] fp32
+  static constexpr int OFF_BAR = OFF_VEC + 2 * 2 * BT * 4;
+  // a_full, ring_full[RING], ds_full[2], ds_empty[2]
+  static constexpr int BARS = 1 + RING + 4;
+  static constexpr size_t SMEM = OFF_BAR + 8 * BARS + 1024;  // + alignment
+  static_assert(SMEM <= 232448, "more shared memory than a block may have");
+  static_assert(RING > CH, "a tile's X chunks must not wait for its own outputs");
 };
 
-template <int DMAX>
-__global__ void __launch_bounds__(WIDE_THREADS, 1)
-flash_bwd_dq_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
-                    const bf16* __restrict__ v, const bf16* __restrict__ dout,
-                    const float* __restrict__ lse, const float* __restrict__ delta,
-                    bf16* __restrict__ dq, int tq, int tk, int d, float scale) {
-  typedef WideBwdCfg<DMAX> C;
-  constexpr int BQ = C::BR, BK = C::BT, LD = C::LD, LDP = C::LDP;
-  constexpr int CW = DMAX / 4;
-  constexpr int NT = CW / 8;
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  bf16* Qs = reinterpret_cast<bf16*>(smem_raw);
-  bf16* dOs = Qs + BQ * LD;
-  bf16* Ks = dOs + BQ * LD;
-  bf16* Vs = Ks + BK * LD;
-  bf16* dSs = Vs + BK * LD;  // ds, [q][kv]
-  float* lse_s = reinterpret_cast<float*>(dSs + BQ * LDP);  // lse * log2(e)
-  float* dl_s = lse_s + BQ;
+// Named barriers: 1, the score warpgroup's 128 threads; 2 + w, output
+// warpgroup w's.
+constexpr int SPLIT_SCORE_BAR = 1;
+constexpr int SPLIT_OUT_BAR = 2;
 
-  const int warp = threadIdx.x >> 5;
-  const int lane = threadIdx.x & 31;
-  const int g = lane >> 2;
-  const int t4 = lane & 3;
-  const int rg = warp >> 2;
-  const int cq = warp & 3;
-  const int bh = blockIdx.y;
-  const int q0 = blockIdx.x * BQ;
-  const size_t qoff = (size_t)bh * tq;
-  const size_t koff = (size_t)bh * tk;
-  const float sl2 = scale * LOG2E;
-
-  stage_bf16<BQ, DMAX, LD, WIDE_THREADS>(Qs, q + qoff * d, q0, tq, d);
-  stage_bf16<BQ, DMAX, LD, WIDE_THREADS>(dOs, dout + qoff * d, q0, tq, d);
-  stage_vec<BQ, WIDE_THREADS>(lse_s, lse + qoff, q0, tq, LOG2E);
-  stage_vec<BQ, WIDE_THREADS>(dl_s, delta + qoff, q0, tq, 1.f);
-  float acc[NT][4];
-  zero(acc);
-
-  for (int k0 = 0; k0 < tk; k0 += BK) {
-    __syncthreads();  // the previous tile's readers are done
-    stage_bf16<BK, DMAX, LD, WIDE_THREADS>(Ks, k + koff * d, k0, tk, d);
-    stage_bf16<BK, DMAX, LD, WIDE_THREADS>(Vs, v + koff * d, k0, tk, d);
-    __syncthreads();
-
-    float s[2][4], dp[2][4];
-    warp_abt<DMAX>(s, Qs + rg * 16 * LD, LD, Ks + cq * 16 * LD, LD, lane);
-    warp_abt<DMAX>(dp, dOs + rg * 16 * LD, LD, Vs + cq * 16 * LD, LD, lane);
+// acc (+)= A[:, chunk] B[:, chunk]^T over one 64-column chunk of the head
+// width (four k-steps; A and B K-major in the 128-byte swizzle).
+__device__ __forceinline__ void split_chunk_product(float (&acc)[32], uint64_t ad, uint64_t bd,
+                                                    bool first) {
 #pragma unroll
-    for (int n = 0; n < 2; ++n)
+  for (int i = 0; i < 4; ++i)
+    hopper::Wgmma<64>::template ss<0, 0>(acc, desc_at(ad, i * 32), desc_at(bd, i * 32),
+                                         !first || i > 0);
+}
+
+// One block of role MODE (the kernels below pick it).
+template <int DMAX, bool TMA, int MODE>
+__device__ __forceinline__ void split_block(const CUtensorMap* qmap, const CUtensorMap* kmap,
+                                            const CUtensorMap* vmap, const CUtensorMap* domap,
+                                            const bf16* __restrict__ q, const bf16* __restrict__ k,
+                                            const bf16* __restrict__ v,
+                                            const bf16* __restrict__ dout,
+                                            const float* __restrict__ lse,
+                                            const float* __restrict__ delta,
+                                            bf16* __restrict__ out, int tq, int tk, int d,
+                                            float scale) {
+  typedef SplitBwdCfg<DMAX> C;
+  constexpr int CH = C::CH, CHUNK = C::CHUNK, RING = C::RING;
+  extern __shared__ uint8_t smem_raw[];
+  uint8_t* smem = smem_raw + ((1024u - (hopper::smem_addr(smem_raw) & 1023u)) & 1023u);
+  uint8_t* A1 = smem;
+  uint8_t* A2 = smem + C::OFF_A2;
+  uint8_t* R = smem + C::OFF_R;
+  uint8_t* DSB = smem + C::OFF_DS;
+  float* vec = reinterpret_cast<float*>(smem + C::OFF_VEC);
+  uint64_t* a_full = reinterpret_cast<uint64_t*>(smem + C::OFF_BAR);
+  uint64_t* ring_full = a_full + 1;
+  uint64_t* ds_full = ring_full + RING;
+  uint64_t* ds_empty = ds_full + 2;
+
+  constexpr bool DQ = MODE == SPLIT_DQ;
+  constexpr bool dv = MODE == SPLIT_DV;
+  const int bh = blockIdx.y;
+  const int r0 = blockIdx.x * C::BR;
+  const int nr = DQ ? tq : tk;      // rows of the block's side
+  const int ns = DQ ? tk : tq;      // rows of the stream
+  const int nt = (ns + C::BT - 1) / C::BT;
+  const int total = nt * 2 * CH;    // stream chunks through the ring
+  // DV leaves A2's space free: it holds a second p buffer there, so that
+  // its s^T of one tile runs while the outputs take the tile before
+  constexpr int nb = dv ? 2 : 1;
+  if (threadIdx.x == 0) {
+    hopper::mbar_init(a_full, 1);
+    for (int s = 0; s < RING; ++s) hopper::mbar_init(ring_full + s, 1);  // one loading thread
+    for (int b = 0; b < 2; ++b) {
+      hopper::mbar_init(ds_full + b, 1);         // the score warpgroup's thread 0
+      hopper::mbar_init(ds_empty + b, C::OUTS);  // thread 0 of each output warpgroup
+    }
+    hopper::mbar_init_fence();
+  }
+  __syncthreads();
+
+  const int wg = threadIdx.x / 128;
+  const int tid = threadIdx.x % 128;
+  const int warp = tid / 32, lane = tid % 32, g = lane / 4, t4 = lane % 4;
+  const int row0 = warp * 16 + g;  // this thread's rows of the block: row0 and row0 + 8
+  const size_t off_r = (size_t)bh * nr * d, off_s = (size_t)bh * ns * d;
+  // The stream: per tile, CH chunks of the ring operand (v, do, or q in
+  // DV), then CH chunks of X (k, q or do), all through one ring of RING
+  // slots; chunk r sits in slot r % RING. Whoever is done with a chunk
+  // last loads the chunk RING further into its slot: the score warpgroup
+  // for a ring-operand chunk, output warpgroup c / 2 for X chunk c.
+  const CUtensorMap* rmap = DQ ? vmap : (dv ? qmap : domap);
+  const CUtensorMap* xmap = DQ ? kmap : (dv ? domap : qmap);
+  const bf16* rs = (DQ ? v : (dv ? q : dout)) + off_s;
+  const bf16* xs = (DQ ? k : (dv ? dout : q)) + off_s;
+  // chunk r into its slot, by the calling warpgroup (bar: its named
+  // barrier): TMA by its thread 0, or staged by all its threads
+  auto refill = [&](int r, int bar) {
+    if (r >= total) return;
+    const int s = r % RING, p = r % (2 * CH);
+    const int row = r / (2 * CH) * C::BT, col = 64 * (p % CH);
+    if (TMA) {
+      if (tid == 0) {
+        hopper::mbar_arrive_tx(ring_full + s, CHUNK);
+        hopper::tma_load_3d(R + s * CHUNK, p < CH ? rmap : xmap, col, row, bh, ring_full + s);
+      }
+    } else {
+      hopper::stage_tile<C::BT, 64, 128>(R + s * CHUNK, p < CH ? rs : xs, row, ns, d, tid, 128, col);
+      hopper::fence_proxy_async();
+      hopper::named_sync(bar, 128);
+      if (tid == 0) hopper::mbar_arrive(ring_full + s);
+    }
+  };
+  const uint64_t r_desc = hopper::desc<128>(hopper::smem_addr(R), 16, 1024);
+
+  if (wg == C::OUTS) {
+    // ---- score warpgroup: per stream tile, the ring operand's product (dp,
+    // or s in DV) chunk by chunk as they arrive, then s over X's chunks;
+    // p = exp(s scale - lse) and ds = p (dp - delta) scale (p in DV) as
+    // bf16 into a buffer that the output warpgroups read. It loads A1, A2
+    // and the ring's first RING chunks.
+    if (TMA) {
+      if (tid == 0) {
+        hopper::mbar_arrive_tx(a_full, (dv ? 1 : 2) * C::TILE);
+        for (int c = 0; c < CH; ++c) {
+          hopper::tma_load_3d(A1 + c * CHUNK, DQ ? qmap : kmap, 64 * c, r0, bh, a_full);
+          if (!dv) hopper::tma_load_3d(A2 + c * CHUNK, DQ ? domap : vmap, 64 * c, r0, bh, a_full);
+        }
+      }
+    } else {
+      hopper::stage_tile<C::BR, DMAX, 128>(A1, (DQ ? q : k) + off_r, r0, nr, d, tid, 128);
+      if (!dv) hopper::stage_tile<C::BR, DMAX, 128>(A2, (DQ ? dout : v) + off_r, r0, nr, d, tid, 128);
+      hopper::fence_proxy_async();
+    }
+    for (int r = 0; r < RING; ++r) refill(r, SPLIT_SCORE_BAR);
+    // a ring-operand chunk has been read: every score warp is past its wait
+    // for the chunk's group, then its slot takes the chunk RING further
+    auto release = [&](int r) {
+      hopper::named_sync(SPLIT_SCORE_BAR, 128);
+      refill(r + RING, SPLIT_SCORE_BAR);
+    };
+    // lse (times log2 e) and delta: of the block's rows in DQ, held in
+    // registers; of the stream tile's columns otherwise, staged a tile
+    // ahead into vec[tile % 2] (thread t: lse of column t, delta of
+    // column t - 64). Past tq both are 0: q and do rows there are zero, so
+    // p and ds meet only zeros in the output product.
+    const float* lse_b = lse + (size_t)bh * tq;
+    const float* delta_b = delta + (size_t)bh * tq;
+    auto col_vec = [&](int j) {
+      const int col = j * C::BT + (tid & 63);
+      if (col >= tq) return 0.f;
+      return tid < 64 ? lse_b[col] * LOG2E : delta_b[col];
+    };
+    float lrow[2] = {0.f, 0.f}, drow[2] = {0.f, 0.f};
+    if (DQ) {
 #pragma unroll
       for (int r = 0; r < 2; ++r) {
-        const int row = rg * 16 + g + 8 * r;
-        const int col = cq * 16 + n * 8 + 2 * t4;
-        float ds[2];
-#pragma unroll
-        for (int e = 0; e < 2; ++e) {
-          const float p = k0 + col + e < tk
-                              ? exp2f(s[n][2 * r + e] * sl2 - lse_s[row]) : 0.f;
-          ds[e] = p * (dp[n][2 * r + e] - dl_s[row]) * scale;
+        const int row = r0 + row0 + 8 * r;
+        if (row < tq) {
+          lrow[r] = lse_b[row] * LOG2E;
+          drow[r] = delta_b[row];
         }
-        *reinterpret_cast<unsigned*>(dSs + row * LDP + col) = pack_bf16(ds[0], ds[1]);
       }
-    __syncthreads();
-    warp_ax<BK, NT>(acc, dSs + rg * 16 * LDP, LDP, Ks + cq * CW, LD, lane);
+    } else {
+      vec[tid] = col_vec(0);
+    }
+    hopper::named_sync(SPLIT_SCORE_BAR, 128);  // staged tiles and the first vectors are in
+    if (TMA) hopper::mbar_wait(a_full, 0);
+    const float sl2 = scale * LOG2E;
+    const uint64_t a1_desc = hopper::desc<128>(hopper::smem_addr(A1), 16, 1024);
+    const uint64_t a2_desc = hopper::desc<128>(hopper::smem_addr(A2), 16, 1024);
+    float s_acc[32], dp_acc[32];  // this warp's 16 rows x the tile's 64 columns
+    for (int j = 0; j < nt; ++j) {
+      const float nv = (!DQ && j + 1 < nt) ? col_vec(j + 1) : 0.f;
+      // the ring operand's product: dp = A2 R^T (s = A1 R^T in DV), one
+      // commit group a chunk, in a loop that is not unrolled (unrolled,
+      // ptxas hoists the descriptors out of the tile loop and spills them)
+      uint64_t ad = dv ? a1_desc : a2_desc;
+      const int r_base = j * 2 * CH;
+#pragma unroll 1
+      for (int c = 0; c < CH; ++c) {
+        const int r = r_base + c, s = r % RING;
+        hopper::mbar_wait(ring_full + s, (r / RING) & 1);
+        hopper::wgmma_fence();
+        if (dv)
+          split_chunk_product(s_acc, ad, desc_at(r_desc, s * CHUNK), c == 0);
+        else
+          split_chunk_product(dp_acc, ad, desc_at(r_desc, s * CHUNK), c == 0);
+        hopper::wgmma_commit();
+        ad = desc_at(ad, CHUNK);
+        if (c > 0) {
+          hopper::wgmma_wait<1>();
+          release(r - 1);
+        }
+      }
+      if (!DQ) vec[((j + 1) & 1) * 128 + tid] = nv;  // read at tile j + 1, past the barrier below
+      if (!dv) {
+        // s = A1 X^T, a chunk as it arrives
+        uint64_t a1d = a1_desc;
+#pragma unroll 1
+        for (int c = 0; c < CH; ++c) {
+          const int r = r_base + CH + c, s = r % RING;
+          hopper::mbar_wait(ring_full + s, (r / RING) & 1);
+          hopper::wgmma_fence();
+          split_chunk_product(s_acc, a1d, desc_at(r_desc, s * CHUNK), c == 0);
+          hopper::wgmma_commit();
+          a1d = desc_at(a1d, CHUNK);
+          if (c == 0) {
+            hopper::wgmma_wait<1>();
+            release(r_base + CH - 1);
+          }
+        }
+        hopper::wgmma_wait<0>();
+        hopper::fence_regs(dp_acc);
+      } else {
+        hopper::wgmma_wait<0>();
+        release(r_base + CH - 1);
+      }
+      hopper::fence_regs(s_acc);
+      // p = exp2(s scale log2 e - lse log2 e); ds = p (dp - delta) scale
+      const float* lv = vec + (j & 1) * 128;
+#pragma unroll
+      for (int n = 0; n < 8; ++n) {
+        float2 lc = make_float2(0.f, 0.f), dc = make_float2(0.f, 0.f);
+        if (!DQ) {
+          lc = *reinterpret_cast<const float2*>(lv + n * 8 + 2 * t4);
+          dc = *reinterpret_cast<const float2*>(lv + 64 + n * 8 + 2 * t4);
+        }
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const float L = DQ ? lrow[e >> 1] : ((e & 1) ? lc.y : lc.x);
+          const float p = hopper::ex2(fmaf(s_acc[4 * n + e], sl2, -L));
+          if (dv) {
+            s_acc[4 * n + e] = p;
+          } else {
+            const float D = DQ ? drow[e >> 1] : ((e & 1) ? dc.y : dc.x);
+            s_acc[4 * n + e] = p * (dp_acc[4 * n + e] - D) * scale;
+          }
+        }
+      }
+      // ds (p) as bf16 into buffer j % nb (the A operand of the output
+      // product: 128-byte swizzle, K-major), once the outputs are done with
+      // its last tile
+      const int b = j % nb;
+      hopper::mbar_wait(ds_empty + b, ((j / nb) & 1) ^ 1);
+      uint8_t* pb = b ? A2 : DSB;
+#pragma unroll
+      for (int n = 0; n < 8; ++n)
+#pragma unroll
+        for (int r = 0; r < 2; ++r)
+          *reinterpret_cast<uint32_t*>(pb + hopper::swizzle_off<128>(row0 + 8 * r, (n * 8 + 2 * t4) * 2)) =
+              hopper::pack_bf16(s_acc[4 * n + 2 * r], s_acc[4 * n + 2 * r + 1]);
+      // one arrival, once all 128 threads have written
+      hopper::fence_proxy_async();
+      hopper::named_sync(SPLIT_SCORE_BAR, 128);
+      if (tid == 0) hopper::mbar_arrive(ds_full + b);
+    }
+    return;
   }
 
+  // ---- output warpgroup w: out[:, 128 w .. + 128] += ds X[:, 128 w .. + 128]
+  // as two m64n64k16 products, one for each of its X chunks 2w and 2w + 1
+  // (ds K-major, X MN-major, both from shared memory). Once both are done,
+  // it loads the chunks RING further into their slots (the score
+  // warpgroup's s of the tile is done by then).
+  const int w = wg;
+  float acc[2][32];  // this warp's 16 rows x 64 columns of each chunk
+#pragma unroll
+  for (int i = 0; i < 2; ++i)
+#pragma unroll
+    for (int e = 0; e < 32; ++e) acc[i][e] = 0.f;
+  const uint64_t xr_desc = hopper::desc<128>(hopper::smem_addr(R), CHUNK, 1024);
+  for (int j = 0; j < nt; ++j) {
+    const int b = j % nb;
+    const int rx = j * 2 * CH + CH + 2 * w;  // X chunk 2w of tile j
+    hopper::mbar_wait(ds_full + b, (j / nb) & 1);
+    const uint64_t p_desc = hopper::desc<128>(hopper::smem_addr(b ? A2 : DSB), 16, 1024);
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      const int s = (rx + i) % RING;
+      hopper::mbar_wait(ring_full + s, ((rx + i) / RING) & 1);
+      hopper::fence_regs(acc[i]);
+      hopper::wgmma_fence();
+#pragma unroll
+      for (int t = 0; t < C::BT / 16; ++t)
+        hopper::Wgmma<64>::template ss<0, 1>(acc[i], desc_at(p_desc, t * 32),
+                                             desc_at(xr_desc, s * CHUNK + t * 2048), 1);
+      hopper::wgmma_commit();
+    }
+    hopper::wgmma_wait<0>();
+    hopper::fence_regs(acc[0]);
+    hopper::fence_regs(acc[1]);
+    hopper::named_sync(SPLIT_OUT_BAR + w, 128);  // every warp's part has been read
+    if (tid == 0) hopper::mbar_arrive(ds_empty + b);
+    refill(rx + RING, SPLIT_OUT_BAR + w);
+    refill(rx + 1 + RING, SPLIT_OUT_BAR + w);
+  }
+  out += off_r;
 #pragma unroll
   for (int r = 0; r < 2; ++r) {
-    const int row = q0 + rg * 16 + g + 8 * r;
-    if (row >= tq) continue;
-    bf16* dqrow = dq + (qoff + row) * d;
+    const int row = r0 + row0 + 8 * r;
+    if (row >= nr) continue;
+    bf16* orow = out + (size_t)row * d;
 #pragma unroll
-    for (int n = 0; n < NT; ++n) {
-      const int col = cq * CW + n * 8 + 2 * t4;
-      if (col < d) dqrow[col] = __float2bfloat16(acc[n][2 * r]);
-      if (col + 1 < d) dqrow[col + 1] = __float2bfloat16(acc[n][2 * r + 1]);
-    }
+    for (int i = 0; i < 2; ++i)
+#pragma unroll
+      for (int n = 0; n < 8; ++n) {
+        const int col = w * C::ON + i * 64 + n * 8 + 2 * t4;
+        const float a = acc[i][4 * n + 2 * r], c = acc[i][4 * n + 2 * r + 1];
+        if (d % 2 == 0) {  // rows of whole bf16 pairs: one 4-byte store
+          if (col < d) *reinterpret_cast<__nv_bfloat162*>(orow + col) = __floats2bfloat162_rn(a, c);
+        } else {
+          if (col < d) orow[col] = __float2bfloat16(a);
+          if (col + 1 < d) orow[col + 1] = __float2bfloat16(c);
+        }
+      }
   }
 }
 
-template <int DMAX>
-__global__ void __launch_bounds__(WIDE_THREADS, 1)
-flash_bwd_dkv_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
-                     const bf16* __restrict__ v, const bf16* __restrict__ dout,
-                     const float* __restrict__ lse, const float* __restrict__ delta,
-                     bf16* __restrict__ dk, bf16* __restrict__ dv, int tq, int tk,
-                     int d, float scale) {
-  typedef WideBwdCfg<DMAX> C;
-  constexpr int BK = C::BR, BQ = C::BT, LD = C::LD, LDP = C::LDP;
-  constexpr int CW = DMAX / 4;
-  constexpr int NT = CW / 8;
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  bf16* Ks = reinterpret_cast<bf16*>(smem_raw);
-  bf16* Vs = Ks + BK * LD;
-  bf16* Qs = Vs + BK * LD;
-  bf16* dOs = Qs + BQ * LD;
-  bf16* Pt = dOs + BQ * LD;  // p^T, [kv][q]
-  bf16* dSt = Pt + BK * LDP;  // ds^T, [kv][q]
-  float* lse_s = reinterpret_cast<float*>(dSt + BK * LDP);  // lse * log2(e)
-  float* dl_s = lse_s + BQ;
+#define SPLIT_KERNEL_PARAMS                                                                  \
+  const __grid_constant__ CUtensorMap qmap, const __grid_constant__ CUtensorMap kmap,        \
+      const __grid_constant__ CUtensorMap vmap, const __grid_constant__ CUtensorMap domap,   \
+      const bf16 *__restrict__ q, const bf16 *__restrict__ k, const bf16 *__restrict__ v,    \
+      const bf16 *__restrict__ dout, const float *__restrict__ lse,                          \
+      const float *__restrict__ delta, bf16 *__restrict__ out0, bf16 *__restrict__ out1,     \
+      int tq, int tk, int d, float scale
+#define SPLIT_BLOCK_ARGS(out) \
+  &qmap, &kmap, &vmap, &domap, q, k, v, dout, lse, delta, out, tq, tk, d, scale
 
-  const int warp = threadIdx.x >> 5;
-  const int lane = threadIdx.x & 31;
-  const int g = lane >> 2;
-  const int t4 = lane & 3;
-  const int rg = warp >> 2;
-  const int cq = warp & 3;
-  const int bh = blockIdx.y;
-  const int k0 = blockIdx.x * BK;
-  const size_t qoff = (size_t)bh * tq;
-  const size_t koff = (size_t)bh * tk;
-  const float sl2 = scale * LOG2E;
+// dq: one block per 64-row q tile (out1 unused).
+template <int DMAX, bool TMA>
+__global__ void __launch_bounds__(SplitBwdCfg<DMAX>::THREADS, 1)
+flash_bwd_dq_kernel(SPLIT_KERNEL_PARAMS) {
+  split_block<DMAX, TMA, SPLIT_DQ>(SPLIT_BLOCK_ARGS(out0));
+}
 
-  stage_bf16<BK, DMAX, LD, WIDE_THREADS>(Ks, k + koff * d, k0, tk, d);
-  stage_bf16<BK, DMAX, LD, WIDE_THREADS>(Vs, v + koff * d, k0, tk, d);
-  float dk_acc[NT][4], dv_acc[NT][4];
-  zero(dk_acc);
-  zero(dv_acc);
-
-  for (int q0 = 0; q0 < tq; q0 += BQ) {
-    __syncthreads();  // the previous tile's readers are done
-    stage_bf16<BQ, DMAX, LD, WIDE_THREADS>(Qs, q + qoff * d, q0, tq, d);
-    stage_bf16<BQ, DMAX, LD, WIDE_THREADS>(dOs, dout + qoff * d, q0, tq, d);
-    stage_vec<BQ, WIDE_THREADS>(lse_s, lse + qoff, q0, tq, LOG2E);
-    stage_vec<BQ, WIDE_THREADS>(dl_s, delta + qoff, q0, tq, 1.f);
-    __syncthreads();
-
-    float st[2][4], dpt[2][4];  // s^T, dp^T: kv rows x q columns
-    warp_abt<DMAX>(st, Ks + rg * 16 * LD, LD, Qs + cq * 16 * LD, LD, lane);
-    warp_abt<DMAX>(dpt, Vs + rg * 16 * LD, LD, dOs + cq * 16 * LD, LD, lane);
-#pragma unroll
-    for (int n = 0; n < 2; ++n)
-#pragma unroll
-      for (int r = 0; r < 2; ++r) {
-        const int row = rg * 16 + g + 8 * r;  // kv
-        const int col = cq * 16 + n * 8 + 2 * t4;  // q
-        float p[2], ds[2];
-#pragma unroll
-        for (int e = 0; e < 2; ++e) {
-          const int qc = col + e;
-          p[e] = (q0 + qc < tq && k0 + row < tk)
-                     ? exp2f(st[n][2 * r + e] * sl2 - lse_s[qc]) : 0.f;
-          ds[e] = p[e] * (dpt[n][2 * r + e] - dl_s[qc]) * scale;
-        }
-        *reinterpret_cast<unsigned*>(Pt + row * LDP + col) = pack_bf16(p[0], p[1]);
-        *reinterpret_cast<unsigned*>(dSt + row * LDP + col) = pack_bf16(ds[0], ds[1]);
-      }
-    __syncthreads();
-    warp_ax<BQ, NT>(dv_acc, Pt + rg * 16 * LDP, LDP, dOs + cq * CW, LD, lane);
-    warp_ax<BQ, NT>(dk_acc, dSt + rg * 16 * LDP, LDP, Qs + cq * CW, LD, lane);
-  }
-
-#pragma unroll
-  for (int r = 0; r < 2; ++r) {
-    const int row = k0 + rg * 16 + g + 8 * r;
-    if (row >= tk) continue;
-    bf16* dkrow = dk + (koff + row) * d;
-    bf16* dvrow = dv + (koff + row) * d;
-#pragma unroll
-    for (int n = 0; n < NT; ++n)
-#pragma unroll
-      for (int e = 0; e < 2; ++e) {
-        const int col = cq * CW + n * 8 + 2 * t4 + e;
-        if (col < d) {
-          dkrow[col] = __float2bfloat16(dk_acc[n][2 * r + e]);
-          dvrow[col] = __float2bfloat16(dv_acc[n][2 * r + e]);
-        }
-      }
-  }
+// dk (grid z = 0, into out0) and dv (z = 1, into out1): one block per
+// 64-row kv tile and role, in one launch.
+template <int DMAX, bool TMA>
+__global__ void __launch_bounds__(SplitBwdCfg<DMAX>::THREADS, 1)
+flash_bwd_dkv_kernel(SPLIT_KERNEL_PARAMS) {
+  if (blockIdx.z)
+    split_block<DMAX, TMA, SPLIT_DV>(SPLIT_BLOCK_ARGS(out1));
+  else
+    split_block<DMAX, TMA, SPLIT_DK>(SPLIT_BLOCK_ARGS(out0));
 }
 
 // ---------------------------------------------------------------- launchers
@@ -647,40 +867,58 @@ static int launch_fused(const void* q, const void* k, const void* v, const void*
   return (int)cudaGetLastError();
 }
 
-template <int DMAX>
-static int launch_dq(const void* q, const void* k, const void* v, const void* dout,
-                     const void* lse, const void* delta, void* dq, int bh, int tq,
-                     int tk, int d, float scale, cudaStream_t stream) {
-  typedef WideBwdCfg<DMAX> C;
-  auto kern = flash_bwd_dq_kernel<DMAX>;
+// Head width rounded up to a split kernel's (0: unsupported).
+inline int split_dmax(int d) {
+  if (d <= 0) return 0;
+  if (d <= 128) return 128;
+  if (d <= 256) return 256;
+  if (d <= 512) return 512;
+  return 0;
+}
+
+// dq (DQ) or dk and dv (one grid of both roles).
+template <int DMAX, bool DQ>
+static int launch_split(const void* q, const void* k, const void* v, const void* dout,
+                        const void* lse, const void* delta, void* out0, void* out1, int bh,
+                        int tq, int tk, int d, int tma, float scale, cudaStream_t stream) {
+  typedef SplitBwdCfg<DMAX> C;
+  CUtensorMap maps[4];
+  memset(maps, 0, sizeof(maps));
+  if (tma) {
+    int rc = hopper::tile_map(&maps[0], q, bh, tq, d, 64, 64);
+    if (rc == 0) rc = hopper::tile_map(&maps[1], k, bh, tk, d, 64, 64);
+    if (rc == 0) rc = hopper::tile_map(&maps[2], v, bh, tk, d, 64, 64);
+    if (rc == 0) rc = hopper::tile_map(&maps[3], dout, bh, tq, d, 64, 64);
+    if (rc != 0) return rc;
+  }
+  auto kern = DQ ? (tma ? flash_bwd_dq_kernel<DMAX, true> : flash_bwd_dq_kernel<DMAX, false>)
+                 : (tma ? flash_bwd_dkv_kernel<DMAX, true> : flash_bwd_dkv_kernel<DMAX, false>);
   cudaError_t err = set_smem(kern, C::SMEM);
   if (err != cudaSuccess) return (int)err;
-  dim3 grid((tq + C::BR - 1) / C::BR, bh);
-  kern<<<grid, WIDE_THREADS, C::SMEM, stream>>>(
-      (const bf16*)q, (const bf16*)k, (const bf16*)v, (const bf16*)dout,
-      (const float*)lse, (const float*)delta, (bf16*)dq, tq, tk, d, scale);
+  dim3 grid(((DQ ? tq : tk) + C::BR - 1) / C::BR, bh, DQ ? 1 : 2);
+  kern<<<grid, C::THREADS, C::SMEM, stream>>>(
+      maps[0], maps[1], maps[2], maps[3], (const bf16*)q, (const bf16*)k, (const bf16*)v,
+      (const bf16*)dout, (const float*)lse, (const float*)delta, (bf16*)out0, (bf16*)out1, tq,
+      tk, d, scale);
   return (int)cudaGetLastError();
 }
 
-template <int DMAX>
-static int launch_dkv(const void* q, const void* k, const void* v, const void* dout,
-                      const void* lse, const void* delta, void* dk, void* dv, int bh,
-                      int tq, int tk, int d, float scale, cudaStream_t stream) {
-  typedef WideBwdCfg<DMAX> C;
-  auto kern = flash_bwd_dkv_kernel<DMAX>;
-  cudaError_t err = set_smem(kern, C::SMEM);
-  if (err != cudaSuccess) return (int)err;
-  dim3 grid((tk + C::BR - 1) / C::BR, bh);
-  kern<<<grid, WIDE_THREADS, C::SMEM, stream>>>(
-      (const bf16*)q, (const bf16*)k, (const bf16*)v, (const bf16*)dout,
-      (const float*)lse, (const float*)delta, (bf16*)dk, (bf16*)dv, tq, tk, d, scale);
-  return (int)cudaGetLastError();
+template <bool DQ>
+static int split_entry(const void* q, const void* k, const void* v, const void* dout,
+                       const void* lse, const void* delta, void* out0, void* out1, int bh,
+                       int tq, int tk, int d, int tma, float scale, void* stream) {
+  if (!FLASH_ARGS_OK(bh, tq, tk) || !tma_ok(d, tma, q, k, v, dout))
+    return (int)cudaErrorInvalidValue;
+  cudaStream_t s = (cudaStream_t)stream;
+  switch (split_dmax(d)) {
+    case 128: return launch_split<128, DQ>(q, k, v, dout, lse, delta, out0, out1, bh, tq, tk, d, tma, scale, s);
+    case 256: return launch_split<256, DQ>(q, k, v, dout, lse, delta, out0, out1, bh, tq, tk, d, tma, scale, s);
+    case 512: return launch_split<512, DQ>(q, k, v, dout, lse, delta, out0, out1, bh, tq, tk, d, tma, scale, s);
+    default: return (int)cudaErrorInvalidValue;
+  }
 }
 
 }  // namespace flash
-
-#define FLASH_ARGS_OK(bh, tq, tk) \
-  ((bh) > 0 && (bh) <= 65535 && (tq) > 0 && (tk) > 0)
 
 // q, k, v, do: bf16 [bh, t, d]; lse, delta: fp32 [bh, tq];
 // dq: fp32 [bh, tq, d], zeroed by the caller; dk, dv: bf16 [bh, tk, d].
@@ -706,37 +944,36 @@ extern "C" int flash_bwd_fused(const void* q, const void* k, const void* v,
   }
 }
 
+// q, k, v, do: bf16 [bh, t, d] contiguous; lse, delta: fp32 [bh, tq]; d up
+// to 512. tma: 1 to load the tiles by TMA (d % 8 == 0 and 16-byte aligned q,
+// k, v, do; ops/flash.py split_plan), 0 to stage them element by element.
 // dk, dv: bf16 [bh, tk, d] (no dq).
 extern "C" int flash_bwd_dkv(const void* q, const void* k, const void* v,
                              const void* dout, const void* lse, const void* delta,
-                             void* dk, void* dv, int bh, int tq, int tk, int d,
+                             void* dk, void* dv, int bh, int tq, int tk, int d, int tma,
                              float scale, void* stream) {
-  using namespace flash;
-  if (!FLASH_ARGS_OK(bh, tq, tk)) return (int)cudaErrorInvalidValue;
-  cudaStream_t s = (cudaStream_t)stream;
-  switch (wide_dmax(d)) {
-    case 64: return launch_dkv<64>(q, k, v, dout, lse, delta, dk, dv, bh, tq, tk, d, scale, s);
-    case 128: return launch_dkv<128>(q, k, v, dout, lse, delta, dk, dv, bh, tq, tk, d, scale, s);
-    case 256: return launch_dkv<256>(q, k, v, dout, lse, delta, dk, dv, bh, tq, tk, d, scale, s);
-    case 512: return launch_dkv<512>(q, k, v, dout, lse, delta, dk, dv, bh, tq, tk, d, scale, s);
-    default: return (int)cudaErrorInvalidValue;
-  }
+  return flash::split_entry<false>(q, k, v, dout, lse, delta, dk, dv, bh, tq, tk, d, tma,
+                                   scale, stream);
 }
 
 // dq: bf16 [bh, tq, d].
 extern "C" int flash_bwd_dq(const void* q, const void* k, const void* v,
                             const void* dout, const void* lse, const void* delta,
-                            void* dq, int bh, int tq, int tk, int d, float scale,
+                            void* dq, int bh, int tq, int tk, int d, int tma, float scale,
                             void* stream) {
+  return flash::split_entry<true>(q, k, v, dout, lse, delta, dq, nullptr, bh, tq, tk, d, tma,
+                                  scale, stream);
+}
+
+// Dynamic shared memory of a split-backward block at dmax = 128, 256 or 512
+// (0: not a width it is built for).
+extern "C" int flash_bwd_split_smem(int dmax) {
   using namespace flash;
-  if (!FLASH_ARGS_OK(bh, tq, tk)) return (int)cudaErrorInvalidValue;
-  cudaStream_t s = (cudaStream_t)stream;
-  switch (wide_dmax(d)) {
-    case 64: return launch_dq<64>(q, k, v, dout, lse, delta, dq, bh, tq, tk, d, scale, s);
-    case 128: return launch_dq<128>(q, k, v, dout, lse, delta, dq, bh, tq, tk, d, scale, s);
-    case 256: return launch_dq<256>(q, k, v, dout, lse, delta, dq, bh, tq, tk, d, scale, s);
-    case 512: return launch_dq<512>(q, k, v, dout, lse, delta, dq, bh, tq, tk, d, scale, s);
-    default: return (int)cudaErrorInvalidValue;
+  switch (dmax) {
+    case 128: return (int)SplitBwdCfg<128>::SMEM;
+    case 256: return (int)SplitBwdCfg<256>::SMEM;
+    case 512: return (int)SplitBwdCfg<512>::SMEM;
+    default: return 0;
   }
 }
 

@@ -432,13 +432,6 @@ struct WideFwdCfg {
 // Named barrier 1: the score warpgroup's 128 threads, before p is handed on.
 constexpr int SCORE_BAR = 1;
 
-// A descriptor moved `bytes` further into shared memory: its address field
-// holds (address >> 4) in 14 bits, and no shared address reaches 2^18, so
-// the addition never carries out of the field.
-__device__ __forceinline__ uint64_t desc_at(uint64_t desc, uint32_t bytes) {
-  return desc + (bytes >> 4);
-}
-
 template <int DMAX, bool TMA>
 __global__ void __launch_bounds__(WideFwdCfg<DMAX>::THREADS, 1)
 flash_fwd_wide_kernel(const __grid_constant__ CUtensorMap qmap,

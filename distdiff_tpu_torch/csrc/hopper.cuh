@@ -1,7 +1,7 @@
 // Hopper (sm_90a) building blocks of the flash kernels (the narrow forward
-// and fused backward, the wide forward): mbarriers, TMA tile loads, the
-// bulk reduce-add, named barriers, and wgmma with its shared-memory
-// descriptors.
+// and fused backward, the wide forward, the split backward pair):
+// mbarriers, TMA tile loads, the bulk reduce-add, named barriers, and wgmma
+// with its shared-memory descriptors.
 //
 // Shared-memory tiles. Every bf16 tile of R rows and a head width padded
 // to DP (a multiple of 16) is kept as DP / 16 column chunks, each an

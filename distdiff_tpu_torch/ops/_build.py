@@ -32,8 +32,8 @@ _F = ctypes.c_float
 SIGNATURES = {
     "flash_fwd": ("flash_fwd", [_P] * 5 + [_I] * 6 + [_F, _P]),
     "flash_bwd_fused": ("flash_bwd", [_P] * 9 + [_I] * 6 + [_F, _P]),
-    "flash_bwd_dq": ("flash_bwd", [_P] * 7 + [_I] * 4 + [_F, _P]),
-    "flash_bwd_dkv": ("flash_bwd", [_P] * 8 + [_I] * 4 + [_F, _P]),
+    "flash_bwd_dq": ("flash_bwd", [_P] * 7 + [_I] * 5 + [_F, _P]),
+    "flash_bwd_dkv": ("flash_bwd", [_P] * 8 + [_I] * 5 + [_F, _P]),
     "flash_fwd_f32": ("flash_f32", [_P] * 5 + [_I] * 4 + [_F, _P]),
     "flash_bwd_fused_f32": ("flash_f32", [_P] * 9 + [_I] * 4 + [_F, _P]),
     "flash_bwd_dq_f32": ("flash_f32", [_P] * 7 + [_I] * 4 + [_F, _P]),
@@ -47,6 +47,7 @@ SIGNATURES = {
     "gn_smem_optin": ("groupnorm", [_I]),
     "flash_fwd_smem": ("flash_fwd", [_I]),
     "flash_bwd_fused_smem": ("flash_bwd", [_I]),
+    "flash_bwd_split_smem": ("flash_bwd", [_I]),
 }
 
 _LOCK = threading.Lock()

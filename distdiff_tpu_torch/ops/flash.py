@@ -14,9 +14,10 @@ contiguous, matching shapes), launches on the current stream, raises if the
 launch failed, and adds one to its launch count. bf16 goes to the
 tensor-core kernels: the forward at every width and the fused backward are
 warp-specialised TMA/wgmma kernels, whose padded width (0 for the wide
-forward) and load route ``bf16_plan`` chooses, and the split backward
-(D > 128) runs on mma.sync; fp32 goes to their fp32 instances
-(``csrc/flash_f32.cu``, CUDA-core fp32 FMA, no TF32), with fp32 outputs:
+forward) and load route ``bf16_plan`` chooses, and so is the split
+backward (D > 128), whose load route ``split_plan`` chooses; fp32 goes to
+their fp32 instances (``csrc/flash_f32.cu``, CUDA-core fp32 FMA, no TF32),
+with fp32 outputs:
 fp32 is never rounded to bf16. On a CPU tensor, and only there, it runs the plain PyTorch version
 (``flash_fwd_reference`` / ``flash_bwd_reference``), which computes the same
 function in fp32. There is no fallback from the kernel.
@@ -150,6 +151,29 @@ def bf16_plan(d: int, *tensors) -> Tuple[int, int]:
     return narrow_width(d), int(tma_route(d, [t.data_ptr() for t in tensors]))
 
 
+# Head widths the split backward's instances are built for (D is padded to
+# the next one in shared memory only).
+SPLIT_DMAX = (128, 256, 512)
+
+
+def split_smem_bytes(dmax: int) -> int:
+    """Dynamic shared memory of a split-backward block at ``dmax``, as
+    csrc/flash_bwd.cu SplitBwdCfg lays it out: the block's two resident
+    tiles, the ring of 64-column chunks of the stream (8 KB each: 64 rows of
+    128 bytes), a ds buffer, the column vectors, the mbarriers and 1 KB of
+    alignment."""
+    chunk, ch = 64 * 128, dmax // 64
+    ring = 11 if dmax == 512 else 16
+    bars = 1 + ring + 4
+    return 2 * ch * chunk + ring * chunk + chunk + 2 * 2 * 64 * 4 + 8 * bars + 1024
+
+
+def split_plan(d: int, *tensors) -> Tuple[int]:
+    """(1 for TMA loads or 0 for staged ones,) of a bf16 split-backward
+    launch over ``tensors`` (q, k, v, do): the same rule as the forward's."""
+    return (int(tma_route(d, [t.data_ptr() for t in tensors])),)
+
+
 def _launch(name: str, shape: Tuple[int, int, int, int], *tensors, plan=()) -> None:
     """Launch kernel ``name`` on the current stream (its fp32 instance when
     the first tensor is fp32): the tensors' pointers, then (BH, Tq, Tk, D),
@@ -209,19 +233,22 @@ def flash_bwd_dq(q, k, v, do, lse, delta) -> torch.Tensor:
     shape = bh, tq, tk, d = _check(q, k, v, do, lse, delta)
     _check_stats(bh, tq, lse, delta)
     dq = torch.empty_like(q)
-    _launch("flash_bwd_dq", shape, q, k, v, do, lse, delta, dq)
+    plan = split_plan(d, q, k, v, do) if q.dtype == torch.bfloat16 else ()
+    _launch("flash_bwd_dq", shape, q, k, v, do, lse, delta, dq, plan=plan)
     return dq
 
 
 def flash_bwd_dkv(q, k, v, do, lse, delta) -> Tuple[torch.Tensor, torch.Tensor]:
-    """dk/dv pass of the split backward (a loop over q for each kv tile)."""
+    """dk/dv pass of the split backward (a loop over q for each kv tile;
+    dk and dv blocks in one launch)."""
     if _on_cpu(q):
         return _reference_grads(q, k, v, do, lse, delta)[1:]
     shape = bh, tq, tk, d = _check(q, k, v, do, lse, delta)
     _check_stats(bh, tq, lse, delta)
     dk = torch.empty_like(k)
     dv = torch.empty_like(v)
-    _launch("flash_bwd_dkv", shape, q, k, v, do, lse, delta, dk, dv)
+    plan = split_plan(d, q, k, v, do) if q.dtype == torch.bfloat16 else ()
+    _launch("flash_bwd_dkv", shape, q, k, v, do, lse, delta, dk, dv, plan=plan)
     return dk, dv
 
 

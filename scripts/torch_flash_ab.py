@@ -1,17 +1,20 @@
 #!/usr/bin/env python3
-"""The forward flash kernel of this tree against that of another copy of
+"""The wide flash kernels of this tree against those of another copy of
 the kernel sources, timed in turns on one NVIDIA GPU.
 
-Builds ``flash_fwd.cu`` from ``distdiff_tpu_torch/csrc`` and from the
-directory given (for example an unpacked parent commit's
-``distdiff_tpu_torch/csrc``, or a variant of the sources), calls each
-library's ``flash_fwd`` through ``ctypes`` on the same bf16 inputs, checks
-that the two agree, and times them in turns (other, tree, tree, other,
-other, tree): each time the median of CUDA events around one launch queued
-behind a device spin, the kernel alone.
+Builds ``flash_fwd.cu`` (with ``--bwd``: ``flash_bwd.cu``) from
+``distdiff_tpu_torch/csrc`` and from the directory given (for example an
+unpacked parent commit's ``distdiff_tpu_torch/csrc``, or a variant of the
+sources), calls each library's ``flash_fwd`` (with ``--bwd``: the split
+backward pair ``flash_bwd_dq`` and ``flash_bwd_dkv``, each copy with its
+own C signature: the pair took no load route before it ran on TMA) through
+``ctypes`` on the same bf16 inputs, checks that the two agree, and times
+them in turns (other, tree, tree, other, other, tree): each time the median
+of CUDA events around one launch queued behind a device spin, the kernel
+alone.
 
 Run from the repository root on the machine with the card:
-``python3 scripts/torch_flash_ab.py OTHER_CSRC_DIR [--json PATH]``.
+``python3 scripts/torch_flash_ab.py OTHER_CSRC_DIR [--bwd] [--json PATH]``.
 """
 
 from __future__ import annotations
@@ -28,8 +31,16 @@ ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 sys.path.insert(0, ROOT)
 
 # [BH, Tq, Tk, D]: the VAE mid-block's attention, a shorter one, and the
-# wide kernel's DMAX = 256 instance
+# wide kernels' DMAX = 256 instance
 SHAPES = [(2, 4096, 4096, 512), (2, 1024, 1024, 512), (4, 4096, 4096, 160)]
+
+
+def takes_route(src: str, entry: str) -> bool:
+    """Whether ``entry`` in the source file ``src`` takes a load route (an
+    ``int tma`` argument) before its scale."""
+    text = open(src).read()
+    head = text[text.index(f'extern "C" int {entry}('):]
+    return "int tma" in head[:head.index(")")]
 
 
 def main(argv) -> int:
@@ -39,29 +50,41 @@ def main(argv) -> int:
     from distdiff_tpu_torch.ops import _build
 
     if not torch.cuda.is_available() or not argv:
-        print("usage: torch_flash_ab.py OTHER_CSRC_DIR [--json PATH] (needs a CUDA card)",
+        print("usage: torch_flash_ab.py OTHER_CSRC_DIR [--bwd] [--json PATH] (needs a CUDA card)",
               file=sys.stderr)
         return 2
+    bwd = "--bwd" in argv
     card = cs.card_line()
     print(card)
     work = tempfile.mkdtemp(prefix="flash_ab_")
     trees = {"tree": os.path.join(ROOT, "distdiff_tpu_torch", "csrc"), "other": argv[0]}
+    source = "flash_bwd.cu" if bwd else "flash_fwd.cu"
     procs = []
     for tag, src in trees.items():
         lib = os.path.join(work, f"{tag}.so")
-        procs.append((tag, lib, subprocess.Popen(
-            ["/usr/local/cuda/bin/nvcc", *_build.NVCC_FLAGS, "-o", lib,
-             os.path.join(src, "flash_fwd.cu")],
+        procs.append((tag, lib, os.path.join(src, source), subprocess.Popen(
+            ["/usr/local/cuda/bin/nvcc", *_build.NVCC_FLAGS, "-o", lib, os.path.join(src, source)],
             stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)))
     fns = {}
-    for tag, lib, proc in procs:
+    for tag, lib, src, proc in procs:
         log = proc.communicate()[0]
         if proc.returncode:
             raise SystemExit(f"{tag}: nvcc failed\n{log[-3000:]}")
-        print(f"  {tag}: {[r for r in _build.ptxas_report(log) if 'wide' in r[0]]}")
-        fn = ctypes.CDLL(lib).flash_fwd
-        fn.argtypes, fn.restype = _build.SIGNATURES["flash_fwd"][1], ctypes.c_int
-        fns[tag] = fn
+        keep = ("dq", "dkv") if bwd else ("wide",)
+        print(f"  {tag}: {[r for r in _build.ptxas_report(log) if any(x in r[0] for x in keep)]}")
+        fns[tag] = {}
+        for entry in (("flash_bwd_dq", "flash_bwd_dkv") if bwd else ("flash_fwd",)):
+            fn = getattr(ctypes.CDLL(lib), entry)
+            argtypes = list(_build.SIGNATURES[entry][1])
+            route = True
+            if bwd and not takes_route(src, entry):
+                del argtypes[-3]  # no load route before the scale
+                route = False
+            fn.argtypes, fn.restype = argtypes, ctypes.c_int
+            fns[tag][entry] = (fn, route)
+    if bwd:
+        return ab_bwd(fns, card, argv)
+    fns = {tag: f["flash_fwd"][0] for tag, f in fns.items()}
     dev = torch.device("cuda")
     gen = torch.Generator(device=dev).manual_seed(0)
     stream = torch.cuda.current_stream().cuda_stream
@@ -96,11 +119,73 @@ def main(argv) -> int:
         print(f"  [{bh},{tq},{tk},{d}]: tree {row['tree_ms']:.4f} ms {times['tree']}, other "
               f"{row['other_ms']:.4f} ms {times['other']}; |o| diff {err_o:.2e}, |lse| diff "
               f"{err_lse:.2e}", flush=True)
+    write_json(rows, argv)
+    return 0
+
+
+def write_json(rows, argv) -> None:
     if "--json" in argv:
         path = argv[argv.index("--json") + 1]
         os.makedirs(os.path.dirname(path) or ".", exist_ok=True)
         with open(path, "w") as f:
             json.dump(rows, f, indent=1)
+
+
+def ab_bwd(fns, card, argv) -> int:
+    """flash_bwd_dq and flash_bwd_dkv of both copies in turns, at SHAPES'
+    first and last (D = 512, and 160: the DMAX = 256 instance)."""
+    import torch
+
+    import chip_smoke as cs
+
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(0)
+    stream = torch.cuda.current_stream().cuda_stream
+    rows = []
+    for bh, tq, tk, d in (SHAPES[0], SHAPES[-1]):
+        q, do = (torch.randn(bh, tq, d, generator=gen, device=dev).to(torch.bfloat16)
+                 for _ in range(2))
+        k, v = (torch.randn(bh, tk, d, generator=gen, device=dev).to(torch.bfloat16)
+                for _ in range(2))
+        # the forward's lse and delta = rowsum(o do), in fp32 (plain torch)
+        s = torch.matmul(q.float(), k.float().transpose(1, 2)) * d ** -0.5
+        lse = torch.logsumexp(s, dim=-1)
+        o = torch.matmul(torch.softmax(s, dim=-1), v.float())
+        delta = (o * do.float()).sum(-1)
+        del s, o
+        for entry in ("flash_bwd_dq", "flash_bwd_dkv"):
+            calls, outs = {}, {}
+            for tag, per in fns.items():
+                fn, route = per[entry]
+                out = [torch.empty_like(q)] if entry == "flash_bwd_dq" else [
+                    torch.empty_like(k), torch.empty_like(v)]
+                ptrs = [x.data_ptr() for x in (q, k, v, do, lse, delta, *out)]
+                extra = (1,) if route else ()
+
+                def call(fn=fn, ptrs=ptrs, extra=extra):
+                    rc = fn(*ptrs, bh, tq, tk, d, *extra, d ** -0.5, stream)
+                    if rc:
+                        raise SystemExit(f"launch failed with CUDA error {rc}")
+
+                call()
+                torch.cuda.synchronize()
+                calls[tag], outs[tag] = call, out
+            diff = max((a.float() - b.float()).abs().max().item()
+                       for a, b in zip(outs["tree"], outs["other"]))
+            top = max(a.float().abs().max().item() for a in outs["tree"])
+            times = {tag: [] for tag in fns}
+            for tag in ("other", "tree", "tree", "other", "other", "tree"):
+                times[tag].append(cs.time_ms(calls[tag], 10))
+            b_ms = cs.bound(entry, bh, tq, tk, d)[0]
+            row = {"kernel": entry, "shape": [bh, tq, tk, d], "card": card,
+                   "max_abs_diff": diff, "max_abs": top, "bound_ms": b_ms,
+                   **{f"{t}_ms": statistics.median(x) for t, x in times.items()},
+                   **{f"{t}_runs": x for t, x in times.items()}}
+            rows.append(row)
+            print(f"  {entry} [{bh},{tq},{tk},{d}]: tree {row['tree_ms']:.4f} ms {times['tree']}, "
+                  f"other {row['other_ms']:.4f} ms {times['other']}, bound {b_ms:.4f}; "
+                  f"max |diff| {diff:.2e} of max |out| {top:.2e}", flush=True)
+    write_json(rows, argv)
     return 0
 
 

@@ -2,8 +2,9 @@
 """Where the Hopper flash kernels' time goes, on one NVIDIA GPU.
 
 Builds the port's narrow (D <= 128) flash kernels (``flash_fwd`` and
-``flash_bwd_fused`` in ``distdiff_tpu_torch/csrc``) and its wide forward
-(``flash_fwd`` past D = 128) once as they are and once for each variant
+``flash_bwd_fused`` in ``distdiff_tpu_torch/csrc``), its wide forward
+(``flash_fwd`` past D = 128) and its split backward pair
+(``flash_bwd_dq``, ``flash_bwd_dkv``) once as they are and once for each variant
 below, with one part taken out of the source, and times every build on the
 same inputs (the narrow variants at the UNet's shapes, the wide ones at the
 VAE mid-block's): the median of CUDA events around one
@@ -15,7 +16,9 @@ limit, so a variant that stalls cannot hold the run.
 Run from the repository root on the machine with the card:
 ``python3 scripts/torch_flash_ablate.py [--only TEXT] [--json PATH]``. It
 prints one line per (variant, shape) and, with ``--json``, writes them
-there too; ``--only`` keeps the variants whose name contains TEXT.
+there too; ``--only`` keeps the variants whose name contains TEXT
+(``--only wide_bwd``: the split backward pair's set, each build timing
+``flash_bwd_dq`` and ``flash_bwd_dkv``).
 """
 
 from __future__ import annotations
@@ -49,7 +52,22 @@ _NO_WIDE_PV = ("hopper::Wgmma<ON>::template ss<0, 1>(o_acc,",
 _NO_WIDE_EX2 = ("hopper::ex2(fmaf(s_acc[4 * n + e], sl2, -mc[e >> 1]))",
                 "fmaf(s_acc[4 * n + e], sl2, -mc[e >> 1])")
 
-# variant -> (source file, [(text, replacement)], shapes)
+# the split backward pair's parts (flash_bwd_dq and flash_bwd_dkv, timed
+# each): its exponentials, its output products (ds X), its score products
+# (s and dp), and its stream's loads (each replaced by a bare arrival on
+# its full barrier, the TMA route's count)
+_NO_SPLIT_EX2 = ("hopper::ex2(fmaf(s_acc[4 * n + e], sl2, -L))", "fmaf(s_acc[4 * n + e], sl2, -L)")
+_NO_SPLIT_OUT = ("hopper::Wgmma<64>::template ss<0, 1>(acc[i],",
+                 "if (t < 0) hopper::Wgmma<64>::template ss<0, 1>(acc[i],")
+_NO_SPLIT_SCORE = ("hopper::Wgmma<64>::template ss<0, 0>(acc,",
+                   "if (i < 0) hopper::Wgmma<64>::template ss<0, 0>(acc,")
+_NO_SPLIT_LOADS = ("hopper::mbar_arrive_tx(ring_full + s, CHUNK);\n"
+                   "        hopper::tma_load_3d(R + s * CHUNK, p < CH ? rmap : xmap, col, row, bh, ring_full + s);",
+                   "hopper::mbar_arrive(ring_full + s);")
+
+# variant -> (source file, [(text, replacement)], shapes); the split pair's
+# variants run its two entry points, the other flash_bwd.cu ones the fused
+# pass
 VARIANTS = {
     "fwd": ("flash_fwd.cu", [], NARROW),
     "fwd without k/v loads": ("flash_fwd.cu", [
@@ -88,18 +106,29 @@ VARIANTS = {
     "wide fwd without exponentials": ("flash_fwd.cu", [_NO_WIDE_EX2], WIDE),
     "wide fwd without loads and products": ("flash_fwd.cu", [
         _NO_WIDE_K, _NO_WIDE_V, _NO_WIDE_S, _NO_WIDE_PV], WIDE),
+    "wide_bwd": ("flash_bwd.cu", [], WIDE),
+    "wide_bwd without exponentials": ("flash_bwd.cu", [_NO_SPLIT_EX2], WIDE),
+    "wide_bwd without output products": ("flash_bwd.cu", [_NO_SPLIT_OUT], WIDE),
+    "wide_bwd without score products": ("flash_bwd.cu", [_NO_SPLIT_SCORE], WIDE),
+    "wide_bwd without stream loads": ("flash_bwd.cu", [_NO_SPLIT_LOADS], WIDE),
+    "wide_bwd loads only": ("flash_bwd.cu", [_NO_SPLIT_EX2, _NO_SPLIT_OUT, _NO_SPLIT_SCORE], WIDE),
 }
 
 CHILD = r'''
 import ctypes, json, statistics, sys
 import torch
-lib_path, stem = sys.argv[1], sys.argv[2]
+lib_path, stem, split = sys.argv[1], sys.argv[2], sys.argv[4] == "1"
 shapes = json.loads(sys.argv[3])
 P, I, F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 lib = ctypes.CDLL(lib_path)
-fn = getattr(lib, "flash_fwd" if stem == "flash_fwd" else "flash_bwd_fused")
-fn.argtypes = [P] * (5 if stem == "flash_fwd" else 9) + [I] * 6 + [F, P]
-fn.restype = I
+entries = ["flash_bwd_dq", "flash_bwd_dkv"] if split else [
+    "flash_fwd" if stem == "flash_fwd" else "flash_bwd_fused"]
+fns = {}
+for name in entries:
+    fns[name] = getattr(lib, name)
+    n_ptr = {"flash_fwd": 5, "flash_bwd_fused": 9, "flash_bwd_dq": 7, "flash_bwd_dkv": 8}[name]
+    fns[name].argtypes = [P] * n_ptr + [I] * (5 if split else 6) + [F, P]
+    fns[name].restype = I
 dev = torch.device("cuda")
 gen = torch.Generator(device=dev).manual_seed(0)
 stream = torch.cuda.current_stream().cuda_stream
@@ -112,20 +141,22 @@ for bh, t, d in shapes:
     dq = torch.zeros(bh, t, d, device=dev)
     dk, dv = torch.empty_like(k), torch.empty_like(v)
     dp = next((w for w in (48, 64, 80, 96, 128) if d <= w), 0)  # 0: the wide kernel
-    if stem == "flash_fwd":
-        args = (q, k, v, o, lse)
-    else:
-        args = (q, k, v, do, lse, lse, dq, dk, dv)
-    call = lambda: fn(*[a.data_ptr() for a in args], bh, t, t, d, dp, 1, d ** -0.5, stream)
-    assert call() == 0
-    torch.cuda.synchronize()
-    times = []
-    for _ in range(22):
-        a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-        torch.cuda._sleep(2_000_000)
-        a.record(); call(); b.record(); b.synchronize()
-        times.append(a.elapsed_time(b))
-    out[f"{bh},{t},{d}"] = statistics.median(times[2:])
+    plan = (1,) if split else (dp, 1)
+    for name, fn in fns.items():
+        args = {"flash_fwd": (q, k, v, o, lse), "flash_bwd_fused": (q, k, v, do, lse, lse, dq, dk, dv),
+                "flash_bwd_dq": (q, k, v, do, lse, lse, dk),
+                "flash_bwd_dkv": (q, k, v, do, lse, lse, dk, dv)}[name]
+        call = lambda: fn(*[a.data_ptr() for a in args], bh, t, t, d, *plan, d ** -0.5, stream)
+        assert call() == 0
+        torch.cuda.synchronize()
+        times = []
+        for _ in range(22):
+            a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            torch.cuda._sleep(2_000_000)
+            a.record(); call(); b.record(); b.synchronize()
+            times.append(a.elapsed_time(b))
+        key = f"{bh},{t},{d}"
+        out[f"{name[10:]} {key}" if split else key] = statistics.median(times[2:])
 print(json.dumps(out))
 '''
 
@@ -165,24 +196,27 @@ def main(argv) -> int:
         lib = os.path.join(d, "lib.so")
         cmd = [nvcc(), "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
                "-shared", "-Xcompiler", "-fPIC", "-o", lib, os.path.join(d, src)]
-        builds.append((name, src[:-3], lib, shapes, subprocess.Popen(
+        builds.append((name, src[:-3], name.startswith("wide_bwd"), lib, shapes, subprocess.Popen(
             cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)))
     rows = []
-    for name, stem, lib, shapes, proc in builds:
+    for name, stem, split, lib, shapes, proc in builds:
         log = proc.communicate()[0]
         if proc.returncode:
             raise SystemExit(f"{name}: nvcc failed\n{log[-3000:]}")
         try:
-            res = subprocess.run([sys.executable, "-c", CHILD, lib, stem, json.dumps(shapes)],
-                                 capture_output=True, text=True, timeout=120)
+            res = subprocess.run([sys.executable, "-c", CHILD, lib, stem, json.dumps(shapes),
+                                  str(int(split))], capture_output=True, text=True, timeout=120)
             times = json.loads(res.stdout.strip().splitlines()[-1]) if res.returncode == 0 else {}
         except subprocess.TimeoutExpired:
             times = {}
         for shape in shapes:
             key = ",".join(map(str, shape))
-            ms = times.get(key)
-            rows.append({"variant": name, "shape": list(shape), "ms": ms, "card": card})
-            print(f"  {name:38s} [{key}]: " + (f"{ms:.4f} ms" if ms else "failed or stalled"))
+            for kernel in ("dq", "dkv") if split else ("",):
+                ms = times.get(f"{kernel} {key}" if split else key)
+                rows.append({"variant": name, "kernel": kernel or None, "shape": list(shape),
+                             "ms": ms, "card": card})
+                print(f"  {name:38s} {kernel:3s} [{key}]: " +
+                      (f"{ms:.4f} ms" if ms else "failed or stalled"))
     if "--json" in argv:
         path = argv[argv.index("--json") + 1]
         os.makedirs(os.path.dirname(path) or ".", exist_ok=True)

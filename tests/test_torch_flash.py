@@ -5,6 +5,8 @@ attention dispatch on the CPU.
 The CUDA kernels themselves run only on the card: ``chip_smoke.py`` holds
 each of them against these plain versions at the main path's shapes."""
 
+import os
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -106,3 +108,37 @@ def test_flash_attention_hm_layout_matches_bthd():
         x.transpose(0, 2, 1, 3))) for x in (q, k, v)))
     np.testing.assert_allclose(hm.permute(0, 2, 1, 3).numpy(), bthd.numpy(),
                                atol=1e-6, rtol=0)
+
+
+def _ablate_script():
+    import importlib.util
+    import pathlib
+
+    path = pathlib.Path(__file__).resolve().parents[1] / "scripts" / "torch_flash_ablate.py"
+    spec = importlib.util.spec_from_file_location("torch_flash_ablate", path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+WIDE_BWD_VARIANTS = ["wide_bwd", "wide_bwd without exponentials",
+                     "wide_bwd without output products", "wide_bwd without score products",
+                     "wide_bwd without stream loads", "wide_bwd loads only"]
+
+
+@pytest.mark.parametrize("name", WIDE_BWD_VARIANTS)
+def test_ablation_patches_apply_to_the_split_pair(name):
+    """scripts/torch_flash_ablate.py builds the split pair's ablations by
+    replacing text of csrc/flash_bwd.cu: each text is still there, once, and
+    the patched source differs from the tree's (the cases are all of the
+    script's wide_bwd set)."""
+    ab = _ablate_script()
+    assert sorted(n for n in ab.VARIANTS if n.startswith("wide_bwd")) == sorted(WIDE_BWD_VARIANTS)
+    src, subs, shapes = ab.VARIANTS[name]
+    assert src == "flash_bwd.cu" and shapes == ab.WIDE
+    text = open(os.path.join(ab.CSRC, src)).read()
+    patched = text
+    for old, new in subs:
+        assert patched.count(old) == 1, f"{name}: {old[:60]!r} is not once in {src}"
+        patched = patched.replace(old, new)
+    assert (patched != text) == bool(subs)

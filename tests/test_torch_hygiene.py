@@ -331,7 +331,8 @@ def test_fp32_and_wide_launches_take_no_narrow_plan(monkeypatch):
 def test_wide_forward_gets_width_zero_and_the_load_route(monkeypatch, d, offset, route):
     """Past D = 128 flash_fwd hands its kernel width 0 (the wide kernel) and
     the load route of q, k and v by width and storage offset, as many
-    arguments as the C signature takes; the backward pair takes no plan."""
+    arguments as the C signature takes; the backward pair takes its own
+    plan (the load route alone, checked below)."""
     calls = _recorded_launches(monkeypatch)
     flash.reset_launch_counts()
 
@@ -351,3 +352,53 @@ def test_wide_forward_gets_width_zero_and_the_load_route(monkeypatch, d, offset,
     assert bname == "flash_bwd_dq" and len(bargs) == len(_build.SIGNATURES[bname][1])
     assert flash.launch_counts["flash_fwd"] == 1
     flash.reset_launch_counts()
+
+
+@pytest.mark.parametrize("d,offset,route", [
+    (512, 0, 1),   # the VAE mid-block's head: TMA
+    (512, 1, 0),   # a view one element into its storage: staged
+    (512, 8, 1),   # 16 bytes in: TMA again
+    (136, 0, 1),   # the DMAX = 256 instance: TMA
+    (129, 0, 0),   # rows of 258 bytes: staged
+    (257, 0, 0),   # the DMAX = 512 instance, staged
+    (40, 0, 1),    # a narrow width reaches the DMAX = 128 instance
+    (33, 0, 0),
+])
+def test_split_pair_gets_the_load_route(monkeypatch, d, offset, route):
+    """flash_bwd_dq and flash_bwd_dkv hand their kernels (BH, Tq, Tk, D),
+    the load route of q, k, v and do by width and storage offset, the scale
+    and the stream after the pointers, as many arguments as the C
+    signatures take; each counts one launch."""
+    calls = _recorded_launches(monkeypatch)
+    flash.reset_launch_counts()
+
+    def bf16(*shape):
+        n = math.prod(shape)
+        return torch.empty(offset + n, device="meta", dtype=torch.bfloat16)[offset:].view(*shape)
+
+    q, do, k, v = bf16(2, 70, d), bf16(2, 70, d), bf16(2, 50, d), bf16(2, 50, d)
+    lse = delta = torch.empty(2, 70, device="meta")
+    assert flash.split_plan(d, q, k, v, do) == (route,)
+    dq = flash.flash_bwd_dq(q, k, v, do, lse, delta)
+    dk, dv = flash.flash_bwd_dkv(q, k, v, do, lse, delta)
+    assert dq.shape == q.shape and dk.shape == dv.shape == k.shape
+    assert all(x.dtype == torch.bfloat16 for x in (dq, dk, dv))
+    assert [n for n, _ in calls] == ["flash_bwd_dq", "flash_bwd_dkv"]
+    for (name, args), n_ptr in zip(calls, (7, 8)):
+        assert len(args) == len(_build.SIGNATURES[name][1])
+        assert args[n_ptr:n_ptr + 5] == (2, 70, 50, d, route)
+        assert args[n_ptr + 5] == pytest.approx(d ** -0.5)
+    assert flash.launch_counts["flash_bwd_dq"] == flash.launch_counts["flash_bwd_dkv"] == 1
+    flash.reset_launch_counts()
+
+
+@pytest.mark.parametrize("dmax", flash.SPLIT_DMAX)
+def test_split_pair_block_fits_the_card(dmax):
+    """A split-backward block at each built width fits the H100's 227 KB of
+    shared memory with its ring deeper than a tile's chunks of one operand
+    (csrc/flash_bwd.cu SplitBwdCfg; chip_smoke.py phase 1 holds the C count
+    against split_smem_bytes on the card)."""
+    chunk, ch = 64 * 128, dmax // 64
+    ring = (flash.split_smem_bytes(dmax) - 2 * ch * chunk - chunk - 1024 - 1024) // chunk
+    assert ring > ch
+    assert 0 < flash.split_smem_bytes(dmax) <= 232448
