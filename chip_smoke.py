@@ -10,7 +10,8 @@ package. Six phases, any failure exits non-zero:
    ``nvcc`` a source, all at once), each kernel's registers and spills from
    ``-Xptxas -v`` (a Hopper flash or GroupNorm kernel that spills fails the
    run), the Hopper flash kernels' dynamic shared memory (the split
-   backward pair's held against its Python count), and the GroupNorm
+   backward pair's and the fp32 wide forward's held against their Python
+   counts), and the GroupNorm
    kernels' plans with their shared memory, held against the C side's.
 2. Kernels, each held against its plain PyTorch version on the same inputs:
    every flash kernel at the main path's shapes in bf16 (against the plain
@@ -22,7 +23,10 @@ package. Six phases, any failure exits non-zero:
    backward pair launched twice for the same bytes); the four
    flash
    kernels' fp32 instances at main-path widths and ragged shapes (timed at
-   the former); gn_fused, gn_stats and gn_apply at every GroupNorm shape of
+   the former and the forward at D = 160; the forward also at wide widths
+   from 129 to 512, lengths one row on either side of 64 and 128, and a
+   view one element into its storage, each launch twice for the same
+   bytes); gn_fused, gn_stats and gn_apply at every GroupNorm shape of
    the counted runs, in bf16 and fp32, channels-last and contiguous, with
    and without SiLU, and at ragged shapes (timed in bf16 channels-last,
    beside ``F.group_norm`` + ``F.silu``; gn_fused also at its edges: B = 1,
@@ -43,7 +47,8 @@ package. Six phases, any failure exits non-zero:
    the plain bf16 run. Then the fp32 ``tiny()`` pipeline's guided expand on
    the card through every kernel (norms once by gn_fused, once by the
    gn_stats + gn_apply pair; then once with direct guidance) against the
-   same port on the CPU.
+   same port on the CPU, each fp32 forward's launches printed by shape
+   with the kernel its width takes.
 4. Path: the guided expansion at full SD-1.5 geometry (UNet 860M, VAE,
    ResNet-50 guide with 100 classes, seeded random weights) at batch 2:
    DDIM-50, strength 0.5, CFG 7.5, transform guidance at plan index 30 over
@@ -80,7 +85,7 @@ import time
 
 # H100 SXM data-sheet peaks (dense); recomputed beside the card nvidia-smi names.
 PEAK_BF16_FLOPS = 989e12
-PEAK_FP32_FLOPS = 67e12  # CUDA cores, outside the tensor cores
+PEAK_TF32_FLOPS = 495e12  # tensor cores; an fp32-accurate product takes three (3xTF32)
 PEAK_BYTES = 3.35e12
 # exp throughput of the special-function units (the FlashAttention-3 paper's figure)
 PEAK_EXP = 3.9e12
@@ -152,9 +157,12 @@ def time_ms(fn, iters: int) -> float:
 def bound(name, bh, tq, tk, d, itemsize=2):
     """(bound_ms, bound_by): the larger of the bytes the function must move
     (inputs read once, outputs written once) over the memory rate and its
-    operations (products on the bf16 tensor cores, or on the fp32 CUDA
-    cores for fp32 inputs; exps on the special-function units) over their
-    peak rates."""
+    operations (exps on the special-function units; products on the bf16
+    tensor cores, or for fp32 inputs as three TF32 products each, 3xTF32,
+    the least work that keeps fp32's accuracy on the tensor cores) over
+    their peak rates. On the fp32 CUDA cores (67 TFLOP/s) the same products
+    would take 495 / 67 / 3 = 2.46 times as long: 1.0257 ms instead of
+    0.4165 at [2,4096,4096,512] in the forward."""
     bf, f4 = itemsize, 4
     q, kv = bh * tq * d * bf, bh * tk * d * bf
     row = bh * tq * f4
@@ -165,8 +173,9 @@ def bound(name, bh, tq, tk, d, itemsize=2):
         "flash_bwd_dkv": 2 * q + 2 * kv + 2 * row + 2 * kv,
     }[name]
     t_bytes = nbytes / PEAK_BYTES
-    peak = PEAK_BF16_FLOPS if itemsize == 2 else PEAK_FP32_FLOPS
-    t_ops = max(PRODUCTS[name] * 2.0 * bh * tq * tk * d / peak, bh * tq * tk / PEAK_EXP)
+    flops = PRODUCTS[name] * 2.0 * bh * tq * tk * d
+    t_products = flops / PEAK_BF16_FLOPS if itemsize == 2 else 3 * flops / PEAK_TF32_FLOPS
+    t_ops = max(t_products, bh * tq * tk / PEAK_EXP)
     return (max(t_bytes, t_ops) * 1e3, "bytes" if t_bytes > t_ops else "operations")
 
 
@@ -174,7 +183,8 @@ def bound(name, bh, tq, tk, d, itemsize=2):
 # TMA and wgmma; gn_fused: clusters, TMA; the gn_stats and gn_apply pair:
 # banded one-wave grids): none may spill
 HOPPER_KERNELS = ("flash_fwd_narrow_kernel", "flash_fwd_wide_kernel", "flash_bwd_fused_kernel",
-                  "flash_bwd_dq_kernel", "flash_bwd_dkv_kernel", "gn_fused_kernel", "gn_stats_nhwc_kernel", "gn_stats_nchw_kernel",
+                  "flash_bwd_dq_kernel", "flash_bwd_dkv_kernel", "flash_fwd_f32_wide_kernel",
+                  "gn_fused_kernel", "gn_stats_nhwc_kernel", "gn_stats_nchw_kernel",
                   "gn_apply_nhwc_kernel", "gn_apply_nchw_kernel")
 WIDE_DMAX = (256, 512)  # the wide forward's instances
 
@@ -185,13 +195,15 @@ def ptxas_phase() -> None:
     spills fails the run."""
     from distdiff_tpu_torch.ops import _build, flash
 
-    spilled = []
+    spilled, f32_regs = [], {}
     for src, log in _build.build_logs().items():
         for name, regs, stack, st, ld in _build.ptxas_report(log):
             print(f"  {src}: {name}: {regs} registers, {stack} B stack, spills {st} B stored / "
                   f"{ld} B loaded")
             if name.split("<")[0] in HOPPER_KERNELS and (st or ld):
                 spilled.append(name)
+            if name.startswith("flash_fwd_f32_wide_kernel"):
+                f32_regs[name] = regs
     smem = {dp: (_build.kernel("flash_fwd_smem")(dp),
                  _build.kernel("flash_bwd_fused_smem")(dp)) for dp in flash.NARROW_WIDTHS}
     print("  narrow kernels' dynamic shared memory (forward, fused backward) by padded "
@@ -204,6 +216,14 @@ def ptxas_phase() -> None:
         want = flash.split_smem_bytes(dmax)
         require(got == want and got <= H100_SMEM_OPTIN,
                 f"split backward's shared memory at DMAX {dmax}: C {got}, Python {want}")
+    f32_wide = {dmax: _build.kernel("flash_fwd_f32_smem")(dmax) for dmax in flash.F32_WIDE_DMAX}
+    print(f"  fp32 wide forward (3xTF32 tensor cores): registers {f32_regs} (<DMAX,16-byte "
+          f"copies>), dynamic shared memory by DMAX {f32_wide}")
+    require(len(f32_regs) == 2 * len(flash.F32_WIDE_DMAX), "fp32 wide forward's instances missing")
+    for dmax, got in f32_wide.items():
+        want = flash.f32_wide_smem_bytes(dmax)
+        require(got == want and got <= H100_SMEM_OPTIN,
+                f"fp32 wide forward's shared memory at DMAX {dmax}: C {got}, Python {want}")
     gn_smem_phase()
     require(not spilled, f"Hopper kernels spill registers: {spilled}")
 
@@ -456,8 +476,12 @@ def kernel_phase():
 def flash_f32_phase() -> list:
     """The four flash kernels on fp32 inputs (their fp32 instances,
     csrc/flash_f32.cu) at main-path widths and at ragged shapes, against the
-    plain fp32 version; timed at the main-path widths. Returns one record
-    per timed (kernel, shape)."""
+    plain fp32 version; timed at the main-path widths and, for the forward,
+    at D = 160 (the wide tensor-core kernel's DMAX = 256 instance). The
+    forward also at the wide widths from 129 to 512 with lengths one row on
+    either side of 64 and 128 and on a view one element into its storage
+    (4-byte copies), every forward launched twice for the same bytes.
+    Returns one record per timed (kernel, shape)."""
     import torch
     import torch.nn.functional as F
 
@@ -467,22 +491,43 @@ def flash_f32_phase() -> list:
     gen = torch.Generator(device=dev).manual_seed(5)
     split = ["flash_bwd_dq", "flash_bwd_dkv"]
     every = ["flash_fwd", "flash_bwd_fused"] + split
+    fwd = ["flash_fwd"]
     shapes = [
         # (label, BH, Tq, Tk, D, kernels, timed)
         ("unet64_f32", 32, 4096, 4096, 40, ["flash_fwd", "flash_bwd_fused"], True),
         ("vae_mid_f32", 2, 4096, 4096, 512, ["flash_fwd"] + split, True),
+        ("vae160_f32", 4, 4096, 4096, 160, fwd, True),
         ("tiny_f32", 4, 576, 576, 16, every, False),
         ("ragged_f32", 3, 300, 130, 40, every, False),
         ("odd_f32", 2, 129, 77, 160, ["flash_fwd"] + split, False),
+        # the wide forward's edges: 64-row q and kv tiles, 64-column k
+        # chunks, 32-column output slices, DMAX 256 and 512
+        ("w129_f32", 2, 65, 63, 129, fwd, False),
+        ("w136_f32", 2, 63, 65, 136, fwd, False),
+        ("w160_f32", 2, 129, 127, 160, fwd, False),
+        ("w200_f32", 2, 127, 129, 200, fwd, False),
+        ("w256_f32", 2, 64, 65, 256, fwd, False),
+        ("w257_f32", 2, 65, 64, 257, fwd, False),
+        ("w384_f32", 2, 128, 63, 384, fwd, False),
+        ("w500_f32", 2, 63, 128, 500, fwd, False),
+        ("w512_f32", 2, 129, 127, 512, fwd, False),
+        ("offset512_f32", 1, 200, 150, 512, fwd, "offset"),
     ]
     entries = []
     for label, bh, tq, tk, d, names, timed in shapes:
-        q, do = (torch.randn(bh, tq, d, generator=gen, device=dev) for _ in range(2))
-        k, v = (torch.randn(bh, tk, d, generator=gen, device=dev) for _ in range(2))
+        def rnd(*s, offset=timed == "offset"):
+            if offset:  # a contiguous view one element into its storage
+                return torch.randn(math.prod(s) + 1, generator=gen, device=dev)[1:].view(*s)
+            return torch.randn(*s, generator=gen, device=dev)
+
+        timed = timed is True
+        q, do = rnd(bh, tq, d), rnd(bh, tq, d)
+        k, v = rnd(bh, tk, d), rnd(bh, tk, d)
         o, lse = flash.flash_fwd(q, k, v)
         ref_o, ref_lse = flash.flash_fwd_reference(q, k, v)
         delta = flash.attention_delta(o, do)
-        ref = dict(zip(("dq", "dk", "dv"), flash.flash_bwd_reference(q, k, v, o, lse, do)))
+        ref = {} if names == fwd else dict(zip(("dq", "dk", "dv"),
+                                               flash.flash_bwd_reference(q, k, v, o, lse, do)))
         calls = {
             "flash_fwd": lambda: flash.flash_fwd(q, k, v),
             "flash_bwd_fused": lambda: flash.flash_bwd_fused(q, k, v, do, lse, delta),
@@ -495,15 +540,29 @@ def flash_f32_phase() -> list:
         for name in names:
             got = dict(zip(keys[name], calls[name]()))
             torch.cuda.synchronize()
+            if name == "flash_fwd":  # no atomics: the same bytes on a second launch
+                again = calls[name]()
+                torch.cuda.synchronize()
+                same = all(torch.equal(a.view(torch.int32), b.view(torch.int32))
+                           for a, b in zip(got.values(), again))
+                kernel, dp = flash.f32_fwd_kernel(d)
+                print(f"  flash_fwd {label} fp32 [{bh},{tq},{tk},{d}]: {kernel} (padded width "
+                      f"{dp}), {'the same' if same else 'OTHER'} bytes on two launches")
+                require(same, f"flash_fwd (fp32) gives other bytes on a second launch at {label}")
             max_err = 0.0
             for key, val in got.items():
                 require(val.dtype == torch.float32, f"{name} returned {val.dtype} on fp32")
                 err = (val - want[key]).abs().max().item()
                 scale = want[key].abs().max().item()
-                # fp32 products and sums throughout (CUDA-core FMA, no TF32,
-                # nothing rounded to bf16): only the summation order differs
-                # from the plain version, ~1e-6 relative; 1e-4 of the
-                # largest magnitude (lse: 1e-4 absolute) is the tolerance
+                # nothing rounded to bf16: fp32 FMA on the CUDA cores (D <=
+                # 128 and the backward), where only the summation order
+                # differs from the plain version (~1e-6 relative), or past
+                # D = 128 in the forward 3xTF32 products on the tensor
+                # cores (~1e-6 a product; their sums round toward zero, so
+                # each v chunk's are summed apart and added to o in fp32),
+                # within ~2e-5 of the largest |o| of fp64 attention; 1e-4 of
+                # the largest magnitude (lse: 1e-4 absolute) is the
+                # tolerance
                 tol = 1e-4 if key == "lse" else 1e-4 * scale
                 ok = math.isfinite(err) and err <= tol
                 print(f"  {name} {label} fp32 {key}: max_abs_err {err:.3e} (tol {tol:.3e}) "
@@ -1098,6 +1157,12 @@ def fp32_agreement_phase() -> None:
             launched[k] = launched.get(k, 0) + c
         print(f"  fp32 tiny expand on the card, norms by {label}: launches {counts}; "
               f"norm layouts {dict(gn.layout_counts)}")
+        fwd = {shape: c for (name, shape), c in flash.launch_shapes.items() if name == "flash_fwd"}
+        for shape, c in sorted(fwd.items()):
+            print(f"  flash_fwd fp32 {list(shape)}: {c} launches, "
+                  f"{'%s (padded width %d)' % flash.f32_fwd_kernel(shape[3])}")
+        require(any(flash.f32_fwd_kernel(shape[3])[0] == "flash_fwd_f32_wide_kernel"
+                    for shape in fwd), "no fp32 attention took the wide tensor-core kernel")
         agree(zip(("image", "updated latents", "guidance score"), got, want))
     print(f"  (CPU run {cpu_s:.1f} s)")
     require(all(c > 0 for c in launched.values()), f"a kernel was not launched: {launched}")

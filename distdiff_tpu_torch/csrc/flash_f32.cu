@@ -8,17 +8,32 @@
 // input type, so its fp32 `tiny()` configurations run them; these kernels
 // let the port do the same on the card. They compute the same functions as
 // the bf16 kernels, on fp32 q/k/v/do with fp32 outputs, and round nothing
-// to bf16: every product is an fp32 fused multiply-add on the CUDA cores
-// (no tensor cores, no TF32), so they agree with the plain fp32 version to
-// summation order.
+// to bf16. Two kinds of arithmetic, both to fp32 accuracy:
+//   * the wide forward (flash_fwd_f32 at 128 < D <= 512, below) runs both
+//     of its products on the TF32 tensor cores as 3xTF32: each operand x
+//     is split into a high part (its top 19 bits, which is what the tensor
+//     cores read of a register) and a low part x - hi (exact in fp32), and
+//     a b is formed as lo(a) hi(b) + hi(a) lo(b) + hi(a) hi(b) with fp32
+//     accumulation. What is left out, lo(a) lo(b) and the low part's own
+//     truncation, is ~2^-20 of a term, where one TF32 product loses ~2^-11;
+//     with the tensor cores' truncated sums the result stays within ~2e-5
+//     of the largest output of fp64 attention, where one TF32 product
+//     would be ~5e-4 off;
+//   * the others (flash_fwd_f32 at D <= 128 and the three backward
+//     kernels) are fp32 fused multiply-adds on the CUDA cores (no tensor
+//     cores), so they agree with the plain fp32 version to summation order.
 //
-// What bounds them on this card: the fp32 FMA rate (67 TFLOP/s on the
-// H100 SXM), not memory. They are simple, not fast: the fp32 path serves
-// the small test geometries, and the SD-1.5 path is bf16.
+// What bounds them on this card: their products. The CUDA-core kernels
+// are held by the fp32 FMA rate (67 TFLOP/s on the H100 SXM), the wide
+// forward by the TF32 tensor-core rate (495 TFLOP/s, three products for
+// each fp32 one) and by the instructions that feed mma.sync. The CUDA-core
+// kernels are simple, not fast: the fp32 path serves the small test
+// geometries, and the SD-1.5 path is bf16.
 //
-// Design (one warp = 32 lanes; DP = head width rounded up to 32, 64, 128,
-// 256 or 512; NC = DP / 32 columns of an output row per lane):
-//   * flash_fwd_f32: a block of four warps takes 4 * RW q rows (RW per
+// Design of the CUDA-core kernels (one warp = 32 lanes; DP = head width
+// rounded up to 32, 64 or 128 (and 256 or 512 for the backward); NC = DP / 32
+// columns of an output row per lane):
+//   * flash_fwd_f32 (D <= 128): a block of four warps takes 4 * RW q rows (RW per
 //     warp) and loops over 32-row kv tiles in shared memory. Lane j forms
 //     the score of kv row j against each of its warp's q rows; the online
 //     softmax (running max and sum, exponentials as exp2) takes its row
@@ -175,6 +190,389 @@ fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
       if (c < d) orow[c] = acc[r][i] * inv;
     }
     if (lane == 0) lse[(size_t)bh * tq + row] = m[r] * LN2 + logf(sum);
+  }
+}
+
+// ------------------------------------------- wide forward on 3xTF32 products
+//
+// flash_fwd_f32 for 128 < D <= 512 (instances DMAX = 256 and 512), in place
+// of the Pallas `_fwd_kernel_single` / `_fwd_kernel` on fp32 slabs.
+//
+// What bounds it: three TF32 products for each fp32 one, 2 * 3 of them a
+// (q row, kv row, column) at 495 TFLOP/s, on mma.sync (wgmma takes TF32
+// operands only K-major, and v is MN-major for o += p v). Every fragment
+// is read from shared memory and split in registers (two instructions an
+// element), so the instructions that feed the products and shared
+// memory's bandwidth stand beside the tensor cores.
+//
+// Design: one block of NW = DMAX / 32 warps takes 64 q rows of one slab;
+// q stays resident in shared memory (132 KB at DMAX 512) and k and v
+// stream through a ring of four 17 KB slots, loaded with cp.async (16-byte
+// copies where d % 4 == 0 and the bases are 16-byte aligned, else 4-byte
+// ones; zero past the slab), RING - 1 chunks ahead: for each 64-row kv
+// tile, ceil(d / 64) chunks of k (64 rows x 64 columns) and then 64 / VR
+// chunks of v (VR = 4096 / DMAX rows x DMAX columns). Each chunk is one
+// __syncthreads: the stream never waits on a role, and a slot is refilled
+// only after every warp left it.
+//   * s = q k^T: the 64 x 64 score tile, warp w taking 16 rows (w & 3) and
+//     256 / NW columns (w >> 2), fragments by ldmatrix (fp32 words moved as
+//     b16 pairs; padded rows keep it free of bank conflicts).
+//   * the online softmax on those fragments: row maxima over the four
+//     lanes of a row and over the column groups through shared memory;
+//     every column group forms the same new maximum; p = exp2(s - m) goes
+//     to shared memory in fp32 with the rows' rescale factors; each thread
+//     keeps its share of the row sums until the end.
+//   * o += p v: warp w owns columns [32 w, 32 w + 32) of all 64 rows (64
+//     fp32 accumulators a thread), so s is formed once and handed to the
+//     column owners; p by ldmatrix, v by 32-bit loads (it is MN-major).
+//     The tensor cores' sums round toward zero relative to what they add
+//     to, so each v chunk's products are summed from zero and added to o
+//     by fp32 adds: on o itself that rounding would bias o by ~1e-4 of its
+//     size over 4096 kv rows, and more over longer ones.
+// lse and the normalised o are written once at the end; ragged q rows are
+// never written, ragged kv columns are masked to -inf. No atomics: the
+// same bytes on every launch.
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return (uint32_t)__cvta_generic_to_shared(p);
+}
+
+__device__ __forceinline__ void cp_async16(uint32_t dst, const void* src, int bytes) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(dst), "l"(src),
+               "r"(bytes)
+               : "memory");
+}
+
+__device__ __forceinline__ void cp_async4(uint32_t dst, const void* src, int bytes) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(dst), "l"(src),
+               "r"(bytes)
+               : "memory");
+}
+
+__device__ __forceinline__ void cp_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+template <int N>
+__device__ __forceinline__ void cp_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+// Four 8 x 4 fp32 blocks (8 x 8 b16) from shared memory: lane l gives the
+// address of row l & 7 of block l >> 3, and gets word (l & 3) of row l >> 2
+// of each block
+__device__ __forceinline__ void ldsm4(uint32_t (&r)[4], const float* p) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(smem_u32(p))
+               : "memory");
+}
+
+// The low part of x: x minus its top 19 bits, exact in fp32. x itself is
+// the high part, since the tensor cores read only those bits of a TF32
+// operand.
+__device__ __forceinline__ uint32_t tf32_lo(uint32_t x) {
+  return __float_as_uint(__uint_as_float(x) - __uint_as_float(x & 0xffffe000u));
+}
+
+__device__ __forceinline__ void mma_tf32(float (&c)[4], const uint32_t (&a)[4], uint32_t b0,
+                                         uint32_t b1) {
+  asm("mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 {%0, %1, %2, %3}, "
+      "{%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// c += a b to fp32 accuracy: the two correction products first, then the
+// high parts' product
+__device__ __forceinline__ void mma3(float (&c)[4], const uint32_t (&a)[4],
+                                     const uint32_t (&al)[4], uint32_t b0, uint32_t b1,
+                                     uint32_t bl0, uint32_t bl1) {
+  mma_tf32(c, al, b0, b1);
+  mma_tf32(c, a, bl0, bl1);
+  mma_tf32(c, a, b0, b1);
+}
+
+template <int DMAX>
+struct WideCfg {
+  static constexpr int NW = DMAX / 32;  // warps: one 32-column slice of o each
+  static constexpr int THREADS = 32 * NW;
+  static constexpr int BQ = 64, BK = 64;  // q rows a block, kv rows a tile
+  static constexpr int KC = 64;           // head columns in a k chunk
+  static constexpr int VR = 4096 / DMAX;  // kv rows in a v chunk
+  // row strides in floats: 4 (mod 32) for the ldmatrix operands, 8 (mod
+  // 32) for v's 32-bit loads (lanes t, t + 4 rows apart hit other banks)
+  static constexpr int LDQ = DMAX + 4, LDP = BK + 4, LDK = KC + 4, LDV = DMAX + 8;
+  static constexpr int SLOT = BK * LDK > VR * LDV ? BK * LDK : VR * LDV;
+  static constexpr int RING = 4;
+  static constexpr int SCG = NW / 4;     // column groups of the score tile
+  static constexpr int SN = BK / SCG;    // score columns a warp
+  static constexpr int NTS = SN / 8;     // its n-tiles
+  static constexpr size_t SMEM =
+      sizeof(float) * ((size_t)BQ * LDQ + BQ * LDP + RING * SLOT + SCG * BQ + 2 * BQ);
+};
+
+// rows [r0, r0 + ROWS) and columns [c0, c0 + min(COLS, cmax - c0)) of an
+// fp32 [n, d] slab into dst (row stride ld, column c0 at dst's column 0)
+// by cp.async, zero past the slab's rows and columns; cmax is a multiple
+// of 8, and with VEC d is a multiple of 4 and src 16-byte aligned
+template <bool VEC, int THREADS, int ROWS, int COLS>
+__device__ __forceinline__ void load_tile(float* dst, int ld, const float* __restrict__ src,
+                                          int r0, int n, int c0, int cmax, int d) {
+  const uint32_t base = smem_u32(dst);
+  const int cols = min(COLS, cmax - c0);
+  if (VEC) {
+    constexpr int CV = COLS / 4;
+    for (int i = threadIdx.x; i < ROWS * CV; i += THREADS) {
+      const int r = i / CV, c = 4 * (i % CV);
+      if (c >= cols) continue;
+      const bool in = r0 + r < n && c0 + c < d;
+      cp_async16(base + 4 * (r * ld + c), in ? src + (size_t)(r0 + r) * d + c0 + c : src,
+                 in ? 16 : 0);
+    }
+  } else {
+    for (int i = threadIdx.x; i < ROWS * COLS; i += THREADS) {
+      const int r = i / COLS, c = i % COLS;
+      if (c >= cols) continue;
+      const bool in = r0 + r < n && c0 + c < d;
+      cp_async4(base + 4 * (r * ld + c), in ? src + (size_t)(r0 + r) * d + c0 + c : src,
+                in ? 4 : 0);
+    }
+  }
+}
+
+template <int DMAX, bool VEC>
+__global__ void __launch_bounds__(WideCfg<DMAX>::THREADS, 1)
+flash_fwd_f32_wide_kernel(const float* __restrict__ q, const float* __restrict__ k,
+                          const float* __restrict__ v, float* __restrict__ o,
+                          float* __restrict__ lse, int tq, int tk, int d, float scale) {
+  typedef WideCfg<DMAX> C;
+  constexpr int BQ = C::BQ, BK = C::BK, RING = C::RING, NTS = C::NTS;
+  extern __shared__ __align__(16) float sm[];
+  float* Qs = sm;
+  float* Ps = Qs + BQ * C::LDQ;
+  float* ring = Ps + BQ * C::LDP;
+  float* red = ring + RING * C::SLOT;  // [SCG][BQ]: row maxima, at the end row sums
+  float* alpha_s = red + C::SCG * BQ;  // [BQ]: this tile's rescale of o's rows
+  float* m_s = alpha_s + BQ;           // [BQ]: the rows' final maxima
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int g = lane >> 2, t4 = lane & 3;
+  const int bh = blockIdx.y, q0 = blockIdx.x * BQ;
+  const float* kb = k + (size_t)bh * tk * d;
+  const float* vb = v + (size_t)bh * tk * d;
+  const float sl2 = scale * LOG2E;
+  const int d8 = (d + 7) & ~7;             // columns the k-steps read (zero past d)
+  const int nkc = (d8 + C::KC - 1) / C::KC;  // k chunks a kv tile
+  constexpr int NVC = BK / C::VR;            // v chunks a kv tile
+  const int ntile = (tk + BK - 1) / BK;
+
+  // the stream's next chunk (k chunks, then v chunks, tile by tile) into
+  // ring slot `slot`; one commit group a chunk, empty past the end
+  int nj = 0, ns = 0;  // tile and chunk of the next load
+  auto load_next = [&](int slot) {
+    if (nj < ntile) {
+      float* dst = ring + slot * C::SLOT;
+      if (ns < nkc)
+        load_tile<VEC, C::THREADS, BK, C::KC>(dst, C::LDK, kb, nj * BK, tk, ns * C::KC, d8, d);
+      else
+        load_tile<VEC, C::THREADS, C::VR, DMAX>(dst, C::LDV, vb, nj * BK + (ns - nkc) * C::VR,
+                                                 tk, 0, d8, d);
+      if (++ns == nkc + NVC) {
+        ns = 0;
+        ++nj;
+      }
+    }
+    cp_commit();
+  };
+
+  load_tile<VEC, C::THREADS, BQ, DMAX>(Qs, C::LDQ, q + (size_t)bh * tq * d, q0, tq, 0, d8, d);
+  cp_commit();
+#pragma unroll
+  for (int c = 0; c < RING - 1; ++c) load_next(c);
+
+  // score phase: rows srow + g (+ 8), columns scol + 8 n + 2 t4 (+ 1)
+  const int srow = 16 * (warp & 3), cg = warp >> 2, scol = cg * C::SN;
+  // output phase: rows 16 i + g (+ 8), columns ocol + 8 n + 2 t4 (+ 1)
+  const int ocol = 32 * warp;
+  float acc[4][4][4];
+#pragma unroll
+  for (int i = 0; i < 4; ++i)
+#pragma unroll
+    for (int n = 0; n < 4; ++n)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[i][n][e] = 0.f;
+  float m_run[2] = {-INFINITY, -INFINITY}, l_run[2] = {0.f, 0.f};
+
+  int c = 0;
+  for (int j = 0; j < ntile; ++j) {
+    float s_acc[NTS][4];
+#pragma unroll
+    for (int n = 0; n < NTS; ++n)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) s_acc[n][e] = 0.f;
+    for (int kc = 0; kc < nkc; ++kc, ++c) {
+      cp_wait<RING - 2>();
+      __syncthreads();  // chunk c is in; every warp is done with chunk c - 1
+      load_next((c + RING - 1) % RING);
+      const float* Ks = ring + (c % RING) * C::SLOT;
+      const float* qa = Qs + (srow + (lane & 7) + 8 * ((lane >> 3) & 1)) * C::LDQ + kc * C::KC +
+                        4 * (lane >> 4);
+      const float* kbp =
+          Ks + (scol + (lane & 7) + 8 * (lane >> 4)) * C::LDK + 4 * ((lane >> 3) & 1);
+      const int nks = min(8, (d8 - kc * C::KC) >> 3);
+#pragma unroll
+      for (int ks = 0; ks < 8; ++ks) {
+        if (ks < nks) {
+          uint32_t a[4], al[4];
+          ldsm4(a, qa + 8 * ks);
+#pragma unroll
+          for (int e = 0; e < 4; ++e) al[e] = tf32_lo(a[e]);
+#pragma unroll
+          for (int np = 0; np < NTS / 2; ++np) {
+            uint32_t b[4], bl[4];
+            ldsm4(b, kbp + 16 * np * C::LDK + 8 * ks);
+#pragma unroll
+            for (int e = 0; e < 4; ++e) bl[e] = tf32_lo(b[e]);
+            mma3(s_acc[2 * np], a, al, b[0], b[1], bl[0], bl[1]);
+            mma3(s_acc[2 * np + 1], a, al, b[2], b[3], bl[2], bl[3]);
+          }
+        }
+      }
+    }
+
+    // online softmax on the score fragments
+    const int nvalid = tk - j * BK;
+    float mx[2] = {-INFINITY, -INFINITY};
+#pragma unroll
+    for (int n = 0; n < NTS; ++n)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int col = scol + 8 * n + 2 * t4 + (e & 1);
+        const float x = col < nvalid ? s_acc[n][e] * sl2 : -INFINITY;
+        s_acc[n][e] = x;
+        mx[e >> 1] = fmaxf(mx[e >> 1], x);
+      }
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 1));
+      mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 2));
+      if (t4 == 0) red[cg * BQ + srow + g + 8 * r] = mx[r];
+    }
+    __syncthreads();
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      float mn = m_run[r];
+#pragma unroll
+      for (int i = 0; i < C::SCG; ++i) mn = fmaxf(mn, red[i * BQ + srow + g + 8 * r]);
+      const float alpha = exp2f(m_run[r] - mn);  // 0 on the first tile (m = -inf)
+      m_run[r] = mn;
+      l_run[r] *= alpha;
+      if (cg == 0 && t4 == 0) alpha_s[srow + g + 8 * r] = alpha;
+    }
+#pragma unroll
+    for (int n = 0; n < NTS; ++n) {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const float p = exp2f(s_acc[n][e] - m_run[e >> 1]);
+        l_run[e >> 1] += p;
+        s_acc[n][e] = p;
+      }
+      float* pr = Ps + (srow + g) * C::LDP + scol + 8 * n + 2 * t4;
+      *reinterpret_cast<float2*>(pr) = make_float2(s_acc[n][0], s_acc[n][1]);
+      *reinterpret_cast<float2*>(pr + 8 * C::LDP) = make_float2(s_acc[n][2], s_acc[n][3]);
+    }
+    __syncthreads();  // p and the rescale factors are in
+
+    // o += p v over this tile's v chunks
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const float a0 = alpha_s[16 * i + g], a1 = alpha_s[16 * i + g + 8];
+#pragma unroll
+      for (int n = 0; n < 4; ++n) {
+        acc[i][n][0] *= a0;
+        acc[i][n][1] *= a0;
+        acc[i][n][2] *= a1;
+        acc[i][n][3] *= a1;
+      }
+    }
+    const float* pa = Ps + ((lane & 7) + 8 * ((lane >> 3) & 1)) * C::LDP + 4 * (lane >> 4);
+    for (int vc = 0; vc < NVC; ++vc, ++c) {
+      cp_wait<RING - 2>();
+      __syncthreads();
+      load_next((c + RING - 1) % RING);
+      if (ocol >= d) continue;  // no column of this warp's slice is in the slab
+      const float* Vs = ring + (c % RING) * C::SLOT + t4 * C::LDV + ocol + g;
+      constexpr int KS = C::VR / 8;  // k-steps in the chunk
+      uint32_t b[KS][4][2], bl[KS][4][2];
+#pragma unroll
+      for (int ks = 0; ks < KS; ++ks)
+#pragma unroll
+        for (int n = 0; n < 4; ++n) {
+          b[ks][n][0] = __float_as_uint(Vs[8 * ks * C::LDV + 8 * n]);
+          b[ks][n][1] = __float_as_uint(Vs[(8 * ks + 4) * C::LDV + 8 * n]);
+          bl[ks][n][0] = tf32_lo(b[ks][n][0]);
+          bl[ks][n][1] = tf32_lo(b[ks][n][1]);
+        }
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        uint32_t a[KS][4], al[KS][4];
+#pragma unroll
+        for (int ks = 0; ks < KS; ++ks) {
+          ldsm4(a[ks], pa + 16 * i * C::LDP + vc * C::VR + 8 * ks);
+#pragma unroll
+          for (int e = 0; e < 4; ++e) al[ks][e] = tf32_lo(a[ks][e]);
+        }
+#pragma unroll
+        for (int n = 0; n < 4; ++n) {
+          if (ocol + 8 * n >= d) continue;
+          // the chunk's products summed apart, then added to o in fp32
+          float t[4] = {0.f, 0.f, 0.f, 0.f};
+#pragma unroll
+          for (int ks = 0; ks < KS; ++ks)
+            mma3(t, a[ks], al[ks], b[ks][n][0], b[ks][n][1], bl[ks][n][0], bl[ks][n][1]);
+#pragma unroll
+          for (int e = 0; e < 4; ++e) acc[i][n][e] += t[e];
+        }
+      }
+    }
+  }
+
+  // the row sums: over a row's four lanes, then over the column groups
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    l_run[r] += __shfl_xor_sync(0xffffffffu, l_run[r], 1);
+    l_run[r] += __shfl_xor_sync(0xffffffffu, l_run[r], 2);
+    if (t4 == 0) {
+      red[cg * BQ + srow + g + 8 * r] = l_run[r];  // red's last readers passed a barrier since
+      if (cg == 0) m_s[srow + g + 8 * r] = m_run[r];
+    }
+  }
+  __syncthreads();
+  if (ocol < d) {
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const int row = 16 * i + g + 8 * h;
+        if (q0 + row >= tq) continue;
+        float sum = 0.f;
+#pragma unroll
+        for (int x = 0; x < C::SCG; ++x) sum += red[x * BQ + row];
+        const float inv = 1.f / sum;
+        float* orow = o + ((size_t)bh * tq + q0 + row) * d;
+#pragma unroll
+        for (int n = 0; n < 4; ++n) {
+          const int col = ocol + 8 * n + 2 * t4;
+          if (col < d) orow[col] = acc[i][n][2 * h] * inv;
+          if (col + 1 < d) orow[col + 1] = acc[i][n][2 * h + 1] * inv;
+        }
+      }
+  }
+  if (threadIdx.x < BQ && q0 + threadIdx.x < tq) {
+    float sum = 0.f;
+#pragma unroll
+    for (int x = 0; x < C::SCG; ++x) sum += red[x * BQ + threadIdx.x];
+    lse[(size_t)bh * tq + q0 + threadIdx.x] = m_s[threadIdx.x] * LN2 + logf(sum);
   }
 }
 
@@ -407,6 +805,32 @@ int launch_fwd(const void* q, const void* k, const void* v, void* o, void* lse, 
   return (int)cudaGetLastError();
 }
 
+template <int DMAX, bool VEC>
+int run_fwd_wide(const float* q, const float* k, const float* v, float* o, float* lse,
+                    int bh, int tq, int tk, int d, float scale, cudaStream_t s) {
+  typedef WideCfg<DMAX> C;
+  auto kern = flash_fwd_f32_wide_kernel<DMAX, VEC>;
+  cudaError_t err = set_smem(kern, C::SMEM);
+  if (err != cudaSuccess) return (int)err;
+  kern<<<dim3((tq + C::BQ - 1) / C::BQ, bh), C::THREADS, C::SMEM, s>>>(q, k, v, o, lse, tq,
+                                                                      tk, d, scale);
+  return (int)cudaGetLastError();
+}
+
+// the wide forward's instance: 16-byte copies where the rows are whole
+// vectors and the bases 16-byte aligned, 4-byte copies otherwise
+template <int DMAX>
+int launch_fwd_wide(const void* q, const void* k, const void* v, void* o, void* lse, int bh,
+                    int tq, int tk, int d, float scale, cudaStream_t s) {
+  const uintptr_t bases = reinterpret_cast<uintptr_t>(q) | reinterpret_cast<uintptr_t>(k) |
+                          reinterpret_cast<uintptr_t>(v);
+  const bool vec = d % 4 == 0 && bases % 16 == 0;
+  const float *qf = (const float*)q, *kf = (const float*)k, *vf = (const float*)v;
+  float *of = (float*)o, *lf = (float*)lse;
+  if (vec) return run_fwd_wide<DMAX, true>(qf, kf, vf, of, lf, bh, tq, tk, d, scale, s);
+  return run_fwd_wide<DMAX, false>(qf, kf, vf, of, lf, bh, tq, tk, d, scale, s);
+}
+
 template <int DP>
 int launch_dq(const void* q, const void* k, const void* v, const void* dout,
               const void* lse, const void* delta, void* dq, int bh, int tq, int tk, int d,
@@ -465,7 +889,21 @@ extern "C" int flash_fwd_f32(const void* q, const void* k, const void* v, void* 
   using namespace flash32;
   if (!args_ok(bh, tq, tk)) return (int)cudaErrorInvalidValue;
   cudaStream_t s = (cudaStream_t)stream;
-  F32_SWITCH(d, (launch_fwd<DP>(q, k, v, o, lse, bh, tq, tk, d, scale, s)), 512)
+  switch (pad_d(d)) {  // past D = 128: the 3xTF32 tensor-core kernel
+    case 32: return launch_fwd<32>(q, k, v, o, lse, bh, tq, tk, d, scale, s);
+    case 64: return launch_fwd<64>(q, k, v, o, lse, bh, tq, tk, d, scale, s);
+    case 128: return launch_fwd<128>(q, k, v, o, lse, bh, tq, tk, d, scale, s);
+    case 256: return launch_fwd_wide<256>(q, k, v, o, lse, bh, tq, tk, d, scale, s);
+    case 512: return launch_fwd_wide<512>(q, k, v, o, lse, bh, tq, tk, d, scale, s);
+    default: return (int)cudaErrorInvalidValue;
+  }
+}
+
+// Dynamic shared memory of the wide forward's block at dmax (256 or 512;
+// 0 otherwise), for the Python count (ops/flash.py f32_wide_smem_bytes)
+extern "C" int flash_fwd_f32_smem(int dmax) {
+  using namespace flash32;
+  return dmax == 256 ? (int)WideCfg<256>::SMEM : dmax == 512 ? (int)WideCfg<512>::SMEM : 0;
 }
 
 // dq: fp32 [bh, tq, d], zeroed by the caller. D <= 128.

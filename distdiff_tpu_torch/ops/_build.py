@@ -48,6 +48,7 @@ SIGNATURES = {
     "flash_fwd_smem": ("flash_fwd", [_I]),
     "flash_bwd_fused_smem": ("flash_bwd", [_I]),
     "flash_bwd_split_smem": ("flash_bwd", [_I]),
+    "flash_fwd_f32_smem": ("flash_f32", [_I]),
 }
 
 _LOCK = threading.Lock()

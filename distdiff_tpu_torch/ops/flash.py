@@ -16,8 +16,11 @@ tensor-core kernels: the forward at every width and the fused backward are
 warp-specialised TMA/wgmma kernels, whose padded width (0 for the wide
 forward) and load route ``bf16_plan`` chooses, and so is the split
 backward (D > 128), whose load route ``split_plan`` chooses; fp32 goes to
-their fp32 instances (``csrc/flash_f32.cu``, CUDA-core fp32 FMA, no TF32),
-with fp32 outputs:
+their fp32 instances (``csrc/flash_f32.cu``), with fp32 outputs: the
+forward past D = 128 on the tensor cores as 3xTF32 (each product formed
+from the operands' high and low TF32 parts, lo·hi + hi·lo + hi·hi, which
+keeps fp32's accuracy where one TF32 product would lose ~3 digits), the
+narrower forward and the backward kernels on CUDA-core fp32 FMA.
 fp32 is never rounded to bf16. On a CPU tensor, and only there, it runs the plain PyTorch version
 (``flash_fwd_reference`` / ``flash_bwd_reference``), which computes the same
 function in fp32. There is no fallback from the kernel.
@@ -166,6 +169,30 @@ def split_smem_bytes(dmax: int) -> int:
     ring = 11 if dmax == 512 else 16
     bars = 1 + ring + 4
     return 2 * ch * chunk + ring * chunk + chunk + 2 * 2 * 64 * 4 + 8 * bars + 1024
+
+
+# Head widths the fp32 forward's tensor-core kernel is built for (past
+# D = 128; D is padded to the next one in shared memory only).
+F32_WIDE_DMAX = (256, 512)
+
+
+def f32_fwd_kernel(d: int) -> Tuple[str, int]:
+    """(kernel, padded width) an fp32 ``flash_fwd`` at head width ``d``
+    runs, by csrc/flash_f32.cu's ``flash_fwd_f32`` rule: the CUDA-core
+    ``fwd_kernel`` up to D = 128, the 3xTF32 tensor-core kernel past it."""
+    pad = next(w for w in (32, 64, 128) + F32_WIDE_DMAX if d <= w)
+    return ("fwd_kernel" if pad <= 128 else "flash_fwd_f32_wide_kernel"), pad
+
+
+def f32_wide_smem_bytes(dmax: int) -> int:
+    """Dynamic shared memory of the fp32 wide forward's block at ``dmax``,
+    as csrc/flash_f32.cu WideCfg lays it out, in floats: the resident
+    64-row q tile (rows of dmax + 4), p (64 x 68), a ring of four slots
+    each holding a k chunk (64 x 68) or a v chunk (4096 / dmax rows of
+    dmax + 8), the column groups' row maxima and sums, and two row
+    vectors."""
+    slot = max(64 * 68, 4096 // dmax * (dmax + 8))
+    return 4 * (64 * (dmax + 4) + 64 * 68 + 4 * slot + dmax // 128 * 64 + 2 * 64)
 
 
 def split_plan(d: int, *tensors) -> Tuple[int]:

@@ -2,19 +2,23 @@
 """The wide flash kernels of this tree against those of another copy of
 the kernel sources, timed in turns on one NVIDIA GPU.
 
-Builds ``flash_fwd.cu`` (with ``--bwd``: ``flash_bwd.cu``) from
+Builds ``flash_fwd.cu`` (with ``--bwd``: ``flash_bwd.cu``; with ``--f32``:
+``flash_f32.cu``) from
 ``distdiff_tpu_torch/csrc`` and from the directory given (for example an
 unpacked parent commit's ``distdiff_tpu_torch/csrc``, or a variant of the
 sources), calls each library's ``flash_fwd`` (with ``--bwd``: the split
 backward pair ``flash_bwd_dq`` and ``flash_bwd_dkv``, each copy with its
-own C signature: the pair took no load route before it ran on TMA) through
-``ctypes`` on the same bf16 inputs, checks that the two agree, and times
+own C signature: the pair took no load route before it ran on TMA; with
+``--f32``: ``flash_fwd_f32`` on fp32 inputs at [2,4096,4096,512] and
+[4,4096,4096,160], its two wide instances) through
+``ctypes`` on the same inputs (bf16; fp32 with ``--f32``), checks that the
+two agree, and times
 them in turns (other, tree, tree, other, other, tree): each time the median
 of CUDA events around one launch queued behind a device spin, the kernel
 alone.
 
 Run from the repository root on the machine with the card:
-``python3 scripts/torch_flash_ab.py OTHER_CSRC_DIR [--bwd] [--json PATH]``.
+``python3 scripts/torch_flash_ab.py OTHER_CSRC_DIR [--bwd | --f32] [--json PATH]``.
 """
 
 from __future__ import annotations
@@ -50,15 +54,15 @@ def main(argv) -> int:
     from distdiff_tpu_torch.ops import _build
 
     if not torch.cuda.is_available() or not argv:
-        print("usage: torch_flash_ab.py OTHER_CSRC_DIR [--bwd] [--json PATH] (needs a CUDA card)",
-              file=sys.stderr)
+        print("usage: torch_flash_ab.py OTHER_CSRC_DIR [--bwd | --f32] [--json PATH] (needs a "
+              "CUDA card)", file=sys.stderr)
         return 2
-    bwd = "--bwd" in argv
+    bwd, f32 = "--bwd" in argv, "--f32" in argv
     card = cs.card_line()
     print(card)
     work = tempfile.mkdtemp(prefix="flash_ab_")
     trees = {"tree": os.path.join(ROOT, "distdiff_tpu_torch", "csrc"), "other": argv[0]}
-    source = "flash_bwd.cu" if bwd else "flash_fwd.cu"
+    source = "flash_bwd.cu" if bwd else "flash_f32.cu" if f32 else "flash_fwd.cu"
     procs = []
     for tag, src in trees.items():
         lib = os.path.join(work, f"{tag}.so")
@@ -70,10 +74,12 @@ def main(argv) -> int:
         log = proc.communicate()[0]
         if proc.returncode:
             raise SystemExit(f"{tag}: nvcc failed\n{log[-3000:]}")
-        keep = ("dq", "dkv") if bwd else ("wide",)
+        keep = ("dq", "dkv") if bwd else ("fwd",) if f32 else ("wide",)
         print(f"  {tag}: {[r for r in _build.ptxas_report(log) if any(x in r[0] for x in keep)]}")
         fns[tag] = {}
-        for entry in (("flash_bwd_dq", "flash_bwd_dkv") if bwd else ("flash_fwd",)):
+        entries = ("flash_bwd_dq", "flash_bwd_dkv") if bwd else (
+            "flash_fwd_f32",) if f32 else ("flash_fwd",)
+        for entry in entries:
             fn = getattr(ctypes.CDLL(lib), entry)
             argtypes = list(_build.SIGNATURES[entry][1])
             route = True
@@ -84,13 +90,15 @@ def main(argv) -> int:
             fns[tag][entry] = (fn, route)
     if bwd:
         return ab_bwd(fns, card, argv)
-    fns = {tag: f["flash_fwd"][0] for tag, f in fns.items()}
+    fns = {tag: f[entries[0]][0] for tag, f in fns.items()}
     dev = torch.device("cuda")
     gen = torch.Generator(device=dev).manual_seed(0)
     stream = torch.cuda.current_stream().cuda_stream
+    dtype = torch.float32 if f32 else torch.bfloat16
+    plan = () if f32 else (0, 1)  # the bf16 wide kernel: width 0, TMA loads
     rows = []
-    for bh, tq, tk, d in SHAPES:
-        q, k, v = (torch.randn(bh, t, d, generator=gen, device=dev).to(torch.bfloat16)
+    for bh, tq, tk, d in (SHAPES[0], SHAPES[-1]) if f32 else SHAPES:
+        q, k, v = (torch.randn(bh, t, d, generator=gen, device=dev).to(dtype)
                    for t in (tq, tk, tk))
         calls, outs = {}, {}
         for tag, fn in fns.items():
@@ -99,7 +107,7 @@ def main(argv) -> int:
 
             def call(fn=fn, o=o, lse=lse):
                 rc = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), lse.data_ptr(),
-                        bh, tq, tk, d, 0, 1, d ** -0.5, stream)
+                        bh, tq, tk, d, *plan, d ** -0.5, stream)
                 if rc:
                     raise SystemExit(f"launch failed with CUDA error {rc}")
 
@@ -111,14 +119,15 @@ def main(argv) -> int:
         times = {tag: [] for tag in fns}
         for tag in ("other", "tree", "tree", "other", "other", "tree"):
             times[tag].append(cs.time_ms(calls[tag], 10))
-        row = {"shape": [bh, tq, tk, d], "card": card, "max_abs_diff_o": err_o,
-               "max_abs_diff_lse": err_lse,
+        b_ms = cs.bound("flash_fwd", bh, tq, tk, d, itemsize=q.element_size())[0]
+        row = {"shape": [bh, tq, tk, d], "dtype": str(dtype)[6:], "card": card,
+               "max_abs_diff_o": err_o, "max_abs_diff_lse": err_lse, "bound_ms": b_ms,
                **{f"{t}_ms": statistics.median(x) for t, x in times.items()},
                **{f"{t}_runs": x for t, x in times.items()}}
         rows.append(row)
-        print(f"  [{bh},{tq},{tk},{d}]: tree {row['tree_ms']:.4f} ms {times['tree']}, other "
-              f"{row['other_ms']:.4f} ms {times['other']}; |o| diff {err_o:.2e}, |lse| diff "
-              f"{err_lse:.2e}", flush=True)
+        print(f"  [{bh},{tq},{tk},{d}] {row['dtype']}: tree {row['tree_ms']:.4f} ms "
+              f"{times['tree']}, other {row['other_ms']:.4f} ms {times['other']}, bound "
+              f"{b_ms:.4f} ms; |o| diff {err_o:.2e}, |lse| diff {err_lse:.2e}", flush=True)
     write_json(rows, argv)
     return 0
 

@@ -3,11 +3,14 @@
 
 Builds the port's narrow (D <= 128) flash kernels (``flash_fwd`` and
 ``flash_bwd_fused`` in ``distdiff_tpu_torch/csrc``), its wide forward
-(``flash_fwd`` past D = 128) and its split backward pair
-(``flash_bwd_dq``, ``flash_bwd_dkv``) once as they are and once for each variant
+(``flash_fwd`` past D = 128), its split backward pair
+(``flash_bwd_dq``, ``flash_bwd_dkv``) and its fp32 wide forward
+(``flash_fwd_f32`` past D = 128, on 3xTF32 tensor-core products) once as
+they are and once for each variant
 below, with one part taken out of the source, and times every build on the
 same inputs (the narrow variants at the UNet's shapes, the wide ones at the
-VAE mid-block's): the median of CUDA events around one
+VAE mid-block's, the fp32 ones at [2,4096,4096,512] and [4,4096,4096,160],
+in fp32): the median of CUDA events around one
 launch queued behind a device spin, the kernel alone (no wrapper, no dq
 zeroing or cast). A variant computes wrong numbers by design; only its
 time means something. Each build runs in its own process under a time
@@ -18,7 +21,8 @@ Run from the repository root on the machine with the card:
 prints one line per (variant, shape) and, with ``--json``, writes them
 there too; ``--only`` keeps the variants whose name contains TEXT
 (``--only wide_bwd``: the split backward pair's set, each build timing
-``flash_bwd_dq`` and ``flash_bwd_dkv``).
+``flash_bwd_dq`` and ``flash_bwd_dkv``; ``--only wide_f32``: the fp32 wide
+forward's set).
 """
 
 from __future__ import annotations
@@ -34,6 +38,7 @@ ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC = os.path.join(ROOT, "distdiff_tpu_torch", "csrc")
 NARROW = [(32, 4096, 40), (32, 1024, 80)]  # the UNet's 64^2 and 32^2 self-attention
 WIDE = [(2, 4096, 512)]  # the VAE mid-block's single head
+WIDE_F32 = [(2, 4096, 512), (4, 4096, 160)]  # the fp32 wide forward's two instances
 
 # the wide forward's parts: its k and v tiles' loads (each replaced by a
 # bare arrival on its full barrier, the TMA route's count), its two products
@@ -64,6 +69,18 @@ _NO_SPLIT_SCORE = ("hopper::Wgmma<64>::template ss<0, 0>(acc,",
 _NO_SPLIT_LOADS = ("hopper::mbar_arrive_tx(ring_full + s, CHUNK);\n"
                    "        hopper::tma_load_3d(R + s * CHUNK, p < CH ? rmap : xmap, col, row, bh, ring_full + s);",
                    "hopper::mbar_arrive(ring_full + s);")
+
+# the fp32 wide forward's parts (csrc/flash_f32.cu): the two correction
+# products of every 3xTF32 product (one TF32 product is left), its
+# exponentials, its k and v chunks' copies into the ring (the q tile is
+# still loaded), and every product (the copies and the fragment loads are
+# left)
+_F32_CORRECTIONS = ("  mma_tf32(c, al, b0, b1);\n  mma_tf32(c, a, bl0, bl1);\n", "")
+_F32_PRODUCTS = ("  mma_tf32(c, al, b0, b1);\n  mma_tf32(c, a, bl0, bl1);\n"
+                 "  mma_tf32(c, a, b0, b1);\n", "")
+_F32_EX2 = ("const float p = exp2f(s_acc[n][e] - m_run[e >> 1]);",
+            "const float p = s_acc[n][e] - m_run[e >> 1];")
+_F32_NO_KV = ("    if (nj < ntile) {\n      float* dst", "    if (nj < 0) {\n      float* dst")
 
 # variant -> (source file, [(text, replacement)], shapes); the split pair's
 # variants run its two entry points, the other flash_bwd.cu ones the fused
@@ -112,6 +129,11 @@ VARIANTS = {
     "wide_bwd without score products": ("flash_bwd.cu", [_NO_SPLIT_SCORE], WIDE),
     "wide_bwd without stream loads": ("flash_bwd.cu", [_NO_SPLIT_LOADS], WIDE),
     "wide_bwd loads only": ("flash_bwd.cu", [_NO_SPLIT_EX2, _NO_SPLIT_OUT, _NO_SPLIT_SCORE], WIDE),
+    "wide_f32": ("flash_f32.cu", [], WIDE_F32),
+    "wide_f32 one TF32 product": ("flash_f32.cu", [_F32_CORRECTIONS], WIDE_F32),
+    "wide_f32 without exponentials": ("flash_f32.cu", [_F32_EX2], WIDE_F32),
+    "wide_f32 without k/v loads": ("flash_f32.cu", [_F32_NO_KV], WIDE_F32),
+    "wide_f32 loads only": ("flash_f32.cu", [_F32_PRODUCTS, _F32_EX2], WIDE_F32),
 }
 
 CHILD = r'''
@@ -121,29 +143,33 @@ lib_path, stem, split = sys.argv[1], sys.argv[2], sys.argv[4] == "1"
 shapes = json.loads(sys.argv[3])
 P, I, F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 lib = ctypes.CDLL(lib_path)
+f32 = stem == "flash_f32"
 entries = ["flash_bwd_dq", "flash_bwd_dkv"] if split else [
-    "flash_fwd" if stem == "flash_fwd" else "flash_bwd_fused"]
+    "flash_fwd_f32" if f32 else "flash_fwd" if stem == "flash_fwd" else "flash_bwd_fused"]
 fns = {}
 for name in entries:
     fns[name] = getattr(lib, name)
-    n_ptr = {"flash_fwd": 5, "flash_bwd_fused": 9, "flash_bwd_dq": 7, "flash_bwd_dkv": 8}[name]
-    fns[name].argtypes = [P] * n_ptr + [I] * (5 if split else 6) + [F, P]
+    n_ptr = {"flash_fwd": 5, "flash_fwd_f32": 5, "flash_bwd_fused": 9, "flash_bwd_dq": 7,
+             "flash_bwd_dkv": 8}[name]
+    fns[name].argtypes = [P] * n_ptr + [I] * (4 if f32 else 5 if split else 6) + [F, P]
     fns[name].restype = I
 dev = torch.device("cuda")
 gen = torch.Generator(device=dev).manual_seed(0)
 stream = torch.cuda.current_stream().cuda_stream
 out = {}
 for bh, t, d in shapes:
-    q, k, v, do = (torch.randn(bh, t, d, generator=gen, device=dev).to(torch.bfloat16)
+    dtype = torch.float32 if f32 else torch.bfloat16
+    q, k, v, do = (torch.randn(bh, t, d, generator=gen, device=dev).to(dtype)
                    for _ in range(4))
     o = torch.empty_like(q)
     lse = torch.randn(bh, t, device=dev).abs() + 5.0
     dq = torch.zeros(bh, t, d, device=dev)
     dk, dv = torch.empty_like(k), torch.empty_like(v)
     dp = next((w for w in (48, 64, 80, 96, 128) if d <= w), 0)  # 0: the wide kernel
-    plan = (1,) if split else (dp, 1)
+    plan = () if f32 else (1,) if split else (dp, 1)
     for name, fn in fns.items():
-        args = {"flash_fwd": (q, k, v, o, lse), "flash_bwd_fused": (q, k, v, do, lse, lse, dq, dk, dv),
+        args = {"flash_fwd": (q, k, v, o, lse), "flash_fwd_f32": (q, k, v, o, lse),
+                "flash_bwd_fused": (q, k, v, do, lse, lse, dq, dk, dv),
                 "flash_bwd_dq": (q, k, v, do, lse, lse, dk),
                 "flash_bwd_dkv": (q, k, v, do, lse, lse, dk, dv)}[name]
         call = lambda: fn(*[a.data_ptr() for a in args], bh, t, t, d, *plan, d ** -0.5, stream)

@@ -124,6 +124,24 @@ def test_gn_bound_counts_slab_passes(smoke):
     assert smoke.gn_bound("gn_fused", shape, 4)[0] == pytest.approx(4 * one)
 
 
+@pytest.mark.parametrize("name,shape,itemsize,want", [
+    # fp32: each product as three TF32 products at 495 TFLOP/s (3xTF32)
+    ("flash_fwd", (2, 4096, 4096, 512), 4, 0.4165),
+    ("flash_fwd", (4, 4096, 4096, 160), 4, 0.2603),
+    # bf16: one product on the bf16 tensor cores, as before
+    ("flash_fwd", (2, 4096, 4096, 512), 2, 0.0695),
+    ("flash_fwd", (32, 4096, 4096, 40), 2, 0.1377),
+    ("flash_bwd_fused", (32, 4096, 4096, 40), 2, 0.2171),
+    ("flash_bwd_dq", (2, 4096, 4096, 512), 2, 0.1042),
+    ("flash_bwd_dkv", (2, 4096, 4096, 512), 2, 0.1390),
+])
+def test_flash_bound_counts_fp32_products_as_three_tf32(smoke, name, shape, itemsize, want):
+    """The least time of an fp32-accurate flash kernel on the card: every
+    product three times on the TF32 tensor cores; bf16 bounds unchanged."""
+    ms, by = smoke.bound(name, *shape, itemsize=itemsize)
+    assert ms == pytest.approx(want, abs=5e-5) and by == "operations"
+
+
 def test_gn_fused_plan_at_every_main_path_shape(smoke):
     """Every gn_fused shape of the counted runs (bf16, channels-last, 16-byte
     aligned) takes 16-byte vectors over a run of at least 64 bytes at each

@@ -142,3 +142,70 @@ def test_ablation_patches_apply_to_the_split_pair(name):
         assert patched.count(old) == 1, f"{name}: {old[:60]!r} is not once in {src}"
         patched = patched.replace(old, new)
     assert (patched != text) == bool(subs)
+
+
+WIDE_F32_VARIANTS = ["wide_f32", "wide_f32 one TF32 product", "wide_f32 without exponentials",
+                     "wide_f32 without k/v loads", "wide_f32 loads only"]
+
+
+@pytest.mark.parametrize("name", WIDE_F32_VARIANTS)
+def test_ablation_patches_apply_to_the_fp32_wide_forward(name):
+    """The fp32 wide forward's ablations are text of csrc/flash_f32.cu, each
+    still there once (the cases are all of the script's wide_f32 set)."""
+    ab = _ablate_script()
+    assert sorted(n for n in ab.VARIANTS if n.startswith("wide_f32")) == sorted(WIDE_F32_VARIANTS)
+    src, subs, shapes = ab.VARIANTS[name]
+    assert src == "flash_f32.cu" and shapes == ab.WIDE_F32
+    text = open(os.path.join(ab.CSRC, src)).read()
+    patched = text
+    for old, new in subs:
+        assert patched.count(old) == 1, f"{name}: {old[:60]!r} is not once in {src}"
+        patched = patched.replace(old, new)
+    assert (patched != text) == bool(subs)
+
+
+def _tf32_high(x, nearest):
+    """x's TF32 high part: its top 19 bits (sign, exponent, 10 mantissa
+    bits), rounded to nearest (half a TF32 unit added first) or truncated,
+    as the tensor cores read a register."""
+    bits = x.view(torch.int32)
+    if nearest:
+        bits = bits + 0x1000
+    return (bits & -0x2000).view(torch.float32)
+
+
+def _tf32_matmul(a, b, products):
+    """a @ b in fp32 from TF32 operands: one product of the operands rounded
+    to nearest (TF32 mode), or 3xTF32 as csrc/flash_f32.cu's wide forward
+    forms it: the high parts truncated, the exact remainders x - hi as low
+    parts (truncated again), lo(a) hi(b) + hi(a) lo(b) + hi(a) hi(b)."""
+    if products == 1:
+        return _tf32_high(a, True) @ _tf32_high(b, True)
+    ah, bh = _tf32_high(a, False), _tf32_high(b, False)
+    al, bl = _tf32_high(a - ah, False), _tf32_high(b - bh, False)
+    return al @ bh + ah @ bl + ah @ bh
+
+
+def _attention(q, k, v, matmul):
+    s = matmul(q, k.transpose(-1, -2)) * q.shape[-1] ** -0.5
+    lse = torch.logsumexp(s, dim=-1)
+    return matmul(torch.exp(s - lse[..., None]), v), lse
+
+
+@pytest.mark.parametrize("products", [3, 1])
+@pytest.mark.parametrize("d,tq,tk", [(160, 65, 63), (512, 63, 129)])
+def test_three_tf32_products_keep_fp32_accuracy(d, tq, tk, products):
+    """Why the fp32 wide forward runs three TF32 products a product: with
+    them o meets chip_smoke.py's fp32 tolerance (1e-4 of the largest
+    magnitude, lse 1e-4) against fp64 attention; one TF32 product misses
+    it (both s = q k^T and o = p v emulated in fp32 on the CPU)."""
+    rng = np.random.RandomState(d)
+    q, k, v = (torch.from_numpy(rng.randn(2, t, d).astype(np.float32)) for t in (tq, tk, tk))
+    ref_o, ref_lse = _attention(q.double(), k.double(), v.double(), torch.matmul)
+    o, lse = _attention(q, k, v, lambda a, b: _tf32_matmul(a, b, products))
+    err_o = float((o.double() - ref_o).abs().max() / ref_o.abs().max())
+    err_lse = float((lse.double() - ref_lse).abs().max())
+    if products == 3:
+        assert err_o <= 1e-5 and err_lse <= 1e-5
+    else:
+        assert err_o > 2e-4 and err_lse > 1e-4

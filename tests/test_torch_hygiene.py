@@ -402,3 +402,45 @@ def test_split_pair_block_fits_the_card(dmax):
     ring = (flash.split_smem_bytes(dmax) - 2 * ch * chunk - chunk - 1024 - 1024) // chunk
     assert ring > ch
     assert 0 < flash.split_smem_bytes(dmax) <= 232448
+
+
+@pytest.mark.parametrize("dmax", flash.F32_WIDE_DMAX)
+def test_fp32_wide_forward_block_fits_the_card(dmax):
+    """The fp32 wide forward's block (csrc/flash_f32.cu WideCfg) at each
+    built width fits the H100's 227 KB of shared memory with its resident q
+    tile and four ring slots, each slot holding a k chunk or a v chunk
+    (chip_smoke.py phase 1 holds the C count against f32_wide_smem_bytes
+    on the card)."""
+    q_tile, p_tile, slot = 64 * (dmax + 4) * 4, 64 * 68 * 4, 64 * 68 * 4
+    assert 4096 // dmax * (dmax + 8) * 4 <= slot
+    assert q_tile + p_tile + 4 * slot < flash.f32_wide_smem_bytes(dmax) <= 232448
+
+
+@pytest.mark.parametrize("d,want", [
+    (16, ("fwd_kernel", 32)), (40, ("fwd_kernel", 64)), (128, ("fwd_kernel", 128)),
+    (129, ("flash_fwd_f32_wide_kernel", 256)), (160, ("flash_fwd_f32_wide_kernel", 256)),
+    (256, ("flash_fwd_f32_wide_kernel", 256)), (257, ("flash_fwd_f32_wide_kernel", 512)),
+    (512, ("flash_fwd_f32_wide_kernel", 512)),
+])
+def test_fp32_forward_takes_the_tensor_core_kernel_past_128(d, want):
+    """fp32 flash_fwd runs the CUDA-core kernel up to D = 128 and the 3xTF32
+    tensor-core kernel past it, at the padded widths csrc/flash_f32.cu
+    builds; the launch takes no plan, so the C signature keeps 11
+    arguments whatever the route."""
+    assert flash.f32_fwd_kernel(d) == want
+
+
+@pytest.mark.parametrize("d", [160, 257, 512])
+def test_fp32_wide_launch_passes_the_shape_and_scale(monkeypatch, d):
+    calls = _recorded_launches(monkeypatch)
+    flash.reset_launch_counts()
+    q = torch.empty(3, 65, d, device="meta")
+    k = v = torch.empty(3, 63, d, device="meta")
+    o, lse = flash.flash_fwd(q, k, v)
+    assert o.dtype == torch.float32 and o.shape == q.shape and lse.shape == (3, 65)
+    [(name, args)] = calls
+    assert name == "flash_fwd_f32" and len(args) == len(_build.SIGNATURES[name][1]) == 11
+    assert args[5:9] == (3, 65, 63, d) and args[9] == pytest.approx(d ** -0.5)
+    assert flash.launch_counts["flash_fwd"] == 1
+    assert flash.launch_shapes[("flash_fwd", (3, 65, 63, d))] == 1
+    flash.reset_launch_counts()
