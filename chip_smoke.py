@@ -10,8 +10,8 @@ package. Six phases, any failure exits non-zero:
    ``nvcc`` a source, all at once), each kernel's registers and spills from
    ``-Xptxas -v`` (a Hopper flash or GroupNorm kernel that spills fails the
    run), the Hopper flash kernels' dynamic shared memory (the split
-   backward pair's and the fp32 wide forward's held against their Python
-   counts), and the GroupNorm
+   backward pair's, the fp32 wide forward's and the fp32 split pair's held
+   against their Python counts), and the GroupNorm
    kernels' plans with their shared memory, held against the C side's.
 2. Kernels, each held against its plain PyTorch version on the same inputs:
    every flash kernel at the main path's shapes in bf16 (against the plain
@@ -23,10 +23,11 @@ package. Six phases, any failure exits non-zero:
    backward pair launched twice for the same bytes); the four
    flash
    kernels' fp32 instances at main-path widths and ragged shapes (timed at
-   the former and the forward at D = 160; the forward also at wide widths
-   from 129 to 512, lengths one row on either side of 64 and 128, and a
-   view one element into its storage, each launch twice for the same
-   bytes); gn_fused, gn_stats and gn_apply at every GroupNorm shape of
+   the former and, for the forward and the split pair, at D = 160; those
+   also at wide widths from 129 to 512, lengths one row on either side of
+   their tiles, and a view one element into its storage, each launch twice
+   for the same bytes; the split pair also against fp64 at 16384 rows on
+   either side of its sums); gn_fused, gn_stats and gn_apply at every GroupNorm shape of
    the counted runs, in bf16 and fp32, channels-last and contiguous, with
    and without SiLU, and at ragged shapes (timed in bf16 channels-last,
    beside ``F.group_norm`` + ``F.silu``; gn_fused also at its edges: B = 1,
@@ -180,12 +181,13 @@ def bound(name, bh, tq, tk, d, itemsize=2):
 
 
 # the kernels built for Hopper (the bf16 flash kernels: warp-specialised,
-# TMA and wgmma; gn_fused: clusters, TMA; the gn_stats and gn_apply pair:
-# banded one-wave grids): none may spill
+# TMA and wgmma; the fp32 ones past D = 128: 3xTF32 on mma.sync; gn_fused:
+# clusters, TMA; the gn_stats and gn_apply pair: banded one-wave grids):
+# none may spill
 HOPPER_KERNELS = ("flash_fwd_narrow_kernel", "flash_fwd_wide_kernel", "flash_bwd_fused_kernel",
                   "flash_bwd_dq_kernel", "flash_bwd_dkv_kernel", "flash_fwd_f32_wide_kernel",
-                  "gn_fused_kernel", "gn_stats_nhwc_kernel", "gn_stats_nchw_kernel",
-                  "gn_apply_nhwc_kernel", "gn_apply_nchw_kernel")
+                  "flash_bwd_f32_split_kernel", "gn_fused_kernel", "gn_stats_nhwc_kernel",
+                  "gn_stats_nchw_kernel", "gn_apply_nhwc_kernel", "gn_apply_nchw_kernel")
 WIDE_DMAX = (256, 512)  # the wide forward's instances
 
 
@@ -195,7 +197,7 @@ def ptxas_phase() -> None:
     spills fails the run."""
     from distdiff_tpu_torch.ops import _build, flash
 
-    spilled, f32_regs = [], {}
+    spilled, f32_regs, split_regs = [], {}, {}
     for src, log in _build.build_logs().items():
         for name, regs, stack, st, ld in _build.ptxas_report(log):
             print(f"  {src}: {name}: {regs} registers, {stack} B stack, spills {st} B stored / "
@@ -204,6 +206,8 @@ def ptxas_phase() -> None:
                 spilled.append(name)
             if name.startswith("flash_fwd_f32_wide_kernel"):
                 f32_regs[name] = regs
+            if name.startswith("flash_bwd_f32_split_kernel"):
+                split_regs[name] = regs
     smem = {dp: (_build.kernel("flash_fwd_smem")(dp),
                  _build.kernel("flash_bwd_fused_smem")(dp)) for dp in flash.NARROW_WIDTHS}
     print("  narrow kernels' dynamic shared memory (forward, fused backward) by padded "
@@ -224,6 +228,16 @@ def ptxas_phase() -> None:
         want = flash.f32_wide_smem_bytes(dmax)
         require(got == want and got <= H100_SMEM_OPTIN,
                 f"fp32 wide forward's shared memory at DMAX {dmax}: C {got}, Python {want}")
+    f32_split = {(role, dmax): _build.kernel("flash_bwd_f32_smem")(role, dmax)
+                 for role in (0, 1) for dmax in flash.F32_WIDE_DMAX}
+    print(f"  fp32 split pair (3xTF32 tensor cores): registers {split_regs} (<DMAX,dkv,TMA "
+          f"loads>), dynamic shared memory by (role 0 dq / 1 dkv, DMAX) {f32_split}")
+    require(len(split_regs) == 4 * len(flash.F32_WIDE_DMAX), "fp32 split pair's instances missing")
+    for (role, dmax), got in f32_split.items():
+        want = flash.f32_split_smem_bytes(dmax)
+        require(got == want and got <= H100_SMEM_OPTIN,
+                f"fp32 split pair's shared memory at role {role}, DMAX {dmax}: C {got}, "
+                f"Python {want}")
     gn_smem_phase()
     require(not spilled, f"Hopper kernels spill registers: {spilled}")
 
@@ -476,11 +490,13 @@ def kernel_phase():
 def flash_f32_phase() -> list:
     """The four flash kernels on fp32 inputs (their fp32 instances,
     csrc/flash_f32.cu) at main-path widths and at ragged shapes, against the
-    plain fp32 version; timed at the main-path widths and, for the forward,
-    at D = 160 (the wide tensor-core kernel's DMAX = 256 instance). The
-    forward also at the wide widths from 129 to 512 with lengths one row on
-    either side of 64 and 128 and on a view one element into its storage
-    (4-byte copies), every forward launched twice for the same bytes.
+    plain fp32 version; timed at the main-path widths and, for the forward
+    and the split pair, at D = 160 (the tensor-core kernels' DMAX = 256
+    instances). The forward and the split pair also at the wide widths from
+    129 to 512 with lengths one row on either side of their tiles and on a
+    view one element into its storage (4-byte copies), every forward and
+    split launch twice for the same bytes; then the split pair against
+    fp64 at 16384 rows on either side of its sums (``split_fp64_check``).
     Returns one record per timed (kernel, shape)."""
     import torch
     import torch.nn.functional as F
@@ -492,26 +508,30 @@ def flash_f32_phase() -> list:
     split = ["flash_bwd_dq", "flash_bwd_dkv"]
     every = ["flash_fwd", "flash_bwd_fused"] + split
     fwd = ["flash_fwd"]
+    wide = ["flash_fwd"] + split
     shapes = [
         # (label, BH, Tq, Tk, D, kernels, timed)
         ("unet64_f32", 32, 4096, 4096, 40, ["flash_fwd", "flash_bwd_fused"], True),
         ("vae_mid_f32", 2, 4096, 4096, 512, ["flash_fwd"] + split, True),
-        ("vae160_f32", 4, 4096, 4096, 160, fwd, True),
+        ("vae160_f32", 4, 4096, 4096, 160, ["flash_fwd"] + split, True),
         ("tiny_f32", 4, 576, 576, 16, every, False),
         ("ragged_f32", 3, 300, 130, 40, every, False),
         ("odd_f32", 2, 129, 77, 160, ["flash_fwd"] + split, False),
-        # the wide forward's edges: 64-row q and kv tiles, 64-column k
-        # chunks, 32-column output slices, DMAX 256 and 512
-        ("w129_f32", 2, 65, 63, 129, fwd, False),
-        ("w136_f32", 2, 63, 65, 136, fwd, False),
-        ("w160_f32", 2, 129, 127, 160, fwd, False),
-        ("w200_f32", 2, 127, 129, 200, fwd, False),
-        ("w256_f32", 2, 64, 65, 256, fwd, False),
-        ("w257_f32", 2, 65, 64, 257, fwd, False),
-        ("w384_f32", 2, 128, 63, 384, fwd, False),
-        ("w500_f32", 2, 63, 128, 500, fwd, False),
-        ("w512_f32", 2, 129, 127, 512, fwd, False),
-        ("offset512_f32", 1, 200, 150, 512, fwd, "offset"),
+        # the tensor-core kernels' edges: the forward's 64-row q and kv
+        # tiles, 64-column k chunks and 32-column output slices; the split
+        # pair's 32 resident rows, 16-row stream tiles and 64-column chunk
+        # pairs; DMAX 256 and 512
+        ("w129_f32", 2, 65, 63, 129, wide, False),
+        ("w136_f32", 2, 63, 65, 136, wide, False),
+        ("w160_f32", 2, 129, 127, 160, wide, False),
+        ("w200_f32", 2, 127, 129, 200, wide, False),
+        ("w256_f32", 2, 64, 65, 256, wide, False),
+        ("w257_f32", 2, 65, 64, 257, wide, False),
+        ("w384_f32", 2, 128, 63, 384, wide, False),
+        ("w500_f32", 2, 63, 128, 500, wide, False),
+        ("w512_f32", 2, 129, 127, 512, wide, False),
+        ("w512s_f32", 1, 33, 17, 512, wide, False),
+        ("offset512_f32", 1, 200, 150, 512, wide, "offset"),
     ]
     entries = []
     for label, bh, tq, tk, d, names, timed in shapes:
@@ -540,29 +560,29 @@ def flash_f32_phase() -> list:
         for name in names:
             got = dict(zip(keys[name], calls[name]()))
             torch.cuda.synchronize()
-            if name == "flash_fwd":  # no atomics: the same bytes on a second launch
+            if name != "flash_bwd_fused":  # no atomics: the same bytes on a second launch
                 again = calls[name]()
                 torch.cuda.synchronize()
                 same = all(torch.equal(a.view(torch.int32), b.view(torch.int32))
                            for a, b in zip(got.values(), again))
-                kernel, dp = flash.f32_fwd_kernel(d)
-                print(f"  flash_fwd {label} fp32 [{bh},{tq},{tk},{d}]: {kernel} (padded width "
+                kernel, dp = (flash.f32_fwd_kernel if name == "flash_fwd"
+                              else flash.f32_split_kernel)(d)
+                print(f"  {name} {label} fp32 [{bh},{tq},{tk},{d}]: {kernel} (padded width "
                       f"{dp}), {'the same' if same else 'OTHER'} bytes on two launches")
-                require(same, f"flash_fwd (fp32) gives other bytes on a second launch at {label}")
+                require(same, f"{name} (fp32) gives other bytes on a second launch at {label}")
             max_err = 0.0
             for key, val in got.items():
                 require(val.dtype == torch.float32, f"{name} returned {val.dtype} on fp32")
                 err = (val - want[key]).abs().max().item()
                 scale = want[key].abs().max().item()
                 # nothing rounded to bf16: fp32 FMA on the CUDA cores (D <=
-                # 128 and the backward), where only the summation order
-                # differs from the plain version (~1e-6 relative), or past
-                # D = 128 in the forward 3xTF32 products on the tensor
+                # 128), where only the summation order differs from the
+                # plain version (~1e-6 relative), or past D = 128 (the
+                # forward and the split pair) 3xTF32 products on the tensor
                 # cores (~1e-6 a product; their sums round toward zero, so
-                # each v chunk's are summed apart and added to o in fp32),
-                # within ~2e-5 of the largest |o| of fp64 attention; 1e-4 of
-                # the largest magnitude (lse: 1e-4 absolute) is the
-                # tolerance
+                # each chunk's are summed apart and added in fp32), within
+                # ~2e-5 of the largest output of fp64 attention; 1e-4 of the
+                # largest magnitude (lse: 1e-4 absolute) is the tolerance
                 tol = 1e-4 if key == "lse" else 1e-4 * scale
                 ok = math.isfinite(err) and err <= tol
                 print(f"  {name} {label} fp32 {key}: max_abs_err {err:.3e} (tol {tol:.3e}) "
@@ -595,7 +615,57 @@ def flash_f32_phase() -> list:
                             "library_ms": lib_ms})
         del ref, ref_o
         torch.cuda.empty_cache()
+    entries += split_fp64_check(gen)
     return entries
+
+
+def split_fp64_check(gen) -> list:
+    """The fp32 split pair against fp64 attention gradients where its sums
+    are long: dq sums over 16384 kv rows ([1,2048,16384,512]), dk and dv over
+    16384 q rows ([1,16384,2048,512]). The inputs' lse and delta come from
+    fp64 and are rounded to fp32, so the error is the pair's own; the plain
+    fp32 version's error on the same inputs stands beside it. Returns one
+    record per (kernel, shape) with both errors over the largest |output|."""
+    import torch
+
+    from distdiff_tpu_torch.ops import flash
+
+    dev = torch.device("cuda")
+    out = []
+    for name, (bh, tq, tk, d) in (("flash_bwd_dq", (1, 2048, 16384, 512)),
+                                  ("flash_bwd_dkv", (1, 16384, 2048, 512))):
+        q, do = (torch.randn(bh, tq, d, generator=gen, device=dev) for _ in range(2))
+        k, v = (torch.randn(bh, tk, d, generator=gen, device=dev) for _ in range(2))
+        q64, k64, v64, do64 = (x.double() for x in (q, k, v, do))
+        s = torch.matmul(q64, k64.transpose(1, 2)) * d ** -0.5
+        lse64 = torch.logsumexp(s, dim=-1)
+        p = torch.exp(s - lse64[..., None])
+        del s
+        delta64 = (torch.matmul(p, v64) * do64).sum(-1)
+        ds = p * (torch.matmul(do64, v64.transpose(1, 2)) - delta64[..., None]) * d ** -0.5
+        want = ((torch.matmul(ds, k64),) if name == "flash_bwd_dq" else
+                (torch.matmul(ds.transpose(1, 2), q64), torch.matmul(p.transpose(1, 2), do64)))
+        del p, ds
+        lse, delta = lse64.float(), delta64.float()
+        if name == "flash_bwd_dq":
+            got = (flash.flash_bwd_dq(q, k, v, do, lse, delta),)
+            plain = flash._grads_from_delta(q, k, v, do, lse, delta)[:1]
+        else:
+            got = flash.flash_bwd_dkv(q, k, v, do, lse, delta)
+            plain = flash._grads_from_delta(q, k, v, do, lse, delta)[1:]
+        torch.cuda.synchronize()
+        err = max(float((g.double() - w).abs().max() / w.abs().max()) for g, w in zip(got, want))
+        err_plain = max(float((g.double() - w).abs().max() / w.abs().max())
+                        for g, w in zip(plain, want))
+        ok = math.isfinite(err) and err <= 1e-4
+        print(f"  {name} fp32 [{bh},{tq},{tk},{d}] against fp64: max |err| / max |out| "
+              f"{err:.3e} (plain fp32 {err_plain:.3e}; tol 1e-4) {'ok' if ok else 'FAIL'}")
+        require(ok, f"{name} (fp32) strays from fp64 at [{bh},{tq},{tk},{d}]")
+        out.append({"name": name, "cell": "fp64_long", "shape": [bh, tq, tk, d],
+                    "dtype": "fp32", "rel_err_fp64": err, "plain_rel_err_fp64": err_plain})
+        del want, got, plain
+        torch.cuda.empty_cache()
+    return out
 
 
 # ----------------------------------------------------------- GroupNorm plan
@@ -1163,6 +1233,14 @@ def fp32_agreement_phase() -> None:
                   f"{'%s (padded width %d)' % flash.f32_fwd_kernel(shape[3])}")
         require(any(flash.f32_fwd_kernel(shape[3])[0] == "flash_fwd_f32_wide_kernel"
                     for shape in fwd), "no fp32 attention took the wide tensor-core kernel")
+        pair = {(name, shape): c for (name, shape), c in flash.launch_shapes.items()
+                if name in ("flash_bwd_dq", "flash_bwd_dkv")}
+        for (name, shape), c in sorted(pair.items()):
+            print(f"  {name} fp32 {list(shape)}: {c} launches, "
+                  f"{'%s (padded width %d)' % flash.f32_split_kernel(shape[3])}")
+        require(pair and all(flash.f32_split_kernel(shape[3])[0] == "flash_bwd_f32_split_kernel"
+                             for _, shape in pair),
+                "an fp32 split launch did not take the tensor-core kernel")
         agree(zip(("image", "updated latents", "guidance score"), got, want))
     print(f"  (CPU run {cpu_s:.1f} s)")
     require(all(c > 0 for c in launched.values()), f"a kernel was not launched: {launched}")

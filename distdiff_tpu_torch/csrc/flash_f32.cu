@@ -9,30 +9,32 @@
 // let the port do the same on the card. They compute the same functions as
 // the bf16 kernels, on fp32 q/k/v/do with fp32 outputs, and round nothing
 // to bf16. Two kinds of arithmetic, both to fp32 accuracy:
-//   * the wide forward (flash_fwd_f32 at 128 < D <= 512, below) runs both
-//     of its products on the TF32 tensor cores as 3xTF32: each operand x
-//     is split into a high part (its top 19 bits, which is what the tensor
-//     cores read of a register) and a low part x - hi (exact in fp32), and
-//     a b is formed as lo(a) hi(b) + hi(a) lo(b) + hi(a) hi(b) with fp32
-//     accumulation. What is left out, lo(a) lo(b) and the low part's own
-//     truncation, is ~2^-20 of a term, where one TF32 product loses ~2^-11;
-//     with the tensor cores' truncated sums the result stays within ~2e-5
-//     of the largest output of fp64 attention, where one TF32 product
-//     would be ~5e-4 off;
-//   * the others (flash_fwd_f32 at D <= 128 and the three backward
-//     kernels) are fp32 fused multiply-adds on the CUDA cores (no tensor
-//     cores), so they agree with the plain fp32 version to summation order.
+//   * past D = 128 (128 < D <= 512: the wide forward and the split
+//     backward pair, below) every product runs on the TF32 tensor cores as
+//     3xTF32: each operand x is split into a high part (its top 19 bits,
+//     which is what the tensor cores read of a register) and a low part
+//     x - hi (exact in fp32), and a b is formed as lo(a) hi(b) + hi(a) lo(b)
+//     + hi(a) hi(b) with fp32 accumulation. What is left out, lo(a) lo(b)
+//     and the low part's own truncation, is ~2^-20 of a term, where one
+//     TF32 product loses ~2^-11; with the tensor cores' truncated sums the
+//     result stays within ~2e-5 of the largest output of fp64 attention,
+//     where one TF32 product would be ~5e-4 off;
+//   * up to D = 128 (flash_fwd_f32, flash_bwd_fused_f32, and the split
+//     pair's narrow instances, which no path launches: flash_bwd takes the
+//     fused kernel there) fp32 fused multiply-adds on the CUDA cores (no
+//     tensor cores), so they agree with the plain fp32 version to
+//     summation order.
 //
 // What bounds them on this card: their products. The CUDA-core kernels
-// are held by the fp32 FMA rate (67 TFLOP/s on the H100 SXM), the wide
-// forward by the TF32 tensor-core rate (495 TFLOP/s, three products for
-// each fp32 one) and by the instructions that feed mma.sync. The CUDA-core
+// are held by the fp32 FMA rate (67 TFLOP/s on the H100 SXM), the
+// tensor-core ones by the TF32 rate (495 TFLOP/s, three products for each
+// fp32 one) and by the instructions that feed mma.sync. The CUDA-core
 // kernels are simple, not fast: the fp32 path serves the small test
 // geometries, and the SD-1.5 path is bf16.
 //
 // Design of the CUDA-core kernels (one warp = 32 lanes; DP = head width
-// rounded up to 32, 64 or 128 (and 256 or 512 for the backward); NC = DP / 32
-// columns of an output row per lane):
+// rounded up to 32, 64 or 128; NC = DP / 32 columns of an output row per
+// lane):
 //   * flash_fwd_f32 (D <= 128): a block of four warps takes 4 * RW q rows (RW per
 //     warp) and loops over 32-row kv tiles in shared memory. Lane j forms
 //     the score of kv row j against each of its warp's q rows; the online
@@ -54,6 +56,9 @@
 #include <math.h>
 #include <stddef.h>
 #include <stdint.h>
+#include <string.h>
+
+#include "hopper.cuh"
 
 namespace flash32 {
 
@@ -256,6 +261,13 @@ __device__ __forceinline__ void cp_commit() {
 template <int N>
 __device__ __forceinline__ void cp_wait() {
   asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+// One arrival on `bar` once this thread's cp.async copies so far have
+// landed (the barrier's count includes it)
+__device__ __forceinline__ void cp_async_arrive(uint64_t* bar) {
+  asm volatile("cp.async.mbarrier.arrive.noinc.shared::cta.b64 [%0];\n" ::"r"(smem_u32(bar))
+               : "memory");
 }
 
 // Four 8 x 4 fp32 blocks (8 x 8 b16) from shared memory: lane l gives the
@@ -789,6 +801,424 @@ dkv_kernel(const float* __restrict__ q, const float* __restrict__ k,
   }
 }
 
+// ------------------------------------- split backward on 3xTF32 products
+//
+// flash_bwd_dq_f32 and flash_bwd_dkv_f32 for 128 < D <= 512 (instances
+// DMAX = 256 and 512), in place of the Pallas `_dq_kernel` and
+// `_dkv_kernel` on fp32 slabs: from the forward's lse and delta =
+// rowsum(o do), s = scale q k^T, p = exp(s - lse), dp = do v^T,
+// ds = p (dp - delta) scale, then dq = ds k, or dk = ds^T q and dv = p^T do.
+//
+// What bounds it: three (dq) or four (dk, dv) products of 2 BH Tq Tk D
+// flops, each fp32 product as three TF32 ones at 495 TFLOP/s (0.62 and
+// 0.83 ms at [2, 4096, 4096, 512]), on mma.sync (324 TFLOP/s of TF32 on
+// the H100): wgmma takes TF32 only K-major, and the output products'
+// stream operand (k, q, do) is MN-major. What holds it on the card: the
+// work around the products (fragment loads and their hi/lo splits, the
+// partial sums, the slots' hand-offs) at two warps a scheduler, then the
+// products; every block reads the whole other side from L2 (4 GiB a
+// launch at [2, 4096, 4096, 512]).
+//
+// Design: one block template in two roles. A block of NW = DMAX / 64 warps
+// (and, in dq at DMAX 512, a ninth, producer warp) keeps BM = 32 rows of
+// two "resident" tiles X, Y in shared memory for the whole walk and streams
+// BN = 16-row tiles of the other side, U and W:
+//   dq  role: X = q, Y = do (rows of q), U = k, W = v;
+//             s = X U^T, dp = Y W^T, ds by row (lse, delta of X's rows),
+//             dq += ds U;
+//   dkv role: X = k, Y = v (rows of k), U = q, W = do;
+//             s^T = X U^T, dp^T = Y W^T, p^T and ds^T by column (lse,
+//             delta of U's rows), dk += ds^T U and dv += p^T W.
+// The roles share everything but the statistics and the second output, so
+// dk and dv come from one score tile: four products, as the reference's
+// pass forms them, with 2 x 64 accumulators a thread at DMAX 512 (8 warps,
+// up to 255 registers). Two 32-row tiles take 132 KB at DMAX 512 (64 rows
+// would take 264 KB, more than a block may have).
+//   * the stream: each 16-row tile is DMAX / 64 chunk pairs (64 columns of
+//     U and of W) in a FIFO ring of RING pair slots (9 at DMAX 512: a tile
+//     and one pair ahead; 4 at 256, two blocks an SM). A chunk is one TMA
+//     box of 16 rows x 68 columns, zero past the slab: the four columns
+//     past the chunk pad its rows to 4 (mod 32) floats, so the ldmatrix
+//     rows and the phase-2 loads of rows 2t, 2t + 1 are free of bank
+//     conflicts and every fragment address is a lane base plus a constant.
+//     Where d % 4 != 0 or a base is off 16 bytes, a warp's lanes copy
+//     4-byte words with cp.async instead. Either completes on the slot's
+//     full mbarrier, on which phase 1 waits. A pair is read by the score
+//     products (phase 1) and again by the output products (phase 2); then
+//     its slot takes the pair RING further on, refilled by the last warp
+//     to leave it (a counter a slot, behind a fence) or, in dq at DMAX 512,
+//     by a producer warp waiting on the slot's empty mbarrier, on which
+//     each warp arrives as it leaves. There the fence and the counter took
+//     a quarter of the time (a chunk holds one output product), and dq's
+//     registers leave room for a ninth warp (a block of 9-12 warps gets 168
+//     registers a thread; dk and dv's accumulators need more); at DMAX 256
+//     two blocks an SM hide each other's releases. No barrier a chunk: two
+//     named barriers of the consumers a tile, around the partial sums.
+//   * phase 1, s and dp over the head columns: warp w forms all 32 x 16 of
+//     s (w even) or dp (w odd) over 16 / NW k-steps of each chunk
+//     (ldmatrix of fp32 words as b16 pairs, both operands K-major); each
+//     chunk's products are summed from zero and added to the warp's partial
+//     sums in fp32 (the tensor cores' sums round toward zero relative to
+//     what they add to). The NW / 2 partial sums of each meet in shared
+//     memory (float4 by lane), and each warp adds those of its 16 rows in
+//     one fixed order: warps that share rows form the same s and dp.
+//   * p and ds on the fragments (exp2 of s scale log2 e - lse log2 e,
+//     masked past the stream's rows), kept in registers as the A operand of
+//     phase 2: the m16n8 accumulator's (row g, columns 2t, 2t + 1) are the
+//     m16n8k8 A fragment's (row g, k t) and (row g, k t + 4) once the
+//     k-step's rows are taken in the order 0, 2, 4, 6, 1, 3, 5, 7; so no
+//     shuffle, and the B fragments (the stream tile, MN-major, 32-bit loads)
+//     read rows 2t and 2t + 1.
+//   * phase 2, the outputs: for each chunk, warp w owns 16 rows (w & 1) and
+//     16 / NW n-tiles of the chunk's 64 columns; each k-step's products are
+//     summed from zero and added to the fp32 accumulators. The outputs are
+//     written once at the end; ragged rows are never written.
+// No atomics on the outputs: the same bytes on every launch.
+
+template <int DMAX, bool PROD>
+struct SplitCfg {
+  static constexpr int NW = DMAX / 64;    // consumer warps
+  static constexpr int THREADS = 32 * (NW + PROD);  // and the producer warp
+  static constexpr int BM = 32, BN = 16;  // resident rows a block, stream rows a tile
+  static constexpr int NCH = DMAX / 64;   // 64-column chunks of a row
+  static constexpr int KPW = 16 / NW;     // phase 1: k-steps a warp takes of a chunk
+  static constexpr int NPW = 16 / NW;     // phase 2: n-tiles a warp owns of a chunk
+  // row strides in floats, 4 (mod 32): ldmatrix rows and the phase-2
+  // loads of rows 2t, 2t + 1 hit other banks
+  static constexpr int LDR = DMAX + 4, LDC = 64 + 4;
+  static constexpr int CHUNK = BN * LDC;  // one chunk of U or W: one TMA box
+  static constexpr int RING = DMAX == 512 ? 9 : 4;  // pair slots
+  // the ring (128-byte aligned for TMA), the tiles, the partial sums; then
+  // a full mbarrier and an empty one (or a release counter) a slot (16
+  // bytes), and 128 bytes of alignment
+  static constexpr size_t SMEM =
+      sizeof(float) * ((size_t)RING * 2 * CHUNK + 2 * (size_t)BM * LDR + (size_t)NW * 4 * 4 * 32) +
+      16 * (size_t)RING + 128;
+};
+
+// Tensor map of a contiguous fp32 [bh, t, d] tensor read in boxes of 16
+// rows x 68 columns of one b*h slab, zero past t and d. Needs d % 4 == 0
+// and a 16-byte aligned base.
+inline int f32_box_map(CUtensorMap* map, const void* base, int bh, int t, int d) {
+  hopper::EncodeTiledFn fn = hopper::encode_tiled();
+  if (!fn) return (int)cudaErrorNotSupported;
+  const cuuint64_t dims[3] = {(cuuint64_t)d, (cuuint64_t)t, (cuuint64_t)bh};
+  const cuuint64_t strides[2] = {(cuuint64_t)d * 4, (cuuint64_t)t * d * 4};
+  const cuuint32_t box[3] = {68, 16, 1};
+  const cuuint32_t estr[3] = {1, 1, 1};
+  CUresult r = fn(map, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, 3, const_cast<void*>(base), dims, strides,
+                  box, estr, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_NONE,
+                  CU_TENSOR_MAP_L2_PROMOTION_L2_128B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  return r == CUDA_SUCCESS ? 0 : (int)cudaErrorInvalidValue;
+}
+
+// whether the block has the producer warp: dq at DMAX 512
+template <int DMAX, bool DKV>
+struct SplitProducer {
+  static constexpr bool value = !DKV && DMAX == 512;
+};
+
+template <int DMAX, bool DKV, bool VEC>
+__global__ void __launch_bounds__(SplitCfg<DMAX, SplitProducer<DMAX, DKV>::value>::THREADS, 1)
+flash_bwd_f32_split_kernel(const __grid_constant__ CUtensorMap umap,
+                           const __grid_constant__ CUtensorMap wmap, const float* __restrict__ q,
+                           const float* __restrict__ k, const float* __restrict__ v,
+                           const float* __restrict__ dout,
+                           const float* __restrict__ lse, const float* __restrict__ delta,
+                           float* __restrict__ out0, float* __restrict__ out1, int tq, int tk,
+                           int d, float scale) {
+  constexpr bool PROD = SplitProducer<DMAX, DKV>::value;
+  typedef SplitCfg<DMAX, PROD> C;
+  constexpr int BM = C::BM, BN = C::BN, NCH = C::NCH, RING = C::RING;
+  constexpr int KPW = C::KPW, NPW = C::NPW, LDR = C::LDR, LDC = C::LDC;
+  extern __shared__ __align__(16) uint8_t smem_raw[];
+  float* ring = reinterpret_cast<float*>(
+      smem_raw + ((128u - (hopper::smem_addr(smem_raw) & 127u)) & 127u));  // [RING][U, W][BN][LDC]
+  float* Xs = ring + RING * 2 * C::CHUNK;
+  float* Ys = Xs + BM * LDR;
+  float4* red = reinterpret_cast<float4*>(Ys + BM * LDR);  // [NW][4][32]
+  uint64_t* full = reinterpret_cast<uint64_t*>(red + C::NW * 4 * 32);   // [RING]
+  uint64_t* empty = full + RING;                  // [RING], with the producer
+  int* released = reinterpret_cast<int*>(empty);  // [RING], without it
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int g = lane >> 2, t4 = lane & 3;
+  const int bh = blockIdx.y, r0 = blockIdx.x * BM;
+  const int nres = DKV ? tk : tq, nstr = DKV ? tq : tk;
+  const size_t roff = (size_t)bh * nres * d, soff = (size_t)bh * nstr * d;
+  const float* Ug = (DKV ? q : k) + soff;
+  const float* Wg = (DKV ? dout : v) + soff;
+  const float* lse_b = lse + (size_t)bh * tq;
+  const float* dl_b = delta + (size_t)bh * tq;
+  const float sl2 = scale * LOG2E;
+  const int d8 = (d + 7) & ~7;      // columns the k-steps read (zero past d)
+  const int nc = (d8 + 63) >> 6;    // chunk pairs a tile
+  const int ntile = (nstr + BN - 1) / BN;
+  const int npair = ntile * nc;
+
+  // chunk pair p (tile p / nc, chunk p % nc) of U and W into ring slot
+  // `slot`, by one warp, completing on full[slot]
+  auto load_pair = [&](int p, int slot) {
+    const int row0 = (p / nc) * BN, c0 = 64 * (p % nc);
+    float* dst = ring + slot * 2 * C::CHUNK;
+    if (VEC) {  // lane 0: one box of U and one of W
+      if (lane == 0) {
+        hopper::mbar_arrive_tx(full + slot, 2 * C::CHUNK * 4);
+        hopper::tma_load_3d(dst, &umap, c0, row0, bh, full + slot);
+        hopper::tma_load_3d(dst + C::CHUNK, &wmap, c0, row0, bh, full + slot);
+      }
+    } else {
+      for (int i = lane; i < 2 * BN * 64; i += 32) {
+        const int w = i / (BN * 64), r = (i / 64) % BN, col = i % 64;
+        if (c0 + col >= d8) continue;
+        const bool in = row0 + r < nstr && c0 + col < d;
+        const float* src = (w ? Wg : Ug) + (in ? (size_t)(row0 + r) * d + c0 + col : 0);
+        cp_async4(smem_u32(dst + w * C::CHUNK + r * LDC + col), src, in ? 4 : 0);
+      }
+      cp_async_arrive(full + slot);
+    }
+  };
+
+  // the barriers set up, the resident tiles in, the first RING pairs on
+  // their way
+  if (threadIdx.x < RING) {
+    hopper::mbar_init(full + threadIdx.x, VEC ? 1 : 32);
+    if (PROD)
+      hopper::mbar_init(empty + threadIdx.x, C::NW);
+    else
+      released[threadIdx.x] = 0;
+  }
+  hopper::mbar_init_fence();
+  load_tile<VEC, C::THREADS, BM, DMAX>(Xs, LDR, (DKV ? k : q) + roff, r0, nres, 0, d8, d);
+  load_tile<VEC, C::THREADS, BM, DMAX>(Ys, LDR, (DKV ? v : dout) + roff, r0, nres, 0, d8, d);
+  cp_commit();
+  __syncthreads();
+  if (warp == (PROD ? C::NW : 0))
+    for (int p = 0; p < min(RING, npair); ++p) load_pair(p, p);
+  cp_wait<0>();
+  __syncthreads();  // the resident tiles are in
+
+  if (PROD && warp == C::NW) {  // the producer: each slot refilled once the consumers left it
+    for (int p = RING; p < npair; ++p) {
+      const int slot = p % RING;
+      hopper::mbar_wait(empty + slot, (p / RING - 1) & 1);
+      load_pair(p, slot);
+    }
+    if (!VEC) asm volatile("cp.async.wait_all;\n" ::: "memory");
+    return;
+  }
+
+  // phase 1: s (mat 0) or dp (mat 1), all 32 x 16, over k-steps kq * KPW ..
+  const int mat = warp & 1, kq = warp >> 1;
+  const float* a_ptr =
+      (mat ? Ys : Xs) + ((lane & 7) + 8 * ((lane >> 3) & 1)) * LDR + 4 * (lane >> 4);
+  const int b_off = mat * C::CHUNK + ((lane & 7) + 8 * (lane >> 4)) * LDC + 4 * ((lane >> 3) & 1);
+  // phase 2 and the outputs: rows 16 mi + g (+ 8), n-tiles nq * NPW .. of
+  // each chunk; stream rows 2 t4 (+ 1) of each k-step
+  const int mi = warp & 1, nq = warp >> 1;
+  const int p2_off = 2 * t4 * LDC + 8 * nq * NPW + g;
+  // dq: the statistics of the lane's two q rows
+  float lse_r[2] = {0.f, 0.f}, dl_r[2] = {0.f, 0.f};
+  if (!DKV) {
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int row = min(r0 + 16 * mi + g + 8 * h, tq - 1);
+      lse_r[h] = lse_b[row] * LOG2E;
+      dl_r[h] = dl_b[row];
+    }
+  }
+  float acc0[NCH][NPW][4], acc1[DKV ? NCH : 1][NPW][4];
+#pragma unroll
+  for (int c = 0; c < NCH; ++c)
+#pragma unroll
+    for (int n = 0; n < NPW; ++n)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        acc0[c][n][e] = 0.f;
+        acc1[DKV ? c : 0][n][e] = 0.f;
+      }
+
+  int slot0 = 0, phase0 = 0;  // the ring slot of the tile's first pair, its fill's parity
+#pragma unroll 1
+  for (int j = 0; j < ntile; ++j) {
+    // dkv: the statistics of the lane's four q columns, read while phase 1 runs
+    float lse_c[2][2] = {}, dl_c[2][2] = {};
+    if (DKV) {
+#pragma unroll
+      for (int n = 0; n < 2; ++n)
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          const int row = min(j * BN + 8 * n + 2 * t4 + e, tq - 1);
+          lse_c[n][e] = __ldg(lse_b + row) * LOG2E;
+          dl_c[n][e] = __ldg(dl_b + row);
+        }
+    }
+    float part[2][2][4];
+#pragma unroll
+    for (int m = 0; m < 2; ++m)
+#pragma unroll
+      for (int n = 0; n < 2; ++n)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) part[m][n][e] = 0.f;
+    int slot = slot0, phase = phase0;
+#pragma unroll
+    for (int c = 0; c < NCH; ++c) {
+      if (c < nc) {
+        hopper::mbar_wait(full + slot, phase);  // pair (j, c) is in
+        const float* bp = ring + slot * 2 * C::CHUNK + b_off;
+        float t[2][2][4];
+#pragma unroll
+        for (int m = 0; m < 2; ++m)
+#pragma unroll
+          for (int n = 0; n < 2; ++n)
+#pragma unroll
+            for (int e = 0; e < 4; ++e) t[m][n][e] = 0.f;
+#pragma unroll
+        for (int kk = 0; kk < KPW; ++kk) {
+          const int ks = kq * KPW + kk;
+          if (64 * c + 8 * ks < d8) {
+            uint32_t a[2][4], al[2][4], b[4], bl[4];
+#pragma unroll
+            for (int m = 0; m < 2; ++m) {
+              ldsm4(a[m], a_ptr + 16 * m * LDR + 64 * c + 8 * ks);
+#pragma unroll
+              for (int e = 0; e < 4; ++e) al[m][e] = tf32_lo(a[m][e]);
+            }
+            ldsm4(b, bp + 8 * ks);
+#pragma unroll
+            for (int e = 0; e < 4; ++e) bl[e] = tf32_lo(b[e]);
+#pragma unroll
+            for (int m = 0; m < 2; ++m)
+#pragma unroll
+              for (int n = 0; n < 2; ++n)
+                mma3(t[m][n], a[m], al[m], b[2 * n], b[2 * n + 1], bl[2 * n], bl[2 * n + 1]);
+          }
+        }
+#pragma unroll
+        for (int m = 0; m < 2; ++m)
+#pragma unroll
+          for (int n = 0; n < 2; ++n)
+#pragma unroll
+            for (int e = 0; e < 4; ++e) part[m][n][e] += t[m][n][e];
+        if (++slot == RING) slot = 0, phase ^= 1;
+      }
+    }
+
+    // the partial sums meet: s of rows 16 mi .. from warps 0, 2, ..; dp
+    // from warps 1, 3, ..
+#pragma unroll
+    for (int m = 0; m < 2; ++m)
+#pragma unroll
+      for (int n = 0; n < 2; ++n)
+        red[(warp * 4 + 2 * m + n) * 32 + lane] =
+            make_float4(part[m][n][0], part[m][n][1], part[m][n][2], part[m][n][3]);
+    hopper::named_sync(1, 32 * C::NW);
+    const int nvalid = nstr - j * BN;
+    uint32_t pa[2][4], pal[2][4], da[2][4], dal[2][4];  // A fragments of p and ds by k-step
+#pragma unroll
+    for (int n = 0; n < 2; ++n) {
+      float s[4] = {0.f, 0.f, 0.f, 0.f}, dp[4] = {0.f, 0.f, 0.f, 0.f};
+#pragma unroll
+      for (int w = 0; w < C::NW; w += 2) {
+        const float4 x = red[(w * 4 + 2 * mi + n) * 32 + lane];
+        const float4 y = red[((w + 1) * 4 + 2 * mi + n) * 32 + lane];
+        s[0] += x.x, s[1] += x.y, s[2] += x.z, s[3] += x.w;
+        dp[0] += y.x, dp[1] += y.y, dp[2] += y.z, dp[3] += y.w;
+      }
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int col = 8 * n + 2 * t4 + (e & 1);
+        const float L = DKV ? lse_c[n][e & 1] : lse_r[e >> 1];
+        const float dl = DKV ? dl_c[n][e & 1] : dl_r[e >> 1];
+        const float p = col < nvalid ? exp2f(fmaf(s[e], sl2, -L)) : 0.f;
+        const float ds = p * (dp[e] - dl) * scale;
+        const int ai = ((e & 1) << 1) | (e >> 1);  // (row, column 2t + 1) -> k t + 4
+        pa[n][ai] = __float_as_uint(p);
+        da[n][ai] = __float_as_uint(ds);
+      }
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        pal[n][e] = tf32_lo(pa[n][e]);
+        dal[n][e] = tf32_lo(da[n][e]);
+      }
+    }
+    hopper::named_sync(1, 32 * C::NW);  // every consumer has read the partial sums
+
+    // phase 2: out0 += ds U (dq, dk), out1 += p W (dv), chunk by chunk;
+    // then the pair's slot takes the pair RING further on
+    slot = slot0;
+#pragma unroll
+    for (int c = 0; c < NCH; ++c) {
+      if (c < nc) {
+        const float* bp = ring + slot * 2 * C::CHUNK + p2_off;
+#pragma unroll
+        for (int n = 0; n < NPW; ++n) {
+          if (64 * c + 8 * (nq * NPW + n) < d8) {
+            float t0[2][4], t1[2][4];
+#pragma unroll
+            for (int kk = 0; kk < 2; ++kk) {
+#pragma unroll
+              for (int e = 0; e < 4; ++e) t0[kk][e] = t1[kk][e] = 0.f;
+              const float* bu = bp + 8 * kk * LDC + 8 * n;
+              const uint32_t u0 = __float_as_uint(bu[0]), u1 = __float_as_uint(bu[LDC]);
+              mma3(t0[kk], da[kk], dal[kk], u0, u1, tf32_lo(u0), tf32_lo(u1));
+              if (DKV) {
+                const uint32_t w0 = __float_as_uint(bu[C::CHUNK]);
+                const uint32_t w1 = __float_as_uint(bu[C::CHUNK + LDC]);
+                mma3(t1[kk], pa[kk], pal[kk], w0, w1, tf32_lo(w0), tf32_lo(w1));
+              }
+            }
+#pragma unroll
+            for (int e = 0; e < 4; ++e) {
+              acc0[c][n][e] += t0[0][e] + t0[1][e];
+              if (DKV) acc1[DKV ? c : 0][n][e] += t1[0][e] + t1[1][e];
+            }
+          }
+        }
+        __syncwarp();  // the warp is done with pair (j, c)
+        if (PROD) {
+          if (lane == 0) hopper::mbar_arrive(empty + slot);
+        } else {  // the last warp to leave the slot refills it
+          int last = 0;
+          if (lane == 0) {
+            __threadfence_block();
+            last = atomicAdd(released + slot, 1) == C::NW - 1;
+            if (last) released[slot] = 0;
+          }
+          const int p = (j * nc + c) + RING;
+          if (__shfl_sync(0xffffffffu, last, 0) && p < npair) load_pair(p, slot);
+        }
+        if (++slot == RING) slot = 0;
+      }
+    }
+    phase0 ^= (slot0 + nc) / RING & 1;
+    slot0 = slot;
+  }
+
+  // the outputs: rows 16 mi + g (+ 8) of the block, ragged rows and
+  // columns never written
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const int row = r0 + 16 * mi + g + 8 * h;
+    if (row >= nres) continue;
+    float* o0 = out0 + roff + (size_t)row * d;
+    float* o1 = DKV ? out1 + roff + (size_t)row * d : nullptr;
+#pragma unroll
+    for (int c = 0; c < NCH; ++c)
+#pragma unroll
+      for (int n = 0; n < NPW; ++n) {
+        const int col = 64 * c + 8 * (nq * NPW + n) + 2 * t4;
+        if (col < d) {
+          o0[col] = acc0[c][n][2 * h];
+          if (DKV) o1[col] = acc1[DKV ? c : 0][n][2 * h];
+        }
+        if (col + 1 < d) {
+          o0[col + 1] = acc0[c][n][2 * h + 1];
+          if (DKV) o1[col + 1] = acc1[DKV ? c : 0][n][2 * h + 1];
+        }
+      }
+  }
+}
+
 // --------------------------------------------------------------- launchers
 
 template <int DP>
@@ -846,13 +1276,12 @@ int launch_dq(const void* q, const void* k, const void* v, const void* dout,
   return (int)cudaGetLastError();
 }
 
-// RW kv rows a warp: 8 up to D = 128, fewer at the wide widths so that the
-// dk and dv accumulators (2 * RW * DP / 32 registers) stay at 64
+// RW = 8 kv rows a warp (D <= 128)
 template <int DP, bool DQ>
 int launch_dkv(const void* q, const void* k, const void* v, const void* dout,
                const void* lse, const void* delta, void* dq, void* dk, void* dv, int bh,
                int tq, int tk, int d, float scale, cudaStream_t s) {
-  constexpr int RW = DP <= 128 ? 8 : (DP == 256 ? 4 : 2);
+  constexpr int RW = 8;
   typedef DkvCfg<DP, RW, DQ> C;
   auto kern = dkv_kernel<DP, RW, DQ>;
   cudaError_t err = set_smem(kern, C::SMEM);
@@ -864,32 +1293,63 @@ int launch_dkv(const void* q, const void* k, const void* v, const void* dout,
   return (int)cudaGetLastError();
 }
 
+template <int DMAX, bool DKV, bool VEC>
+int run_bwd_split(const float* q, const float* k, const float* v, const float* dout,
+                  const float* lse, const float* delta, float* out0, float* out1, int bh, int tq,
+                  int tk, int d, float scale, cudaStream_t s) {
+  typedef SplitCfg<DMAX, SplitProducer<DMAX, DKV>::value> C;
+  CUtensorMap maps[2];
+  memset(maps, 0, sizeof(maps));
+  if (VEC) {  // the stream: U = k, W = v (dq) or U = q, W = do (dkv)
+    const int nstr = DKV ? tq : tk;
+    int rc = f32_box_map(&maps[0], DKV ? q : k, bh, nstr, d);
+    if (rc == 0) rc = f32_box_map(&maps[1], DKV ? dout : v, bh, nstr, d);
+    if (rc != 0) return rc;
+  }
+  auto kern = flash_bwd_f32_split_kernel<DMAX, DKV, VEC>;
+  cudaError_t err = set_smem(kern, C::SMEM);
+  if (err != cudaSuccess) return (int)err;
+  const int nres = DKV ? tk : tq;
+  kern<<<dim3((nres + C::BM - 1) / C::BM, bh), C::THREADS, C::SMEM, s>>>(
+      maps[0], maps[1], q, k, v, dout, lse, delta, out0, out1, tq, tk, d, scale);
+  return (int)cudaGetLastError();
+}
+
+// the split pair's tensor-core instance in role dq (out0 = dq) or dkv
+// (out0 = dk, out1 = dv): 16-byte copies where the rows are whole vectors
+// and the bases 16-byte aligned, 4-byte copies otherwise
+template <int DMAX, bool DKV>
+int launch_bwd_split(const void* q, const void* k, const void* v, const void* dout,
+                     const void* lse, const void* delta, void* out0, void* out1, int bh, int tq,
+                     int tk, int d, float scale, cudaStream_t s) {
+  const uintptr_t bases = reinterpret_cast<uintptr_t>(q) | reinterpret_cast<uintptr_t>(k) |
+                          reinterpret_cast<uintptr_t>(v) | reinterpret_cast<uintptr_t>(dout);
+  const bool vec = d % 4 == 0 && bases % 16 == 0;
+  const float *qf = (const float*)q, *kf = (const float*)k, *vf = (const float*)v;
+  const float *df = (const float*)dout, *lf = (const float*)lse, *dl = (const float*)delta;
+  float *o0 = (float*)out0, *o1 = (float*)out1;
+  if (vec)
+    return run_bwd_split<DMAX, DKV, true>(qf, kf, vf, df, lf, dl, o0, o1, bh, tq, tk, d, scale, s);
+  return run_bwd_split<DMAX, DKV, false>(qf, kf, vf, df, lf, dl, o0, o1, bh, tq, tk, d, scale, s);
+}
+
 inline bool args_ok(int bh, int tq, int tk) {
   return bh > 0 && bh <= 65535 && tq > 0 && tk > 0;
 }
 
 }  // namespace flash32
 
-#define F32_SWITCH(d, call, max_dp)                              \
-  switch (flash32::pad_d(d) <= (max_dp) ? flash32::pad_d(d) : 0) { \
-    case 32: { constexpr int DP = 32; return call; }             \
-    case 64: { constexpr int DP = 64; return call; }             \
-    case 128: { constexpr int DP = 128; return call; }           \
-    case 256: { constexpr int DP = 256; return call; }           \
-    case 512: { constexpr int DP = 512; return call; }           \
-    default: return (int)cudaErrorInvalidValue;                  \
-  }
-
 // The same C interfaces as the bf16 entry points (flash_fwd.cu,
 // flash_bwd.cu), on fp32 tensors: q, k, v, do, o, dq, dk, dv fp32
-// [bh, t, d] contiguous; lse, delta fp32 [bh, tq].
+// [bh, t, d] contiguous; lse, delta fp32 [bh, tq]. Past D = 128 the
+// forward and the split pair take the 3xTF32 tensor-core kernels.
 extern "C" int flash_fwd_f32(const void* q, const void* k, const void* v, void* o,
                              void* lse, int bh, int tq, int tk, int d, float scale,
                              void* stream) {
   using namespace flash32;
   if (!args_ok(bh, tq, tk)) return (int)cudaErrorInvalidValue;
   cudaStream_t s = (cudaStream_t)stream;
-  switch (pad_d(d)) {  // past D = 128: the 3xTF32 tensor-core kernel
+  switch (pad_d(d)) {
     case 32: return launch_fwd<32>(q, k, v, o, lse, bh, tq, tk, d, scale, s);
     case 64: return launch_fwd<64>(q, k, v, o, lse, bh, tq, tk, d, scale, s);
     case 128: return launch_fwd<128>(q, k, v, o, lse, bh, tq, tk, d, scale, s);
@@ -906,6 +1366,17 @@ extern "C" int flash_fwd_f32_smem(int dmax) {
   return dmax == 256 ? (int)WideCfg<256>::SMEM : dmax == 512 ? (int)WideCfg<512>::SMEM : 0;
 }
 
+// Dynamic shared memory of the split pair's tensor-core block in role 0
+// (dq) or 1 (dkv) at dmax (256 or 512; 0 otherwise), for the Python count
+// (ops/flash.py f32_split_smem_bytes); the roles lay it out alike
+extern "C" int flash_bwd_f32_smem(int role, int dmax) {
+  using namespace flash32;
+  if (role != 0 && role != 1) return 0;
+  if (dmax == 256) return (int)SplitCfg<256, false>::SMEM;
+  if (dmax == 512) return role ? (int)SplitCfg<512, false>::SMEM : (int)SplitCfg<512, true>::SMEM;
+  return 0;
+}
+
 // dq: fp32 [bh, tq, d], zeroed by the caller. D <= 128.
 extern "C" int flash_bwd_fused_f32(const void* q, const void* k, const void* v,
                                    const void* dout, const void* lse, const void* delta,
@@ -914,9 +1385,15 @@ extern "C" int flash_bwd_fused_f32(const void* q, const void* k, const void* v,
   using namespace flash32;
   if (!args_ok(bh, tq, tk)) return (int)cudaErrorInvalidValue;
   cudaStream_t s = (cudaStream_t)stream;
-  F32_SWITCH(d, (launch_dkv<DP, true>(q, k, v, dout, lse, delta, dq, dk, dv, bh, tq, tk, d,
-                                      scale, s)),
-             128)
+  switch (pad_d(d)) {
+    case 32: return launch_dkv<32, true>(
+        q, k, v, dout, lse, delta, dq, dk, dv, bh, tq, tk, d, scale, s);
+    case 64: return launch_dkv<64, true>(
+        q, k, v, dout, lse, delta, dq, dk, dv, bh, tq, tk, d, scale, s);
+    case 128: return launch_dkv<128, true>(
+        q, k, v, dout, lse, delta, dq, dk, dv, bh, tq, tk, d, scale, s);
+    default: return (int)cudaErrorInvalidValue;
+  }
 }
 
 extern "C" int flash_bwd_dkv_f32(const void* q, const void* k, const void* v,
@@ -926,9 +1403,19 @@ extern "C" int flash_bwd_dkv_f32(const void* q, const void* k, const void* v,
   using namespace flash32;
   if (!args_ok(bh, tq, tk)) return (int)cudaErrorInvalidValue;
   cudaStream_t s = (cudaStream_t)stream;
-  F32_SWITCH(d, (launch_dkv<DP, false>(q, k, v, dout, lse, delta, nullptr, dk, dv, bh, tq,
-                                       tk, d, scale, s)),
-             512)
+  switch (pad_d(d)) {
+    case 32: return launch_dkv<32, false>(
+        q, k, v, dout, lse, delta, nullptr, dk, dv, bh, tq, tk, d, scale, s);
+    case 64: return launch_dkv<64, false>(
+        q, k, v, dout, lse, delta, nullptr, dk, dv, bh, tq, tk, d, scale, s);
+    case 128: return launch_dkv<128, false>(
+        q, k, v, dout, lse, delta, nullptr, dk, dv, bh, tq, tk, d, scale, s);
+    case 256: return launch_bwd_split<256, true>(
+        q, k, v, dout, lse, delta, dk, dv, bh, tq, tk, d, scale, s);
+    case 512: return launch_bwd_split<512, true>(
+        q, k, v, dout, lse, delta, dk, dv, bh, tq, tk, d, scale, s);
+    default: return (int)cudaErrorInvalidValue;
+  }
 }
 
 extern "C" int flash_bwd_dq_f32(const void* q, const void* k, const void* v,
@@ -938,5 +1425,14 @@ extern "C" int flash_bwd_dq_f32(const void* q, const void* k, const void* v,
   using namespace flash32;
   if (!args_ok(bh, tq, tk)) return (int)cudaErrorInvalidValue;
   cudaStream_t s = (cudaStream_t)stream;
-  F32_SWITCH(d, (launch_dq<DP>(q, k, v, dout, lse, delta, dq, bh, tq, tk, d, scale, s)), 512)
+  switch (pad_d(d)) {
+    case 32: return launch_dq<32>(q, k, v, dout, lse, delta, dq, bh, tq, tk, d, scale, s);
+    case 64: return launch_dq<64>(q, k, v, dout, lse, delta, dq, bh, tq, tk, d, scale, s);
+    case 128: return launch_dq<128>(q, k, v, dout, lse, delta, dq, bh, tq, tk, d, scale, s);
+    case 256: return launch_bwd_split<256, false>(
+        q, k, v, dout, lse, delta, dq, nullptr, bh, tq, tk, d, scale, s);
+    case 512: return launch_bwd_split<512, false>(
+        q, k, v, dout, lse, delta, dq, nullptr, bh, tq, tk, d, scale, s);
+    default: return (int)cudaErrorInvalidValue;
+  }
 }

@@ -17,10 +17,10 @@ warp-specialised TMA/wgmma kernels, whose padded width (0 for the wide
 forward) and load route ``bf16_plan`` chooses, and so is the split
 backward (D > 128), whose load route ``split_plan`` chooses; fp32 goes to
 their fp32 instances (``csrc/flash_f32.cu``), with fp32 outputs: the
-forward past D = 128 on the tensor cores as 3xTF32 (each product formed
-from the operands' high and low TF32 parts, lo·hi + hi·lo + hi·hi, which
-keeps fp32's accuracy where one TF32 product would lose ~3 digits), the
-narrower forward and the backward kernels on CUDA-core fp32 FMA.
+forward and the split backward pair past D = 128 on the tensor cores as
+3xTF32 (each product formed from the operands' high and low TF32 parts,
+lo·hi + hi·lo + hi·hi, which keeps fp32's accuracy where one TF32 product
+would lose ~3 digits), the narrower ones on CUDA-core fp32 FMA.
 fp32 is never rounded to bf16. On a CPU tensor, and only there, it runs the plain PyTorch version
 (``flash_fwd_reference`` / ``flash_bwd_reference``), which computes the same
 function in fp32. There is no fallback from the kernel.
@@ -171,8 +171,9 @@ def split_smem_bytes(dmax: int) -> int:
     return 2 * ch * chunk + ring * chunk + chunk + 2 * 2 * 64 * 4 + 8 * bars + 1024
 
 
-# Head widths the fp32 forward's tensor-core kernel is built for (past
-# D = 128; D is padded to the next one in shared memory only).
+# Head widths the fp32 tensor-core kernels (the forward's and the split
+# pair's) are built for (past D = 128; D is padded to the next one in
+# shared memory only).
 F32_WIDE_DMAX = (256, 512)
 
 
@@ -193,6 +194,27 @@ def f32_wide_smem_bytes(dmax: int) -> int:
     vectors."""
     slot = max(64 * 68, 4096 // dmax * (dmax + 8))
     return 4 * (64 * (dmax + 4) + 64 * 68 + 4 * slot + dmax // 128 * 64 + 2 * 64)
+
+
+def f32_split_kernel(d: int) -> Tuple[str, int]:
+    """(kernel, padded width) the fp32 ``flash_bwd_dq`` and ``flash_bwd_dkv``
+    at head width ``d`` run, by csrc/flash_f32.cu's rule: the CUDA-core
+    ``dq_kernel`` / ``dkv_kernel`` up to D = 128 (``flash_bwd`` takes the
+    fused kernel there), the 3xTF32 tensor-core kernel past it."""
+    pad = next(w for w in (32, 64, 128) + F32_WIDE_DMAX if d <= w)
+    return ("dq_kernel/dkv_kernel" if pad <= 128 else "flash_bwd_f32_split_kernel"), pad
+
+
+def f32_split_smem_bytes(dmax: int) -> int:
+    """Dynamic shared memory of the fp32 split pair's tensor-core block at
+    ``dmax`` (either role), as csrc/flash_f32.cu SplitCfg lays it out: in
+    floats, a ring of chunk pairs (9 slots at 512, 4 at 256; two 16 x 68
+    chunks a slot), the two resident 32-row tiles (rows of dmax + 4) and
+    the dmax / 64 consumer warps' partial sums of s and dp (512 floats
+    each); then 16 bytes a slot (its mbarriers or release counter) and 128
+    bytes to align the ring."""
+    ring = 9 if dmax == 512 else 4
+    return 4 * (ring * 2 * 16 * 68 + 2 * 32 * (dmax + 4) + dmax // 64 * 512) + 16 * ring + 128
 
 
 def split_plan(d: int, *tensors) -> Tuple[int]:

@@ -10,7 +10,9 @@ sources), calls each library's ``flash_fwd`` (with ``--bwd``: the split
 backward pair ``flash_bwd_dq`` and ``flash_bwd_dkv``, each copy with its
 own C signature: the pair took no load route before it ran on TMA; with
 ``--f32``: ``flash_fwd_f32`` on fp32 inputs at [2,4096,4096,512] and
-[4,4096,4096,160], its two wide instances) through
+[4,4096,4096,160], its two wide instances; with ``--f32 --bwd``: the fp32
+split pair ``flash_bwd_dq_f32`` and ``flash_bwd_dkv_f32`` at the same two
+shapes) through
 ``ctypes`` on the same inputs (bf16; fp32 with ``--f32``), checks that the
 two agree, and times
 them in turns (other, tree, tree, other, other, tree): each time the median
@@ -18,7 +20,7 @@ of CUDA events around one launch queued behind a device spin, the kernel
 alone.
 
 Run from the repository root on the machine with the card:
-``python3 scripts/torch_flash_ab.py OTHER_CSRC_DIR [--bwd | --f32] [--json PATH]``.
+``python3 scripts/torch_flash_ab.py OTHER_CSRC_DIR [--bwd] [--f32] [--json PATH]``.
 """
 
 from __future__ import annotations
@@ -54,7 +56,7 @@ def main(argv) -> int:
     from distdiff_tpu_torch.ops import _build
 
     if not torch.cuda.is_available() or not argv:
-        print("usage: torch_flash_ab.py OTHER_CSRC_DIR [--bwd | --f32] [--json PATH] (needs a "
+        print("usage: torch_flash_ab.py OTHER_CSRC_DIR [--bwd] [--f32] [--json PATH] (needs a "
               "CUDA card)", file=sys.stderr)
         return 2
     bwd, f32 = "--bwd" in argv, "--f32" in argv
@@ -62,7 +64,7 @@ def main(argv) -> int:
     print(card)
     work = tempfile.mkdtemp(prefix="flash_ab_")
     trees = {"tree": os.path.join(ROOT, "distdiff_tpu_torch", "csrc"), "other": argv[0]}
-    source = "flash_bwd.cu" if bwd else "flash_f32.cu" if f32 else "flash_fwd.cu"
+    source = "flash_f32.cu" if f32 else "flash_bwd.cu" if bwd else "flash_fwd.cu"
     procs = []
     for tag, src in trees.items():
         lib = os.path.join(work, f"{tag}.so")
@@ -74,22 +76,23 @@ def main(argv) -> int:
         log = proc.communicate()[0]
         if proc.returncode:
             raise SystemExit(f"{tag}: nvcc failed\n{log[-3000:]}")
-        keep = ("dq", "dkv") if bwd else ("fwd",) if f32 else ("wide",)
+        keep = ("dq", "dkv", "split") if bwd else ("fwd",) if f32 else ("wide",)
         print(f"  {tag}: {[r for r in _build.ptxas_report(log) if any(x in r[0] for x in keep)]}")
         fns[tag] = {}
-        entries = ("flash_bwd_dq", "flash_bwd_dkv") if bwd else (
-            "flash_fwd_f32",) if f32 else ("flash_fwd",)
+        suffix = "_f32" if f32 else ""
+        entries = ("flash_bwd_dq" + suffix, "flash_bwd_dkv" + suffix) if bwd else (
+            "flash_fwd" + suffix,)
         for entry in entries:
             fn = getattr(ctypes.CDLL(lib), entry)
             argtypes = list(_build.SIGNATURES[entry][1])
-            route = True
-            if bwd and not takes_route(src, entry):
+            route = not f32
+            if bwd and not f32 and not takes_route(src, entry):
                 del argtypes[-3]  # no load route before the scale
                 route = False
             fn.argtypes, fn.restype = argtypes, ctypes.c_int
             fns[tag][entry] = (fn, route)
     if bwd:
-        return ab_bwd(fns, card, argv)
+        return ab_bwd(fns, card, argv, f32)
     fns = {tag: f[entries[0]][0] for tag, f in fns.items()}
     dev = torch.device("cuda")
     gen = torch.Generator(device=dev).manual_seed(0)
@@ -140,9 +143,10 @@ def write_json(rows, argv) -> None:
             json.dump(rows, f, indent=1)
 
 
-def ab_bwd(fns, card, argv) -> int:
-    """flash_bwd_dq and flash_bwd_dkv of both copies in turns, at SHAPES'
-    first and last (D = 512, and 160: the DMAX = 256 instance)."""
+def ab_bwd(fns, card, argv, f32=False) -> int:
+    """flash_bwd_dq and flash_bwd_dkv (their fp32 instances with ``f32``) of
+    both copies in turns, at SHAPES' first and last (D = 512, and 160: the
+    DMAX = 256 instance)."""
     import torch
 
     import chip_smoke as cs
@@ -150,12 +154,11 @@ def ab_bwd(fns, card, argv) -> int:
     dev = torch.device("cuda")
     gen = torch.Generator(device=dev).manual_seed(0)
     stream = torch.cuda.current_stream().cuda_stream
+    dtype = torch.float32 if f32 else torch.bfloat16
     rows = []
     for bh, tq, tk, d in (SHAPES[0], SHAPES[-1]):
-        q, do = (torch.randn(bh, tq, d, generator=gen, device=dev).to(torch.bfloat16)
-                 for _ in range(2))
-        k, v = (torch.randn(bh, tk, d, generator=gen, device=dev).to(torch.bfloat16)
-                for _ in range(2))
+        q, do = (torch.randn(bh, tq, d, generator=gen, device=dev).to(dtype) for _ in range(2))
+        k, v = (torch.randn(bh, tk, d, generator=gen, device=dev).to(dtype) for _ in range(2))
         # the forward's lse and delta = rowsum(o do), in fp32 (plain torch)
         s = torch.matmul(q.float(), k.float().transpose(1, 2)) * d ** -0.5
         lse = torch.logsumexp(s, dim=-1)
@@ -165,7 +168,7 @@ def ab_bwd(fns, card, argv) -> int:
         for entry in ("flash_bwd_dq", "flash_bwd_dkv"):
             calls, outs = {}, {}
             for tag, per in fns.items():
-                fn, route = per[entry]
+                fn, route = per[entry + ("_f32" if f32 else "")]
                 out = [torch.empty_like(q)] if entry == "flash_bwd_dq" else [
                     torch.empty_like(k), torch.empty_like(v)]
                 ptrs = [x.data_ptr() for x in (q, k, v, do, lse, delta, *out)]
@@ -185,8 +188,8 @@ def ab_bwd(fns, card, argv) -> int:
             times = {tag: [] for tag in fns}
             for tag in ("other", "tree", "tree", "other", "other", "tree"):
                 times[tag].append(cs.time_ms(calls[tag], 10))
-            b_ms = cs.bound(entry, bh, tq, tk, d)[0]
-            row = {"kernel": entry, "shape": [bh, tq, tk, d], "card": card,
+            b_ms = cs.bound(entry, bh, tq, tk, d, itemsize=q.element_size())[0]
+            row = {"kernel": entry, "shape": [bh, tq, tk, d], "dtype": str(dtype)[6:], "card": card,
                    "max_abs_diff": diff, "max_abs": top, "bound_ms": b_ms,
                    **{f"{t}_ms": statistics.median(x) for t, x in times.items()},
                    **{f"{t}_runs": x for t, x in times.items()}}

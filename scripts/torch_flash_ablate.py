@@ -4,9 +4,10 @@
 Builds the port's narrow (D <= 128) flash kernels (``flash_fwd`` and
 ``flash_bwd_fused`` in ``distdiff_tpu_torch/csrc``), its wide forward
 (``flash_fwd`` past D = 128), its split backward pair
-(``flash_bwd_dq``, ``flash_bwd_dkv``) and its fp32 wide forward
-(``flash_fwd_f32`` past D = 128, on 3xTF32 tensor-core products) once as
-they are and once for each variant
+(``flash_bwd_dq``, ``flash_bwd_dkv``), its fp32 wide forward
+(``flash_fwd_f32`` past D = 128, on 3xTF32 tensor-core products) and its
+fp32 split pair (``flash_bwd_dq_f32``, ``flash_bwd_dkv_f32`` past D = 128,
+the same arithmetic) once as they are and once for each variant
 below, with one part taken out of the source, and times every build on the
 same inputs (the narrow variants at the UNet's shapes, the wide ones at the
 VAE mid-block's, the fp32 ones at [2,4096,4096,512] and [4,4096,4096,160],
@@ -22,7 +23,8 @@ prints one line per (variant, shape) and, with ``--json``, writes them
 there too; ``--only`` keeps the variants whose name contains TEXT
 (``--only wide_bwd``: the split backward pair's set, each build timing
 ``flash_bwd_dq`` and ``flash_bwd_dkv``; ``--only wide_f32``: the fp32 wide
-forward's set).
+forward's set; ``--only f32_bwd``: the fp32 split pair's set, each build
+timing both kernels).
 """
 
 from __future__ import annotations
@@ -82,6 +84,35 @@ _F32_EX2 = ("const float p = exp2f(s_acc[n][e] - m_run[e >> 1]);",
             "const float p = s_acc[n][e] - m_run[e >> 1];")
 _F32_NO_KV = ("    if (nj < ntile) {\n      float* dst", "    if (nj < 0) {\n      float* dst")
 
+# the fp32 split pair's parts (the same file; mma3's patches above take
+# its correction products or all its products too): its exponentials, and
+# its stream's TMA loads (each slot's barrier still completes; the
+# resident tiles are still loaded)
+_F32_BWD_EX2 = ("exp2f(fmaf(s[e], sl2, -L))", "fmaf(s[e], sl2, -L)")
+# ... and, for its compute alone, its slot waits, its refills (by the last
+# warp or by the producer warp) and the waits' partner arrivals
+_F32_BWD_NO_WAITS = ("        hopper::mbar_wait(full + slot, phase);  // pair (j, c) is in\n", "")
+_F32_BWD_NO_REFILLS = (
+    "        __syncwarp();  // the warp is done with pair (j, c)\n"
+    "        if (PROD) {\n"
+    "          if (lane == 0) hopper::mbar_arrive(empty + slot);\n"
+    "        } else {  // the last warp to leave the slot refills it\n"
+    "          int last = 0;\n"
+    "          if (lane == 0) {\n"
+    "            __threadfence_block();\n"
+    "            last = atomicAdd(released + slot, 1) == C::NW - 1;\n"
+    "            if (last) released[slot] = 0;\n"
+    "          }\n"
+    "          const int p = (j * nc + c) + RING;\n"
+    "          if (__shfl_sync(0xffffffffu, last, 0) && p < npair) load_pair(p, slot);\n"
+    "        }\n", "")
+_F32_BWD_NO_PRODUCER = ("    for (int p = RING; p < npair; ++p) {", "    for (int p = npair; p < npair; ++p) {")
+_F32_BWD_NO_STREAM = (
+    "        hopper::mbar_arrive_tx(full + slot, 2 * C::CHUNK * 4);\n"
+    "        hopper::tma_load_3d(dst, &umap, c0, row0, bh, full + slot);\n"
+    "        hopper::tma_load_3d(dst + C::CHUNK, &wmap, c0, row0, bh, full + slot);\n",
+    "        hopper::mbar_arrive(full + slot);\n")
+
 # variant -> (source file, [(text, replacement)], shapes); the split pair's
 # variants run its two entry points, the other flash_bwd.cu ones the fused
 # pass
@@ -134,6 +165,13 @@ VARIANTS = {
     "wide_f32 without exponentials": ("flash_f32.cu", [_F32_EX2], WIDE_F32),
     "wide_f32 without k/v loads": ("flash_f32.cu", [_F32_NO_KV], WIDE_F32),
     "wide_f32 loads only": ("flash_f32.cu", [_F32_PRODUCTS, _F32_EX2], WIDE_F32),
+    "f32_bwd": ("flash_f32.cu", [], WIDE_F32),
+    "f32_bwd one TF32 product": ("flash_f32.cu", [_F32_CORRECTIONS], WIDE_F32),
+    "f32_bwd without exponentials": ("flash_f32.cu", [_F32_BWD_EX2], WIDE_F32),
+    "f32_bwd without stream loads": ("flash_f32.cu", [_F32_BWD_NO_STREAM], WIDE_F32),
+    "f32_bwd loads only": ("flash_f32.cu", [_F32_PRODUCTS, _F32_BWD_EX2], WIDE_F32),
+    "f32_bwd compute only": ("flash_f32.cu", [
+        _F32_BWD_NO_WAITS, _F32_BWD_NO_REFILLS, _F32_BWD_NO_PRODUCER], WIDE_F32),
 }
 
 CHILD = r'''
@@ -148,7 +186,7 @@ entries = ["flash_bwd_dq", "flash_bwd_dkv"] if split else [
     "flash_fwd_f32" if f32 else "flash_fwd" if stem == "flash_fwd" else "flash_bwd_fused"]
 fns = {}
 for name in entries:
-    fns[name] = getattr(lib, name)
+    fns[name] = getattr(lib, name + ("_f32" if f32 and split else ""))
     n_ptr = {"flash_fwd": 5, "flash_fwd_f32": 5, "flash_bwd_fused": 9, "flash_bwd_dq": 7,
              "flash_bwd_dkv": 8}[name]
     fns[name].argtypes = [P] * n_ptr + [I] * (4 if f32 else 5 if split else 6) + [F, P]
@@ -222,7 +260,8 @@ def main(argv) -> int:
         lib = os.path.join(d, "lib.so")
         cmd = [nvcc(), "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
                "-shared", "-Xcompiler", "-fPIC", "-o", lib, os.path.join(d, src)]
-        builds.append((name, src[:-3], name.startswith("wide_bwd"), lib, shapes, subprocess.Popen(
+        split = name.startswith(("wide_bwd", "f32_bwd"))
+        builds.append((name, src[:-3], split, lib, shapes, subprocess.Popen(
             cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)))
     rows = []
     for name, stem, split, lib, shapes, proc in builds:

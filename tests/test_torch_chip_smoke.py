@@ -128,6 +128,11 @@ def test_gn_bound_counts_slab_passes(smoke):
     # fp32: each product as three TF32 products at 495 TFLOP/s (3xTF32)
     ("flash_fwd", (2, 4096, 4096, 512), 4, 0.4165),
     ("flash_fwd", (4, 4096, 4096, 160), 4, 0.2603),
+    # the fp32 split pair: 3 and 4 products
+    ("flash_bwd_dq", (2, 4096, 4096, 512), 4, 0.6247),
+    ("flash_bwd_dkv", (2, 4096, 4096, 512), 4, 0.8330),
+    ("flash_bwd_dq", (4, 4096, 4096, 160), 4, 0.39045),
+    ("flash_bwd_dkv", (4, 4096, 4096, 160), 4, 0.5206),
     # bf16: one product on the bf16 tensor cores, as before
     ("flash_fwd", (2, 4096, 4096, 512), 2, 0.0695),
     ("flash_fwd", (32, 4096, 4096, 40), 2, 0.1377),

@@ -144,6 +144,26 @@ def test_ablation_patches_apply_to_the_split_pair(name):
     assert (patched != text) == bool(subs)
 
 
+F32_BWD_VARIANTS = ["f32_bwd", "f32_bwd one TF32 product", "f32_bwd without exponentials",
+                    "f32_bwd without stream loads", "f32_bwd loads only", "f32_bwd compute only"]
+
+
+@pytest.mark.parametrize("name", F32_BWD_VARIANTS)
+def test_ablation_patches_apply_to_the_fp32_split_pair(name):
+    """The fp32 split pair's ablations are text of csrc/flash_f32.cu, each
+    still there once (the cases are all of the script's f32_bwd set)."""
+    ab = _ablate_script()
+    assert sorted(n for n in ab.VARIANTS if n.startswith("f32_bwd")) == sorted(F32_BWD_VARIANTS)
+    src, subs, shapes = ab.VARIANTS[name]
+    assert src == "flash_f32.cu" and shapes == ab.WIDE_F32
+    text = open(os.path.join(ab.CSRC, src)).read()
+    patched = text
+    for old, new in subs:
+        assert patched.count(old) == 1, f"{name}: {old[:60]!r} is not once in {src}"
+        patched = patched.replace(old, new)
+    assert (patched != text) == bool(subs)
+
+
 WIDE_F32_VARIANTS = ["wide_f32", "wide_f32 one TF32 product", "wide_f32 without exponentials",
                      "wide_f32 without k/v loads", "wide_f32 loads only"]
 
@@ -176,9 +196,10 @@ def _tf32_high(x, nearest):
 
 def _tf32_matmul(a, b, products):
     """a @ b in fp32 from TF32 operands: one product of the operands rounded
-    to nearest (TF32 mode), or 3xTF32 as csrc/flash_f32.cu's wide forward
-    forms it: the high parts truncated, the exact remainders x - hi as low
-    parts (truncated again), lo(a) hi(b) + hi(a) lo(b) + hi(a) hi(b)."""
+    to nearest (TF32 mode), or 3xTF32 as csrc/flash_f32.cu's tensor-core
+    kernels (the wide forward, the split backward pair) form it: the high
+    parts truncated, the exact remainders x - hi as low parts (truncated
+    again), lo(a) hi(b) + hi(a) lo(b) + hi(a) hi(b)."""
     if products == 1:
         return _tf32_high(a, True) @ _tf32_high(b, True)
     ah, bh = _tf32_high(a, False), _tf32_high(b, False)
@@ -209,3 +230,36 @@ def test_three_tf32_products_keep_fp32_accuracy(d, tq, tk, products):
         assert err_o <= 1e-5 and err_lse <= 1e-5
     else:
         assert err_o > 2e-4 and err_lse > 1e-4
+
+
+def _split_grads(q, k, v, do, lse, delta, matmul):
+    """(dq, dk, dv) by the split pair's formulas, every product by matmul."""
+    scale = q.shape[-1] ** -0.5
+    p = torch.exp(matmul(q, k.transpose(-1, -2)) * scale - lse[..., None])
+    ds = p * (matmul(do, v.transpose(-1, -2)) - delta[..., None]) * scale
+    return matmul(ds, k), matmul(ds.transpose(-1, -2), q), matmul(p.transpose(-1, -2), do)
+
+
+@pytest.mark.parametrize("products", [3, 1])
+@pytest.mark.parametrize("d,tq,tk", [(160, 65, 63), (512, 63, 129)])
+def test_three_tf32_products_keep_the_split_backward_at_fp32_accuracy(d, tq, tk, products):
+    """Why the fp32 split pair runs three TF32 products a product: with them
+    its five products (s, dp, dq, dk, dv) meet chip_smoke.py's fp32
+    tolerance (1e-4 of the largest magnitude) against fp64 gradients; one
+    TF32 product misses it. The lse and delta the pair takes are fp64's,
+    rounded to fp32, so the error is the pair's own."""
+    rng = np.random.RandomState(d + 1)
+    q, do = (torch.from_numpy(rng.randn(2, tq, d).astype(np.float32)) for _ in range(2))
+    k, v = (torch.from_numpy(rng.randn(2, tk, d).astype(np.float32)) for _ in range(2))
+    q64, k64, v64, do64 = (x.double() for x in (q, k, v, do))
+    s = torch.matmul(q64, k64.transpose(-1, -2)) * d ** -0.5
+    lse = torch.logsumexp(s, dim=-1)
+    delta = (torch.matmul(torch.exp(s - lse[..., None]), v64) * do64).sum(-1)
+    want = _split_grads(q64, k64, v64, do64, lse, delta, torch.matmul)
+    got = _split_grads(q, k, v, do, lse.float(), delta.float(),
+                       lambda a, b: _tf32_matmul(a, b, products))
+    errs = [float((g.double() - w).abs().max() / w.abs().max()) for g, w in zip(got, want)]
+    if products == 3:
+        assert max(errs) <= 1e-5
+    else:
+        assert min(errs) > 2e-4

@@ -444,3 +444,57 @@ def test_fp32_wide_launch_passes_the_shape_and_scale(monkeypatch, d):
     assert flash.launch_counts["flash_fwd"] == 1
     assert flash.launch_shapes[("flash_fwd", (3, 65, 63, d))] == 1
     flash.reset_launch_counts()
+
+
+@pytest.mark.parametrize("dmax", flash.F32_WIDE_DMAX)
+def test_fp32_split_block_fits_the_card(dmax):
+    """The fp32 split pair's tensor-core block (csrc/flash_f32.cu SplitCfg)
+    at each built width fits the H100's 227 KB of shared memory with its
+    two resident 32-row tiles and a ring that holds a whole 16-row tile of
+    chunk pairs (a pair stays until the output products have read it), and
+    at DMAX 256 two blocks share an SM (chip_smoke.py phase 1 holds the C
+    count of either role against f32_split_smem_bytes on the card)."""
+    tiles, pair = 2 * 32 * (dmax + 4) * 4, 2 * 16 * 68 * 4
+    ring = (flash.f32_split_smem_bytes(dmax) - tiles - dmax // 64 * 2048) // pair
+    assert ring >= dmax // 64
+    assert tiles + ring * pair < flash.f32_split_smem_bytes(dmax) <= 232448
+    if dmax == 256:
+        assert 2 * (flash.f32_split_smem_bytes(dmax) + 1024) <= 233472
+
+
+@pytest.mark.parametrize("d,want", [
+    (16, ("dq_kernel/dkv_kernel", 32)), (40, ("dq_kernel/dkv_kernel", 64)),
+    (128, ("dq_kernel/dkv_kernel", 128)), (129, ("flash_bwd_f32_split_kernel", 256)),
+    (160, ("flash_bwd_f32_split_kernel", 256)), (256, ("flash_bwd_f32_split_kernel", 256)),
+    (257, ("flash_bwd_f32_split_kernel", 512)), (512, ("flash_bwd_f32_split_kernel", 512)),
+])
+def test_fp32_split_takes_the_tensor_core_kernel_past_128(d, want):
+    """fp32 flash_bwd_dq and flash_bwd_dkv run the CUDA-core instances up
+    to D = 128 and the 3xTF32 tensor-core kernel past it, at the padded
+    widths csrc/flash_f32.cu builds (its C dispatch, in Python)."""
+    assert flash.f32_split_kernel(d) == want
+
+
+@pytest.mark.parametrize("d", [160, 257, 512])
+def test_fp32_split_launch_passes_the_shape_and_scale(monkeypatch, d):
+    """The fp32 split wrappers hand their entry points the pointers, then
+    (BH, Tq, Tk, D), the scale and the stream (no plan: the C side picks
+    the load route), as many arguments as the C signatures take; each
+    counts one launch by shape; the outputs are fp32 of the inputs' shapes."""
+    calls = _recorded_launches(monkeypatch)
+    flash.reset_launch_counts()
+    q, do = torch.empty(3, 65, d, device="meta"), torch.empty(3, 65, d, device="meta")
+    k = v = torch.empty(3, 63, d, device="meta")
+    lse = delta = torch.empty(3, 65, device="meta")
+    dq = flash.flash_bwd_dq(q, k, v, do, lse, delta)
+    dk, dv = flash.flash_bwd_dkv(q, k, v, do, lse, delta)
+    assert dq.shape == q.shape and dk.shape == dv.shape == k.shape
+    assert all(x.dtype == torch.float32 for x in (dq, dk, dv))
+    assert [n for n, _ in calls] == ["flash_bwd_dq_f32", "flash_bwd_dkv_f32"]
+    for (name, args), n_ptr in zip(calls, (7, 8)):
+        assert len(args) == len(_build.SIGNATURES[name][1]) == n_ptr + 6
+        assert args[n_ptr:n_ptr + 4] == (3, 65, 63, d)
+        assert args[n_ptr + 4] == pytest.approx(d ** -0.5)
+    for name in ("flash_bwd_dq", "flash_bwd_dkv"):
+        assert flash.launch_shapes[(name, (3, 65, 63, d))] == 1
+    flash.reset_launch_counts()
