@@ -10,8 +10,8 @@ package. Six phases, any failure exits non-zero:
    ``nvcc`` a source, all at once), each kernel's registers and spills from
    ``-Xptxas -v`` (a Hopper flash or GroupNorm kernel that spills fails the
    run), the Hopper flash kernels' dynamic shared memory (the split
-   backward pair's, the fp32 wide forward's and the fp32 split pair's held
-   against their Python counts), and the GroupNorm
+   backward pair's, the fp32 narrow and wide forwards' and the fp32 split
+   pair's held against their Python counts), and the GroupNorm
    kernels' plans with their shared memory, held against the C side's.
 2. Kernels, each held against its plain PyTorch version on the same inputs:
    every flash kernel at the main path's shapes in bf16 (against the plain
@@ -23,11 +23,12 @@ package. Six phases, any failure exits non-zero:
    backward pair launched twice for the same bytes); the four
    flash
    kernels' fp32 instances at main-path widths and ragged shapes (timed at
-   the former and, for the forward and the split pair, at D = 160; those
-   also at wide widths from 129 to 512, lengths one row on either side of
-   their tiles, and a view one element into its storage, each launch twice
-   for the same bytes; the split pair also against fp64 at 16384 rows on
-   either side of its sums); gn_fused, gn_stats and gn_apply at every GroupNorm shape of
+   the former, the forward also at [32,1024,1024,80], and the forward and
+   the split pair at D = 160; the forward also at narrow widths from 8 to
+   128 and both also at wide widths from 129 to 512, lengths one row on
+   either side of their tiles, and views one element into their storage,
+   each launch twice for the same bytes; the forward and the split pair
+   also against fp64 at 16384 rows of sum); gn_fused, gn_stats and gn_apply at every GroupNorm shape of
    the counted runs, in bf16 and fp32, channels-last and contiguous, with
    and without SiLU, and at ragged shapes (timed in bf16 channels-last,
    beside ``F.group_norm`` + ``F.silu``; gn_fused also at its edges: B = 1,
@@ -181,13 +182,14 @@ def bound(name, bh, tq, tk, d, itemsize=2):
 
 
 # the kernels built for Hopper (the bf16 flash kernels: warp-specialised,
-# TMA and wgmma; the fp32 ones past D = 128: 3xTF32 on mma.sync; gn_fused:
-# clusters, TMA; the gn_stats and gn_apply pair: banded one-wave grids):
-# none may spill
+# TMA and wgmma; the fp32 forward at every width and the fp32 split pair
+# past D = 128: 3xTF32 on mma.sync, TMA; gn_fused: clusters, TMA; the
+# gn_stats and gn_apply pair: banded one-wave grids): none may spill
 HOPPER_KERNELS = ("flash_fwd_narrow_kernel", "flash_fwd_wide_kernel", "flash_bwd_fused_kernel",
-                  "flash_bwd_dq_kernel", "flash_bwd_dkv_kernel", "flash_fwd_f32_wide_kernel",
-                  "flash_bwd_f32_split_kernel", "gn_fused_kernel", "gn_stats_nhwc_kernel",
-                  "gn_stats_nchw_kernel", "gn_apply_nhwc_kernel", "gn_apply_nchw_kernel")
+                  "flash_bwd_dq_kernel", "flash_bwd_dkv_kernel", "flash_fwd_f32_narrow_kernel",
+                  "flash_fwd_f32_wide_kernel", "flash_bwd_f32_split_kernel", "gn_fused_kernel",
+                  "gn_stats_nhwc_kernel", "gn_stats_nchw_kernel", "gn_apply_nhwc_kernel",
+                  "gn_apply_nchw_kernel")
 WIDE_DMAX = (256, 512)  # the wide forward's instances
 
 
@@ -197,13 +199,15 @@ def ptxas_phase() -> None:
     spills fails the run."""
     from distdiff_tpu_torch.ops import _build, flash
 
-    spilled, f32_regs, split_regs = [], {}, {}
+    spilled, narrow_regs, f32_regs, split_regs = [], {}, {}, {}
     for src, log in _build.build_logs().items():
         for name, regs, stack, st, ld in _build.ptxas_report(log):
             print(f"  {src}: {name}: {regs} registers, {stack} B stack, spills {st} B stored / "
                   f"{ld} B loaded")
             if name.split("<")[0] in HOPPER_KERNELS and (st or ld):
                 spilled.append(name)
+            if name.startswith("flash_fwd_f32_narrow_kernel"):
+                narrow_regs[name] = regs
             if name.startswith("flash_fwd_f32_wide_kernel"):
                 f32_regs[name] = regs
             if name.startswith("flash_bwd_f32_split_kernel"):
@@ -220,6 +224,16 @@ def ptxas_phase() -> None:
         want = flash.split_smem_bytes(dmax)
         require(got == want and got <= H100_SMEM_OPTIN,
                 f"split backward's shared memory at DMAX {dmax}: C {got}, Python {want}")
+    f32_narrow = {dmax: _build.kernel("flash_fwd_f32_smem")(dmax)
+                  for dmax in flash.F32_NARROW_DMAX}
+    print(f"  fp32 narrow forward (3xTF32 tensor cores): registers {narrow_regs} (<DMAX,TMA "
+          f"loads>), dynamic shared memory by DMAX {f32_narrow}")
+    require(len(narrow_regs) == 2 * len(flash.F32_NARROW_DMAX),
+            "fp32 narrow forward's instances missing")
+    for dmax, got in f32_narrow.items():
+        want = flash.f32_narrow_smem_bytes(dmax)
+        require(got == want and got <= H100_SMEM_OPTIN,
+                f"fp32 narrow forward's shared memory at DMAX {dmax}: C {got}, Python {want}")
     f32_wide = {dmax: _build.kernel("flash_fwd_f32_smem")(dmax) for dmax in flash.F32_WIDE_DMAX}
     print(f"  fp32 wide forward (3xTF32 tensor cores): registers {f32_regs} (<DMAX,16-byte "
           f"copies>), dynamic shared memory by DMAX {f32_wide}")
@@ -490,14 +504,16 @@ def kernel_phase():
 def flash_f32_phase() -> list:
     """The four flash kernels on fp32 inputs (their fp32 instances,
     csrc/flash_f32.cu) at main-path widths and at ragged shapes, against the
-    plain fp32 version; timed at the main-path widths and, for the forward
-    and the split pair, at D = 160 (the tensor-core kernels' DMAX = 256
-    instances). The forward and the split pair also at the wide widths from
-    129 to 512 with lengths one row on either side of their tiles and on a
-    view one element into its storage (4-byte copies), every forward and
-    split launch twice for the same bytes; then the split pair against
-    fp64 at 16384 rows on either side of its sums (``split_fp64_check``).
-    Returns one record per timed (kernel, shape)."""
+    plain fp32 version; timed at the main-path widths, the forward also at
+    [32,1024,1024,80] and the forward and the split pair at D = 160 (the
+    wide tensor-core kernels' DMAX = 256 instances). The forward also at
+    narrow widths from 8 to 128 and both also at the wide widths from 129 to
+    512, with lengths one row on either side of their tiles and on views
+    one element into their storage (4-byte copies), every forward and split
+    launch twice for the same bytes; then the forward against fp64 over
+    16384 kv rows (``fwd_fp64_check``) and the split pair against fp64 at
+    16384 rows on either side of its sums (``split_fp64_check``). Returns
+    one record per timed (kernel, shape)."""
     import torch
     import torch.nn.functional as F
 
@@ -512,11 +528,28 @@ def flash_f32_phase() -> list:
     shapes = [
         # (label, BH, Tq, Tk, D, kernels, timed)
         ("unet64_f32", 32, 4096, 4096, 40, ["flash_fwd", "flash_bwd_fused"], True),
+        ("unet32_f32", 32, 1024, 1024, 80, fwd, True),
         ("vae_mid_f32", 2, 4096, 4096, 512, ["flash_fwd"] + split, True),
         ("vae160_f32", 4, 4096, 4096, 160, ["flash_fwd"] + split, True),
         ("tiny_f32", 4, 576, 576, 16, every, False),
         ("ragged_f32", 3, 300, 130, 40, every, False),
         ("odd_f32", 2, 129, 77, 160, ["flash_fwd"] + split, False),
+        # the narrow forward's edges: its 128-row q tiles (32 rows a
+        # warp), its 64-row kv tiles (16 at DMAX 128), its k-steps over d
+        # rounded up to 8; DMAX 32, 64 and 128; 4-byte copies where
+        # d % 4 != 0 or a base is off 16 bytes
+        ("n8_f32", 2, 63, 65, 8, fwd, False),
+        ("n16_f32", 2, 65, 63, 16, fwd, False),
+        ("n24_f32", 2, 127, 129, 24, fwd, False),
+        ("n33_f32", 2, 64, 33, 33, fwd, False),
+        ("n40_f32", 2, 129, 127, 40, fwd, False),
+        ("n64_f32", 2, 63, 129, 64, fwd, False),
+        ("n72_f32", 2, 129, 63, 72, fwd, False),
+        ("n80_f32", 2, 65, 127, 80, fwd, False),
+        ("n100_f32", 2, 127, 65, 100, fwd, False),
+        ("n128_f32", 2, 129, 31, 128, fwd, False),
+        ("offset40_f32", 1, 200, 150, 40, fwd, "offset"),
+        ("offset100_f32", 1, 65, 129, 100, fwd, "offset"),
         # the tensor-core kernels' edges: the forward's 64-row q and kv
         # tiles, 64-column k chunks and 32-column output slices; the split
         # pair's 32 resident rows, 16-row stream tiles and 64-column chunk
@@ -575,14 +608,15 @@ def flash_f32_phase() -> list:
                 require(val.dtype == torch.float32, f"{name} returned {val.dtype} on fp32")
                 err = (val - want[key]).abs().max().item()
                 scale = want[key].abs().max().item()
-                # nothing rounded to bf16: fp32 FMA on the CUDA cores (D <=
-                # 128), where only the summation order differs from the
-                # plain version (~1e-6 relative), or past D = 128 (the
-                # forward and the split pair) 3xTF32 products on the tensor
-                # cores (~1e-6 a product; their sums round toward zero, so
-                # each chunk's are summed apart and added in fp32), within
-                # ~2e-5 of the largest output of fp64 attention; 1e-4 of the
-                # largest magnitude (lse: 1e-4 absolute) is the tolerance
+                # nothing rounded to bf16: the forward at every width and
+                # the split pair past D = 128 run 3xTF32 products on the
+                # tensor cores (~1e-6 a product; their sums round toward
+                # zero, so each chunk's are summed apart and added in fp32),
+                # within ~2e-5 of the largest output of fp64 attention; the
+                # backward up to D = 128 fp32 FMA on the CUDA cores, where
+                # only the summation order differs from the plain version
+                # (~1e-6 relative); 1e-4 of the largest magnitude (lse: 1e-4
+                # absolute) is the tolerance
                 tol = 1e-4 if key == "lse" else 1e-4 * scale
                 ok = math.isfinite(err) and err <= tol
                 print(f"  {name} {label} fp32 {key}: max_abs_err {err:.3e} (tol {tol:.3e}) "
@@ -615,8 +649,48 @@ def flash_f32_phase() -> list:
                             "library_ms": lib_ms})
         del ref, ref_o
         torch.cuda.empty_cache()
+    entries += fwd_fp64_check(gen)
     entries += split_fp64_check(gen)
     return entries
+
+
+def fwd_fp64_check(gen) -> list:
+    """The fp32 narrow forward against fp64 attention where its sums are
+    long: 16384 kv rows at D = 40 and 128 ([1,2048,16384,D]), o over the
+    largest |o| of fp64 (at most 2e-5) and lse absolute, the plain fp32
+    version's errors on the same inputs beside them. Returns one record
+    per shape."""
+    import torch
+
+    from distdiff_tpu_torch.ops import flash
+
+    dev = torch.device("cuda")
+    out = []
+    for bh, tq, tk, d in ((1, 2048, 16384, 40), (1, 2048, 16384, 128)):
+        q = torch.randn(bh, tq, d, generator=gen, device=dev)
+        k, v = (torch.randn(bh, tk, d, generator=gen, device=dev) for _ in range(2))
+        s = torch.matmul(q.double(), k.double().transpose(1, 2)) * d ** -0.5
+        lse64 = torch.logsumexp(s, dim=-1)
+        o64 = torch.matmul(torch.exp(s - lse64[..., None]), v.double())
+        del s
+        errs = {}
+        for who, (o, lse) in (("kernel", flash.flash_fwd(q, k, v)),
+                              ("plain", flash.flash_fwd_reference(q, k, v))):
+            errs[who] = (float((o.double() - o64).abs().max() / o64.abs().max()),
+                         float((lse.double() - lse64).abs().max()))
+        torch.cuda.synchronize()
+        (err, err_lse), (err_plain, lse_plain) = errs["kernel"], errs["plain"]
+        ok = math.isfinite(err) and err <= 2e-5 and err_lse <= 1e-4
+        print(f"  flash_fwd ({flash.f32_fwd_kernel(d)[0]}) fp32 [{bh},{tq},{tk},{d}] against "
+              f"fp64: max |err| / max |o| {err:.3e} (plain fp32 {err_plain:.3e}; tol 2e-5), lse "
+              f"{err_lse:.3e} (plain {lse_plain:.3e}) {'ok' if ok else 'FAIL'}")
+        require(ok, f"flash_fwd (fp32) strays from fp64 at [{bh},{tq},{tk},{d}]")
+        out.append({"name": "flash_fwd", "cell": "fp64_long", "shape": [bh, tq, tk, d],
+                    "dtype": "fp32", "rel_err_fp64": err, "plain_rel_err_fp64": err_plain,
+                    "lse_err_fp64": err_lse, "plain_lse_err_fp64": lse_plain})
+        del o64
+        torch.cuda.empty_cache()
+    return out
 
 
 def split_fp64_check(gen) -> list:
@@ -1233,6 +1307,10 @@ def fp32_agreement_phase() -> None:
                   f"{'%s (padded width %d)' % flash.f32_fwd_kernel(shape[3])}")
         require(any(flash.f32_fwd_kernel(shape[3])[0] == "flash_fwd_f32_wide_kernel"
                     for shape in fwd), "no fp32 attention took the wide tensor-core kernel")
+        narrow = [shape for shape in fwd if shape[3] <= 128]
+        require(narrow and all(flash.f32_fwd_kernel(shape[3])[0] == "flash_fwd_f32_narrow_kernel"
+                               for shape in narrow),
+                "an fp32 forward at D <= 128 did not take the narrow tensor-core kernel")
         pair = {(name, shape): c for (name, shape), c in flash.launch_shapes.items()
                 if name in ("flash_bwd_dq", "flash_bwd_dkv")}
         for (name, shape), c in sorted(pair.items()):

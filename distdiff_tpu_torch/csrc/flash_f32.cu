@@ -9,21 +9,21 @@
 // let the port do the same on the card. They compute the same functions as
 // the bf16 kernels, on fp32 q/k/v/do with fp32 outputs, and round nothing
 // to bf16. Two kinds of arithmetic, both to fp32 accuracy:
-//   * past D = 128 (128 < D <= 512: the wide forward and the split
-//     backward pair, below) every product runs on the TF32 tensor cores as
-//     3xTF32: each operand x is split into a high part (its top 19 bits,
-//     which is what the tensor cores read of a register) and a low part
-//     x - hi (exact in fp32), and a b is formed as lo(a) hi(b) + hi(a) lo(b)
-//     + hi(a) hi(b) with fp32 accumulation. What is left out, lo(a) lo(b)
-//     and the low part's own truncation, is ~2^-20 of a term, where one
-//     TF32 product loses ~2^-11; with the tensor cores' truncated sums the
-//     result stays within ~2e-5 of the largest output of fp64 attention,
-//     where one TF32 product would be ~5e-4 off;
-//   * up to D = 128 (flash_fwd_f32, flash_bwd_fused_f32, and the split
-//     pair's narrow instances, which no path launches: flash_bwd takes the
-//     fused kernel there) fp32 fused multiply-adds on the CUDA cores (no
-//     tensor cores), so they agree with the plain fp32 version to
-//     summation order.
+//   * the forward at every width (the narrow kernel up to D = 128, the
+//     wide one past it) and the split backward pair past D = 128 run every
+//     product on the TF32 tensor cores as 3xTF32: each operand x is split
+//     into a high part (its top 19 bits, which is what the tensor cores
+//     read of a register) and a low part x - hi (exact in fp32), and a b is
+//     formed as lo(a) hi(b) + hi(a) lo(b) + hi(a) hi(b) with fp32
+//     accumulation. What is left out, lo(a) lo(b) and the low part's own
+//     truncation, is ~2^-20 of a term, where one TF32 product loses
+//     ~2^-11; with the tensor cores' truncated sums the result stays within
+//     ~2e-5 of the largest output of fp64 attention, where one TF32 product
+//     would be ~5e-4 off;
+//   * the backward up to D = 128 (flash_bwd_fused_f32, and the split pair's
+//     narrow instances, which no path launches: flash_bwd takes the fused
+//     kernel there) fp32 fused multiply-adds on the CUDA cores (no tensor
+//     cores), so they agree with the plain fp32 version to summation order.
 //
 // What bounds them on this card: their products. The CUDA-core kernels
 // are held by the fp32 FMA rate (67 TFLOP/s on the H100 SXM), the
@@ -35,14 +35,11 @@
 // Design of the CUDA-core kernels (one warp = 32 lanes; DP = head width
 // rounded up to 32, 64 or 128; NC = DP / 32 columns of an output row per
 // lane):
-//   * flash_fwd_f32 (D <= 128): a block of four warps takes 4 * RW q rows (RW per
-//     warp) and loops over 32-row kv tiles in shared memory. Lane j forms
-//     the score of kv row j against each of its warp's q rows; the online
-//     softmax (running max and sum, exponentials as exp2) takes its row
-//     max with shuffles; then o += p v with p broadcast from lane j and
-//     lane l owning output columns l, l + 32, ...
-//   * flash_bwd_dq_f32: the same loop, forming s and dp per (q row, kv
-//     lane), ds = p (dp - delta) scale, and dq += ds k.
+//   * flash_bwd_dq_f32: a block of four warps takes 4 * RW q rows (RW per
+//     warp) and loops over 32-row kv tiles in shared memory. Lane j forms s
+//     and dp of kv row j against each of its warp's q rows, ds = p (dp -
+//     delta) scale, and dq += ds k with ds broadcast from lane j and lane l
+//     owning output columns l, l + 32, ...
 //   * flash_bwd_dkv_f32 / flash_bwd_fused_f32: a block takes 4 * RW kv
 //     rows (RW per warp) and loops over 32-row q tiles; lane j takes q row
 //     j: dv += p^T do and dk += ds^T q with lane l owning columns l, l + 32,
@@ -89,113 +86,10 @@ __device__ __forceinline__ void stage(float* __restrict__ dst, const float* __re
   }
 }
 
-__device__ __forceinline__ float warp_max(float v) {
-#pragma unroll
-  for (int off = 16; off > 0; off >>= 1) v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, off));
-  return v;
-}
-
-__device__ __forceinline__ float warp_sum(float v) {
-#pragma unroll
-  for (int off = 16; off > 0; off >>= 1) v += __shfl_xor_sync(0xffffffffu, v, off);
-  return v;
-}
-
 template <typename K>
 inline cudaError_t set_smem(K kernel, size_t bytes) {
   return cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
                               (int)bytes);
-}
-
-// ----------------------------------------------------------------- forward
-
-template <int DP, int RW>
-struct FwdCfg {
-  static constexpr int BQ = 4 * RW;
-  static constexpr int LDK = DP + 1;  // lane j reads row j: odd stride, no bank conflicts
-  static constexpr size_t SMEM = sizeof(float) * ((size_t)BQ * DP + TILE * LDK + TILE * DP);
-};
-
-template <int DP, int RW>
-__global__ void __launch_bounds__(THREADS)
-fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
-           const float* __restrict__ v, float* __restrict__ o, float* __restrict__ lse,
-           int tq, int tk, int d, float scale) {
-  typedef FwdCfg<DP, RW> C;
-  constexpr int NC = DP / 32;
-  extern __shared__ __align__(16) float sm[];
-  float* Qs = sm;
-  float* Ks = Qs + C::BQ * DP;
-  float* Vs = Ks + TILE * C::LDK;
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int bh = blockIdx.y;
-  const int q0 = blockIdx.x * C::BQ;
-  const float* kb = k + (size_t)bh * tk * d;
-  const float* vb = v + (size_t)bh * tk * d;
-  const float sl2 = scale * LOG2E;
-  stage<C::BQ, DP, DP>(Qs, q + (size_t)bh * tq * d, q0, tq, d);
-  const float* qw = Qs + warp * RW * DP;
-
-  float acc[RW][NC], m[RW], l[RW];
-#pragma unroll
-  for (int r = 0; r < RW; ++r) {
-    m[r] = -INFINITY;
-    l[r] = 0.f;
-#pragma unroll
-    for (int i = 0; i < NC; ++i) acc[r][i] = 0.f;
-  }
-  for (int k0 = 0; k0 < tk; k0 += TILE) {
-    __syncthreads();  // the previous tile's readers are done
-    stage<TILE, DP, C::LDK>(Ks, kb, k0, tk, d);
-    stage<TILE, DP, DP>(Vs, vb, k0, tk, d);
-    __syncthreads();
-    float s[RW];
-#pragma unroll
-    for (int r = 0; r < RW; ++r) s[r] = 0.f;
-    for (int c = 0; c < d; ++c) {
-      const float kc = Ks[lane * C::LDK + c];
-#pragma unroll
-      for (int r = 0; r < RW; ++r) s[r] = fmaf(qw[r * DP + c], kc, s[r]);
-    }
-    const bool valid = k0 + lane < tk;
-#pragma unroll
-    for (int r = 0; r < RW; ++r) {
-      const float x = valid ? s[r] * sl2 : -INFINITY;
-      const float mn = fmaxf(m[r], warp_max(x));
-      const float alpha = exp2f(m[r] - mn);  // 0 on the first tile (m = -inf)
-      s[r] = exp2f(x - mn);
-      l[r] = l[r] * alpha + s[r];  // this lane's share of the row sum
-      m[r] = mn;
-#pragma unroll
-      for (int i = 0; i < NC; ++i) acc[r][i] *= alpha;
-    }
-    const int nj = min(TILE, tk - k0);
-    for (int j = 0; j < nj; ++j) {
-      float vj[NC];
-#pragma unroll
-      for (int i = 0; i < NC; ++i) vj[i] = Vs[j * DP + lane + 32 * i];
-#pragma unroll
-      for (int r = 0; r < RW; ++r) {
-        const float p = __shfl_sync(0xffffffffu, s[r], j);
-#pragma unroll
-        for (int i = 0; i < NC; ++i) acc[r][i] = fmaf(p, vj[i], acc[r][i]);
-      }
-    }
-  }
-#pragma unroll
-  for (int r = 0; r < RW; ++r) {
-    const float sum = warp_sum(l[r]);
-    const int row = q0 + warp * RW + r;
-    if (row >= tq) continue;
-    const float inv = 1.f / sum;
-    float* orow = o + ((size_t)bh * tq + row) * d;
-#pragma unroll
-    for (int i = 0; i < NC; ++i) {
-      const int c = lane + 32 * i;
-      if (c < d) orow[c] = acc[r][i] * inv;
-    }
-    if (lane == 0) lse[(size_t)bh * tq + row] = m[r] * LN2 + logf(sum);
-  }
 }
 
 // ------------------------------------------- wide forward on 3xTF32 products
@@ -588,6 +482,323 @@ flash_fwd_f32_wide_kernel(const float* __restrict__ q, const float* __restrict__
   }
 }
 
+// ----------------------------------------- narrow forward on 3xTF32 products
+//
+// flash_fwd_f32 for D <= 128 (instances DMAX = 32, 64 and 128), in place of
+// the Pallas `_fwd_kernel_single` / `_fwd_kernel` on fp32 slabs.
+//
+// What bounds it: the same 3xTF32 products as the wide forward, 2 * 3 TF32
+// products a (q row, kv row, column), on mma.sync (wgmma takes TF32 only
+// K-major, and v is MN-major in o += p v): 0.52 ms at [32, 4096, 4096, 40]
+// at 495 TFLOP/s, ~0.8 ms at the 325 TFLOP/s mma.sync reaches. What stands
+// beside them is the work that feeds them (every k and v fragment is read
+// from shared memory and split into its high and low parts) and latency:
+// a warp's products, softmax and products again depend on each other, and
+// the registers leave room for few warps an SM.
+//
+// Design: a block of four warps takes BQ = 128 q rows of one slab; warp w
+// owns rows 32 w .. 32 w + 31 (two m-tiles of 16, so that every k and v
+// fragment it loads and splits serves two products) and every column of
+// o. Narrow widths let a warp keep what the wide kernel had to share
+// through shared memory:
+//   * q's tile is resident in shared memory (one TMA box, rows padded like
+//     k's); its A fragments are read and split once a k-step of a kv tile;
+//   * s = q k^T: the warp's 32 x BK score tile in registers, over the
+//     k-steps of d8 = d rounded up to 8. A k-step's two columns of a lane
+//     are 2t and 2t + 1 (the same permutation of k on both operands), so
+//     each fragment half is one 64-bit load;
+//   * the online softmax on those accumulators: the row maxima and sums
+//     over the four lanes of a row by shuffles; no shared memory, no block
+//     barrier;
+//   * o += p v straight from the score accumulators: the m16n8 accumulator's
+//     (row g, columns 2t, 2t + 1) are the m16n8k8 A fragment's (row g, k t)
+//     and (row g, k t + 4) once v's B fragments read kv rows 2t and 2t + 1
+//     (32-bit loads, v's row stride 4 (mod 8) floats: no bank conflicts).
+//     The tensor cores' sums round toward zero relative to what they add
+//     to, so each tile's products are summed from zero and added to o by
+//     fp32 adds, as in the wide forward.
+//   * the stream: k and v tiles of BK kv rows (64; 16 at DMAX 128) through
+//     a ring of two slots, one k and one v tile a slot, each one TMA box
+//     whose columns past d are zero and pad the rows (k's and q's rows to
+//     8 (mod 32) floats for the 64-bit loads, v's to 4 (mod 8)); zero past
+//     the slab's rows. Each slot has a full mbarrier (the TMA bytes) and an
+//     empty one (one arrival a warp once it left the slot); thread 0 waits
+//     on the empty one at the end of the tile and refills the slot two
+//     tiles on. Where d % 4 != 0 or a base is off 16 bytes, every thread
+//     copies its share of 4-byte words with cp.async after that wait, and
+//     the copies complete on the full mbarrier
+//     (cp.async.mbarrier.arrive.noinc).
+// Blocks an SM (registers and shared memory): 2 (60 KB each at DMAX 32,
+// 109 KB at 64, 104 KB at 128). Ragged q rows read zeros and are never
+// written; ragged kv columns are masked to -inf. No atomics: the same
+// bytes on every launch.
+
+template <int DMAX>
+struct NarrowCfg {
+  static constexpr int NW = 4;  // warps
+  static constexpr int THREADS = 32 * NW;
+  static constexpr int MT = 2;                      // m-tiles of 16 q rows a warp
+  static constexpr int BQ = 16 * MT * NW;           // q rows a block
+  static constexpr int BK = DMAX == 128 ? 16 : 64;  // kv rows a tile
+  // row strides in floats: 8 (mod 32) for q's and k's 64-bit fragment
+  // loads, 4 (mod 8) for v's 32-bit loads of rows 2t, 2t + 1
+  static constexpr int LDK = DMAX + 8, LDV = DMAX + 4;
+  static constexpr int QT = BQ * LDK;                 // the q tile
+  static constexpr int KT = BK * LDK, VT = BK * LDV;  // a slot: a k tile, then a v tile
+  static constexpr int RING = 2;
+  static constexpr int MINB = 2;  // blocks an SM
+  // the q tile and the ring (128-byte aligned for TMA), a full and an
+  // empty mbarrier a slot and q's, and 128 bytes of alignment
+  static constexpr size_t SMEM =
+      sizeof(float) * ((size_t)QT + RING * (KT + VT)) + 16 * RING + 8 + 128;
+};
+
+template <int DMAX, bool VEC>
+__global__ void __launch_bounds__(NarrowCfg<DMAX>::THREADS, NarrowCfg<DMAX>::MINB)
+flash_fwd_f32_narrow_kernel(const __grid_constant__ CUtensorMap qmap,
+                            const __grid_constant__ CUtensorMap kmap,
+                            const __grid_constant__ CUtensorMap vmap,
+                            const float* __restrict__ q, const float* __restrict__ k,
+                            const float* __restrict__ v, float* __restrict__ o,
+                            float* __restrict__ lse, int tq, int tk, int d, float scale) {
+  typedef NarrowCfg<DMAX> C;
+  constexpr int BK = C::BK, LDK = C::LDK, LDV = C::LDV, RING = C::RING, MT = C::MT;
+  constexpr int NKS = DMAX / 8;  // k-steps of s and n-tiles of o, at most
+  constexpr int NT = BK / 8;     // n-tiles of s, k-steps of o += p v
+  extern __shared__ __align__(16) uint8_t smem_raw[];
+  float* Qs = reinterpret_cast<float*>(
+      smem_raw + ((128u - (hopper::smem_addr(smem_raw) & 127u)) & 127u));
+  float* ring = Qs + C::QT;                                                     // [RING][k, v tile]
+  uint64_t* full = reinterpret_cast<uint64_t*>(ring + RING * (C::KT + C::VT));  // [RING]
+  uint64_t* empty = full + RING;                                                // [RING]
+  uint64_t* qfull = empty + RING;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int g = lane >> 2, t4 = lane & 3;
+  const int bh = blockIdx.y, q0 = blockIdx.x * C::BQ;
+  const float* qb = q + (size_t)bh * tq * d;
+  const float* kb = k + (size_t)bh * tk * d;
+  const float* vb = v + (size_t)bh * tk * d;
+  const float sl2 = scale * LOG2E;
+  const int d8 = (d + 7) & ~7;  // columns the k-steps read (zero past d)
+  const int nks = d8 >> 3;      // k-steps of s, n-tiles of o
+  const int ntile = (tk + BK - 1) / BK;
+
+  // rows [r0, r0 + rows) of an fp32 [n, d] slab into dst (row stride
+  // ld), columns up to d8, zero past the slab: every thread's share of
+  // 4-byte cp.async copies
+  auto copy4 = [&](float* dst, int ld, const float* src, int r0, int rows, int n) {
+    for (int i = threadIdx.x; i < rows * d8; i += C::THREADS) {
+      const int r = i / d8, c = i - r * d8;
+      const bool in = r0 + r < n && c < d;
+      cp_async4(smem_u32(dst + r * ld + c), src + (in ? (size_t)(r0 + r) * d + c : 0), in ? 4 : 0);
+    }
+  };
+  // kv tile j into ring slot j % RING, completing on its full mbarrier: by
+  // thread 0 (TMA), or by every thread (4-byte copies)
+  auto load = [&](int j) {
+    const int slot = j % RING;
+    float* dst = ring + slot * (C::KT + C::VT);
+    if (VEC) {
+      hopper::mbar_arrive_tx(full + slot, (C::KT + C::VT) * 4);
+      hopper::tma_load_3d(dst, &kmap, 0, j * BK, bh, full + slot);
+      hopper::tma_load_3d(dst + C::KT, &vmap, 0, j * BK, bh, full + slot);
+    } else {
+      copy4(dst, LDK, kb, j * BK, BK, tk);
+      copy4(dst + C::KT, LDV, vb, j * BK, BK, tk);
+      cp_async_arrive(full + slot);
+    }
+  };
+
+  if (threadIdx.x < RING) {
+    hopper::mbar_init(full + threadIdx.x, VEC ? 1 : C::THREADS);
+    hopper::mbar_init(empty + threadIdx.x, C::NW);
+  }
+  if (threadIdx.x == 0) hopper::mbar_init(qfull, VEC ? 1 : C::THREADS);
+  hopper::mbar_init_fence();
+  __syncthreads();
+  if (VEC) {
+    if (threadIdx.x == 0) {
+      hopper::mbar_arrive_tx(qfull, C::QT * 4);
+      hopper::tma_load_3d(Qs, &qmap, 0, q0, bh, qfull);
+      for (int j = 0; j < min(RING, ntile); ++j) load(j);
+    }
+  } else {
+    copy4(Qs, LDK, qb, q0, C::BQ, tq);
+    cp_async_arrive(qfull);
+    for (int j = 0; j < min(RING, ntile); ++j) load(j);
+  }
+
+  float acc[MT][NKS][4];  // o: rows 16 m + g (+ 8) of the warp's, columns 8 n + 2 t4 (+ 1)
+#pragma unroll
+  for (int m = 0; m < MT; ++m)
+#pragma unroll
+    for (int n = 0; n < NKS; ++n)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[m][n][e] = 0.f;
+  float m_run[MT][2], l_run[MT][2];
+#pragma unroll
+  for (int m = 0; m < MT; ++m)
+#pragma unroll
+    for (int h = 0; h < 2; ++h) m_run[m][h] = -INFINITY, l_run[m][h] = 0.f;
+  const float* qp = Qs + (16 * MT * warp + g) * LDK + 2 * t4;  // the lane's base in q's tile
+  const int koff = g * LDK + 2 * t4;                           // in a k tile
+  const int voff = 2 * t4 * LDV + g;                           // in a v tile
+  hopper::mbar_wait(qfull, 0);
+
+#pragma unroll 1
+  for (int j = 0; j < ntile; ++j) {
+    const int slot = j % RING;
+    hopper::mbar_wait(full + slot, (j / RING) & 1);  // tile j is in
+    const float* kp = ring + slot * (C::KT + C::VT) + koff;
+    const float* vp = ring + slot * (C::KT + C::VT) + C::KT + voff;
+
+    // s = q k^T: kv columns 8 n + 2 t4 (+ 1) of the tile
+    float s[MT][NT][4];
+#pragma unroll
+    for (int m = 0; m < MT; ++m)
+#pragma unroll
+      for (int n = 0; n < NT; ++n)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) s[m][n][e] = 0.f;
+#pragma unroll
+    for (int ks = 0; ks < NKS; ++ks) {
+      if (ks < nks) {
+        uint32_t a[MT][4], al[MT][4];
+#pragma unroll
+        for (int m = 0; m < MT; ++m) {
+          const float2 x = *reinterpret_cast<const float2*>(qp + 16 * m * LDK + 8 * ks);
+          const float2 y = *reinterpret_cast<const float2*>(qp + (16 * m + 8) * LDK + 8 * ks);
+          a[m][0] = __float_as_uint(x.x);
+          a[m][1] = __float_as_uint(y.x);
+          a[m][2] = __float_as_uint(x.y);
+          a[m][3] = __float_as_uint(y.y);
+#pragma unroll
+          for (int e = 0; e < 4; ++e) al[m][e] = tf32_lo(a[m][e]);
+        }
+#pragma unroll
+        for (int n = 0; n < NT; ++n) {
+          const float2 b = *reinterpret_cast<const float2*>(kp + 8 * n * LDK + 8 * ks);
+          const uint32_t b0 = __float_as_uint(b.x), b1 = __float_as_uint(b.y);
+          const uint32_t bl0 = tf32_lo(b0), bl1 = tf32_lo(b1);
+#pragma unroll
+          for (int m = 0; m < MT; ++m) mma3(s[m][n], a[m], al[m], b0, b1, bl0, bl1);
+        }
+      }
+    }
+
+    // the online softmax on the accumulators (log2 units: m_run is the
+    // rows' running maximum of s scale log2 e)
+    const int nvalid = tk - j * BK;
+#pragma unroll
+    for (int m = 0; m < MT; ++m) {
+      float mx[2] = {-INFINITY, -INFINITY};
+#pragma unroll
+      for (int n = 0; n < NT; ++n)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          if (nvalid < BK && 8 * n + 2 * t4 + (e & 1) >= nvalid) s[m][n][e] = -INFINITY;
+          mx[e >> 1] = fmaxf(mx[e >> 1], s[m][n][e]);
+        }
+      float alpha[2];
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        mx[h] = fmaxf(mx[h], __shfl_xor_sync(0xffffffffu, mx[h], 1));
+        mx[h] = fmaxf(mx[h], __shfl_xor_sync(0xffffffffu, mx[h], 2));
+        const float mn = fmaxf(m_run[m][h], mx[h] * sl2);
+        alpha[h] = hopper::ex2(m_run[m][h] - mn);  // 0 on the first tile (m = -inf)
+        m_run[m][h] = mn;
+        l_run[m][h] *= alpha[h];
+      }
+#pragma unroll
+      for (int n = 0; n < NT; ++n)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const float p = hopper::ex2(fmaf(s[m][n][e], sl2, -m_run[m][e >> 1]));
+          l_run[m][e >> 1] += p;  // this lane's share of the row sum
+          s[m][n][e] = p;
+        }
+#pragma unroll
+      for (int n = 0; n < NKS; ++n) {
+        if (n < nks) {
+          acc[m][n][0] *= alpha[0];
+          acc[m][n][1] *= alpha[0];
+          acc[m][n][2] *= alpha[1];
+          acc[m][n][3] *= alpha[1];
+        }
+      }
+    }
+
+    // o += p v: the tile's products summed from zero, then added to o in
+    // fp32
+    uint32_t pa[MT][NT][4], pl[MT][NT][4];
+#pragma unroll
+    for (int m = 0; m < MT; ++m)
+#pragma unroll
+      for (int i = 0; i < NT; ++i) {
+        // (row g, column 2t + 1) -> k t + 4
+        pa[m][i][0] = __float_as_uint(s[m][i][0]);
+        pa[m][i][1] = __float_as_uint(s[m][i][2]);
+        pa[m][i][2] = __float_as_uint(s[m][i][1]);
+        pa[m][i][3] = __float_as_uint(s[m][i][3]);
+#pragma unroll
+        for (int e = 0; e < 4; ++e) pl[m][i][e] = tf32_lo(pa[m][i][e]);
+      }
+#pragma unroll
+    for (int n = 0; n < NKS; ++n) {
+      if (n < nks) {
+        float t[MT][4];
+#pragma unroll
+        for (int m = 0; m < MT; ++m)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) t[m][e] = 0.f;
+#pragma unroll
+        for (int i = 0; i < NT; ++i) {
+          const float* bp = vp + 8 * i * LDV + 8 * n;
+          const uint32_t b0 = __float_as_uint(bp[0]), b1 = __float_as_uint(bp[LDV]);
+          const uint32_t bl0 = tf32_lo(b0), bl1 = tf32_lo(b1);
+#pragma unroll
+          for (int m = 0; m < MT; ++m) mma3(t[m], pa[m][i], pl[m][i], b0, b1, bl0, bl1);
+        }
+#pragma unroll
+        for (int m = 0; m < MT; ++m)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) acc[m][n][e] += t[m][e];
+      }
+    }
+
+    // the warp leaves the slot; once all have, it takes tile j + RING
+    __syncwarp();
+    if (lane == 0) hopper::mbar_arrive(empty + slot);
+    if (j + RING < ntile && (!VEC || threadIdx.x == 0)) {
+      hopper::mbar_wait(empty + slot, (j / RING) & 1);
+      load(j + RING);
+    }
+    __syncwarp();
+  }
+
+  // the row sums over a row's four lanes; o and lse written once, ragged
+  // rows and columns never
+#pragma unroll
+  for (int m = 0; m < MT; ++m)
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      float sum = l_run[m][h];
+      sum += __shfl_xor_sync(0xffffffffu, sum, 1);
+      sum += __shfl_xor_sync(0xffffffffu, sum, 2);
+      const int row = q0 + 16 * (MT * warp + m) + g + 8 * h;
+      if (row >= tq) continue;
+      const float inv = 1.f / sum;
+      float* orow = o + ((size_t)bh * tq + row) * d;
+#pragma unroll
+      for (int n = 0; n < NKS; ++n) {
+        const int col = 8 * n + 2 * t4;
+        if (col < d) orow[col] = acc[m][n][2 * h] * inv;
+        if (col + 1 < d) orow[col + 1] = acc[m][n][2 * h + 1] * inv;
+      }
+      if (t4 == 0) lse[(size_t)bh * tq + row] = m_run[m][h] * LN2 + logf(sum);
+    }
+}
+
 // --------------------------------------------------------------------- dq
 
 template <int DP, int RW>
@@ -896,20 +1107,26 @@ struct SplitCfg {
       16 * (size_t)RING + 128;
 };
 
-// Tensor map of a contiguous fp32 [bh, t, d] tensor read in boxes of 16
-// rows x 68 columns of one b*h slab, zero past t and d. Needs d % 4 == 0
-// and a 16-byte aligned base.
-inline int f32_box_map(CUtensorMap* map, const void* base, int bh, int t, int d) {
+// Tensor map of a contiguous fp32 [bh, t, d] tensor read in boxes of
+// `rows` rows x `cols` columns of one b*h slab, zero past t and d. Needs
+// d % 4 == 0 and a 16-byte aligned base.
+inline int f32_tile_map(CUtensorMap* map, const void* base, int bh, int t, int d, int cols,
+                        int rows) {
   hopper::EncodeTiledFn fn = hopper::encode_tiled();
   if (!fn) return (int)cudaErrorNotSupported;
   const cuuint64_t dims[3] = {(cuuint64_t)d, (cuuint64_t)t, (cuuint64_t)bh};
   const cuuint64_t strides[2] = {(cuuint64_t)d * 4, (cuuint64_t)t * d * 4};
-  const cuuint32_t box[3] = {68, 16, 1};
+  const cuuint32_t box[3] = {(cuuint32_t)cols, (cuuint32_t)rows, 1};
   const cuuint32_t estr[3] = {1, 1, 1};
   CUresult r = fn(map, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, 3, const_cast<void*>(base), dims, strides,
                   box, estr, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_NONE,
                   CU_TENSOR_MAP_L2_PROMOTION_L2_128B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
   return r == CUDA_SUCCESS ? 0 : (int)cudaErrorInvalidValue;
+}
+
+// the split pair's chunks: boxes of 16 rows x 68 columns
+inline int f32_box_map(CUtensorMap* map, const void* base, int bh, int t, int d) {
+  return f32_tile_map(map, base, bh, t, d, 68, 16);
 }
 
 // whether the block has the producer warp: dq at DMAX 512
@@ -1221,18 +1438,38 @@ flash_bwd_f32_split_kernel(const __grid_constant__ CUtensorMap umap,
 
 // --------------------------------------------------------------- launchers
 
-template <int DP>
-int launch_fwd(const void* q, const void* k, const void* v, void* o, void* lse, int bh,
-               int tq, int tk, int d, float scale, cudaStream_t s) {
-  constexpr int RW = 4;
-  typedef FwdCfg<DP, RW> C;
-  auto kern = fwd_kernel<DP, RW>;
+template <int DMAX, bool VEC>
+int run_fwd_narrow(const float* q, const float* k, const float* v, float* o, float* lse, int bh,
+                   int tq, int tk, int d, float scale, cudaStream_t s) {
+  typedef NarrowCfg<DMAX> C;
+  CUtensorMap maps[3];
+  memset(maps, 0, sizeof(maps));
+  if (VEC) {
+    int rc = f32_tile_map(&maps[0], q, bh, tq, d, C::LDK, C::BQ);
+    if (rc == 0) rc = f32_tile_map(&maps[1], k, bh, tk, d, C::LDK, C::BK);
+    if (rc == 0) rc = f32_tile_map(&maps[2], v, bh, tk, d, C::LDV, C::BK);
+    if (rc != 0) return rc;
+  }
+  auto kern = flash_fwd_f32_narrow_kernel<DMAX, VEC>;
   cudaError_t err = set_smem(kern, C::SMEM);
   if (err != cudaSuccess) return (int)err;
-  kern<<<dim3((tq + C::BQ - 1) / C::BQ, bh), THREADS, C::SMEM, s>>>(
-      (const float*)q, (const float*)k, (const float*)v, (float*)o, (float*)lse, tq, tk, d,
-      scale);
+  kern<<<dim3((tq + C::BQ - 1) / C::BQ, bh), C::THREADS, C::SMEM, s>>>(
+      maps[0], maps[1], maps[2], q, k, v, o, lse, tq, tk, d, scale);
   return (int)cudaGetLastError();
+}
+
+// the narrow forward's instance: TMA where the rows are whole vectors and
+// the bases 16-byte aligned, 4-byte copies otherwise
+template <int DMAX>
+int launch_fwd_narrow(const void* q, const void* k, const void* v, void* o, void* lse, int bh,
+                      int tq, int tk, int d, float scale, cudaStream_t s) {
+  const uintptr_t bases = reinterpret_cast<uintptr_t>(q) | reinterpret_cast<uintptr_t>(k) |
+                          reinterpret_cast<uintptr_t>(v);
+  const bool vec = d % 4 == 0 && bases % 16 == 0;
+  const float *qf = (const float*)q, *kf = (const float*)k, *vf = (const float*)v;
+  float *of = (float*)o, *lf = (float*)lse;
+  if (vec) return run_fwd_narrow<DMAX, true>(qf, kf, vf, of, lf, bh, tq, tk, d, scale, s);
+  return run_fwd_narrow<DMAX, false>(qf, kf, vf, of, lf, bh, tq, tk, d, scale, s);
 }
 
 template <int DMAX, bool VEC>
@@ -1341,8 +1578,9 @@ inline bool args_ok(int bh, int tq, int tk) {
 
 // The same C interfaces as the bf16 entry points (flash_fwd.cu,
 // flash_bwd.cu), on fp32 tensors: q, k, v, do, o, dq, dk, dv fp32
-// [bh, t, d] contiguous; lse, delta fp32 [bh, tq]. Past D = 128 the
-// forward and the split pair take the 3xTF32 tensor-core kernels.
+// [bh, t, d] contiguous; lse, delta fp32 [bh, tq]. The forward takes the
+// 3xTF32 tensor-core kernels at every width (narrow up to D = 128, wide
+// past it), the split pair past D = 128.
 extern "C" int flash_fwd_f32(const void* q, const void* k, const void* v, void* o,
                              void* lse, int bh, int tq, int tk, int d, float scale,
                              void* stream) {
@@ -1350,20 +1588,28 @@ extern "C" int flash_fwd_f32(const void* q, const void* k, const void* v, void* 
   if (!args_ok(bh, tq, tk)) return (int)cudaErrorInvalidValue;
   cudaStream_t s = (cudaStream_t)stream;
   switch (pad_d(d)) {
-    case 32: return launch_fwd<32>(q, k, v, o, lse, bh, tq, tk, d, scale, s);
-    case 64: return launch_fwd<64>(q, k, v, o, lse, bh, tq, tk, d, scale, s);
-    case 128: return launch_fwd<128>(q, k, v, o, lse, bh, tq, tk, d, scale, s);
+    case 32: return launch_fwd_narrow<32>(q, k, v, o, lse, bh, tq, tk, d, scale, s);
+    case 64: return launch_fwd_narrow<64>(q, k, v, o, lse, bh, tq, tk, d, scale, s);
+    case 128: return launch_fwd_narrow<128>(q, k, v, o, lse, bh, tq, tk, d, scale, s);
     case 256: return launch_fwd_wide<256>(q, k, v, o, lse, bh, tq, tk, d, scale, s);
     case 512: return launch_fwd_wide<512>(q, k, v, o, lse, bh, tq, tk, d, scale, s);
     default: return (int)cudaErrorInvalidValue;
   }
 }
 
-// Dynamic shared memory of the wide forward's block at dmax (256 or 512;
-// 0 otherwise), for the Python count (ops/flash.py f32_wide_smem_bytes)
+// Dynamic shared memory of the forward's block at dmax (32, 64 and 128:
+// the narrow kernel; 256 and 512: the wide one; 0 otherwise), for the
+// Python counts (ops/flash.py f32_narrow_smem_bytes, f32_wide_smem_bytes)
 extern "C" int flash_fwd_f32_smem(int dmax) {
   using namespace flash32;
-  return dmax == 256 ? (int)WideCfg<256>::SMEM : dmax == 512 ? (int)WideCfg<512>::SMEM : 0;
+  switch (dmax) {
+    case 32: return (int)NarrowCfg<32>::SMEM;
+    case 64: return (int)NarrowCfg<64>::SMEM;
+    case 128: return (int)NarrowCfg<128>::SMEM;
+    case 256: return (int)WideCfg<256>::SMEM;
+    case 512: return (int)WideCfg<512>::SMEM;
+    default: return 0;
+  }
 }
 
 // Dynamic shared memory of the split pair's tensor-core block in role 0

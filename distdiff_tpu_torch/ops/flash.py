@@ -17,10 +17,11 @@ warp-specialised TMA/wgmma kernels, whose padded width (0 for the wide
 forward) and load route ``bf16_plan`` chooses, and so is the split
 backward (D > 128), whose load route ``split_plan`` chooses; fp32 goes to
 their fp32 instances (``csrc/flash_f32.cu``), with fp32 outputs: the
-forward and the split backward pair past D = 128 on the tensor cores as
-3xTF32 (each product formed from the operands' high and low TF32 parts,
+forward at every width (its narrow kernel up to D = 128, its wide one past
+it) and the split backward pair past D = 128 on the tensor cores as 3xTF32
+(each product formed from the operands' high and low TF32 parts,
 lo·hi + hi·lo + hi·hi, which keeps fp32's accuracy where one TF32 product
-would lose ~3 digits), the narrower ones on CUDA-core fp32 FMA.
+would lose ~3 digits), the narrower backward kernels on CUDA-core fp32 FMA.
 fp32 is never rounded to bf16. On a CPU tensor, and only there, it runs the plain PyTorch version
 (``flash_fwd_reference`` / ``flash_bwd_reference``), which computes the same
 function in fp32. There is no fallback from the kernel.
@@ -171,18 +172,32 @@ def split_smem_bytes(dmax: int) -> int:
     return 2 * ch * chunk + ring * chunk + chunk + 2 * 2 * 64 * 4 + 8 * bars + 1024
 
 
-# Head widths the fp32 tensor-core kernels (the forward's and the split
-# pair's) are built for (past D = 128; D is padded to the next one in
-# shared memory only).
+# Head widths the fp32 narrow forward is built for (D <= 128), and those of
+# the fp32 wide tensor-core kernels (the forward's and the split pair's,
+# past D = 128); D is padded to the next one in shared memory only.
+F32_NARROW_DMAX = (32, 64, 128)
 F32_WIDE_DMAX = (256, 512)
 
 
 def f32_fwd_kernel(d: int) -> Tuple[str, int]:
     """(kernel, padded width) an fp32 ``flash_fwd`` at head width ``d``
-    runs, by csrc/flash_f32.cu's ``flash_fwd_f32`` rule: the CUDA-core
-    ``fwd_kernel`` up to D = 128, the 3xTF32 tensor-core kernel past it."""
-    pad = next(w for w in (32, 64, 128) + F32_WIDE_DMAX if d <= w)
-    return ("fwd_kernel" if pad <= 128 else "flash_fwd_f32_wide_kernel"), pad
+    runs, by csrc/flash_f32.cu's ``flash_fwd_f32`` rule: both are 3xTF32
+    tensor-core kernels, the narrow one (a warp's 32 q rows against every
+    column of o, s and p in registers) up to D = 128, the wide one (score
+    and output roles through shared memory) past it."""
+    pad = next(w for w in F32_NARROW_DMAX + F32_WIDE_DMAX if d <= w)
+    return ("flash_fwd_f32_narrow_kernel" if pad <= 128 else "flash_fwd_f32_wide_kernel"), pad
+
+
+def f32_narrow_smem_bytes(dmax: int) -> int:
+    """Dynamic shared memory of the fp32 narrow forward's block at ``dmax``,
+    as csrc/flash_f32.cu NarrowCfg lays it out: the resident q tile (128
+    rows of dmax + 8 floats) and a ring of two slots, each one k tile of BK
+    rows of dmax + 8 floats and one v tile of BK rows of dmax + 4 (BK = 64
+    kv rows; 16 at DMAX 128); then a full and an empty mbarrier a slot,
+    q's, and 128 bytes to align the tiles."""
+    bk = 16 if dmax == 128 else 64
+    return 4 * (128 * (dmax + 8) + 2 * bk * (2 * dmax + 12)) + 16 * 2 + 8 + 128
 
 
 def f32_wide_smem_bytes(dmax: int) -> int:

@@ -1,6 +1,7 @@
 #!/usr/bin/env python3
-"""The wide flash kernels of this tree against those of another copy of
-the kernel sources, timed in turns on one NVIDIA GPU.
+"""The flash kernels of this tree (the wide ones, and the fp32 narrow
+forward) against those of another copy of the kernel sources, timed in
+turns on one NVIDIA GPU.
 
 Builds ``flash_fwd.cu`` (with ``--bwd``: ``flash_bwd.cu``; with ``--f32``:
 ``flash_f32.cu``) from
@@ -10,9 +11,10 @@ sources), calls each library's ``flash_fwd`` (with ``--bwd``: the split
 backward pair ``flash_bwd_dq`` and ``flash_bwd_dkv``, each copy with its
 own C signature: the pair took no load route before it ran on TMA; with
 ``--f32``: ``flash_fwd_f32`` on fp32 inputs at [2,4096,4096,512] and
-[4,4096,4096,160], its two wide instances; with ``--f32 --bwd``: the fp32
-split pair ``flash_bwd_dq_f32`` and ``flash_bwd_dkv_f32`` at the same two
-shapes) through
+[4,4096,4096,160], its two wide instances, or with ``--f32 --narrow`` at
+[32,4096,4096,40] and [32,1024,1024,80], the UNet's attention at its two
+narrow instances; with ``--f32 --bwd``: the fp32 split pair
+``flash_bwd_dq_f32`` and ``flash_bwd_dkv_f32`` at the wide shapes) through
 ``ctypes`` on the same inputs (bf16; fp32 with ``--f32``), checks that the
 two agree, and times
 them in turns (other, tree, tree, other, other, tree): each time the median
@@ -20,7 +22,7 @@ of CUDA events around one launch queued behind a device spin, the kernel
 alone.
 
 Run from the repository root on the machine with the card:
-``python3 scripts/torch_flash_ab.py OTHER_CSRC_DIR [--bwd] [--f32] [--json PATH]``.
+``python3 scripts/torch_flash_ab.py OTHER_CSRC_DIR [--bwd] [--f32 [--narrow]] [--json PATH]``.
 """
 
 from __future__ import annotations
@@ -39,6 +41,8 @@ sys.path.insert(0, ROOT)
 # [BH, Tq, Tk, D]: the VAE mid-block's attention, a shorter one, and the
 # wide kernels' DMAX = 256 instance
 SHAPES = [(2, 4096, 4096, 512), (2, 1024, 1024, 512), (4, 4096, 4096, 160)]
+# the UNet's 64^2 and 32^2 self-attention, in fp32 (the narrow forward)
+NARROW_F32 = [(32, 4096, 4096, 40), (32, 1024, 1024, 80)]
 
 
 def takes_route(src: str, entry: str) -> bool:
@@ -56,8 +60,8 @@ def main(argv) -> int:
     from distdiff_tpu_torch.ops import _build
 
     if not torch.cuda.is_available() or not argv:
-        print("usage: torch_flash_ab.py OTHER_CSRC_DIR [--bwd] [--f32] [--json PATH] (needs a "
-              "CUDA card)", file=sys.stderr)
+        print("usage: torch_flash_ab.py OTHER_CSRC_DIR [--bwd] [--f32 [--narrow]] [--json PATH] "
+              "(needs a CUDA card)", file=sys.stderr)
         return 2
     bwd, f32 = "--bwd" in argv, "--f32" in argv
     card = cs.card_line()
@@ -100,7 +104,8 @@ def main(argv) -> int:
     dtype = torch.float32 if f32 else torch.bfloat16
     plan = () if f32 else (0, 1)  # the bf16 wide kernel: width 0, TMA loads
     rows = []
-    for bh, tq, tk, d in (SHAPES[0], SHAPES[-1]) if f32 else SHAPES:
+    shapes = NARROW_F32 if "--narrow" in argv else (SHAPES[0], SHAPES[-1]) if f32 else SHAPES
+    for bh, tq, tk, d in shapes:
         q, k, v = (torch.randn(bh, t, d, generator=gen, device=dev).to(dtype)
                    for t in (tq, tk, tk))
         calls, outs = {}, {}

@@ -4,27 +4,33 @@
 Builds the port's narrow (D <= 128) flash kernels (``flash_fwd`` and
 ``flash_bwd_fused`` in ``distdiff_tpu_torch/csrc``), its wide forward
 (``flash_fwd`` past D = 128), its split backward pair
-(``flash_bwd_dq``, ``flash_bwd_dkv``), its fp32 wide forward
-(``flash_fwd_f32`` past D = 128, on 3xTF32 tensor-core products) and its
-fp32 split pair (``flash_bwd_dq_f32``, ``flash_bwd_dkv_f32`` past D = 128,
-the same arithmetic) once as they are and once for each variant
+(``flash_bwd_dq``, ``flash_bwd_dkv``), its fp32 narrow and wide forwards
+(``flash_fwd_f32`` up to and past D = 128, on 3xTF32 tensor-core products)
+and its fp32 split pair (``flash_bwd_dq_f32``, ``flash_bwd_dkv_f32`` past
+D = 128, the same arithmetic) once as they are and once for each variant
 below, with one part taken out of the source, and times every build on the
 same inputs (the narrow variants at the UNet's shapes, the wide ones at the
-VAE mid-block's, the fp32 ones at [2,4096,4096,512] and [4,4096,4096,160],
-in fp32): the median of CUDA events around one
+VAE mid-block's, the fp32 wide ones at [2,4096,4096,512] and
+[4,4096,4096,160] and the fp32 narrow forward's at the UNet's shapes, in
+fp32): the median of CUDA events around one
 launch queued behind a device spin, the kernel alone (no wrapper, no dq
 zeroing or cast). A variant computes wrong numbers by design; only its
 time means something. Each build runs in its own process under a time
 limit, so a variant that stalls cannot hold the run.
 
 Run from the repository root on the machine with the card:
-``python3 scripts/torch_flash_ablate.py [--only TEXT] [--json PATH]``. It
-prints one line per (variant, shape) and, with ``--json``, writes them
-there too; ``--only`` keeps the variants whose name contains TEXT
-(``--only wide_bwd``: the split backward pair's set, each build timing
-``flash_bwd_dq`` and ``flash_bwd_dkv``; ``--only wide_f32``: the fp32 wide
-forward's set; ``--only f32_bwd``: the fp32 split pair's set, each build
-timing both kernels).
+``python3 scripts/torch_flash_ablate.py [--only TEXT] [--csrc DIR] [--json
+PATH]``. It prints one line per (variant, shape) and, with ``--json``,
+writes them there too; ``--only`` keeps the variants whose name contains
+TEXT (``--only wide_bwd``: the split backward pair's set, each build
+timing ``flash_bwd_dq`` and ``flash_bwd_dkv``; ``--only wide_f32``: the
+fp32 wide forward's set; ``--only narrow_f32``: the fp32 narrow forward's
+set; ``--only f32_bwd``: the fp32 split pair's set, each build timing both
+kernels); ``--csrc`` patches and builds another copy of the sources (an
+unpacked older commit's ``distdiff_tpu_torch/csrc``). The ``fma_f32`` set
+patches the CUDA-core ``fwd_kernel`` that ``flash_fwd_f32`` ran at
+D <= 128 before its narrow tensor-core kernel: run it with ``--csrc`` on
+such a tree.
 """
 
 from __future__ import annotations
@@ -41,6 +47,7 @@ CSRC = os.path.join(ROOT, "distdiff_tpu_torch", "csrc")
 NARROW = [(32, 4096, 40), (32, 1024, 80)]  # the UNet's 64^2 and 32^2 self-attention
 WIDE = [(2, 4096, 512)]  # the VAE mid-block's single head
 WIDE_F32 = [(2, 4096, 512), (4, 4096, 160)]  # the fp32 wide forward's two instances
+NARROW_F32 = [(32, 4096, 40), (32, 1024, 80)]  # the UNet's shapes in fp32
 
 # the wide forward's parts: its k and v tiles' loads (each replaced by a
 # bare arrival on its full barrier, the TMA route's count), its two products
@@ -113,6 +120,27 @@ _F32_BWD_NO_STREAM = (
     "        hopper::tma_load_3d(dst + C::CHUNK, &wmap, c0, row0, bh, full + slot);\n",
     "        hopper::mbar_arrive(full + slot);\n")
 
+# the fp32 narrow forward's parts (the same file; mma3's patches above take
+# its correction products or all its products too): its exponentials, and
+# its k and v tiles' TMA loads (each replaced by a bare arrival on the
+# slot's full barrier)
+_NARROW_EX2 = ("const float p = hopper::ex2(fmaf(s[m][n][e], sl2, -m_run[m][e >> 1]));",
+               "const float p = fmaf(s[m][n][e], sl2, -m_run[m][e >> 1]);")
+_NARROW_NO_KV = ("      hopper::mbar_arrive_tx(full + slot, (C::KT + C::VT) * 4);\n"
+                 "      hopper::tma_load_3d(dst, &kmap, 0, j * BK, bh, full + slot);\n"
+                 "      hopper::tma_load_3d(dst + C::KT, &vmap, 0, j * BK, bh, full + slot);\n",
+                 "      hopper::mbar_arrive(full + slot);\n")
+
+# the CUDA-core fwd_kernel's parts (flash_f32.cu before the narrow
+# tensor-core kernel, with --csrc): its exponentials, its k and v tiles'
+# staging into shared memory, and its fused multiply-adds (the score
+# statement is dq_kernel's too, which this set does not time)
+_FMA_EX2 = ("s[r] = exp2f(x - mn);", "s[r] = x - mn;")
+_FMA_NO_KV = ("    stage<TILE, DP, C::LDK>(Ks, kb, k0, tk, d);\n"
+              "    stage<TILE, DP, DP>(Vs, vb, k0, tk, d);\n", "")
+_FMA_PRODUCTS = [("s[r] = fmaf(qw[r * DP + c], kc, s[r]);", ";"),
+                 ("acc[r][i] = fmaf(p, vj[i], acc[r][i]);", ";")]
+
 # variant -> (source file, [(text, replacement)], shapes); the split pair's
 # variants run its two entry points, the other flash_bwd.cu ones the fused
 # pass
@@ -165,6 +193,16 @@ VARIANTS = {
     "wide_f32 without exponentials": ("flash_f32.cu", [_F32_EX2], WIDE_F32),
     "wide_f32 without k/v loads": ("flash_f32.cu", [_F32_NO_KV], WIDE_F32),
     "wide_f32 loads only": ("flash_f32.cu", [_F32_PRODUCTS, _F32_EX2], WIDE_F32),
+    "narrow_f32": ("flash_f32.cu", [], NARROW_F32),
+    "narrow_f32 one TF32 product": ("flash_f32.cu", [_F32_CORRECTIONS], NARROW_F32),
+    "narrow_f32 without exponentials": ("flash_f32.cu", [_NARROW_EX2], NARROW_F32),
+    "narrow_f32 without k/v loads": ("flash_f32.cu", [_NARROW_NO_KV], NARROW_F32),
+    "narrow_f32 loads only": ("flash_f32.cu", [_F32_PRODUCTS, _NARROW_EX2], NARROW_F32),
+    "fma_f32": ("flash_f32.cu", [], NARROW_F32),
+    "fma_f32 without exponentials": ("flash_f32.cu", [_FMA_EX2], NARROW_F32),
+    "fma_f32 without k/v loads": ("flash_f32.cu", [_FMA_NO_KV], NARROW_F32),
+    "fma_f32 without products": ("flash_f32.cu", _FMA_PRODUCTS, NARROW_F32),
+    "fma_f32 loads only": ("flash_f32.cu", _FMA_PRODUCTS + [_FMA_EX2], NARROW_F32),
     "f32_bwd": ("flash_f32.cu", [], WIDE_F32),
     "f32_bwd one TF32 product": ("flash_f32.cu", [_F32_CORRECTIONS], WIDE_F32),
     "f32_bwd without exponentials": ("flash_f32.cu", [_F32_BWD_EX2], WIDE_F32),
@@ -242,14 +280,15 @@ def main(argv) -> int:
     work = tempfile.mkdtemp(prefix="flash_ablate_")
     builds = []
     only = argv[argv.index("--only") + 1] if "--only" in argv else ""
+    csrc = argv[argv.index("--csrc") + 1] if "--csrc" in argv else CSRC
     for i, (name, (src, subs, shapes)) in enumerate(VARIANTS.items()):
         if only not in name:
             continue
         d = os.path.join(work, str(i))
         os.makedirs(d)
-        for f in os.listdir(CSRC):
+        for f in os.listdir(csrc):
             if f.endswith((".cu", ".cuh")):
-                text = open(os.path.join(CSRC, f)).read()
+                text = open(os.path.join(csrc, f)).read()
                 if f == src:
                     for a, b in subs:
                         if a not in text:

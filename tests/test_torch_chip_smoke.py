@@ -128,6 +128,9 @@ def test_gn_bound_counts_slab_passes(smoke):
     # fp32: each product as three TF32 products at 495 TFLOP/s (3xTF32)
     ("flash_fwd", (2, 4096, 4096, 512), 4, 0.4165),
     ("flash_fwd", (4, 4096, 4096, 160), 4, 0.2603),
+    # the narrow fp32 forward at the UNet's shapes
+    ("flash_fwd", (32, 4096, 4096, 40), 4, 0.5206),
+    ("flash_fwd", (32, 1024, 1024, 80), 4, 0.0651),
     # the fp32 split pair: 3 and 4 products
     ("flash_bwd_dq", (2, 4096, 4096, 512), 4, 0.6247),
     ("flash_bwd_dkv", (2, 4096, 4096, 512), 4, 0.8330),

@@ -164,6 +164,29 @@ def test_ablation_patches_apply_to_the_fp32_split_pair(name):
     assert (patched != text) == bool(subs)
 
 
+NARROW_F32_VARIANTS = ["narrow_f32", "narrow_f32 one TF32 product",
+                       "narrow_f32 without exponentials", "narrow_f32 without k/v loads",
+                       "narrow_f32 loads only"]
+
+
+@pytest.mark.parametrize("name", NARROW_F32_VARIANTS)
+def test_ablation_patches_apply_to_the_fp32_narrow_forward(name):
+    """The fp32 narrow forward's ablations are text of csrc/flash_f32.cu,
+    each still there once (the cases are all of the script's narrow_f32
+    set), timed at the UNet's two shapes."""
+    ab = _ablate_script()
+    assert sorted(n for n in ab.VARIANTS if n.startswith("narrow_f32")) == sorted(
+        NARROW_F32_VARIANTS)
+    src, subs, shapes = ab.VARIANTS[name]
+    assert src == "flash_f32.cu" and shapes == ab.NARROW_F32
+    text = open(os.path.join(ab.CSRC, src)).read()
+    patched = text
+    for old, new in subs:
+        assert patched.count(old) == 1, f"{name}: {old[:60]!r} is not once in {src}"
+        patched = patched.replace(old, new)
+    assert (patched != text) == bool(subs)
+
+
 WIDE_F32_VARIANTS = ["wide_f32", "wide_f32 one TF32 product", "wide_f32 without exponentials",
                      "wide_f32 without k/v loads", "wide_f32 loads only"]
 
@@ -197,7 +220,8 @@ def _tf32_high(x, nearest):
 def _tf32_matmul(a, b, products):
     """a @ b in fp32 from TF32 operands: one product of the operands rounded
     to nearest (TF32 mode), or 3xTF32 as csrc/flash_f32.cu's tensor-core
-    kernels (the wide forward, the split backward pair) form it: the high
+    kernels (the narrow and wide forwards, the split backward pair) form
+    it: the high
     parts truncated, the exact remainders x - hi as low parts (truncated
     again), lo(a) hi(b) + hi(a) lo(b) + hi(a) hi(b)."""
     if products == 1:
@@ -214,12 +238,14 @@ def _attention(q, k, v, matmul):
 
 
 @pytest.mark.parametrize("products", [3, 1])
-@pytest.mark.parametrize("d,tq,tk", [(160, 65, 63), (512, 63, 129)])
+@pytest.mark.parametrize("d,tq,tk", [(160, 65, 63), (512, 63, 129),
+                                     (16, 65, 63), (40, 129, 127), (128, 63, 129)])
 def test_three_tf32_products_keep_fp32_accuracy(d, tq, tk, products):
-    """Why the fp32 wide forward runs three TF32 products a product: with
-    them o meets chip_smoke.py's fp32 tolerance (1e-4 of the largest
-    magnitude, lse 1e-4) against fp64 attention; one TF32 product misses
-    it (both s = q k^T and o = p v emulated in fp32 on the CPU)."""
+    """Why the fp32 forward runs three TF32 products a product, narrow (D <=
+    128) and wide: with them o meets chip_smoke.py's fp32 tolerance (1e-4
+    of the largest magnitude, lse 1e-4) against fp64 attention; one TF32
+    product misses it (both s = q k^T and o = p v emulated in fp32 on the
+    CPU)."""
     rng = np.random.RandomState(d)
     q, k, v = (torch.from_numpy(rng.randn(2, t, d).astype(np.float32)) for t in (tq, tk, tk))
     ref_o, ref_lse = _attention(q.double(), k.double(), v.double(), torch.matmul)

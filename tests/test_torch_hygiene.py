@@ -417,17 +417,35 @@ def test_fp32_wide_forward_block_fits_the_card(dmax):
 
 
 @pytest.mark.parametrize("d,want", [
-    (16, ("fwd_kernel", 32)), (40, ("fwd_kernel", 64)), (128, ("fwd_kernel", 128)),
+    (16, ("flash_fwd_f32_narrow_kernel", 32)), (40, ("flash_fwd_f32_narrow_kernel", 64)),
+    (128, ("flash_fwd_f32_narrow_kernel", 128)),
     (129, ("flash_fwd_f32_wide_kernel", 256)), (160, ("flash_fwd_f32_wide_kernel", 256)),
     (256, ("flash_fwd_f32_wide_kernel", 256)), (257, ("flash_fwd_f32_wide_kernel", 512)),
     (512, ("flash_fwd_f32_wide_kernel", 512)),
 ])
 def test_fp32_forward_takes_the_tensor_core_kernel_past_128(d, want):
-    """fp32 flash_fwd runs the CUDA-core kernel up to D = 128 and the 3xTF32
-    tensor-core kernel past it, at the padded widths csrc/flash_f32.cu
-    builds; the launch takes no plan, so the C signature keeps 11
-    arguments whatever the route."""
+    """fp32 flash_fwd runs a 3xTF32 tensor-core kernel at every width: the
+    narrow one up to D = 128 and the wide one past it, at the padded widths
+    csrc/flash_f32.cu builds; the launch takes no plan, so the C signature
+    keeps 11 arguments whatever the kernel and its load route."""
     assert flash.f32_fwd_kernel(d) == want
+
+
+@pytest.mark.parametrize("dmax", flash.F32_NARROW_DMAX)
+def test_fp32_narrow_forward_block_fits_the_card(dmax):
+    """The fp32 narrow forward's block (csrc/flash_f32.cu NarrowCfg) at each
+    built width: the resident 128-row q tile (rows of dmax + 8 floats) and
+    a ring of two slots, each a k tile (dmax + 8) and a v tile (dmax + 4)
+    of 64 kv rows (16 at DMAX 128), so that two blocks share an SM, each
+    with its 1 KB of reserved shared memory, within the H100's 228 KB an
+    SM (chip_smoke.py phase 1 holds the C count against
+    f32_narrow_smem_bytes on the card)."""
+    bk = 16 if dmax == 128 else 64
+    q_tile, slot = 128 * (dmax + 8) * 4, bk * (2 * dmax + 12) * 4
+    smem = flash.f32_narrow_smem_bytes(dmax)
+    assert q_tile + 2 * slot < smem <= 232448
+    assert smem - q_tile - 2 * slot == 2 * 16 + 8 + 128
+    assert 2 * (smem + 1024) <= 233472
 
 
 @pytest.mark.parametrize("d", [160, 257, 512])
@@ -443,6 +461,28 @@ def test_fp32_wide_launch_passes_the_shape_and_scale(monkeypatch, d):
     assert args[5:9] == (3, 65, 63, d) and args[9] == pytest.approx(d ** -0.5)
     assert flash.launch_counts["flash_fwd"] == 1
     assert flash.launch_shapes[("flash_fwd", (3, 65, 63, d))] == 1
+    flash.reset_launch_counts()
+
+
+@pytest.mark.parametrize("d", [16, 40, 100, 128])
+def test_fp32_narrow_launch_passes_the_shape_and_scale(monkeypatch, d):
+    """Up to D = 128 the fp32 forward hands its entry point the pointers,
+    then (BH, Tq, Tk, D), the scale and the stream (no plan: the C side
+    picks the narrow kernel's instance and its load route), as many
+    arguments as the C signature takes; it counts one launch by shape and
+    returns fp32 o and lse of the inputs' shapes."""
+    calls = _recorded_launches(monkeypatch)
+    flash.reset_launch_counts()
+    q = torch.empty(2, 129, d, device="meta")
+    k = v = torch.empty(2, 63, d, device="meta")
+    o, lse = flash.flash_fwd(q, k, v)
+    assert o.dtype == lse.dtype == torch.float32
+    assert o.shape == q.shape and lse.shape == (2, 129)
+    [(name, args)] = calls
+    assert name == "flash_fwd_f32" and len(args) == len(_build.SIGNATURES[name][1]) == 11
+    assert args[5:9] == (2, 129, 63, d) and args[9] == pytest.approx(d ** -0.5)
+    assert flash.launch_counts["flash_fwd"] == 1
+    assert flash.launch_shapes[("flash_fwd", (2, 129, 63, d))] == 1
     flash.reset_launch_counts()
 
 
