@@ -10,8 +10,9 @@ package. Six phases, any failure exits non-zero:
    ``nvcc`` a source, all at once), each kernel's registers and spills from
    ``-Xptxas -v`` (a Hopper flash or GroupNorm kernel that spills fails the
    run), the Hopper flash kernels' dynamic shared memory (the split
-   backward pair's, the fp32 narrow and wide forwards' and the fp32 split
-   pair's held against their Python counts), and the GroupNorm
+   backward pair's, the fp32 narrow and wide forwards', the fp32 fused
+   backward's at each padded width and the fp32 split pair's held against
+   their Python counts), and the GroupNorm
    kernels' plans with their shared memory, held against the C side's.
 2. Kernels, each held against its plain PyTorch version on the same inputs:
    every flash kernel at the main path's shapes in bf16 (against the plain
@@ -23,12 +24,15 @@ package. Six phases, any failure exits non-zero:
    backward pair launched twice for the same bytes); the four
    flash
    kernels' fp32 instances at main-path widths and ragged shapes (timed at
-   the former, the forward also at [32,1024,1024,80], and the forward and
-   the split pair at D = 160; the forward also at narrow widths from 8 to
-   128 and both also at wide widths from 129 to 512, lengths one row on
-   either side of their tiles, and views one element into their storage,
-   each launch twice for the same bytes; the forward and the split pair
-   also against fp64 at 16384 rows of sum); gn_fused, gn_stats and gn_apply at every GroupNorm shape of
+   the former, the forward and the fused backward also at
+   [32,1024,1024,80], and the forward and the split pair at D = 160; the
+   forward and the fused backward also at narrow widths from 8 to 128 and
+   the forward and the split pair at wide widths from 129 to 512, lengths
+   one row on either side of their tiles, and views one element into their
+   storage, each printed with its kernel and each launch twice for the
+   same bytes, but for the fused backward's dq, held to the tolerance
+   twice; the forward, the split pair and the fused backward also against
+   fp64 at 16384 rows of sum); gn_fused, gn_stats and gn_apply at every GroupNorm shape of
    the counted runs, in bf16 and fp32, channels-last and contiguous, with
    and without SiLU, and at ragged shapes (timed in bf16 channels-last,
    beside ``F.group_norm`` + ``F.silu``; gn_fused also at its edges: B = 1,
@@ -49,14 +53,16 @@ package. Six phases, any failure exits non-zero:
    the plain bf16 run. Then the fp32 ``tiny()`` pipeline's guided expand on
    the card through every kernel (norms once by gn_fused, once by the
    gn_stats + gn_apply pair; then once with direct guidance) against the
-   same port on the CPU, each fp32 forward's launches printed by shape
-   with the kernel its width takes.
+   same port on the CPU, each fp32 forward's and fused backward's launches
+   printed by shape with the kernel its width takes.
 4. Path: the guided expansion at full SD-1.5 geometry (UNet 860M, VAE,
    ResNet-50 guide with 100 classes, seeded random weights) at batch 2:
    DDIM-50, strength 0.5, CFG 7.5, transform guidance at plan index 30 over
    2 steps. One warm-up call, then one counted and timed call (each
    kernel's launches in it, by shape, against the counts the step plan
-   implies, and the norms' memory formats) and two more timed calls.
+   implies, and the norms' memory formats; gn_stats' and gn_apply's
+   phase-2 times weighted by their launches in it) and two more timed
+   calls.
 5. Front end (the path of ``cli/generate_data.py``): prompts through the
    HashTokenizer and the CLIP-L text encoder, ``encode_images`` of 512^2
    images, prototypes from the guide's features over 400 seeded images of
@@ -182,14 +188,15 @@ def bound(name, bh, tq, tk, d, itemsize=2):
 
 
 # the kernels built for Hopper (the bf16 flash kernels: warp-specialised,
-# TMA and wgmma; the fp32 forward at every width and the fp32 split pair
-# past D = 128: 3xTF32 on mma.sync, TMA; gn_fused: clusters, TMA; the
-# gn_stats and gn_apply pair: banded one-wave grids): none may spill
+# TMA and wgmma; the fp32 forward at every width, the fp32 fused backward
+# and the fp32 split pair past D = 128: 3xTF32 on mma.sync, TMA; gn_fused:
+# clusters, TMA; the gn_stats and gn_apply pair: banded one-wave grids):
+# none may spill
 HOPPER_KERNELS = ("flash_fwd_narrow_kernel", "flash_fwd_wide_kernel", "flash_bwd_fused_kernel",
                   "flash_bwd_dq_kernel", "flash_bwd_dkv_kernel", "flash_fwd_f32_narrow_kernel",
-                  "flash_fwd_f32_wide_kernel", "flash_bwd_f32_split_kernel", "gn_fused_kernel",
-                  "gn_stats_nhwc_kernel", "gn_stats_nchw_kernel", "gn_apply_nhwc_kernel",
-                  "gn_apply_nchw_kernel")
+                  "flash_fwd_f32_wide_kernel", "flash_bwd_fused_f32_kernel",
+                  "flash_bwd_f32_split_kernel", "gn_fused_kernel", "gn_stats_nhwc_kernel",
+                  "gn_stats_nchw_kernel", "gn_apply_nhwc_kernel", "gn_apply_nchw_kernel")
 WIDE_DMAX = (256, 512)  # the wide forward's instances
 
 
@@ -199,7 +206,7 @@ def ptxas_phase() -> None:
     spills fails the run."""
     from distdiff_tpu_torch.ops import _build, flash
 
-    spilled, narrow_regs, f32_regs, split_regs = [], {}, {}, {}
+    spilled, narrow_regs, f32_regs, split_regs, fused_regs = [], {}, {}, {}, {}
     for src, log in _build.build_logs().items():
         for name, regs, stack, st, ld in _build.ptxas_report(log):
             print(f"  {src}: {name}: {regs} registers, {stack} B stack, spills {st} B stored / "
@@ -212,6 +219,8 @@ def ptxas_phase() -> None:
                 f32_regs[name] = regs
             if name.startswith("flash_bwd_f32_split_kernel"):
                 split_regs[name] = regs
+            if name.startswith("flash_bwd_fused_f32_kernel"):
+                fused_regs[name] = (regs, st, ld)
     smem = {dp: (_build.kernel("flash_fwd_smem")(dp),
                  _build.kernel("flash_bwd_fused_smem")(dp)) for dp in flash.NARROW_WIDTHS}
     print("  narrow kernels' dynamic shared memory (forward, fused backward) by padded "
@@ -252,6 +261,16 @@ def ptxas_phase() -> None:
         require(got == want and got <= H100_SMEM_OPTIN,
                 f"fp32 split pair's shared memory at role {role}, DMAX {dmax}: C {got}, "
                 f"Python {want}")
+    f32_fused = {w: _build.kernel("flash_bwd_fused_f32_smem")(w) for w in flash.F32_FUSED_WIDTHS}
+    print("  fp32 fused backward (3xTF32 tensor cores): (registers, spill stores, spill loads) "
+          f"by <padded width, TMA loads> {fused_regs}, dynamic shared memory by padded width "
+          f"{f32_fused}")
+    require(len(fused_regs) == 2 * len(flash.F32_FUSED_WIDTHS),
+            "fp32 fused backward's instances missing")
+    for w, got in f32_fused.items():
+        want = flash.f32_fused_smem_bytes(w)
+        require(got == want and got <= H100_SMEM_OPTIN,
+                f"fp32 fused backward's shared memory at width {w}: C {got}, Python {want}")
     gn_smem_phase()
     require(not spilled, f"Hopper kernels spill registers: {spilled}")
 
@@ -504,16 +523,19 @@ def kernel_phase():
 def flash_f32_phase() -> list:
     """The four flash kernels on fp32 inputs (their fp32 instances,
     csrc/flash_f32.cu) at main-path widths and at ragged shapes, against the
-    plain fp32 version; timed at the main-path widths, the forward also at
-    [32,1024,1024,80] and the forward and the split pair at D = 160 (the
-    wide tensor-core kernels' DMAX = 256 instances). The forward also at
-    narrow widths from 8 to 128 and both also at the wide widths from 129 to
-    512, with lengths one row on either side of their tiles and on views
-    one element into their storage (4-byte copies), every forward and split
-    launch twice for the same bytes; then the forward against fp64 over
-    16384 kv rows (``fwd_fp64_check``) and the split pair against fp64 at
-    16384 rows on either side of its sums (``split_fp64_check``). Returns
-    one record per timed (kernel, shape)."""
+    plain fp32 version; timed at the main-path widths, the forward and the
+    fused backward also at [32,1024,1024,80] and the forward and the split
+    pair at D = 160 (the wide tensor-core kernels' DMAX = 256 instances).
+    The forward and the fused backward also at narrow widths from 8 to 128
+    and the forward and the split pair at the wide widths from 129 to 512,
+    with lengths one row on either side of their tiles and on views one
+    element into their storage (4-byte copies; the fused backward's dq by
+    atomicAdd there), every launch twice: the same bytes, but for the fused
+    backward's dq, which its blocks add in no order (held to the tolerance
+    on both launches); then the forward against fp64 over 16384 kv rows
+    (``fwd_fp64_check``), the split pair and the fused backward against
+    fp64 at 16384 rows on either side of their sums (``split_fp64_check``,
+    ``fused_fp64_check``). Returns one record per timed (kernel, shape)."""
     import torch
     import torch.nn.functional as F
 
@@ -528,7 +550,7 @@ def flash_f32_phase() -> list:
     shapes = [
         # (label, BH, Tq, Tk, D, kernels, timed)
         ("unet64_f32", 32, 4096, 4096, 40, ["flash_fwd", "flash_bwd_fused"], True),
-        ("unet32_f32", 32, 1024, 1024, 80, fwd, True),
+        ("unet32_f32", 32, 1024, 1024, 80, ["flash_fwd", "flash_bwd_fused"], True),
         ("vae_mid_f32", 2, 4096, 4096, 512, ["flash_fwd"] + split, True),
         ("vae160_f32", 4, 4096, 4096, 160, ["flash_fwd"] + split, True),
         ("tiny_f32", 4, 576, 576, 16, every, False),
@@ -566,9 +588,21 @@ def flash_f32_phase() -> list:
         ("w512s_f32", 1, 33, 17, 512, wide, False),
         ("offset512_f32", 1, 200, 150, 512, wide, "offset"),
     ]
+    # the fused backward's edges: its 128 kv rows a block, its q tiles of 32
+    # rows (16 at D > 96), one row on either side of each; its padded widths
+    # 16 to 128 (two blocks split the columns at 128); the 4-byte route and
+    # dq by atomicAdd on views one element into their storage
+    fused = ["flash_bwd_fused"]
+    for d, tq, tk in ((8, 33, 127), (16, 31, 129), (24, 65, 255), (33, 63, 129), (40, 97, 127),
+                      (64, 95, 257), (72, 33, 129), (80, 31, 127), (100, 17, 129),
+                      (128, 15, 257)):
+        shapes += [(f"f{d}_f32", 2, tq, tk, d, fused, False),
+                   (f"offset_f{d}_f32", 1, tq + 2, tk - 2, d, fused, "offset")]
     entries = []
     for label, bh, tq, tk, d, names, timed in shapes:
-        def rnd(*s, offset=timed == "offset"):
+        offset = timed == "offset"
+
+        def rnd(*s):
             if offset:  # a contiguous view one element into its storage
                 return torch.randn(math.prod(s) + 1, generator=gen, device=dev)[1:].view(*s)
             return torch.randn(*s, generator=gen, device=dev)
@@ -593,30 +627,43 @@ def flash_f32_phase() -> list:
         for name in names:
             got = dict(zip(keys[name], calls[name]()))
             torch.cuda.synchronize()
-            if name != "flash_bwd_fused":  # no atomics: the same bytes on a second launch
-                again = calls[name]()
-                torch.cuda.synchronize()
-                same = all(torch.equal(a.view(torch.int32), b.view(torch.int32))
-                           for a, b in zip(got.values(), again))
-                kernel, dp = (flash.f32_fwd_kernel if name == "flash_fwd"
-                              else flash.f32_split_kernel)(d)
-                print(f"  {name} {label} fp32 [{bh},{tq},{tk},{d}]: {kernel} (padded width "
-                      f"{dp}), {'the same' if same else 'OTHER'} bytes on two launches")
-                require(same, f"{name} (fp32) gives other bytes on a second launch at {label}")
+            # no atomics: the same bytes on a second launch; but the fused
+            # backward's dq, summed by blocks in no order, is held to the
+            # tolerance on both launches
+            again = dict(zip(keys[name], calls[name]()))
+            torch.cuda.synchronize()
+            same = all(torch.equal(got[key].view(torch.int32), again[key].view(torch.int32))
+                       for key in got if key != "dq" or name != "flash_bwd_fused")
+            dispatch = {"flash_fwd": flash.f32_fwd_kernel,
+                        "flash_bwd_fused": flash.f32_fused_kernel}
+            kernel, dp = dispatch.get(name, flash.f32_split_kernel)(d)
+            route = ""
+            if name == "flash_bwd_fused":  # csrc/flash_f32.cu launch_bwd_fused's rule
+                vec = d % 4 == 0 and all(t.data_ptr() % 16 == 0 for t in (q, k, v, do))
+                require(vec == (d % 4 == 0 and not offset), f"{label}: route {vec}")
+                route = ", TMA loads and dq by bulk reduce-add" if vec else \
+                    ", 4-byte copies and dq by atomicAdd"
+            print(f"  {name} {label} fp32 [{bh},{tq},{tk},{d}]: {kernel} (padded width "
+                  f"{dp}{route}), {'the same' if same else 'OTHER'} bytes on two launches"
+                  f"{' (dk, dv; dq below)' if name == 'flash_bwd_fused' else ''}")
+            require(same, f"{name} (fp32) gives other bytes on a second launch at {label}")
+            if name == "flash_bwd_fused":
+                got["dq again"] = again["dq"]
+                want["dq again"] = want["dq"]
             max_err = 0.0
             for key, val in got.items():
                 require(val.dtype == torch.float32, f"{name} returned {val.dtype} on fp32")
                 err = (val - want[key]).abs().max().item()
                 scale = want[key].abs().max().item()
-                # nothing rounded to bf16: the forward at every width and
-                # the split pair past D = 128 run 3xTF32 products on the
-                # tensor cores (~1e-6 a product; their sums round toward
-                # zero, so each chunk's are summed apart and added in fp32),
-                # within ~2e-5 of the largest output of fp64 attention; the
-                # backward up to D = 128 fp32 FMA on the CUDA cores, where
-                # only the summation order differs from the plain version
-                # (~1e-6 relative); 1e-4 of the largest magnitude (lse: 1e-4
-                # absolute) is the tolerance
+                # nothing rounded to bf16: the forward at every width, the
+                # fused backward and the split pair past D = 128 run 3xTF32
+                # products on the tensor cores (~1e-6 a product; their sums
+                # round toward zero, so each chunk's are summed apart and
+                # added in fp32), within ~2e-5 of the largest output of fp64
+                # attention; the split pair's narrow instances fp32 FMA on
+                # the CUDA cores, where only the summation order differs
+                # from the plain version (~1e-6 relative); 1e-4 of the
+                # largest magnitude (lse: 1e-4 absolute) is the tolerance
                 tol = 1e-4 if key == "lse" else 1e-4 * scale
                 ok = math.isfinite(err) and err <= tol
                 print(f"  {name} {label} fp32 {key}: max_abs_err {err:.3e} (tol {tol:.3e}) "
@@ -651,6 +698,7 @@ def flash_f32_phase() -> list:
         torch.cuda.empty_cache()
     entries += fwd_fp64_check(gen)
     entries += split_fp64_check(gen)
+    entries += fused_fp64_check(gen)
     return entries
 
 
@@ -739,6 +787,57 @@ def split_fp64_check(gen) -> list:
                     "dtype": "fp32", "rel_err_fp64": err, "plain_rel_err_fp64": err_plain})
         del want, got, plain
         torch.cuda.empty_cache()
+    return out
+
+
+def fused_fp64_check(gen) -> list:
+    """The fp32 fused backward against fp64 attention gradients where its
+    sums are long: dq sums over 16384 kv rows ([1,2048,16384,D]), dk and dv
+    over 16384 q rows ([1,16384,2048,D]), at D = 40 and 128, each within
+    2e-5 of the largest |output| of fp64. The inputs' lse and delta come
+    from fp64 and are rounded to fp32, so the error is the kernel's own; the
+    plain fp32 version's error on the same inputs stands beside it.
+    Returns one record per shape."""
+    import torch
+
+    from distdiff_tpu_torch.ops import flash
+
+    dev = torch.device("cuda")
+    out = []
+    for d in (40, 128):
+        for outs, (bh, tq, tk) in ((("dq",), (1, 2048, 16384)), (("dk", "dv"), (1, 16384, 2048))):
+            q, do = (torch.randn(bh, tq, d, generator=gen, device=dev) for _ in range(2))
+            k, v = (torch.randn(bh, tk, d, generator=gen, device=dev) for _ in range(2))
+            q64, k64, v64, do64 = (x.double() for x in (q, k, v, do))
+            s = torch.matmul(q64, k64.transpose(1, 2)) * d ** -0.5
+            lse64 = torch.logsumexp(s, dim=-1)
+            p = torch.exp(s - lse64[..., None])
+            del s
+            delta64 = (torch.matmul(p, v64) * do64).sum(-1)
+            ds = p * (torch.matmul(do64, v64.transpose(1, 2)) - delta64[..., None]) * d ** -0.5
+            want = {"dq": torch.matmul(ds, k64), "dk": torch.matmul(ds.transpose(1, 2), q64),
+                    "dv": torch.matmul(p.transpose(1, 2), do64)}
+            del p, ds
+            lse, delta = lse64.float(), delta64.float()
+            got = dict(zip(("dq", "dk", "dv"), flash.flash_bwd_fused(q, k, v, do, lse, delta)))
+            plain = dict(zip(("dq", "dk", "dv"), flash._grads_from_delta(q, k, v, do, lse, delta)))
+            torch.cuda.synchronize()
+
+            def rel(x, key):
+                return float((x[key].double() - want[key]).abs().max() / want[key].abs().max())
+
+            err = max(rel(got, key) for key in outs)
+            err_plain = max(rel(plain, key) for key in outs)
+            ok = math.isfinite(err) and err <= 2e-5
+            print(f"  flash_bwd_fused ({flash.f32_fused_kernel(d)[0]}) fp32 {'/'.join(outs)} "
+                  f"[{bh},{tq},{tk},{d}] against fp64: max |err| / max |out| {err:.3e} (plain "
+                  f"fp32 {err_plain:.3e}; tol 2e-5) {'ok' if ok else 'FAIL'}")
+            require(ok, f"flash_bwd_fused (fp32) strays from fp64 at [{bh},{tq},{tk},{d}]")
+            out.append({"name": "flash_bwd_fused", "cell": "fp64_long", "outputs": list(outs),
+                        "shape": [bh, tq, tk, d], "dtype": "fp32", "rel_err_fp64": err,
+                        "plain_rel_err_fp64": err_plain})
+            del want, got, plain
+            torch.cuda.empty_cache()
     return out
 
 
@@ -1311,6 +1410,14 @@ def fp32_agreement_phase() -> None:
         require(narrow and all(flash.f32_fwd_kernel(shape[3])[0] == "flash_fwd_f32_narrow_kernel"
                                for shape in narrow),
                 "an fp32 forward at D <= 128 did not take the narrow tensor-core kernel")
+        fused = {shape: c for (name, shape), c in flash.launch_shapes.items()
+                 if name == "flash_bwd_fused"}
+        for shape, c in sorted(fused.items()):
+            print(f"  flash_bwd_fused fp32 {list(shape)}: {c} launches, "
+                  f"{'%s (padded width %d)' % flash.f32_fused_kernel(shape[3])}")
+        require(fused and all(flash.f32_fused_kernel(shape[3])[0] == "flash_bwd_fused_f32_kernel"
+                              for shape in fused),
+                "an fp32 fused backward did not take the tensor-core kernel")
         pair = {(name, shape): c for (name, shape), c in flash.launch_shapes.items()
                 if name in ("flash_bwd_dq", "flash_bwd_dkv")}
         for (name, shape), c in sorted(pair.items()):
@@ -1335,6 +1442,10 @@ def fp32_agreement_phase() -> None:
     torch.cuda.synchronize()
     counts = dict(flash.launch_counts, **gn.launch_counts)
     print(f"  fp32 tiny expand with direct guidance on the card: launches {counts}")
+    for (name, shape), c in sorted(flash.launch_shapes.items()):
+        if name == "flash_bwd_fused":
+            print(f"  flash_bwd_fused fp32 {list(shape)}: {c} launches, "
+                  f"{'%s (padded width %d)' % flash.f32_fused_kernel(shape[3])}")
     require(counts["flash_bwd_fused"] > 0 and counts["gn_fused"] > 0,
             f"direct guidance did not run through the kernels: {counts}")
     agree(zip(("image", "guidance score"), got, want))
@@ -1555,6 +1666,23 @@ def check_gn_plan(got: dict, want) -> None:
     for name, (g, w) in totals.items():
         print(f"  {name}: {g} (plan: {w}, over {len([k for k in want if k[0] == name])} shapes)")
         require(g > 0, f"{name} never launched on the main path")
+
+
+def call_weighted(records, launches, names) -> dict:
+    """Per kernel of ``names``: the means of phase 2's per-shape numbers
+    (kernel, plain, library and bound ms) over the shapes of ``launches``
+    ({(kernel, shape): count}, one counted call), weighted by the launches
+    there."""
+    out = {}
+    for name in names:
+        recs = [(r, launches.get((name, tuple(r["shape"])), 0)) for r in records
+                if r["name"] == name]
+        n = sum(c for _, c in recs)
+        require(n > 0, f"{name}: no timed shape was launched in the counted call")
+        out[name] = {key: sum(r[key] * c for r, c in recs) / n
+                     for key in ("ms", "plain_ms", "library_ms", "bound_ms")}
+        out[name].update(shapes=sum(1 for _, c in recs if c), launches=n)
+    return out
 
 
 def summarize(records, by_shape) -> list:
@@ -1784,6 +1912,11 @@ def main(argv) -> int:
     check_gn_plan(gn_shapes_run, gn_plan(expand_gn_calls(pipe, BATCH),
                                          smem_limit=gn._device_limits(dev)[0]))
     print(f"  norms by memory format: {layouts}")
+    for name, m in call_weighted(records, gn_shapes_run, ("gn_stats", "gn_apply")).items():
+        print(f"  {name}, its {m['shapes']} shapes of a call weighted by its {m['launches']} "
+              f"launches there (phase 2's times): kernel {m['ms']:.4f} ms, plain "
+              f"{m['plain_ms']:.4f} ms, F.group_norm+silu {m['library_ms']:.4f} ms (whole "
+              f"norm), bound {m['bound_ms']:.4f} ms")
 
     print("== 5. front-end path (generate_data): text, encode, prototypes, driver")
     front = frontend_phase(pipe)

@@ -9,44 +9,41 @@
 // let the port do the same on the card. They compute the same functions as
 // the bf16 kernels, on fp32 q/k/v/do with fp32 outputs, and round nothing
 // to bf16. Two kinds of arithmetic, both to fp32 accuracy:
-//   * the forward at every width (the narrow kernel up to D = 128, the
-//     wide one past it) and the split backward pair past D = 128 run every
-//     product on the TF32 tensor cores as 3xTF32: each operand x is split
-//     into a high part (its top 19 bits, which is what the tensor cores
-//     read of a register) and a low part x - hi (exact in fp32), and a b is
-//     formed as lo(a) hi(b) + hi(a) lo(b) + hi(a) hi(b) with fp32
-//     accumulation. What is left out, lo(a) lo(b) and the low part's own
-//     truncation, is ~2^-20 of a term, where one TF32 product loses
-//     ~2^-11; with the tensor cores' truncated sums the result stays within
-//     ~2e-5 of the largest output of fp64 attention, where one TF32 product
-//     would be ~5e-4 off;
-//   * the backward up to D = 128 (flash_bwd_fused_f32, and the split pair's
-//     narrow instances, which no path launches: flash_bwd takes the fused
-//     kernel there) fp32 fused multiply-adds on the CUDA cores (no tensor
-//     cores), so they agree with the plain fp32 version to summation order.
+//   * every kernel a path launches (the forward at every width: the narrow
+//     kernel up to D = 128, the wide one past it; the fused backward up to
+//     D = 128; the split backward pair past it) runs every product on the
+//     TF32 tensor cores as 3xTF32: each operand x is split into a high part
+//     (its top 19 bits, which is what the tensor cores read of a register)
+//     and a low part x - hi (exact in fp32), and a b is formed as
+//     lo(a) hi(b) + hi(a) lo(b) + hi(a) hi(b) with fp32 accumulation. What
+//     is left out, lo(a) lo(b) and the low part's own truncation, is
+//     ~2^-20 of a term, where one TF32 product loses ~2^-11; with the
+//     tensor cores' truncated sums the result stays within ~2e-5 of the
+//     largest output of fp64 attention, where one TF32 product would be
+//     ~5e-4 off;
+//   * the split pair's narrow instances (dq_kernel, dkv_kernel, up to
+//     D = 128), which only direct calls of flash_bwd_dq_f32 and
+//     flash_bwd_dkv_f32 reach (flash_bwd takes the fused kernel there),
+//     run fp32 fused multiply-adds on the CUDA cores, so they agree with
+//     the plain fp32 version to summation order.
 //
-// What bounds them on this card: their products. The CUDA-core kernels
-// are held by the fp32 FMA rate (67 TFLOP/s on the H100 SXM), the
-// tensor-core ones by the TF32 rate (495 TFLOP/s, three products for each
-// fp32 one) and by the instructions that feed mma.sync. The CUDA-core
-// kernels are simple, not fast: the fp32 path serves the small test
-// geometries, and the SD-1.5 path is bf16.
+// What bounds them on this card: their products. The tensor-core kernels
+// are held by the TF32 rate (495 TFLOP/s, three products for each fp32
+// one) and by the instructions that feed mma.sync, the CUDA-core ones by
+// the fp32 FMA rate (67 TFLOP/s on the H100 SXM). The CUDA-core kernels
+// are simple, not fast: no path launches them.
 //
 // Design of the CUDA-core kernels (one warp = 32 lanes; DP = head width
 // rounded up to 32, 64 or 128; NC = DP / 32 columns of an output row per
 // lane):
-//   * flash_bwd_dq_f32: a block of four warps takes 4 * RW q rows (RW per
-//     warp) and loops over 32-row kv tiles in shared memory. Lane j forms s
-//     and dp of kv row j against each of its warp's q rows, ds = p (dp -
+//   * dq_kernel: a block of four warps takes 4 * RW q rows (RW per warp)
+//     and loops over 32-row kv tiles in shared memory. Lane j forms s and
+//     dp of kv row j against each of its warp's q rows, ds = p (dp -
 //     delta) scale, and dq += ds k with ds broadcast from lane j and lane l
 //     owning output columns l, l + 32, ...
-//   * flash_bwd_dkv_f32 / flash_bwd_fused_f32: a block takes 4 * RW kv
-//     rows (RW per warp) and loops over 32-row q tiles; lane j takes q row
-//     j: dv += p^T do and dk += ds^T q with lane l owning columns l, l + 32,
-//     ... The fused kernel also forms dq = ds k for its kv rows, adds the
-//     four warps' parts in shared memory and adds the tile into a zeroed
-//     fp32 dq with atomicAdd (blocks run in no order, as in the bf16
-//     fused kernel), so dq is not bitwise reproducible.
+//   * dkv_kernel: a block takes 4 * RW kv rows (RW per warp) and loops over
+//     32-row q tiles; lane j takes q row j: dv += p^T do and dk += ds^T q
+//     with lane l owning columns l, l + 32, ...
 // Ragged rows and columns are zero-filled in shared memory and masked;
 // nothing is padded in device memory.
 #include <cuda_runtime.h>
@@ -799,6 +796,444 @@ flash_fwd_f32_narrow_kernel(const __grid_constant__ CUtensorMap qmap,
     }
 }
 
+// ----------------------------------- fused backward on 3xTF32 products
+//
+// flash_bwd_fused_f32 (D <= 128), in place of the Pallas
+// `_bwd_fused_kernel` on fp32 slabs: from the forward's lse and
+// delta = rowsum(o do), p = exp(s scale - lse) with s = q k^T,
+// dp = do v^T and ds = p (dp - delta) scale, then dv = p^T do,
+// dk = ds^T q and dq = ds k, in one kv-major pass.
+//
+// What bounds it: five products of 2 BH Tq Tk D flops, each fp32 product
+// as three TF32 ones at 495 TFLOP/s (1.30 ms at [32, 4096, 4096, 40]), on
+// mma.sync (wgmma takes TF32 only K-major; the output products' operands
+// q, do and, in dq = ds k, k are MN-major). Beside them: the work that
+// feeds them (every fragment read from shared memory and split into its
+// high and low parts), at two warps a scheduler, and dq's partial sums,
+// which the blocks of the other kv rows add into the same rows of dq.
+//
+// Design: one instance a padded head width W (16, 32, 40, 48, 64, 80, 96,
+// 128), so that every loop over k-steps and n-tiles has its bound at
+// compile time (a runtime bound on each unrolled step cut the code into
+// blocks ptxas scheduled one at a time: 6.1 against 3.9 ms at
+// [32, 4096, 4096, 40]); columns past d are zero in shared memory. A block
+// of eight warps keeps BK = 128 kv rows of k and v resident in shared
+// memory, warp w owning rows 16 w .. 16 w + 15 (one m-tile: the warp holds
+// dk and dv of its rows, 2 WH / 8 x 4 accumulators a thread), and streams
+// tiles of BQ q rows of q and do (32; 16 at W = 128, where k and v take
+// 135 KB) with their lse and delta. The block owns WH = W head columns of
+// dk, dv and dq; at W = 128 two blocks split them (WH = 64), each forming
+// the whole s^T and dp^T, since 128 accumulators of dk and dv left ptxas
+// too few registers (the bf16 fused kernel does the same past D = 80):
+//   * s^T = k q^T and dp^T = v do^T: the warp's 16 x BQ tiles in
+//     registers, over W / 8 k-steps, both operands K-major, fragments by
+//     ldmatrix (fp32 words moved as b16 pairs);
+//   * p^T and ds^T on those accumulators (ex2.approx; q rows past tq carry
+//     lse = +inf, so p = 0 there; p of kv rows past tk is set to 0);
+//   * dv += p^T do and dk += ds^T q straight from the accumulators: the
+//     m16n8 accumulator's (row g, columns 2t, 2t + 1) are the m16n8k8 A
+//     fragment's (row g, k t) and (k t + 4) once the B operand's rows are
+//     read as 2t, 2t + 1 (32-bit loads). Each q tile's products are summed
+//     from zero and added to the fp32 accumulators (the tensor cores' sums
+//     round toward zero relative to what they add to), four n-tiles at a
+//     time (eight independent chains), one past WH = 64 (registers);
+//   * dq = ds k: the registers hold ds^T, not ds as an A operand, so ds^T
+//     goes to shared memory. After the tile's first block barrier warp w
+//     forms the partial sum of m-tile w % (BQ / 16) of the q tile over a
+//     quarter of the block's kv rows (4 k-steps, from zero), for its
+//     n-tiles (all of them; every second one at W = 128), so that every
+//     warp forms as many products as any other (an earlier split by
+//     (m-tile, n-tile) over all 128 rows left two warps of eight with
+//     twice the products at D = 40); the three other quarters' partial
+//     sums meet the first's in shared memory behind a second barrier, are
+//     added in a fixed order and staged unpadded and row-contiguous; after
+//     the next tile's first barrier thread 0 sends the block's part out as
+//     one bulk reduce-add (cp.reduce.async.bulk .add.f32) into the zeroed
+//     fp32 dq (one a row at W = 128): BH Tq D 4 bytes x Tk / 128 of reduce
+//     traffic (0.67 GB at [32, 4096, 4096, 40]). Blocks add in no order,
+//     so dq is not bitwise reproducible; dk and dv are (no atomics);
+//   * one row stride, W + 4 floats (an odd multiple of 4), for k, v, q and
+//     do: the eight 16-byte rows of an ldmatrix and the 32-bit loads of
+//     rows 2t, 2t + 1 (column g) are both free of bank conflicts; ds^T's
+//     rows are BQ + 4 floats, 4 (mod 8), for its reads of rows 2t, 2t + 1;
+//     the partial sums' 8 (mod 32), for their 64-bit accesses;
+//   * the stream: q and do tiles through a ring of two slots, each tile
+//     one TMA box of BQ rows x (W + 4) columns, zero past the slab's rows
+//     and columns, completing on the slot's full mbarrier; thread 0
+//     refills a slot after the tile's first barrier, which every warp
+//     passes only once it has left the slot. lse and delta of the next
+//     tile are read while this one runs and staged behind the same
+//     barrier. Where d % 4 != 0 or a base is off 16 bytes, every thread
+//     copies its share of 4-byte words with cp.async (completing on the
+//     same mbarriers through cp.async.mbarrier.arrive.noinc) and the first
+//     quarter's warps add dq with atomicAdd, since a bulk copy takes only
+//     16-byte ranges.
+// One block an SM (66 KB at W = 16 to 220 KB at 96, 193 KB at 128). Ragged
+// kv rows are never written.
+
+template <int W>
+struct FusedCfg {
+  static constexpr int NW = 8;  // warps
+  static constexpr int THREADS = 32 * NW;
+  static constexpr int NKS = W / 8;             // k-steps of s^T and dp^T
+  static constexpr int BK = 16 * NW;            // kv rows a block: one m-tile a warp
+  static constexpr int BQ = W == 128 ? 16 : 32;  // q rows a stream tile
+  static constexpr int NT = BQ / 8;             // n-tiles of s^T, k-steps of dk and dv
+  // blocks that split the head columns of dk, dv and dq, each forming the
+  // whole s^T and dp^T (two at W = 128, where a warp's dk and dv of every
+  // column, 128 accumulators a thread, left ptxas too few registers), and
+  // the columns and n-tiles a block owns
+  static constexpr int NH = W == 128 ? 2 : 1, WH = W / NH, NKO = WH / 8;
+  static constexpr int NG2 = NKO > 8 ? 1 : 4;  // dk, dv: n-tiles formed at once
+  // dq = ds k, warp w: m-tile w % MQ of the q tile, n-tiles w / MQ % NGR
+  // (+ NGR, ..), kv rows (w / (MQ NGR)) BK / KH .. (a quarter)
+  static constexpr int MQ = BQ / 16, KH = 4, NGR = NW / (MQ * KH);
+  static constexpr int NPW = (NKO + NGR - 1) / NGR;  // dq: n-tiles a warp, at most
+  static constexpr int KPW = BK / 8 / KH;            // dq: k-steps a warp
+  // row strides in floats: an odd multiple of 4 for k, v, q and do
+  // (ldmatrix rows and 32-bit loads of rows 2t, 2t + 1), 4 (mod 8) for
+  // ds^T, 8 (mod 32) for the dq partial sums
+  static constexpr int LD = W + 4, LDS = BQ + 4, LDR = (WH + 23) / 32 * 32 + 8;
+  static constexpr int RING = 2;
+  static constexpr int KT = BK * LD, ST = BQ * LD;  // a resident tile, a stream tile
+  // ds^T, the dq staging buffer, the other quarters' dq partial sums
+  static constexpr int DST = BK * LDS, DQT = BQ * WH, RED = (KH - 1) * BQ * LDR;
+  // k and v, the ring (a q and a do tile a slot; 128-byte aligned for
+  // TMA), dq's staging, ds^T, the other parts' dq partial sums, lse and
+  // delta of two tiles; a full mbarrier a slot and k and v's; 128 bytes of
+  // alignment
+  static constexpr size_t SMEM =
+      sizeof(float) * (2 * (size_t)KT + RING * 2 * ST + DQT + DST + RED + 4 * BQ) +
+      8 * (RING + 1) + 128;
+};
+
+template <int W, bool VEC>
+__global__ void __launch_bounds__(FusedCfg<W>::THREADS, 1)
+flash_bwd_fused_f32_kernel(const __grid_constant__ CUtensorMap qmap,
+                           const __grid_constant__ CUtensorMap kmap,
+                           const __grid_constant__ CUtensorMap vmap,
+                           const __grid_constant__ CUtensorMap domap,
+                           const float* __restrict__ q, const float* __restrict__ k,
+                           const float* __restrict__ v, const float* __restrict__ dout,
+                           const float* __restrict__ lse, const float* __restrict__ delta,
+                           float* __restrict__ dq, float* __restrict__ dk,
+                           float* __restrict__ dv, int tq, int tk, int d, float scale) {
+  typedef FusedCfg<W> C;
+  constexpr int BK = C::BK, BQ = C::BQ, NT = C::NT, LD = C::LD, LDS = C::LDS, RING = C::RING;
+  constexpr int NKS = C::NKS, NKO = C::NKO, NG2 = C::NG2, NGR = C::NGR, NPW = C::NPW;
+  extern __shared__ __align__(16) uint8_t smem_raw[];
+  float* Ks = reinterpret_cast<float*>(
+      smem_raw + ((128u - (hopper::smem_addr(smem_raw) & 127u)) & 127u));
+  float* Vs = Ks + C::KT;
+  float* ring = Vs + C::KT;                   // [RING][q, do tile]
+  float* dq_stage = ring + RING * 2 * C::ST;  // [BQ][d, or WH]: the block's part of dq
+  float* dsT = dq_stage + C::DQT;             // [BK][LDS]
+  float* red = dsT + C::DST;                  // [KH - 1][BQ][LDR]: dq partial sums
+  float* stats = red + C::RED;                // [2][lse log2 e, delta][BQ]
+  uint64_t* full = reinterpret_cast<uint64_t*>(stats + 4 * BQ);  // [RING]
+  uint64_t* kvfull = full + RING;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int g = lane >> 2, t4 = lane & 3;
+  const int bh = blockIdx.y, k0 = blockIdx.x * BK;
+  const int c0 = C::NH > 1 ? blockIdx.z * C::WH : 0;  // the block's first column of dk, dv, dq
+  const int sw = C::NH > 1 ? C::WH : d;                // dq_stage's row stride
+  const size_t qoff = (size_t)bh * tq, koff = (size_t)bh * tk;
+  const float sl2 = scale * LOG2E;
+  const int ntile = (tq + BQ - 1) / BQ;
+
+  // rows [r0, r0 + rows) of an fp32 [n, d] slab into dst (row stride LD),
+  // columns up to W, zero past the slab: every thread's share of 4-byte
+  // cp.async copies
+  auto copy4 = [&](float* dst, const float* src, int r0, int rows, int n) {
+    for (int i = threadIdx.x; i < rows * W; i += C::THREADS) {
+      const int r = i / W, c = i % W;
+      const bool in = r0 + r < n && c < d;
+      cp_async4(smem_u32(dst + r * LD + c), src + (in ? (size_t)(r0 + r) * d + c : 0), in ? 4 : 0);
+    }
+  };
+  // q tile j and do tile j into ring slot j % RING, completing on its full
+  // mbarrier: by thread 0 (TMA), or by every thread (4-byte copies)
+  auto load = [&](int j) {
+    const int slot = j % RING;
+    float* dst = ring + slot * 2 * C::ST;
+    if (VEC) {
+      hopper::mbar_arrive_tx(full + slot, 2 * C::ST * 4);
+      hopper::tma_load_3d(dst, &qmap, 0, j * BQ, bh, full + slot);
+      hopper::tma_load_3d(dst + C::ST, &domap, 0, j * BQ, bh, full + slot);
+    } else {
+      copy4(dst, q + qoff * d, j * BQ, BQ, tq);
+      copy4(dst + C::ST, dout + qoff * d, j * BQ, BQ, tq);
+      cp_async_arrive(full + slot);
+    }
+  };
+  // lse log2 e and delta of row threadIdx.x of q tile j (threads < BQ);
+  // +inf and 0 past tq, so that p = ds = 0 there
+  auto row_stats = [&](int j, float& l2, float& dl) {
+    const int r = j * BQ + threadIdx.x;
+    l2 = r < tq ? __ldg(lse + qoff + r) * LOG2E : INFINITY;
+    dl = r < tq ? __ldg(delta + qoff + r) : 0.f;
+  };
+  // the block's part of q tile j's dq, staged in dq_stage, into dq: one
+  // bulk reduce-add of its rows (a contiguous range of [BH, Tq, D]), or one
+  // a row where the block owns part of the columns
+  auto reduce_tile = [&](int j) {
+    const int r0 = j * BQ, rows = min(BQ, tq - r0);
+    for (int r = 0; r < (C::NH > 1 ? rows : 1); ++r)
+      hopper::bulk_reduce_add_f32(dq + (qoff + r0 + r) * d + c0, dq_stage + r * sw,
+                                  (uint32_t)((C::NH > 1 ? min(C::WH, d - c0) : rows * d) * 4));
+    hopper::bulk_commit();
+  };
+
+  if (threadIdx.x < RING) hopper::mbar_init(full + threadIdx.x, VEC ? 1 : C::THREADS);
+  if (threadIdx.x == 0) hopper::mbar_init(kvfull, VEC ? 1 : C::THREADS);
+  hopper::mbar_init_fence();
+  if (threadIdx.x < BQ) row_stats(0, stats[threadIdx.x], stats[BQ + threadIdx.x]);
+  __syncthreads();
+  if (VEC) {
+    if (threadIdx.x == 0) {
+      hopper::mbar_arrive_tx(kvfull, 2 * C::KT * 4);
+      hopper::tma_load_3d(Ks, &kmap, 0, k0, bh, kvfull);
+      hopper::tma_load_3d(Vs, &vmap, 0, k0, bh, kvfull);
+      for (int j = 0; j < min(RING, ntile); ++j) load(j);
+    }
+  } else {
+    copy4(Ks, k + koff * d, k0, BK, tk);
+    copy4(Vs, v + koff * d, k0, BK, tk);
+    cp_async_arrive(kvfull);
+    for (int j = 0; j < min(RING, ntile); ++j) load(j);
+  }
+
+  // s^T, dp^T: A fragments of the warp's kv rows, B fragments of the
+  // tile's rows, by ldmatrix
+  const int a_off = (16 * warp + (lane & 7) + 8 * ((lane >> 3) & 1)) * LD + 4 * (lane >> 4);
+  const int b_off = ((lane & 7) + 8 * (lane >> 4)) * LD + 4 * ((lane >> 3) & 1);
+  // dk, dv (and dq's k): rows 2t, 2t + 1 of a k-step, column g
+  const int m_off = 2 * t4 * LD + g;
+  // dq: m-tile mq, n-tiles ng, ng + NGR, .., k-steps KPW kh ..; ds^T rows
+  // 2t, 2t + 1 of a k-step
+  const int mq = warp % C::MQ, ng = warp / C::MQ % NGR, kh = warp / (C::MQ * NGR);
+  const int ds_off = 2 * t4 * LDS + 16 * mq + g;
+  // the partial sums' rows 16 mq + g (+ 8), columns 8 n + 2 t4 (+ 1)
+  const int red_off = (16 * mq + g) * C::LDR + 2 * t4;
+  // the lane's kv rows 16 w + g (+ 8); p there is 0 past tk
+  const bool kv_ragged = k0 + BK > tk;
+  const bool row_in0 = k0 + 16 * warp + g < tk, row_in1 = k0 + 16 * warp + g + 8 < tk;
+  // rows g (+ 8) of the warp's, columns c0 + 8 n + 2 t4 (+ 1)
+  float dk_acc[NKO][4], dv_acc[NKO][4];
+#pragma unroll
+  for (int n = 0; n < NKO; ++n)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) dk_acc[n][e] = dv_acc[n][e] = 0.f;
+  hopper::mbar_wait(kvfull, 0);
+
+#pragma unroll 1
+  for (int j = 0; j < ntile; ++j) {
+    const int slot = j % RING, b = j & 1;
+    float nl2 = 0.f, ndl = 0.f;  // the next tile's statistics, read while this one runs
+    if (threadIdx.x < BQ && j + 1 < ntile) row_stats(j + 1, nl2, ndl);
+    hopper::mbar_wait(full + slot, (j / RING) & 1);  // tile j is in
+    const float* Qt = ring + slot * 2 * C::ST;
+    const float* Dt = Qt + C::ST;
+
+    // s^T = k q^T and dp^T = v do^T: the tile's q rows 8 n + 2 t4 (+ 1)
+    float s[NT][4], dp[NT][4];
+#pragma unroll
+    for (int n = 0; n < NT; ++n)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) s[n][e] = dp[n][e] = 0.f;
+#pragma unroll
+    for (int ks = 0; ks < NKS; ++ks) {
+      uint32_t ka[4], kl[4], va[4], vl[4];
+      ldsm4(ka, Ks + a_off + 8 * ks);
+      ldsm4(va, Vs + a_off + 8 * ks);
+#pragma unroll
+      for (int e = 0; e < 4; ++e) kl[e] = tf32_lo(ka[e]), vl[e] = tf32_lo(va[e]);
+#pragma unroll
+      for (int np = 0; np < NT / 2; ++np) {
+        uint32_t qb[4], ql[4], db[4], dl[4];
+        ldsm4(qb, Qt + b_off + 16 * np * LD + 8 * ks);
+        ldsm4(db, Dt + b_off + 16 * np * LD + 8 * ks);
+#pragma unroll
+        for (int e = 0; e < 4; ++e) ql[e] = tf32_lo(qb[e]), dl[e] = tf32_lo(db[e]);
+        mma3(s[2 * np], ka, kl, qb[0], qb[1], ql[0], ql[1]);
+        mma3(s[2 * np + 1], ka, kl, qb[2], qb[3], ql[2], ql[3]);
+        mma3(dp[2 * np], va, vl, db[0], db[1], dl[0], dl[1]);
+        mma3(dp[2 * np + 1], va, vl, db[2], db[3], dl[2], dl[3]);
+      }
+    }
+
+    // p^T and ds^T on the accumulators; ds^T to shared memory for dq; both
+    // as the A fragments of dv and dk: (row g, column 2t + 1) -> k t + 4
+    const float* st = stats + b * 2 * BQ;
+    float* dsw = dsT + (16 * warp + g) * LDS + 2 * t4;
+    uint32_t pa[NT][4], pl[NT][4], da[NT][4], dal[NT][4];
+#pragma unroll
+    for (int n = 0; n < NT; ++n) {
+      const float2 L = *reinterpret_cast<const float2*>(st + 8 * n + 2 * t4);
+      const float2 D = *reinterpret_cast<const float2*>(st + BQ + 8 * n + 2 * t4);
+      float p[4], ds[4];
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        p[e] = hopper::ex2(fmaf(s[n][e], sl2, -((e & 1) ? L.y : L.x)));
+        if (kv_ragged && !((e >> 1) ? row_in1 : row_in0)) p[e] = 0.f;
+        ds[e] = p[e] * (dp[n][e] - ((e & 1) ? D.y : D.x)) * scale;
+      }
+      *reinterpret_cast<float2*>(dsw + 8 * n) = make_float2(ds[0], ds[1]);
+      *reinterpret_cast<float2*>(dsw + 8 * LDS + 8 * n) = make_float2(ds[2], ds[3]);
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int i = ((e & 1) << 1) | (e >> 1);
+        pa[n][i] = __float_as_uint(p[e]);
+        da[n][i] = __float_as_uint(ds[e]);
+      }
+#pragma unroll
+      for (int e = 0; e < 4; ++e) pl[n][e] = tf32_lo(pa[n][e]), dal[n][e] = tf32_lo(da[n][e]);
+    }
+
+    // dv += p^T do and dk += ds^T q, NG2 n-tiles at a time (2 NG2
+    // independent chains): the tile's products summed from zero, then
+    // added in fp32
+#pragma unroll
+    for (int n0 = 0; n0 < NKO; n0 += NG2) {
+      float tv[NG2][4], tkk[NG2][4];
+#pragma unroll
+      for (int u = 0; u < NG2; ++u)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) tv[u][e] = tkk[u][e] = 0.f;
+#pragma unroll
+      for (int i = 0; i < NT; ++i) {
+#pragma unroll
+        for (int u = 0; u < NG2; ++u) {
+          if (n0 + u < NKO) {
+            const float* dop = Dt + m_off + 8 * i * LD + c0 + 8 * (n0 + u);
+            const float* qp = Qt + m_off + 8 * i * LD + c0 + 8 * (n0 + u);
+            const uint32_t d0 = __float_as_uint(dop[0]), d1 = __float_as_uint(dop[LD]);
+            const uint32_t q0 = __float_as_uint(qp[0]), q1 = __float_as_uint(qp[LD]);
+            mma3(tv[u], pa[i], pl[i], d0, d1, tf32_lo(d0), tf32_lo(d1));
+            mma3(tkk[u], da[i], dal[i], q0, q1, tf32_lo(q0), tf32_lo(q1));
+          }
+        }
+      }
+#pragma unroll
+      for (int u = 0; u < NG2; ++u) {
+        if (n0 + u < NKO) {
+#pragma unroll
+          for (int e = 0; e < 4; ++e) dv_acc[n0 + u][e] += tv[u][e], dk_acc[n0 + u][e] += tkk[u][e];
+        }
+      }
+    }
+
+    if (threadIdx.x < BQ && j + 1 < ntile) {
+      stats[(b ^ 1) * 2 * BQ + threadIdx.x] = nl2;
+      stats[(b ^ 1) * 2 * BQ + BQ + threadIdx.x] = ndl;
+    }
+    // ds^T of tile j is in; every warp has left the slot, and tile j - 1's
+    // part of dq is staged (and fenced)
+    __syncthreads();
+    if (j + RING < ntile && (!VEC || threadIdx.x == 0)) load(j + RING);
+    if (VEC && threadIdx.x == 0 && j > 0) reduce_tile(j - 1);
+
+    // dq's partial sum over the warp's quarter of the block's kv rows,
+    // ds k: k-steps of kv rows 2t, 2t + 1, summed from zero, an n-tile a
+    // chain
+    const float* ap = dsT + ds_off;
+    const float* kp = Ks + m_off + c0;
+    float acc[NPW][4];
+#pragma unroll
+    for (int i = 0; i < NPW; ++i)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[i][e] = 0.f;
+#pragma unroll
+    for (int kq = 0; kq < C::KPW; ++kq) {
+      const int kk = C::KPW * kh + kq;
+      uint32_t a[4], al[4];
+      a[0] = __float_as_uint(ap[8 * kk * LDS]);
+      a[1] = __float_as_uint(ap[8 * kk * LDS + 8]);
+      a[2] = __float_as_uint(ap[(8 * kk + 1) * LDS]);
+      a[3] = __float_as_uint(ap[(8 * kk + 1) * LDS + 8]);
+#pragma unroll
+      for (int e = 0; e < 4; ++e) al[e] = tf32_lo(a[e]);
+#pragma unroll
+      for (int i = 0; i < NPW; ++i) {
+        const int n = ng + NGR * i;
+        if (NKO % NGR == 0 || n < NKO) {
+          const uint32_t b0 = __float_as_uint(kp[8 * kk * LD + 8 * n]);
+          const uint32_t b1 = __float_as_uint(kp[(8 * kk + 1) * LD + 8 * n]);
+          mma3(acc[i], a, al, b0, b1, tf32_lo(b0), tf32_lo(b1));
+        }
+      }
+    }
+    // the other quarters' partial sums to shared memory; behind a barrier
+    // the first quarter's warps add them in a fixed order
+    if (kh > 0) {
+      float* rw = red + (kh - 1) * BQ * C::LDR + red_off;
+#pragma unroll
+      for (int i = 0; i < NPW; ++i) {
+        const int n = ng + NGR * i;
+        if (NKO % NGR == 0 || n < NKO) {
+          *reinterpret_cast<float2*>(rw + 8 * n) = make_float2(acc[i][0], acc[i][1]);
+          *reinterpret_cast<float2*>(rw + 8 * C::LDR + 8 * n) = make_float2(acc[i][2], acc[i][3]);
+        }
+      }
+    }
+    // dq_stage is written below: the reduce of tile j - 1 has read it
+    if (VEC && threadIdx.x == 0) hopper::bulk_wait_read<0>();
+    __syncthreads();  // the partial sums are in; every warp is done with ds^T
+    if (kh == 0) {
+      // rows 16 mq + g (+ 8) of the tile, columns c0 + col, col = 8 n +
+      // 2 t4 (+ 1): staged (TMA route: d % 4 == 0, so a pair is in or out
+      // together), or added into dq element by element
+#pragma unroll
+      for (int i = 0; i < NPW; ++i) {
+        const int col = 8 * (ng + NGR * i) + 2 * t4;
+        if (c0 + col >= d) continue;
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          const int r = 16 * mq + g + 8 * h;
+          float2 sum = make_float2(acc[i][2 * h], acc[i][2 * h + 1]);
+#pragma unroll
+          for (int x = 0; x < C::KH - 1; ++x) {
+            const float2 y =
+                *reinterpret_cast<const float2*>(red + x * BQ * C::LDR + r * C::LDR + col);
+            sum.x += y.x, sum.y += y.y;
+          }
+          if (VEC) {
+            *reinterpret_cast<float2*>(dq_stage + r * sw + col) = sum;
+          } else if (j * BQ + r < tq) {
+            float* dqr = dq + (qoff + j * BQ + r) * d + c0 + col;
+            atomicAdd(dqr, sum.x);
+            if (c0 + col + 1 < d) atomicAdd(dqr + 1, sum.y);
+          }
+        }
+      }
+      if (VEC) hopper::fence_proxy_async();  // the staged sums, for the bulk reduce
+    }
+  }
+  if (VEC) {
+    __syncthreads();  // the last tile's part of dq is staged
+    if (threadIdx.x == 0) {
+      reduce_tile(ntile - 1);
+      hopper::bulk_wait_all();
+    }
+  }
+
+  // dk and dv: rows 16 w + g (+ 8) of the block, ragged rows and columns
+  // never written
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const int row = k0 + 16 * warp + g + 8 * h;
+    if (row >= tk) continue;
+    float* dkr = dk + (koff + row) * d;
+    float* dvr = dv + (koff + row) * d;
+#pragma unroll
+    for (int n = 0; n < NKO; ++n) {
+      const int col = c0 + 8 * n + 2 * t4;
+      if (col < d) dkr[col] = dk_acc[n][2 * h], dvr[col] = dv_acc[n][2 * h];
+      if (col + 1 < d) dkr[col + 1] = dk_acc[n][2 * h + 1], dvr[col + 1] = dv_acc[n][2 * h + 1];
+    }
+  }
+}
+
 // --------------------------------------------------------------------- dq
 
 template <int DP, int RW>
@@ -887,24 +1322,23 @@ dq_kernel(const float* __restrict__ q, const float* __restrict__ k,
   }
 }
 
-// --------------------------------------------------- dk, dv (and fused dq)
+// ----------------------------------------------------------------- dk, dv
 
-template <int DP, int RW, bool DQ>
+template <int DP, int RW>
 struct DkvCfg {
   static constexpr int BK = 4 * RW;
   static constexpr int LDQ = DP + 1;
   static constexpr size_t SMEM =
-      sizeof(float) * (2 * (size_t)BK * DP + (2 + DQ) * (size_t)TILE * LDQ + 2 * TILE);
+      sizeof(float) * (2 * (size_t)BK * DP + 2 * (size_t)TILE * LDQ + 2 * TILE);
 };
 
-template <int DP, int RW, bool DQ>
+template <int DP, int RW>
 __global__ void __launch_bounds__(THREADS)
 dkv_kernel(const float* __restrict__ q, const float* __restrict__ k,
            const float* __restrict__ v, const float* __restrict__ dout,
            const float* __restrict__ lse, const float* __restrict__ delta,
-           float* __restrict__ dq, float* __restrict__ dk, float* __restrict__ dv,
-           int tq, int tk, int d, float scale) {
-  typedef DkvCfg<DP, RW, DQ> C;
+           float* __restrict__ dk, float* __restrict__ dv, int tq, int tk, int d, float scale) {
+  typedef DkvCfg<DP, RW> C;
   constexpr int NC = DP / 32;
   constexpr int LDQ = C::LDQ;
   extern __shared__ __align__(16) float sm[];
@@ -914,7 +1348,6 @@ dkv_kernel(const float* __restrict__ q, const float* __restrict__ k,
   float* dOs = Qs + TILE * LDQ;
   float* lse_s = dOs + TILE * LDQ;  // lse * log2(e)
   float* dl_s = lse_s + TILE;
-  float* dQs = dl_s + TILE;  // fused only: this q tile's dq, [TILE][LDQ]
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   const int bh = blockIdx.y;
   const int k0 = blockIdx.x * C::BK;
@@ -939,8 +1372,6 @@ dkv_kernel(const float* __restrict__ q, const float* __restrict__ k,
       lse_s[r] = in ? lse[qoff + q0 + r] * LOG2E : 0.f;
       dl_s[r] = in ? delta[qoff + q0 + r] : 0.f;
     }
-    if (DQ)
-      for (int i = threadIdx.x; i < TILE * LDQ; i += THREADS) dQs[i] = 0.f;
     __syncthreads();
 
     // lane j: q row q0 + j against this warp's RW kv rows
@@ -979,21 +1410,6 @@ dkv_kernel(const float* __restrict__ q, const float* __restrict__ k,
           dv_acc[r][i] = fmaf(p, dj[i], dv_acc[r][i]);
           dk_acc[r][i] = fmaf(ds, qj[i], dk_acc[r][i]);
         }
-      }
-    }
-    if (DQ) {
-      // dq[q row lane] += sum over this warp's kv rows of ds k; the four
-      // warps meet in shared memory, then one atomicAdd per element
-      for (int c = 0; c < d; ++c) {
-        float part = 0.f;
-#pragma unroll
-        for (int r = 0; r < RW; ++r) part = fmaf(dp[r], kw[r * DP + c], part);
-        atomicAdd(dQs + lane * LDQ + c, part);
-      }
-      __syncthreads();
-      for (int i = threadIdx.x; i < TILE * d; i += THREADS) {
-        const int r = i / d, c = i - (i / d) * d;
-        if (q0 + r < tq) atomicAdd(dq + (qoff + q0 + r) * d + c, dQs[r * LDQ + c]);
       }
     }
   }
@@ -1514,20 +1930,76 @@ int launch_dq(const void* q, const void* k, const void* v, const void* dout,
 }
 
 // RW = 8 kv rows a warp (D <= 128)
-template <int DP, bool DQ>
+template <int DP>
 int launch_dkv(const void* q, const void* k, const void* v, const void* dout,
-               const void* lse, const void* delta, void* dq, void* dk, void* dv, int bh,
-               int tq, int tk, int d, float scale, cudaStream_t s) {
+               const void* lse, const void* delta, void* dk, void* dv, int bh, int tq, int tk,
+               int d, float scale, cudaStream_t s) {
   constexpr int RW = 8;
-  typedef DkvCfg<DP, RW, DQ> C;
-  auto kern = dkv_kernel<DP, RW, DQ>;
+  typedef DkvCfg<DP, RW> C;
+  auto kern = dkv_kernel<DP, RW>;
   cudaError_t err = set_smem(kern, C::SMEM);
   if (err != cudaSuccess) return (int)err;
   kern<<<dim3((tk + C::BK - 1) / C::BK, bh), THREADS, C::SMEM, s>>>(
       (const float*)q, (const float*)k, (const float*)v, (const float*)dout,
-      (const float*)lse, (const float*)delta, (float*)dq, (float*)dk, (float*)dv, tq, tk, d,
+      (const float*)lse, (const float*)delta, (float*)dk, (float*)dv, tq, tk, d, scale);
+  return (int)cudaGetLastError();
+}
+
+template <int W, bool VEC>
+int run_bwd_fused(const float* q, const float* k, const float* v, const float* dout,
+                  const float* lse, const float* delta, float* dq, float* dk, float* dv, int bh,
+                  int tq, int tk, int d, float scale, cudaStream_t s) {
+  typedef FusedCfg<W> C;
+  CUtensorMap maps[4];
+  memset(maps, 0, sizeof(maps));
+  if (VEC) {  // q and do in stream tiles, k and v in resident ones
+    int rc = f32_tile_map(&maps[0], q, bh, tq, d, C::LD, C::BQ);
+    if (rc == 0) rc = f32_tile_map(&maps[1], k, bh, tk, d, C::LD, C::BK);
+    if (rc == 0) rc = f32_tile_map(&maps[2], v, bh, tk, d, C::LD, C::BK);
+    if (rc == 0) rc = f32_tile_map(&maps[3], dout, bh, tq, d, C::LD, C::BQ);
+    if (rc != 0) return rc;
+  }
+  auto kern = flash_bwd_fused_f32_kernel<W, VEC>;
+  cudaError_t err = set_smem(kern, C::SMEM);
+  if (err != cudaSuccess) return (int)err;
+  kern<<<dim3((tk + C::BK - 1) / C::BK, bh, C::NH), C::THREADS, C::SMEM, s>>>(
+      maps[0], maps[1], maps[2], maps[3], q, k, v, dout, lse, delta, dq, dk, dv, tq, tk, d,
       scale);
   return (int)cudaGetLastError();
+}
+
+// the fused backward's instance at padded width W: TMA and the bulk
+// reduce-add of dq where the rows are whole vectors and the bases (dq's
+// too) 16-byte aligned; 4-byte copies and atomicAdd otherwise
+template <int W>
+int launch_bwd_fused(const void* q, const void* k, const void* v, const void* dout,
+                     const void* lse, const void* delta, void* dq, void* dk, void* dv, int bh,
+                     int tq, int tk, int d, float scale, cudaStream_t s) {
+  const uintptr_t bases = reinterpret_cast<uintptr_t>(q) | reinterpret_cast<uintptr_t>(k) |
+                          reinterpret_cast<uintptr_t>(v) | reinterpret_cast<uintptr_t>(dout) |
+                          reinterpret_cast<uintptr_t>(dq);
+  const bool vec = d % 4 == 0 && bases % 16 == 0;
+  const float *qf = (const float*)q, *kf = (const float*)k, *vf = (const float*)v;
+  const float *df = (const float*)dout, *lf = (const float*)lse, *dl = (const float*)delta;
+  float *dqf = (float*)dq, *dkf = (float*)dk, *dvf = (float*)dv;
+  if (vec)
+    return run_bwd_fused<W, true>(qf, kf, vf, df, lf, dl, dqf, dkf, dvf, bh, tq, tk, d, scale, s);
+  return run_bwd_fused<W, false>(qf, kf, vf, df, lf, dl, dqf, dkf, dvf, bh, tq, tk, d, scale, s);
+}
+
+// the fused backward's padded widths (ops/flash.py F32_FUSED_WIDTHS): one
+// instance each, so that its loops have their bounds at compile time
+inline int fused_width(int d) {
+  if (d <= 0) return 0;
+  if (d <= 16) return 16;
+  if (d <= 32) return 32;
+  if (d <= 40) return 40;
+  if (d <= 48) return 48;
+  if (d <= 64) return 64;
+  if (d <= 80) return 80;
+  if (d <= 96) return 96;
+  if (d <= 128) return 128;
+  return 0;
 }
 
 template <int DMAX, bool DKV, bool VEC>
@@ -1580,7 +2052,8 @@ inline bool args_ok(int bh, int tq, int tk) {
 // flash_bwd.cu), on fp32 tensors: q, k, v, do, o, dq, dk, dv fp32
 // [bh, t, d] contiguous; lse, delta fp32 [bh, tq]. The forward takes the
 // 3xTF32 tensor-core kernels at every width (narrow up to D = 128, wide
-// past it), the split pair past D = 128.
+// past it), the fused backward its tensor-core kernel (D <= 128), the split
+// pair its tensor-core kernel past D = 128.
 extern "C" int flash_fwd_f32(const void* q, const void* k, const void* v, void* o,
                              void* lse, int bh, int tq, int tk, int d, float scale,
                              void* stream) {
@@ -1631,14 +2104,37 @@ extern "C" int flash_bwd_fused_f32(const void* q, const void* k, const void* v,
   using namespace flash32;
   if (!args_ok(bh, tq, tk)) return (int)cudaErrorInvalidValue;
   cudaStream_t s = (cudaStream_t)stream;
-  switch (pad_d(d)) {
-    case 32: return launch_dkv<32, true>(
-        q, k, v, dout, lse, delta, dq, dk, dv, bh, tq, tk, d, scale, s);
-    case 64: return launch_dkv<64, true>(
-        q, k, v, dout, lse, delta, dq, dk, dv, bh, tq, tk, d, scale, s);
-    case 128: return launch_dkv<128, true>(
-        q, k, v, dout, lse, delta, dq, dk, dv, bh, tq, tk, d, scale, s);
+#define FUSED_CASE(w) \
+  case w: return launch_bwd_fused<w>(q, k, v, dout, lse, delta, dq, dk, dv, bh, tq, tk, d, scale, s)
+  switch (fused_width(d)) {
+    FUSED_CASE(16);
+    FUSED_CASE(32);
+    FUSED_CASE(40);
+    FUSED_CASE(48);
+    FUSED_CASE(64);
+    FUSED_CASE(80);
+    FUSED_CASE(96);
+    FUSED_CASE(128);
     default: return (int)cudaErrorInvalidValue;
+  }
+#undef FUSED_CASE
+}
+
+// Dynamic shared memory of the fused backward's block at padded width w
+// (0 at a width it is not built for), for the Python count (ops/flash.py
+// f32_fused_smem_bytes)
+extern "C" int flash_bwd_fused_f32_smem(int w) {
+  using namespace flash32;
+  switch (w) {
+    case 16: return (int)FusedCfg<16>::SMEM;
+    case 32: return (int)FusedCfg<32>::SMEM;
+    case 40: return (int)FusedCfg<40>::SMEM;
+    case 48: return (int)FusedCfg<48>::SMEM;
+    case 64: return (int)FusedCfg<64>::SMEM;
+    case 80: return (int)FusedCfg<80>::SMEM;
+    case 96: return (int)FusedCfg<96>::SMEM;
+    case 128: return (int)FusedCfg<128>::SMEM;
+    default: return 0;
   }
 }
 
@@ -1650,12 +2146,9 @@ extern "C" int flash_bwd_dkv_f32(const void* q, const void* k, const void* v,
   if (!args_ok(bh, tq, tk)) return (int)cudaErrorInvalidValue;
   cudaStream_t s = (cudaStream_t)stream;
   switch (pad_d(d)) {
-    case 32: return launch_dkv<32, false>(
-        q, k, v, dout, lse, delta, nullptr, dk, dv, bh, tq, tk, d, scale, s);
-    case 64: return launch_dkv<64, false>(
-        q, k, v, dout, lse, delta, nullptr, dk, dv, bh, tq, tk, d, scale, s);
-    case 128: return launch_dkv<128, false>(
-        q, k, v, dout, lse, delta, nullptr, dk, dv, bh, tq, tk, d, scale, s);
+    case 32: return launch_dkv<32>(q, k, v, dout, lse, delta, dk, dv, bh, tq, tk, d, scale, s);
+    case 64: return launch_dkv<64>(q, k, v, dout, lse, delta, dk, dv, bh, tq, tk, d, scale, s);
+    case 128: return launch_dkv<128>(q, k, v, dout, lse, delta, dk, dv, bh, tq, tk, d, scale, s);
     case 256: return launch_bwd_split<256, true>(
         q, k, v, dout, lse, delta, dk, dv, bh, tq, tk, d, scale, s);
     case 512: return launch_bwd_split<512, true>(

@@ -50,6 +50,7 @@ SIGNATURES = {
     "flash_bwd_split_smem": ("flash_bwd", [_I]),
     "flash_fwd_f32_smem": ("flash_f32", [_I]),
     "flash_bwd_f32_smem": ("flash_f32", [_I, _I]),
+    "flash_bwd_fused_f32_smem": ("flash_f32", [_I]),
 }
 
 _LOCK = threading.Lock()

@@ -18,11 +18,13 @@ forward) and load route ``bf16_plan`` chooses, and so is the split
 backward (D > 128), whose load route ``split_plan`` chooses; fp32 goes to
 their fp32 instances (``csrc/flash_f32.cu``), with fp32 outputs: the
 forward at every width (its narrow kernel up to D = 128, its wide one past
-it) and the split backward pair past D = 128 on the tensor cores as 3xTF32
-(each product formed from the operands' high and low TF32 parts,
-lo·hi + hi·lo + hi·hi, which keeps fp32's accuracy where one TF32 product
-would lose ~3 digits), the narrower backward kernels on CUDA-core fp32 FMA.
-fp32 is never rounded to bf16. On a CPU tensor, and only there, it runs the plain PyTorch version
+it), the fused backward (D <= 128) and the split backward pair past
+D = 128 on the tensor cores as 3xTF32 (each product formed from the
+operands' high and low TF32 parts, lo·hi + hi·lo + hi·hi, which keeps
+fp32's accuracy where one TF32 product would lose ~3 digits); only the
+split pair's narrow instances, which direct calls of ``flash_bwd_dq`` and
+``flash_bwd_dkv`` at D <= 128 reach, run CUDA-core fp32 FMA. fp32 is never
+rounded to bf16. On a CPU tensor, and only there, it runs the plain PyTorch version
 (``flash_fwd_reference`` / ``flash_bwd_reference``), which computes the same
 function in fp32. There is no fallback from the kernel.
 
@@ -177,6 +179,8 @@ def split_smem_bytes(dmax: int) -> int:
 # past D = 128); D is padded to the next one in shared memory only.
 F32_NARROW_DMAX = (32, 64, 128)
 F32_WIDE_DMAX = (256, 512)
+# Padded head widths the fp32 fused backward is built for (D <= 128).
+F32_FUSED_WIDTHS = (16, 32, 40, 48, 64, 80, 96, 128)
 
 
 def f32_fwd_kernel(d: int) -> Tuple[str, int]:
@@ -211,11 +215,41 @@ def f32_wide_smem_bytes(dmax: int) -> int:
     return 4 * (64 * (dmax + 4) + 64 * 68 + 4 * slot + dmax // 128 * 64 + 2 * 64)
 
 
+def f32_fused_kernel(d: int) -> Tuple[str, int]:
+    """(kernel, padded width) the fp32 ``flash_bwd_fused`` at head width
+    ``d`` (at most 128) runs, by csrc/flash_f32.cu's ``fused_width`` rule:
+    the 3xTF32 tensor-core kernel (eight warps of 16 kv rows, q and do
+    streamed, dq handed off through a bulk reduce-add), built at each of
+    ``F32_FUSED_WIDTHS`` so that its loops have their bounds at compile
+    time."""
+    if not 0 < d <= FUSED_BWD_MAX_D:
+        raise ValueError(f"flash_bwd_fused takes D <= {FUSED_BWD_MAX_D}, got {d}")
+    return "flash_bwd_fused_f32_kernel", next(w for w in F32_FUSED_WIDTHS if d <= w)
+
+
+def f32_fused_smem_bytes(w: int) -> int:
+    """Dynamic shared memory of the fp32 fused backward's block at padded
+    width ``w``, as csrc/flash_f32.cu FusedCfg lays it out, in floats: the
+    resident k and v tiles (128 rows of w + 4), a ring of two slots of a q
+    and a do tile (BQ = 32 rows, 16 at w = 128, of w + 4), the dq staging
+    buffer (BQ x the block's columns of dq: all, or half at w = 128, where
+    two blocks split them), ds^T (128 rows of BQ + 4), the dq partial sums
+    of three quarters of the kv rows (BQ rows of the block's columns
+    rounded to 8 (mod 32)), lse and delta of two tiles; then a full
+    mbarrier a slot and k and v's, and 128 bytes to align the tiles."""
+    bq, ld = (16 if w == 128 else 32), w + 4
+    wh = w // 2 if w == 128 else w  # the columns of dk, dv and dq a block owns
+    ldr = (wh + 23) // 32 * 32 + 8
+    floats = 2 * 128 * ld + 2 * 2 * bq * ld + bq * wh + 128 * (bq + 4) + 3 * bq * ldr + 4 * bq
+    return 4 * floats + 8 * 3 + 128
+
+
 def f32_split_kernel(d: int) -> Tuple[str, int]:
     """(kernel, padded width) the fp32 ``flash_bwd_dq`` and ``flash_bwd_dkv``
     at head width ``d`` run, by csrc/flash_f32.cu's rule: the CUDA-core
-    ``dq_kernel`` / ``dkv_kernel`` up to D = 128 (``flash_bwd`` takes the
-    fused kernel there), the 3xTF32 tensor-core kernel past it."""
+    ``dq_kernel`` / ``dkv_kernel`` up to D = 128, which only direct calls
+    reach (``flash_bwd`` takes the fused kernel there), the 3xTF32
+    tensor-core kernel past it."""
     pad = next(w for w in (32, 64, 128) + F32_WIDE_DMAX if d <= w)
     return ("dq_kernel/dkv_kernel" if pad <= 128 else "flash_bwd_f32_split_kernel"), pad
 

@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
-"""The flash kernels of this tree (the wide ones, and the fp32 narrow
-forward) against those of another copy of the kernel sources, timed in
-turns on one NVIDIA GPU.
+"""The flash kernels of this tree (the wide ones, the fp32 narrow forward
+and the fp32 fused backward) against those of another copy of the kernel
+sources, timed in turns on one NVIDIA GPU.
 
 Builds ``flash_fwd.cu`` (with ``--bwd``: ``flash_bwd.cu``; with ``--f32``:
 ``flash_f32.cu``) from
@@ -14,7 +14,10 @@ own C signature: the pair took no load route before it ran on TMA; with
 [4,4096,4096,160], its two wide instances, or with ``--f32 --narrow`` at
 [32,4096,4096,40] and [32,1024,1024,80], the UNet's attention at its two
 narrow instances; with ``--f32 --bwd``: the fp32 split pair
-``flash_bwd_dq_f32`` and ``flash_bwd_dkv_f32`` at the wide shapes) through
+``flash_bwd_dq_f32`` and ``flash_bwd_dkv_f32`` at the wide shapes; with
+``--f32 --fused``: the fp32 fused backward ``flash_bwd_fused_f32`` at the
+UNet's two shapes, its dq zeroed before each launch outside the timing,
+as the wrapper zeroes it) through
 ``ctypes`` on the same inputs (bf16; fp32 with ``--f32``), checks that the
 two agree, and times
 them in turns (other, tree, tree, other, other, tree): each time the median
@@ -22,7 +25,8 @@ of CUDA events around one launch queued behind a device spin, the kernel
 alone.
 
 Run from the repository root on the machine with the card:
-``python3 scripts/torch_flash_ab.py OTHER_CSRC_DIR [--bwd] [--f32 [--narrow]] [--json PATH]``.
+``python3 scripts/torch_flash_ab.py OTHER_CSRC_DIR [--bwd] [--f32 [--narrow | --fused]]
+[--json PATH]``.
 """
 
 from __future__ import annotations
@@ -60,10 +64,11 @@ def main(argv) -> int:
     from distdiff_tpu_torch.ops import _build
 
     if not torch.cuda.is_available() or not argv:
-        print("usage: torch_flash_ab.py OTHER_CSRC_DIR [--bwd] [--f32 [--narrow]] [--json PATH] "
-              "(needs a CUDA card)", file=sys.stderr)
+        print("usage: torch_flash_ab.py OTHER_CSRC_DIR [--bwd] [--f32 [--narrow | --fused]] "
+              "[--json PATH] (needs a CUDA card)", file=sys.stderr)
         return 2
     bwd, f32 = "--bwd" in argv, "--f32" in argv
+    fused = f32 and "--fused" in argv
     card = cs.card_line()
     print(card)
     work = tempfile.mkdtemp(prefix="flash_ab_")
@@ -80,12 +85,13 @@ def main(argv) -> int:
         log = proc.communicate()[0]
         if proc.returncode:
             raise SystemExit(f"{tag}: nvcc failed\n{log[-3000:]}")
-        keep = ("dq", "dkv", "split") if bwd else ("fwd",) if f32 else ("wide",)
+        keep = ("dq", "dkv", "split") if bwd else ("fused", "dkv") if fused else (
+            ("fwd",) if f32 else ("wide",))
         print(f"  {tag}: {[r for r in _build.ptxas_report(log) if any(x in r[0] for x in keep)]}")
         fns[tag] = {}
         suffix = "_f32" if f32 else ""
         entries = ("flash_bwd_dq" + suffix, "flash_bwd_dkv" + suffix) if bwd else (
-            "flash_fwd" + suffix,)
+            ("flash_bwd_fused_f32",) if fused else ("flash_fwd" + suffix,))
         for entry in entries:
             fn = getattr(ctypes.CDLL(lib), entry)
             argtypes = list(_build.SIGNATURES[entry][1])
@@ -97,6 +103,8 @@ def main(argv) -> int:
             fns[tag][entry] = (fn, route)
     if bwd:
         return ab_bwd(fns, card, argv, f32)
+    if fused:
+        return ab_fused(fns, card, argv)
     fns = {tag: f[entries[0]][0] for tag, f in fns.items()}
     dev = torch.device("cuda")
     gen = torch.Generator(device=dev).manual_seed(0)
@@ -146,6 +154,82 @@ def write_json(rows, argv) -> None:
         os.makedirs(os.path.dirname(path) or ".", exist_ok=True)
         with open(path, "w") as f:
             json.dump(rows, f, indent=1)
+
+
+def ab_fused(fns, card, argv) -> int:
+    """flash_bwd_fused_f32 of both copies in turns at NARROW_F32's shapes,
+    on fp32 inputs with the forward's lse and delta (plain torch): each
+    launch adds into a dq zeroed just before it, outside the events."""
+    import torch
+
+    import chip_smoke as cs
+
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(0)
+    stream = torch.cuda.current_stream().cuda_stream
+    rows = []
+    for bh, tq, tk, d in NARROW_F32:
+        q, do = (torch.randn(bh, tq, d, generator=gen, device=dev) for _ in range(2))
+        k, v = (torch.randn(bh, tk, d, generator=gen, device=dev) for _ in range(2))
+        s = torch.matmul(q, k.transpose(1, 2)) * d ** -0.5
+        lse = torch.logsumexp(s, dim=-1)
+        delta = (torch.matmul(torch.softmax(s, dim=-1), v) * do).sum(-1)
+        del s
+        calls, outs = {}, {}
+        for tag, per in fns.items():
+            fn = per["flash_bwd_fused_f32"][0]
+            out = [torch.zeros_like(q), torch.empty_like(k), torch.empty_like(v)]
+            ptrs = [x.data_ptr() for x in (q, k, v, do, lse, delta, *out)]
+
+            def call(fn=fn, ptrs=ptrs):
+                rc = fn(*ptrs, bh, tq, tk, d, d ** -0.5, stream)
+                if rc:
+                    raise SystemExit(f"launch failed with CUDA error {rc}")
+
+            call()
+            torch.cuda.synchronize()
+            calls[tag], outs[tag] = (call, out[0]), [x.clone() for x in out]
+        diff = max((a - b).abs().max().item() for a, b in zip(outs["tree"], outs["other"]))
+        top = max(a.abs().max().item() for a in outs["tree"])
+        times = {tag: [] for tag in fns}
+        for tag in ("other", "tree", "tree", "other", "other", "tree"):
+            times[tag].append(time_zeroed(*calls[tag], 10))
+        b_ms = cs.bound("flash_bwd_fused", bh, tq, tk, d, itemsize=4)[0]
+        row = {"kernel": "flash_bwd_fused_f32", "shape": [bh, tq, tk, d], "dtype": "float32",
+               "card": card, "max_abs_diff": diff, "max_abs": top, "bound_ms": b_ms,
+               **{f"{t}_ms": statistics.median(x) for t, x in times.items()},
+               **{f"{t}_runs": x for t, x in times.items()}}
+        rows.append(row)
+        print(f"  flash_bwd_fused_f32 [{bh},{tq},{tk},{d}]: tree {row['tree_ms']:.4f} ms "
+              f"{times['tree']}, other {row['other_ms']:.4f} ms {times['other']}, bound "
+              f"{b_ms:.4f}; max |diff| {diff:.2e} of max |out| {top:.2e}", flush=True)
+    write_json(rows, argv)
+    return 0
+
+
+def time_zeroed(fn, dq, iters: int) -> float:
+    """chip_smoke.time_ms for a launch that adds into ``dq``: the same
+    median of CUDA events behind a device spin, with dq zeroed before the
+    spin, outside the events."""
+    import torch
+
+    import chip_smoke as cs
+
+    for _ in range(2):
+        dq.zero_()
+        fn()
+    times = []
+    for _ in range(iters):
+        dq.zero_()
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        torch.cuda._sleep(cs.SPIN_CYCLES)
+        a.record()
+        fn()
+        b.record()
+        b.synchronize()
+        times.append(a.elapsed_time(b))
+    return statistics.median(times)
 
 
 def ab_bwd(fns, card, argv, f32=False) -> int:

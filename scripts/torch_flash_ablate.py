@@ -141,9 +141,28 @@ _FMA_NO_KV = ("    stage<TILE, DP, C::LDK>(Ks, kb, k0, tk, d);\n"
 _FMA_PRODUCTS = [("s[r] = fmaf(qw[r * DP + c], kc, s[r]);", ";"),
                  ("acc[r][i] = fmaf(p, vj[i], acc[r][i]);", ";")]
 
+# the fp32 fused backward's parts (the same file; mma3's patches above
+# take its correction products or all its products too): its
+# exponentials, its q and do tiles' TMA loads (each replaced by a bare
+# arrival on the slot's full barrier; k and v are still loaded), dq's
+# hand-off (the bulk reduce-adds into dq; the partial sums are still
+# formed and staged), and, to see inside, its dq product and its dk and dv
+# products
+_FUSED_EX2 = ("p[e] = hopper::ex2(fmaf(s[n][e], sl2, -((e & 1) ? L.y : L.x)));",
+              "p[e] = fmaf(s[n][e], sl2, -((e & 1) ? L.y : L.x));")
+_FUSED_NO_STREAM = ("      hopper::mbar_arrive_tx(full + slot, 2 * C::ST * 4);\n"
+                    "      hopper::tma_load_3d(dst, &qmap, 0, j * BQ, bh, full + slot);\n"
+                    "      hopper::tma_load_3d(dst + C::ST, &domap, 0, j * BQ, bh, full + slot);\n",
+                    "      hopper::mbar_arrive(full + slot);\n")
+_FUSED_NO_REDUCE = ("      hopper::bulk_reduce_add_f32(dq + (qoff + r0 + r) * d + c0,",
+                    "      if (r < 0) hopper::bulk_reduce_add_f32(dq + (qoff + r0 + r) * d + c0,")
+_FUSED_NO_DQ = ("          mma3(acc[i], a, al, b0, b1, tf32_lo(b0), tf32_lo(b1));\n", "")
+_FUSED_NO_DKV = ("            mma3(tv[u], pa[i], pl[i], d0, d1, tf32_lo(d0), tf32_lo(d1));\n"
+                 "            mma3(tkk[u], da[i], dal[i], q0, q1, tf32_lo(q0), tf32_lo(q1));\n", "")
+
 # variant -> (source file, [(text, replacement)], shapes); the split pair's
-# variants run its two entry points, the other flash_bwd.cu ones the fused
-# pass
+# variants run its two entry points, the other flash_bwd.cu ones and the
+# fused_f32 ones the fused pass
 VARIANTS = {
     "fwd": ("flash_fwd.cu", [], NARROW),
     "fwd without k/v loads": ("flash_fwd.cu", [
@@ -210,21 +229,30 @@ VARIANTS = {
     "f32_bwd loads only": ("flash_f32.cu", [_F32_PRODUCTS, _F32_BWD_EX2], WIDE_F32),
     "f32_bwd compute only": ("flash_f32.cu", [
         _F32_BWD_NO_WAITS, _F32_BWD_NO_REFILLS, _F32_BWD_NO_PRODUCER], WIDE_F32),
+    "fused_f32": ("flash_f32.cu", [], NARROW_F32),
+    "fused_f32 one TF32 product": ("flash_f32.cu", [_F32_CORRECTIONS], NARROW_F32),
+    "fused_f32 without exponentials": ("flash_f32.cu", [_FUSED_EX2], NARROW_F32),
+    "fused_f32 without q/do loads": ("flash_f32.cu", [_FUSED_NO_STREAM], NARROW_F32),
+    "fused_f32 without dq's reduce-add": ("flash_f32.cu", [_FUSED_NO_REDUCE], NARROW_F32),
+    "fused_f32 without dq's product": ("flash_f32.cu", [_FUSED_NO_DQ], NARROW_F32),
+    "fused_f32 without dk's and dv's products": ("flash_f32.cu", [_FUSED_NO_DKV], NARROW_F32),
+    "fused_f32 loads only": ("flash_f32.cu", [_F32_PRODUCTS, _FUSED_EX2], NARROW_F32),
 }
 
 CHILD = r'''
 import ctypes, json, statistics, sys
 import torch
-lib_path, stem, split = sys.argv[1], sys.argv[2], sys.argv[4] == "1"
+lib_path, stem, kind = sys.argv[1], sys.argv[2], sys.argv[4]
+split = kind == "split"
 shapes = json.loads(sys.argv[3])
 P, I, F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 lib = ctypes.CDLL(lib_path)
 f32 = stem == "flash_f32"
-entries = ["flash_bwd_dq", "flash_bwd_dkv"] if split else [
-    "flash_fwd_f32" if f32 else "flash_fwd" if stem == "flash_fwd" else "flash_bwd_fused"]
+entries = ["flash_bwd_dq", "flash_bwd_dkv"] if split else ["flash_bwd_fused"] if kind == "fused" \
+    else ["flash_fwd_f32" if f32 else "flash_fwd" if stem == "flash_fwd" else "flash_bwd_fused"]
 fns = {}
 for name in entries:
-    fns[name] = getattr(lib, name + ("_f32" if f32 and split else ""))
+    fns[name] = getattr(lib, name + ("_f32" if f32 and kind else ""))
     n_ptr = {"flash_fwd": 5, "flash_fwd_f32": 5, "flash_bwd_fused": 9, "flash_bwd_dq": 7,
              "flash_bwd_dkv": 8}[name]
     fns[name].argtypes = [P] * n_ptr + [I] * (4 if f32 else 5 if split else 6) + [F, P]
@@ -300,16 +328,18 @@ def main(argv) -> int:
         cmd = [nvcc(), "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
                "-shared", "-Xcompiler", "-fPIC", "-o", lib, os.path.join(d, src)]
         split = name.startswith(("wide_bwd", "f32_bwd"))
-        builds.append((name, src[:-3], split, lib, shapes, subprocess.Popen(
+        kind = "split" if split else "fused" if name.startswith("fused_f32") else ""
+        builds.append((name, src[:-3], kind, lib, shapes, subprocess.Popen(
             cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)))
     rows = []
-    for name, stem, split, lib, shapes, proc in builds:
+    for name, stem, kind, lib, shapes, proc in builds:
+        split = kind == "split"
         log = proc.communicate()[0]
         if proc.returncode:
             raise SystemExit(f"{name}: nvcc failed\n{log[-3000:]}")
         try:
             res = subprocess.run([sys.executable, "-c", CHILD, lib, stem, json.dumps(shapes),
-                                  str(int(split))], capture_output=True, text=True, timeout=120)
+                                  kind], capture_output=True, text=True, timeout=120)
             times = json.loads(res.stdout.strip().splitlines()[-1]) if res.returncode == 0 else {}
         except subprocess.TimeoutExpired:
             times = {}

@@ -136,6 +136,9 @@ def test_gn_bound_counts_slab_passes(smoke):
     ("flash_bwd_dkv", (2, 4096, 4096, 512), 4, 0.8330),
     ("flash_bwd_dq", (4, 4096, 4096, 160), 4, 0.39045),
     ("flash_bwd_dkv", (4, 4096, 4096, 160), 4, 0.5206),
+    # the fp32 fused backward at the UNet's shapes: 5 products
+    ("flash_bwd_fused", (32, 4096, 4096, 40), 4, 1.3015),
+    ("flash_bwd_fused", (32, 1024, 1024, 80), 4, 0.1627),
     # bf16: one product on the bf16 tensor cores, as before
     ("flash_fwd", (2, 4096, 4096, 512), 2, 0.0695),
     ("flash_fwd", (32, 4096, 4096, 40), 2, 0.1377),
@@ -148,6 +151,26 @@ def test_flash_bound_counts_fp32_products_as_three_tf32(smoke, name, shape, item
     product three times on the TF32 tensor cores; bf16 bounds unchanged."""
     ms, by = smoke.bound(name, *shape, itemsize=itemsize)
     assert ms == pytest.approx(want, abs=5e-5) and by == "operations"
+
+
+def test_call_weighted_means_follow_the_launches_of_the_call(smoke):
+    """The launch-weighted numbers of the gn_stats / gn_apply rows: each
+    timed shape's kernel, plain, library and bound ms weighted by its
+    launches in the counted call; a shape the call did not launch weighs
+    nothing, and a kernel with no launched shape fails the run."""
+    recs = [{"name": "gn_stats", "shape": [2, 320, 64, 64], "ms": 1.0, "plain_ms": 4.0,
+             "library_ms": 2.0, "bound_ms": 0.5},
+            {"name": "gn_stats", "shape": [2, 640, 32, 32], "ms": 3.0, "plain_ms": 8.0,
+             "library_ms": 6.0, "bound_ms": 1.5},
+            {"name": "gn_stats", "shape": [2, 960, 8, 8], "ms": 9.0, "plain_ms": 9.0,
+             "library_ms": 9.0, "bound_ms": 9.0}]
+    launches = {("gn_stats", (2, 320, 64, 64)): 3, ("gn_stats", (2, 640, 32, 32)): 1}
+    m = smoke.call_weighted(recs, launches, ("gn_stats",))["gn_stats"]
+    assert m["shapes"] == 2 and m["launches"] == 4
+    assert m["ms"] == pytest.approx(1.5) and m["plain_ms"] == pytest.approx(5.0)
+    assert m["library_ms"] == pytest.approx(3.0) and m["bound_ms"] == pytest.approx(0.75)
+    with pytest.raises(SystemExit, match="gn_apply"):
+        smoke.call_weighted(recs, launches, ("gn_apply",))
 
 
 def test_gn_fused_plan_at_every_main_path_shape(smoke):

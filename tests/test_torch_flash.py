@@ -207,6 +207,44 @@ def test_ablation_patches_apply_to_the_fp32_wide_forward(name):
     assert (patched != text) == bool(subs)
 
 
+FUSED_F32_VARIANTS = ["fused_f32", "fused_f32 one TF32 product", "fused_f32 without exponentials",
+                      "fused_f32 without q/do loads", "fused_f32 without dq's reduce-add",
+                      "fused_f32 without dq's product", "fused_f32 without dk's and dv's products",
+                      "fused_f32 loads only"]
+
+
+@pytest.mark.parametrize("name", FUSED_F32_VARIANTS)
+def test_ablation_patches_apply_to_the_fp32_fused_backward(name):
+    """The fp32 fused backward's ablations are text of csrc/flash_f32.cu,
+    each still there once (the cases are all of the script's fused_f32
+    set), timed at the UNet's two shapes."""
+    ab = _ablate_script()
+    assert sorted(n for n in ab.VARIANTS if n.startswith("fused_f32")) == sorted(
+        FUSED_F32_VARIANTS)
+    src, subs, shapes = ab.VARIANTS[name]
+    assert src == "flash_f32.cu" and shapes == ab.NARROW_F32
+    text = open(os.path.join(ab.CSRC, src)).read()
+    patched = text
+    for old, new in subs:
+        assert patched.count(old) == 1, f"{name}: {old[:60]!r} is not once in {src}"
+        patched = patched.replace(old, new)
+    assert (patched != text) == bool(subs)
+
+
+def test_fused_probe_needs_a_card(monkeypatch):
+    """scripts/torch_fused_f32_probe.py times and checks on the card only:
+    without one it exits with 2 before building anything."""
+    import importlib.util
+    import pathlib
+
+    path = pathlib.Path(__file__).resolve().parents[1] / "scripts" / "torch_fused_f32_probe.py"
+    spec = importlib.util.spec_from_file_location("torch_fused_f32_probe", path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    assert mod.main() == 2
+
+
 def _tf32_high(x, nearest):
     """x's TF32 high part: its top 19 bits (sign, exponent, 10 mantissa
     bits), rounded to nearest (half a TF32 unit added first) or truncated,
@@ -284,6 +322,51 @@ def test_three_tf32_products_keep_the_split_backward_at_fp32_accuracy(d, tq, tk,
     want = _split_grads(q64, k64, v64, do64, lse, delta, torch.matmul)
     got = _split_grads(q, k, v, do, lse.float(), delta.float(),
                        lambda a, b: _tf32_matmul(a, b, products))
+    errs = [float((g.double() - w).abs().max() / w.abs().max()) for g, w in zip(got, want)]
+    if products == 3:
+        assert max(errs) <= 1e-5
+    else:
+        assert min(errs) > 2e-4
+
+
+def _fused_grads(q, k, v, do, lse, delta, matmul, bq=32, kq=32):
+    """(dq, dk, dv) as csrc/flash_f32.cu's fused backward sums them, every
+    product by matmul: s and dp over the head width, dk and dv a q tile of
+    bq rows at a time and dq a quarter of a 128-row kv block (kq rows) at a
+    time, each part summed from zero and the parts added in fp32."""
+    scale = q.shape[-1] ** -0.5
+    p = torch.exp(matmul(q, k.transpose(-1, -2)) * scale - lse[..., None])
+    ds = p * (matmul(do, v.transpose(-1, -2)) - delta[..., None]) * scale
+    dk = torch.zeros_like(k)
+    dv = torch.zeros_like(v)
+    for r in range(0, q.shape[1], bq):
+        dv += matmul(p[:, r:r + bq].transpose(-1, -2), do[:, r:r + bq])
+        dk += matmul(ds[:, r:r + bq].transpose(-1, -2), q[:, r:r + bq])
+    dq = torch.zeros_like(q)
+    for c in range(0, k.shape[1], kq):
+        dq += matmul(ds[:, :, c:c + kq], k[:, c:c + kq])
+    return dq, dk, dv
+
+
+@pytest.mark.parametrize("products", [3, 1])
+@pytest.mark.parametrize("d,tq,tk", [(16, 65, 63), (40, 129, 127), (128, 63, 129)])
+def test_three_tf32_products_keep_the_fused_backward_at_fp32_accuracy(d, tq, tk, products):
+    """Why the fp32 fused backward runs three TF32 products a product: with
+    them its five products, each q tile's (and each quarter of the kv rows'
+    for dq) summed from zero, stay within 1e-5 of the largest magnitude of
+    fp64 gradients, inside chip_smoke.py's 2e-5 against fp64; one TF32
+    product misses by far. The lse and delta it takes are fp64's, rounded
+    to fp32, so the error is the kernel's own."""
+    rng = np.random.RandomState(d + 2)
+    q, do = (torch.from_numpy(rng.randn(2, tq, d).astype(np.float32)) for _ in range(2))
+    k, v = (torch.from_numpy(rng.randn(2, tk, d).astype(np.float32)) for _ in range(2))
+    q64, k64, v64, do64 = (x.double() for x in (q, k, v, do))
+    s = torch.matmul(q64, k64.transpose(-1, -2)) * d ** -0.5
+    lse = torch.logsumexp(s, dim=-1)
+    delta = (torch.matmul(torch.exp(s - lse[..., None]), v64) * do64).sum(-1)
+    want = _split_grads(q64, k64, v64, do64, lse, delta, torch.matmul)
+    got = _fused_grads(q, k, v, do, lse.float(), delta.float(),
+                       lambda a, b: _tf32_matmul(a, b, products), bq=16 if d > 96 else 32)
     errs = [float((g.double() - w).abs().max() / w.abs().max()) for g, w in zip(got, want)]
     if products == 3:
         assert max(errs) <= 1e-5

@@ -502,6 +502,64 @@ def test_fp32_split_block_fits_the_card(dmax):
         assert 2 * (flash.f32_split_smem_bytes(dmax) + 1024) <= 233472
 
 
+@pytest.mark.parametrize("w", flash.F32_FUSED_WIDTHS)
+def test_fp32_fused_block_fits_the_card(w):
+    """The fp32 fused backward's block (csrc/flash_f32.cu FusedCfg) at each
+    padded width it is built for fits the H100's 227 KB of shared memory:
+    the resident 128-row k and v tiles, a two-slot ring of q and do tiles
+    (32 rows, 16 at 128), ds^T, dq's staging and three quarters' partial
+    sums, lse and delta of two tiles, the mbarriers and 128 bytes of
+    alignment (chip_smoke.py phase 1 holds the C count against
+    f32_fused_smem_bytes on the card)."""
+    bq = 16 if w == 128 else 32
+    tiles = 2 * 128 * (w + 4) * 4 + 2 * 2 * bq * (w + 4) * 4 + 128 * (bq + 4) * 4
+    smem = flash.f32_fused_smem_bytes(w)
+    assert tiles < smem <= 232448
+    assert (w + 4) % 8 == 4  # an odd multiple of 4 floats: ldmatrix and 2t-row loads conflict-free
+
+
+@pytest.mark.parametrize("d", range(1, 129))
+def test_fp32_fused_takes_the_tensor_core_kernel(d):
+    """fp32 flash_bwd_fused runs the 3xTF32 tensor-core kernel at every
+    width up to 128, at the smallest padded width csrc/flash_f32.cu builds
+    that holds d (its fused_width rule, in Python); wider widths raise."""
+    name, w = flash.f32_fused_kernel(d)
+    assert name == "flash_bwd_fused_f32_kernel"
+    assert w == min(x for x in flash.F32_FUSED_WIDTHS if x >= d)
+    if d == 128:
+        with pytest.raises(ValueError, match="D <= 128"):
+            flash.f32_fused_kernel(129)
+
+
+@pytest.mark.parametrize("d", [16, 40, 100, 128])
+def test_fp32_fused_launch_passes_the_shape_and_scale(monkeypatch, d):
+    """The fp32 fused wrapper hands its entry point the pointers (q, k, v,
+    do, lse, delta, a zeroed fp32 dq, dk, dv), then (BH, Tq, Tk, D), the
+    scale and the stream (no plan: the C side picks the instance and its
+    load route), as many arguments as the C signature takes; it counts one
+    launch by shape, returns fp32 gradients of the inputs' shapes, and
+    raises past D = 128 before any launch."""
+    calls = _recorded_launches(monkeypatch)
+    flash.reset_launch_counts()
+    q, do = torch.empty(2, 129, d, device="meta"), torch.empty(2, 129, d, device="meta")
+    k = v = torch.empty(2, 63, d, device="meta")
+    lse = delta = torch.empty(2, 129, device="meta")
+    dq, dk, dv = flash.flash_bwd_fused(q, k, v, do, lse, delta)
+    assert dq.shape == q.shape and dk.shape == dv.shape == k.shape
+    assert all(x.dtype == torch.float32 for x in (dq, dk, dv))
+    [(name, args)] = calls
+    assert name == "flash_bwd_fused_f32" and len(args) == len(_build.SIGNATURES[name][1]) == 15
+    assert args[9:13] == (2, 129, 63, d) and args[13] == pytest.approx(d ** -0.5)
+    assert flash.launch_counts["flash_bwd_fused"] == 1
+    assert flash.launch_shapes[("flash_bwd_fused", (2, 129, 63, d))] == 1
+    wide = torch.empty(2, 63, 129, device="meta")
+    with pytest.raises(ValueError, match="D <= 128"):
+        flash.flash_bwd_fused(wide, wide, wide, wide, torch.empty(2, 63, device="meta"),
+                              torch.empty(2, 63, device="meta"))
+    assert len(calls) == 1
+    flash.reset_launch_counts()
+
+
 @pytest.mark.parametrize("d,want", [
     (16, ("dq_kernel/dkv_kernel", 32)), (40, ("dq_kernel/dkv_kernel", 64)),
     (128, ("dq_kernel/dkv_kernel", 128)), (129, ("flash_bwd_f32_split_kernel", 256)),
