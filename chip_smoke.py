@@ -3,7 +3,7 @@
 
 Run from the repository root: ``python3 chip_smoke.py``. It needs one CUDA
 card, ``nvcc`` and ``nvidia-smi``; it imports nothing of JAX or of the JAX
-package. Six phases, any failure exits non-zero:
+package. Seven phases, any failure exits non-zero:
 
 1. Device: the card's name and power limit, torch/CUDA versions, the
    time to build the CUDA kernels from ``distdiff_tpu_torch/csrc`` (one
@@ -70,7 +70,25 @@ package. Six phases, any failure exits non-zero:
    ``make_split_expand(guide_chunk=1)`` for 4 work units, writing PNGs
    (their count, size and range, and each unit against its batch-1 run);
    one counted SplitExpand call against the plan, three timed ones.
-6. The card line, the kernels' JSON line (one entry per kernel; its times
+6. The CLI: ``distdiff_tpu_torch.cli.generate_data.main`` on the published
+   recipe (transform guidance, strength 0.5, K 3, rho 10, guidance step 20,
+   period 2, l-inf 0.2, batch 2, 4 images) in a temporary directory, from
+   files written first: an SD-1.5 fp16 diffusers-layout checkpoint with its
+   CLIP tokenizer files (``weights/synth.py``, 2.1 GB), a ResNet-50
+   ``.pth.tar`` guide of 100 classes and a caltech-101 tree of 400 PNGs
+   (plus the two classes the loader drops; half of them with Paeth and
+   Average rows, as adaptive encoders write photographs, half with filter
+   0). Loaded tensors against the written ones, the CLIP tokenizer, the 4
+   PNGs, the latent cache (300 entries) and the prototype cache ([100,
+   2048], [100, 3, 2048]), every kernel launched; each stage's seconds,
+   the driver's images/s, and the PNG decoder's ms an image for each kind
+   of file. Then
+   the fp32 tiny() expand with ``text_to_img``, and with ``offset_noise``
+   through ``make_expand_fn`` and ``SplitExpand``, on the card against the
+   CPU with the same draws, at phase 3's tolerance.
+   Phases 4, 5 and 6 each fail if they launched a kernel at a shape that
+   phase 2 did not hold against its plain version.
+7. The card line, the kernels' JSON line (one entry per kernel; its times
    are the means over that kernel's launches in the counted runs, and
    ``shapes`` holds each timed shape's own numbers), and the
    ``{"ok": true, ...}`` line.
@@ -379,6 +397,13 @@ def kernel_phase():
         ("unet64", cfg_b, 8, 4096, 4096, 40, every, True),
         ("unet32", cfg_b, 8, 1024, 1024, 80, ["flash_fwd", "flash_bwd_fused"], True),
         ("vae_mid", BATCH, 1, 4096, 4096, 512, ["flash_fwd"] + split, True),
+        # phase 5's guidance on sub-batches of one sample (guide_chunk=1):
+        # the UNet on the CFG pair of one, the VAE decode on one
+        ("unet64_g1", 2, 8, 4096, 4096, 40, ["flash_fwd", "flash_bwd_fused"], True),
+        ("unet32_g1", 2, 8, 1024, 1024, 80, ["flash_fwd", "flash_bwd_fused"], True),
+        ("vae_mid1", 1, 1, 4096, 4096, 512, ["flash_fwd"] + split, True),
+        # phase 6's dataset encode, CLI_ENCODE_BATCH images a call
+        ("vae_mid_enc", CLI_ENCODE_BATCH, 1, 4096, 4096, 512, ["flash_fwd"], True),
         ("ragged", 1, 3, 300, 130, 40, every, False),
         ("cross", 2, 2, 200, 77, 64, every, False),
         ("odd", 2, 1, 129, 70, 33, every, False),
@@ -1315,6 +1340,61 @@ def agreement_phase() -> None:
             raise SystemExit(f"the kernel path strays from the fp32 path on {what}")
 
 
+FP32_TOL = 1e-3  # fp32 card against fp32 CPU (see agree_fp32)
+
+
+def tiny_fp32_pipes(seed: int = 8):
+    """The fp32 tiny() pipeline (the VAE at width 160, so that its mid-block
+    takes the split dq/dkv pair) on the CPU and on the card with the same
+    weights; guided-expand inputs; and a CPU generator for the draws."""
+    import dataclasses
+
+    import torch
+
+    from distdiff_tpu_torch.config import GuidanceConfig, PipelineConfig, VAEConfig
+    from distdiff_tpu_torch.models.guide import create_model
+    from distdiff_tpu_torch.sampling import ExpansionPipeline, SamplerConfig
+    from distdiff_tpu_torch.sampling.pipeline import init_weights
+
+    dev = torch.device("cuda")
+    gen = torch.Generator().manual_seed(seed)
+    cfg = dataclasses.replace(PipelineConfig.tiny(sample_size=48), vae=VAEConfig(
+        block_out_channels=(16, 160), layers_per_block=1, dtype=torch.float32))
+    guides = [create_model("tiny_resnet", num_classes=3, device=d) for d in ("cpu", dev)]
+    init_weights(guides[0].module, gen)
+    guides[1].module.load_state_dict(guides[0].module.state_dict())
+    fd = guides[0].feature_dim
+    gp, lp = torch.randn(3, fd, generator=gen), torch.randn(3, 2, fd, generator=gen)
+    pipes = [ExpansionPipeline.create(
+        cfg, sampler_cfg=SamplerConfig(guidance_scale=3.0),
+        guidance_cfg=GuidanceConfig(guidance_step=4, guidance_period=2, K=2,
+                                    guide_input_size=32, rho=0.5),
+        guide=g, global_protos=gp, local_protos=lp, strength=0.5, seed=seed, device=d)
+        for g, d in zip(guides, ("cpu", dev))]
+    for name in ("unet", "vae", "text_encoder"):
+        getattr(pipes[1], name).load_state_dict(getattr(pipes[0], name).state_dict())
+    ls = cfg.latent_size
+    inputs = (torch.randn(2, ls, ls, 4, generator=gen) * 0.2,
+              torch.randn(2, 16, 32, generator=gen), torch.randn(2, 16, 32, generator=gen),
+              torch.tensor([1, 2]))
+    return pipes, inputs, gen
+
+
+def agree_fp32(what_got_want) -> None:
+    """fp32 on both sides (TF32 off); only the summation order differs
+    (cuDNN/cuBLAS and the kernels' tiles against the CPU's), ~1e-6 a layer;
+    1e-3 covers its growth through 7 UNet calls, the guidance gradient (rho
+    0.5) and the decode. The score is held relative to its size."""
+    for what, g, w in what_got_want:
+        scale = float(w.abs().max()) if what == "guidance score" else 1.0
+        err = float((g - w).abs().max()) / scale
+        ok = math.isfinite(err) and err <= FP32_TOL
+        print(f"  {what}{' (relative)' if scale != 1.0 else ''}: card against CPU "
+              f"{err:.3e} (tol {FP32_TOL:.1e}) {'ok' if ok else 'FAIL'}")
+        if not ok:
+            raise SystemExit(f"the fp32 card run strays from the CPU run on {what}")
+
+
 def fp32_agreement_phase() -> None:
     """The fp32 tiny() pipeline's guided expand on the card, through every
     kernel (flash in fp32; the VAE at width 160 so that its mid-block takes
@@ -1328,34 +1408,11 @@ def fp32_agreement_phase() -> None:
 
     import torch
 
-    from distdiff_tpu_torch.config import GuidanceConfig, PipelineConfig, VAEConfig
-    from distdiff_tpu_torch.models.guide import create_model
     from distdiff_tpu_torch.ops import flash
     from distdiff_tpu_torch.ops import groupnorm as gn
-    from distdiff_tpu_torch.sampling import ExpansionPipeline, SamplerConfig
-    from distdiff_tpu_torch.sampling.pipeline import init_weights
 
     dev = torch.device("cuda")
-    gen = torch.Generator().manual_seed(8)
-    cfg = dataclasses.replace(PipelineConfig.tiny(sample_size=48), vae=VAEConfig(
-        block_out_channels=(16, 160), layers_per_block=1, dtype=torch.float32))
-    guides = [create_model("tiny_resnet", num_classes=3, device=d) for d in ("cpu", dev)]
-    init_weights(guides[0].module, gen)
-    guides[1].module.load_state_dict(guides[0].module.state_dict())
-    fd = guides[0].feature_dim
-    gp, lp = torch.randn(3, fd, generator=gen), torch.randn(3, 2, fd, generator=gen)
-    pipes = [ExpansionPipeline.create(
-        cfg, sampler_cfg=SamplerConfig(guidance_scale=3.0),
-        guidance_cfg=GuidanceConfig(guidance_step=4, guidance_period=2, K=2,
-                                    guide_input_size=32, rho=0.5),
-        guide=g, global_protos=gp, local_protos=lp, strength=0.5, seed=8, device=d)
-        for g, d in zip(guides, ("cpu", dev))]
-    for name in ("unet", "vae", "text_encoder"):
-        getattr(pipes[1], name).load_state_dict(getattr(pipes[0], name).state_dict())
-    ls = cfg.latent_size
-    inputs = (torch.randn(2, ls, ls, 4, generator=gen) * 0.2,
-              torch.randn(2, 16, 32, generator=gen), torch.randn(2, 16, 32, generator=gen),
-              torch.tensor([1, 2]))
+    pipes, inputs, gen = tiny_fp32_pipes()
     draws = dict(zip(("noise", "gamma0", "beta0"), pipes[0].draw_inputs(inputs[0], gen)))
 
     def run(pipe, device):
@@ -1365,20 +1422,6 @@ def fp32_agreement_phase() -> None:
         if "latents_after" not in aux:  # direct guidance: the image and the score
             return [t.float().cpu() for t in (img, aux["score"])]
         return [t.float().cpu() for t in (img, aux["latents_after"], aux["score"])]
-
-    def agree(what_got_want):
-        # fp32 on both sides (TF32 off); only the summation order differs
-        # (cuDNN/cuBLAS and the kernels' tiles against the CPU's), ~1e-6 a
-        # layer; 1e-3 covers its growth through 7 UNet calls, the guidance
-        # gradient (rho 0.5) and the decode
-        for what, g, w in what_got_want:
-            scale = float(w.abs().max()) if what == "guidance score" else 1.0
-            err = float((g - w).abs().max()) / scale
-            ok = math.isfinite(err) and err <= 1e-3
-            print(f"  {what}{' (relative)' if scale != 1.0 else ''}: card against CPU "
-                  f"{err:.3e} (tol 1.0e-03) {'ok' if ok else 'FAIL'}")
-            if not ok:
-                raise SystemExit(f"the fp32 card run strays from the CPU run on {what}")
 
     t0 = time.time()
     want = run(pipes[0], "cpu")
@@ -1426,7 +1469,7 @@ def fp32_agreement_phase() -> None:
         require(pair and all(flash.f32_split_kernel(shape[3])[0] == "flash_bwd_f32_split_kernel"
                              for _, shape in pair),
                 "an fp32 split launch did not take the tensor-core kernel")
-        agree(zip(("image", "updated latents", "guidance score"), got, want))
+        agree_fp32(zip(("image", "updated latents", "guidance score"), got, want))
     print(f"  (CPU run {cpu_s:.1f} s)")
     require(all(c > 0 for c in launched.values()), f"a kernel was not launched: {launched}")
 
@@ -1448,7 +1491,7 @@ def fp32_agreement_phase() -> None:
                   f"{'%s (padded width %d)' % flash.f32_fused_kernel(shape[3])}")
     require(counts["flash_bwd_fused"] > 0 and counts["gn_fused"] > 0,
             f"direct guidance did not run through the kernels: {counts}")
-    agree(zip(("image", "guidance score"), got, want))
+    agree_fp32(zip(("image", "guidance score"), got, want))
 
 
 class SmokeDataset:
@@ -1465,8 +1508,9 @@ class SmokeDataset:
 
 def main_gn_calls() -> list:
     """(times, batch, norms) of every GroupNorm the counted runs make at
-    SD-1.5 geometry: the guided expand at batch 2 (phase 4), the same split
-    with guide_chunk=1 (phase 5), and the VAE encode of its 512^2 images."""
+    SD-1.5 geometry: the guided expand at batch 2 (phases 4 and 6), the same
+    split with guide_chunk=1 (phase 5), the VAE encode of phase 5's 512^2
+    images, and phase 6's dataset encode (CLI_ENCODE_BATCH images a call)."""
     import types
 
     from distdiff_tpu_torch.config import GuidanceConfig, PipelineConfig
@@ -1476,7 +1520,9 @@ def main_gn_calls() -> list:
     pipe = types.SimpleNamespace(config=cfg, guidance_cfg=GuidanceConfig(),
                                  sched=make_schedule(cfg.num_inference_steps), strength=0.5)
     return (expand_gn_calls(pipe, BATCH) + expand_gn_calls(pipe, BATCH, guide_chunk=1)
-            + [(1, BATCH, vae_encode_norms(cfg.vae, cfg.sample_size))])
+            + [(1, BATCH, vae_encode_norms(cfg.vae, cfg.sample_size)),
+               (-(-CLI_CLASSES * CLI_TRAIN // CLI_ENCODE_BATCH), CLI_ENCODE_BATCH,
+                vae_encode_norms(cfg.vae, cfg.sample_size))])
 
 
 FRONT_CLASSES = 100
@@ -1655,6 +1701,300 @@ def split_call_phase(pipe, split, items) -> dict:
     return {"warm_s": warm, "runs": runs, "peak_bytes": peak}
 
 
+CLI_CLASSES = 100
+CLI_TRAIN = 3   # train images a class: 300 latents
+CLI_TEST = 1
+CLI_DROPPED = ("BACKGROUND_Google", "Faces_easy")  # the caltech loader drops these
+CLI_UNITS = 4
+CLI_BATCH = 2
+CLI_K = 3
+CLI_ENCODE_BATCH = 8  # SDDataset's encode_batch, as the CLI leaves it (a short chunk is padded)
+
+
+def save_png_filtered(path: str, image01) -> None:
+    """``image01`` rounded as ``save_png`` rounds it, written with Paeth (4)
+    and Average (3) scanline filters on alternate rows. An adaptive encoder
+    (libpng's, so PIL's) writes most rows of a photograph so, and the
+    decoder cannot undo those a row at once; ``save_png`` writes filter 0
+    only."""
+    import os
+    import struct
+    import zlib
+
+    import numpy as np
+
+    from distdiff_tpu_torch.data.datasets import PNG_SIGNATURE
+
+    arr = np.clip(np.asarray(image01) * 255.0 + 0.5, 0, 255).astype(np.uint8)
+    h, w, c = arr.shape
+    x = arr.reshape(h, w * c).astype(np.int16)
+    up, left, upleft = (np.zeros_like(x) for _ in range(3))
+    up[1:] = x[:-1]
+    left[:, c:] = x[:, :-c]
+    upleft[:, c:] = up[:, :-c]
+    pa, pb, pc = np.abs(up - upleft), np.abs(left - upleft), np.abs(left + up - 2 * upleft)
+    paeth = np.where((pa <= pb) & (pa <= pc), left, np.where(pb <= pc, up, upleft))
+    ftype = np.where(np.arange(h) % 2 == 0, 4, 3)[:, None]
+    raw = (x - np.where(ftype == 4, paeth, (left + up) >> 1)) % 256
+    rows = np.concatenate([ftype, raw], axis=1).astype(np.uint8)
+
+    def chunk(tag, data):
+        return (struct.pack(">I", len(data)) + tag + data
+                + struct.pack(">I", zlib.crc32(tag + data) & 0xFFFFFFFF))
+
+    os.makedirs(os.path.dirname(path), exist_ok=True)
+    with open(path, "wb") as f:
+        f.write(PNG_SIGNATURE + chunk(b"IHDR", struct.pack(">IIBBBBB", w, h, 8, 2, 0, 0, 0))
+                + chunk(b"IDAT", zlib.compress(rows.tobytes(), 1)) + chunk(b"IEND", b""))
+
+
+def write_caltech_tree(data_root: str, classes: int = CLI_CLASSES, train: int = CLI_TRAIN,
+                       test: int = CLI_TEST, seed: int = 0, sizes=(200, 400)) -> list:
+    """``{data_root}/caltech-101/{train,test}/{class}/*.png``: ``classes``
+    classes of ``train`` + ``test`` seeded images, each side between
+    ``sizes`` pixels and never square (so that Resize scales and RandomCrop
+    crops), plus the two classes the loader drops. The odd classes are
+    written with Paeth and Average rows (``save_png_filtered``), the even
+    ones with filter 0 (``save_png``). Returns the kept class directory
+    names."""
+    import os
+
+    import numpy as np
+
+    from distdiff_tpu_torch.parallel import save_png
+
+    rng = np.random.default_rng(seed)
+    names = [f"class_{i:03d}" for i in range(classes)]
+    for split, n in (("train", train), ("test", test)):
+        for ci, name in enumerate(names + list(CLI_DROPPED)):
+            write = save_png_filtered if ci % 2 else save_png
+            for i in range(n):
+                h = int(rng.integers(sizes[0], sizes[1] + 1))
+                w = int(rng.integers(sizes[0], sizes[1]))
+                w += w >= h  # never square
+                y, x = np.mgrid[0:h, 0:w].astype(np.float32)
+                freq = rng.uniform(0.005, 0.05, (2, 3)).astype(np.float32)
+                phase = rng.uniform(0, 2 * np.pi, 3).astype(np.float32)
+                img = 0.5 + 0.4 * np.sin(y[..., None] * freq[0] + x[..., None] * freq[1] + phase)
+                img += rng.uniform(-0.1, 0.1, (h, w, 3)).astype(np.float32)
+                write(os.path.join(data_root, "caltech-101", split, name,
+                                   f"image_{i:04d}.png"), img)
+    return names
+
+
+def write_guide_checkpoint(path: str, num_classes: int = CLI_CLASSES, seed: int = 0) -> dict:
+    """A ResNet-50 guide in the reference's ``checkpoint.pth.tar`` form: a
+    dict with ``state_dict`` of ``module.``-prefixed torchvision keys (the
+    reference trains under DataParallel), seeded weights and running
+    statistics. Returns the state dict without the prefix."""
+    import torch
+
+    from distdiff_tpu_torch.models.guide.resnet import ResNet, resnet50_config
+    from distdiff_tpu_torch.sampling.pipeline import init_weights
+
+    gen = torch.Generator().manual_seed(seed)
+    module = ResNet(resnet50_config(num_classes), device="cpu")
+    init_weights(module, gen)
+    state = module.state_dict()
+    for k, v in state.items():
+        if k.endswith("running_mean"):
+            v.copy_(torch.randn(v.shape, generator=gen) * 0.1)
+        elif k.endswith("running_var"):
+            v.copy_(torch.rand(v.shape, generator=gen) + 0.5)
+    torch.save({"epoch": 100, "arch": "resnet50", "best_acc": 0.0,
+                "state_dict": {"module." + k: v for k, v in state.items()}}, path)
+    return state
+
+
+def cli_argv(data_root: str, checkpoint: str, guide_path: str, output_dir: str) -> list:
+    """The published recipe (``distdiff_tpu/cli/generate_data.py``'s usage)
+    on the written tree, checkpoint and guide, cut to ``CLI_UNITS`` images."""
+    return ["-d", "caltech-101", "--data_root", data_root, "--sd_checkpoint", checkpoint,
+            "-a", "resnet50", "--encoder_weight_path", guide_path,
+            "--guidance_type", "transform_guidance", "--strength", "0.5", "--K", str(CLI_K),
+            "--rho", "10.0", "--guidance_step", "20", "--guidance_period", "2",
+            "--constraint_value", "0.2", "--num_images_per_prompt", "1",
+            "--train_batch_size", str(CLI_BATCH), "--max_units", str(CLI_UNITS),
+            "--seed", "0", "--output_dir", output_dir]
+
+
+def loaded_matches(module, written: dict, keys, what: str) -> None:
+    """Each of ``keys``: the module's tensor equals the written one after
+    the cast to the module's dtype."""
+    import torch
+
+    own = module.state_dict()
+    for k in keys:
+        got = own[k].detach().cpu()
+        want = written[k].to(got.dtype)
+        require(got.shape == want.shape and torch.equal(got, want),
+                f"{what} {k}: the loaded tensor differs from the written one")
+
+
+def cli_phase() -> dict:
+    """``distdiff_tpu_torch.cli.generate_data.main`` on the published recipe,
+    in a temporary working directory: an SD-1.5 fp16 diffusers-layout
+    checkpoint (``weights/synth.py``, with its CLIP tokenizer files), a
+    ResNet-50 ``.pth.tar`` guide of 100 classes and a caltech-101 tree of
+    PNGs written first; then the loaded weights, the tokenizer, the PNGs,
+    the latent and prototype caches and the kernels' launches checked. The
+    CLI's stages are timed through wrappers of its own functions."""
+    import os
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    import distdiff_tpu_torch.data as data_pkg
+    import distdiff_tpu_torch.models as models_pkg
+    from distdiff_tpu_torch.cli import generate_data as cli
+    from distdiff_tpu_torch.data import load_image
+    from distdiff_tpu_torch.models import CLIPTokenizer
+    from distdiff_tpu_torch.ops import flash
+    from distdiff_tpu_torch.ops import groupnorm as gn
+    from distdiff_tpu_torch.parallel import read_png
+    from distdiff_tpu_torch.weights.safetensors import load_file
+    from distdiff_tpu_torch.weights.synth import COMPONENT_FILES, write_synth_checkpoint
+
+    root = os.path.dirname(os.path.abspath(__file__))
+    secs, seen = {}, {}
+    with tempfile.TemporaryDirectory(dir=root, prefix=".smoke_cli_") as work:
+        t0 = time.time()
+        ckpt = write_synth_checkpoint(os.path.join(work, "sd15"), seed=0)
+        secs["write checkpoint"] = time.time() - t0
+        t0 = time.time()
+        guide_path = os.path.join(work, "checkpoint", "model_best.pth.tar")
+        os.makedirs(os.path.dirname(guide_path))
+        guide_state = write_guide_checkpoint(guide_path)
+        classes = write_caltech_tree(os.path.join(work, "data"))
+        secs["write guide and PNG tree"] = time.time() - t0
+
+        def timed(label, fn, keep=None):
+            def wrapper(*a, **kw):
+                t = time.time()
+                out = fn(*a, **kw)
+                torch.cuda.synchronize()
+                secs[label] = time.time() - t
+                if keep:
+                    seen[keep] = out
+                return out
+            return wrapper
+
+        patches = [(cli, "build_pipeline", timed("load weights", cli.build_pipeline, "pipe")),
+                   (cli, "prepare_guide_and_prototypes",
+                    timed("prototypes", cli.prepare_guide_and_prototypes, "guide")),
+                   (data_pkg, "SDDataset", timed("dataset encode", data_pkg.SDDataset, "sd")),
+                   (models_pkg, "load_tokenizer",
+                    timed("tokenizer", models_pkg.load_tokenizer, "tokenizer"))]
+        saved = [(obj, name, getattr(obj, name)) for obj, name, _ in patches]
+        cwd = os.getcwd()
+        flash.reset_launch_counts()
+        gn.reset_launch_counts()
+        try:
+            for obj, name, fn in patches:
+                setattr(obj, name, fn)
+            os.chdir(work)
+            t0 = time.time()
+            stats = cli.main(cli_argv(os.path.join(work, "data"), ckpt, guide_path, "out"))
+            torch.cuda.synchronize()
+            secs["whole CLI"] = time.time() - t0
+        finally:
+            os.chdir(cwd)
+            for obj, name, fn in saved:
+                setattr(obj, name, fn)
+        counts = dict(flash.launch_counts, **gn.launch_counts)
+        by_shape = collections.Counter(flash.launch_shapes) + collections.Counter(gn.launch_shapes)
+        secs["driver"] = stats["seconds"]
+
+        pipe, sd = seen["pipe"], seen["sd"]
+        for comp, (sub, fname) in COMPONENT_FILES.items():
+            written = load_file(os.path.join(ckpt, sub, fname))
+            keys = sorted(written)
+            module = getattr(pipe, "text_encoder" if comp == "text" else comp)
+            loaded_matches(module, written, keys[::max(1, len(keys) // 5)], comp)
+        guide = seen["guide"][0]
+        gkeys = sorted(k for k in guide_state if not k.endswith("num_batches_tracked"))
+        loaded_matches(guide.module, guide_state, gkeys[::max(1, len(gkeys) // 8)], "guide")
+        print(f"  loaded tensors equal the written ones after the cast: UNet "
+              f"{next(pipe.unet.parameters()).dtype}, guide fp32")
+        require(isinstance(seen["tokenizer"], CLIPTokenizer),
+                f"the CLI tokenised with {type(seen['tokenizer']).__name__}, not CLIP's BPE")
+        require(sd.class_names == [c.replace("_", " ") for c in classes],
+                "the caltech loader did not keep exactly the 100 written classes")
+        pngs = sorted(os.path.join(d, f) for d, _, fs in os.walk(os.path.join(work, "out"))
+                      for f in fs if f.endswith(".png"))
+        require(stats["written"] == len(pngs) == CLI_UNITS,
+                f"{stats['written']} written, {len(pngs)} PNGs, {CLI_UNITS} units")
+        for path in pngs:
+            png = read_png(path)
+            require(png.shape == (512, 512, 3) and png.dtype == np.uint8,
+                    f"{path}: {png.shape} {png.dtype}")
+            require(png.max() > png.min(), f"{path} is one flat colour")
+        latents = np.load(sd.cache_path("CompVis/stable-diffusion-v1-4", work))
+        n_train = CLI_CLASSES * CLI_TRAIN
+        require(latents.shape == (n_train, 64, 64, 4) and bool(np.isfinite(latents).all()),
+                f"latent cache {latents.shape}, want {n_train} finite [64, 64, 4] latents")
+        protos = np.load(os.path.join(work, cli.prototype_cache_path(
+            "resnet50", "caltech-101", CLI_K)))
+        gshape, lshape = protos["global_prototypes"].shape, protos["local_prototypes"].shape
+        require(gshape == (CLI_CLASSES, 2048) and lshape == (CLI_CLASSES, CLI_K, 2048),
+                f"prototype cache global {gshape}, local {lshape}")
+        print(f"  {len(pngs)} PNGs of 512x512x3; latent cache {latents.shape}; prototype "
+              f"cache global {gshape}, local {lshape}")
+        # the decoder's cost an image on this host, one thread, by the rows'
+        # filters (the dataset encode above decodes each train image once)
+        decode_ms = {}
+        for kind, parity in (("filter 0", 0), ("Paeth and Average", 1)):
+            paths = [p for p, lab in zip(sd.image_paths, sd.labels) if lab % 2 == parity][:30]
+            t0, px = time.perf_counter(), 0
+            for path in paths:
+                px += math.prod(load_image(path).shape[:2])
+            decode_ms[kind] = (time.perf_counter() - t0) * 1e3 / len(paths)
+            print(f"  PNG decode, one thread, {kind} rows: {decode_ms[kind]:.2f} ms an image "
+                  f"(mean of {len(paths)}, {px / len(paths):.0f} pixels)")
+    for name in REPLACES:
+        require(counts.get(name, 0) > 0, f"{name} was not launched by the CLI run: {counts}")
+    print(f"  launches over the CLI run: {counts}")
+    return {"counts": counts, "by_shape": by_shape, "secs": secs, "stats": stats,
+            "decode_ms": decode_ms}
+
+
+def t2i_offset_phase() -> None:
+    """The fp32 tiny() pipeline on the card against the CPU with the same
+    injected draws (made on the CPU): ``make_expand_fn(text_to_img=True)``,
+    then, with ``offset_noise`` on (the draws carry the offset),
+    ``make_expand_fn`` and ``SplitExpand``; held to phase 3's tolerance."""
+    import torch
+
+    from distdiff_tpu_torch.ops import flash
+    from distdiff_tpu_torch.ops import groupnorm as gn
+
+    dev = torch.device("cuda")
+    pipes, inputs, gen = tiny_fp32_pipes(seed=9)
+    flash.reset_launch_counts()
+    gn.reset_launch_counts()
+    for label, text_to_img, offset, split in (("text_to_img, make_expand_fn", True, False, False),
+                                              ("offset_noise, make_expand_fn", False, True, False),
+                                              ("offset_noise, SplitExpand", False, True, True)):
+        for pipe in pipes:
+            pipe.offset_noise = offset
+        draws = dict(zip(("noise", "gamma0", "beta0"), pipes[0].draw_inputs(inputs[0], gen)))
+        out = []
+        for pipe, device in zip(pipes, ("cpu", dev)):
+            fn = (pipe.make_split_expand(text_to_img=text_to_img) if split
+                  else pipe.make_expand_fn(text_to_img=text_to_img))
+            img = fn(*(t.to(device) for t in inputs), **{k: v.to(device) for k, v in draws.items()})
+            out.append(img.float().cpu())
+        torch.cuda.synchronize()
+        require(bool(torch.isfinite(out[1]).all()), f"{label}: non-finite image on the card")
+        print(f"  {label}:")
+        agree_fp32([("image", out[1], out[0])])
+    counts = dict(flash.launch_counts, **gn.launch_counts)
+    print(f"  launches over the three card runs: {counts}")
+    require(counts["flash_fwd"] > 0 and counts["flash_bwd_fused"] > 0 and counts["gn_fused"] > 0,
+            f"the fp32 runs did not go through the kernels: {counts}")
+
+
 def check_gn_plan(got: dict, want) -> None:
     """Every GroupNorm kernel's launches by shape against the plan."""
     totals = {k: [0, 0] for k in GN_KERNELS}
@@ -1666,6 +2006,15 @@ def check_gn_plan(got: dict, want) -> None:
     for name, (g, w) in totals.items():
         print(f"  {name}: {g} (plan: {w}, over {len([k for k in want if k[0] == name])} shapes)")
         require(g > 0, f"{name} never launched on the main path")
+
+
+def require_timed(records, by_shape, what: str) -> None:
+    """Every (kernel, shape) that a counted run launched was held against
+    its plain version, and timed, in phase 2."""
+    held = {(r["name"], tuple(r["shape"])) for r in records}
+    missing = sorted(k for k in by_shape if k[0] in REPLACES and k not in held)
+    require(not missing, f"{what} launched kernels at shapes phase 2 did not hold "
+            f"against their plain versions: {missing}")
 
 
 def call_weighted(records, launches, names) -> dict:
@@ -1911,6 +2260,7 @@ def main(argv) -> int:
             print(f"  {name} {list(shape)}: {c}")
     check_gn_plan(gn_shapes_run, gn_plan(expand_gn_calls(pipe, BATCH),
                                          smem_limit=gn._device_limits(dev)[0]))
+    require_timed(records, by_shape, "phase 4")
     print(f"  norms by memory format: {layouts}")
     for name, m in call_weighted(records, gn_shapes_run, ("gn_stats", "gn_apply")).items():
         print(f"  {name}, its {m['shapes']} shapes of a call weighted by its {m['launches']} "
@@ -1920,16 +2270,31 @@ def main(argv) -> int:
 
     print("== 5. front-end path (generate_data): text, encode, prototypes, driver")
     front = frontend_phase(pipe)
+    require_timed(records, front["by_shape"], "phase 5")
     split = split_call_phase(pipe, front["split"], front["items"])
 
-    print("== 6. result")
+    print("== 6. generate_data CLI: the published recipe from files on disk")
+    t0 = time.time()
+    cli = cli_phase()
+    require_timed(records, cli["by_shape"], "phase 6")
+    for stage, s in cli["secs"].items():
+        print(f"  {stage}: {s:.2f} s ({card})")
+    print(f"  driver: {cli['stats']['images_per_sec']:.3f} images/s over "
+          f"{cli['stats']['written']} images ({card})")
+    print("  -- text_to_img and offset_noise, fp32 tiny, card against CPU")
+    t2i_offset_phase()
+    print(f"  phase 6: {time.time() - t0:.1f} s ({card})")
+
+    print("== 7. result")
     print(card)
     print(json.dumps({
-        "kernels": summarize(records, by_shape + front["by_shape"]),
+        "kernels": summarize(records, by_shape + front["by_shape"] + cli["by_shape"]),
         "fp32_flash": fp32_records, "expand_warm_s": warm_s,
         "expand_warm_s_runs": warm_runs, "expand_peak_bytes": peak,
         "split_expand_warm_s": split["warm_s"], "split_expand_warm_s_runs": split["runs"],
-        "split_expand_peak_bytes": split["peak_bytes"], "driver": front["stats"]}))
+        "split_expand_peak_bytes": split["peak_bytes"], "driver": front["stats"],
+        "cli_seconds": cli["secs"], "cli_driver": cli["stats"],
+        "cli_png_decode_ms": cli["decode_ms"]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

@@ -1,0 +1,170 @@
+"""Host-side image transforms on ``[H, W, C]`` uint8 numpy arrays (port of
+``distdiff_tpu/data/transforms.py``, the parts the generation path uses:
+``Resize``, ``CenterCrop``, ``RandomCrop``, ``ToArray``, ``Normalize``,
+``sd_transform`` and ``prototype_transform``).
+
+The JAX package resizes with PIL. ``Resize`` reproduces Pillow's
+``BILINEAR`` resampling bit for bit: a triangle filter widened by the scale
+factor when it downscales, coefficients normalised and rounded to 22-bit
+fixed point, a horizontal pass then a vertical pass, each rounded to uint8.
+``RandomCrop`` makes the same ``rng.integers`` calls, so its crops are the
+JAX package's. Every transform is ``fn(image, rng) -> image``.
+"""
+
+from __future__ import annotations
+
+import math
+from typing import Optional, Sequence
+
+import numpy as np
+
+IMAGENET_MEAN = np.array([0.485, 0.456, 0.406], np.float32)
+IMAGENET_STD = np.array([0.229, 0.224, 0.225], np.float32)
+
+# Pillow's fixed point for 8-bit resampling (Resample.c PRECISION_BITS)
+_PRECISION_BITS = 32 - 8 - 2
+
+
+class Compose:
+    def __init__(self, transforms: Sequence):
+        self.transforms = list(transforms)
+
+    def __call__(self, img, rng: Optional[np.random.Generator] = None):
+        rng = rng or np.random.default_rng()
+        for t in self.transforms:
+            img = t(img, rng)
+        return img
+
+
+def _bilinear_coeffs(in_size: int, out_size: int):
+    """Pillow's ``precompute_coeffs`` + ``normalize_coeffs_8bpc`` for the
+    bilinear filter (support 1): the first input index of each output and
+    its fixed-point weights ``[out_size, ksize]``, zero past the window."""
+    scale = in_size / out_size
+    filterscale = max(scale, 1.0)
+    support = 1.0 * filterscale
+    ksize = int(math.ceil(support)) * 2 + 1
+    center = (np.arange(out_size) + 0.5) * scale
+    xmin = np.maximum(np.trunc(center - support + 0.5), 0).astype(np.int64)
+    xmax = np.minimum(np.trunc(center + support + 0.5), in_size).astype(np.int64) - xmin
+    taps = np.arange(ksize)
+    x = ((taps[None, :] + xmin[:, None]) - center[:, None] + 0.5) * (1.0 / filterscale)
+    w = np.where(np.abs(x) < 1.0, 1.0 - np.abs(x), 0.0)
+    w = np.where(taps[None, :] < xmax[:, None], w, 0.0)
+    ww = np.zeros(out_size)
+    for k in range(ksize):  # Pillow sums the taps in order
+        ww = ww + w[:, k]
+    w = np.where(ww[:, None] != 0.0, w / np.where(ww == 0.0, 1.0, ww)[:, None], w)
+    fixed = np.trunc(np.where(w < 0, -0.5, 0.5) + w * (1 << _PRECISION_BITS))
+    return xmin, fixed.astype(np.int64)
+
+
+def _resample_axis(img: np.ndarray, out_size: int, axis: int) -> np.ndarray:
+    """One pass of Pillow's 8-bit resampling along ``axis`` (1: width,
+    0: height), rounded and clipped to uint8. The sums fit int32, as in
+    Pillow: the weights are non-negative and add up to about 2^22."""
+    in_size = img.shape[axis]
+    xmin, kk = _bilinear_coeffs(in_size, out_size)
+    kk = kk.astype(np.int32)
+    shape = [1] * img.ndim
+    shape[axis] = out_size
+    acc = np.full((1,) * img.ndim, 1 << (_PRECISION_BITS - 1), np.int32)
+    for k in range(kk.shape[1]):
+        idx = np.minimum(xmin + k, in_size - 1)
+        acc = acc + np.take(img, idx, axis=axis).astype(np.int32) * kk[:, k].reshape(shape)
+    return np.clip(acc >> _PRECISION_BITS, 0, 255).astype(np.uint8)
+
+
+def resize_bilinear(img: np.ndarray, size_hw) -> np.ndarray:
+    """``[H, W, C]`` uint8 -> ``[h, w, C]`` as Pillow's
+    ``resize((w, h), BILINEAR)``: the horizontal pass first, each pass only
+    where its size changes."""
+    h, w = size_hw
+    if img.shape[1] != w:
+        img = _resample_axis(img, w, axis=1)
+    if img.shape[0] != h:
+        img = _resample_axis(img, h, axis=0)
+    return img
+
+
+class Resize:
+    """int -> the short side; (h, w) -> that exact size. Bilinear."""
+
+    def __init__(self, size):
+        self.size = size
+
+    def __call__(self, img: np.ndarray, rng) -> np.ndarray:
+        h, w = img.shape[:2]
+        if isinstance(self.size, int):
+            scale = self.size / min(w, h)
+            new = (max(1, round(h * scale)), max(1, round(w * scale)))
+        else:
+            new = tuple(self.size)
+        return resize_bilinear(img, new)
+
+
+class CenterCrop:
+    """The centre ``size`` square; where the image is smaller, the crop box
+    reaches past it and reads black, as PIL's ``crop`` does."""
+
+    def __init__(self, size: int):
+        self.size = size
+
+    def __call__(self, img: np.ndarray, rng) -> np.ndarray:
+        h, w = img.shape[:2]
+        s = self.size
+        left, top = max(0, (w - s) // 2), max(0, (h - s) // 2)
+        out = np.zeros((s, s) + img.shape[2:], img.dtype)
+        part = img[top:top + s, left:left + s]
+        out[:part.shape[0], :part.shape[1]] = part
+        return out
+
+
+class RandomCrop:
+    def __init__(self, size: int):
+        self.size = size
+
+    def __call__(self, img: np.ndarray, rng) -> np.ndarray:
+        h, w = img.shape[:2]
+        s = self.size
+        if w < s or h < s:
+            img = resize_bilinear(img, (max(h, s), max(w, s)))
+            h, w = img.shape[:2]
+        left = int(rng.integers(0, w - s + 1))
+        top = int(rng.integers(0, h - s + 1))
+        return img[top:top + s, left:left + s]
+
+
+class ToArray:
+    """uint8 HWC -> fp32 in [0, 1]."""
+
+    def __call__(self, img: np.ndarray, rng=None) -> np.ndarray:
+        return img.astype(np.float32) / 255.0
+
+
+class Normalize:
+    def __init__(self, mean, std):
+        self.mean = np.asarray(mean, np.float32)
+        self.std = np.asarray(std, np.float32)
+
+    def __call__(self, arr: np.ndarray, rng=None) -> np.ndarray:
+        return (arr - self.mean) / self.std
+
+
+def sd_transform(size: int = 512, center_crop: bool = False) -> Compose:
+    """SDDataset preprocessing -> [-1, 1] (reference ``dataloader.py:757-764``)."""
+    return Compose([
+        Resize(size),
+        CenterCrop(size) if center_crop else RandomCrop(size),
+        ToArray(),
+        Normalize([0.5, 0.5, 0.5], [0.5, 0.5, 0.5]),
+    ])
+
+
+def prototype_transform(size: int = 224) -> Compose:
+    """Exact resize + ImageNet normalisation (reference ``dataloader.py:736-742``)."""
+    return Compose([
+        Resize((size, size)),
+        ToArray(),
+        Normalize(IMAGENET_MEAN, IMAGENET_STD),
+    ])

@@ -9,7 +9,8 @@ pinned host memory behind the device's work, and are written as PNGs on a
 thread pool while the host issues batch i + 1.
 
 The PNG writer needs only the standard library (``zlib``, ``struct``): the
-machine with the card has no PIL.
+machine with the card has no PIL. ``read_png`` is ``data.datasets``'
+decoder.
 """
 
 from __future__ import annotations
@@ -26,13 +27,13 @@ from typing import Callable, List, Optional, Sequence, Union
 import numpy as np
 import torch
 
+from distdiff_tpu_torch.data.datasets import PNG_SIGNATURE, read_png  # noqa: F401 (re-exported)
 from distdiff_tpu_torch.device import resolve_device
 from distdiff_tpu_torch.parallel.manifest import WorkUnit, build_manifest, chunk_units
 from distdiff_tpu_torch.sampling.conditioning import cond_stack
 
 log = logging.getLogger("distdiff.driver")
 
-_PNG_SIGNATURE = b"\x89PNG\r\n\x1a\n"
 _COLOR_TYPES = {1: 0, 3: 2, 4: 6}  # channels -> PNG colour type
 
 
@@ -54,36 +55,10 @@ def save_png(path: str, image01: np.ndarray) -> None:
         raise ValueError(f"save_png takes 1, 3 or 4 channels, got {c}")
     rows = np.concatenate([np.zeros((h, 1), np.uint8), arr.reshape(h, w * c)], axis=1)
     header = struct.pack(">IIBBBBB", w, h, 8, _COLOR_TYPES[c], 0, 0, 0)
-    data = (_PNG_SIGNATURE + _chunk(b"IHDR", header)
+    data = (PNG_SIGNATURE + _chunk(b"IHDR", header)
             + _chunk(b"IDAT", zlib.compress(rows.tobytes(), 1)) + _chunk(b"IEND", b""))
     with open(path, "wb") as f:
         f.write(data)
-
-
-def read_png(path: str) -> np.ndarray:
-    """Read back what ``save_png`` writes: an 8-bit, non-interlaced PNG whose
-    scanlines all use filter 0. ``[H, W, C]`` uint8."""
-    with open(path, "rb") as f:
-        data = f.read()
-    if data[:8] != _PNG_SIGNATURE:
-        raise ValueError(f"{path} is not a PNG")
-    pos, idat, header = 8, [], None
-    while pos < len(data):
-        (n,) = struct.unpack(">I", data[pos: pos + 4])
-        tag, body = data[pos + 4: pos + 8], data[pos + 8: pos + 8 + n]
-        pos += 12 + n
-        if tag == b"IHDR":
-            header = struct.unpack(">IIBBBBB", body)
-        elif tag == b"IDAT":
-            idat.append(body)
-    w, h, depth, color, _, _, interlace = header
-    channels = {v: k for k, v in _COLOR_TYPES.items()}.get(color)
-    if depth != 8 or interlace or channels is None:
-        raise ValueError(f"{path}: only 8-bit non-interlaced grey/RGB/RGBA PNGs are read")
-    rows = np.frombuffer(zlib.decompress(b"".join(idat)), np.uint8).reshape(h, 1 + w * channels)
-    if rows[:, 0].any():
-        raise ValueError(f"{path}: only filter 0 scanlines are read")
-    return rows[:, 1:].reshape(h, w, channels)
 
 
 def unit_seed(seed: int, unit: WorkUnit) -> int:

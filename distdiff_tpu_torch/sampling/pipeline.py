@@ -41,6 +41,8 @@ from distdiff_tpu_torch.sampling.sampler import (
     denoise_range,
     img2img_init,
     make_eps_fn,
+    text2img_init,
+    with_offset_noise,
 )
 from distdiff_tpu_torch.schedulers import (
     DDIMSchedule,
@@ -123,6 +125,7 @@ class ExpansionPipeline:
     global_protos: Optional[torch.Tensor] = None
     local_protos: Optional[torch.Tensor] = None
     strength: float = 0.5
+    offset_noise: bool = False
 
     @staticmethod
     def create(
@@ -133,12 +136,16 @@ class ExpansionPipeline:
         global_protos=None,
         local_protos=None,
         strength: float = 0.5,
+        offset_noise: bool = False,
         seed: int = 0,
         device: Union[str, torch.device] = "cuda",
     ) -> "ExpansionPipeline":
         """Build the pipeline with seeded random UNet/VAE/text-encoder
-        weights (load real or converted weights with ``load_state_dict``
-        afterwards)."""
+        weights (load a diffusers checkpoint with
+        ``weights.convert.load_sd_checkpoint``, or converted weights with
+        ``load_state_dict``, afterwards). ``offset_noise`` adds the
+        per-(sample, channel) offset to the img2img noise
+        (``--offset_noise``)."""
         device = resolve_device(device)
         if device.type == "cuda":
             disable_tf32()
@@ -165,7 +172,7 @@ class ExpansionPipeline:
             sched=sched, unet=unet, vae=vae, text_encoder=text_encoder,
             device=device, guide=guide,
             global_protos=protos(global_protos), local_protos=protos(local_protos),
-            strength=strength,
+            strength=strength, offset_noise=offset_noise,
         )
 
     # ---- building blocks ----
@@ -211,16 +218,18 @@ class ExpansionPipeline:
             local_protos=self.local_protos,
         )
 
-    def guidance_active(self) -> bool:
-        """Whether the guidance window survives clamping to the img2img start
-        index under this pipeline's step plan and strength."""
-        return self.window()[2]
+    def guidance_active(self, text_to_img: bool = False) -> bool:
+        """Whether the guidance window survives clamping to the first
+        executed step (the img2img start index, or 0 under ``text_to_img``)
+        under this pipeline's step plan and strength."""
+        return self.window(text_to_img)[2]
 
-    def window(self) -> Tuple[int, int, bool, int, int]:
-        """(start, n, guided, g0, g1): the img2img start index, the plan
-        length, and the guidance window clamped to the start."""
+    def window(self, text_to_img: bool = False) -> Tuple[int, int, bool, int, int]:
+        """(start, n, guided, g0, g1): the first executed plan index (the
+        img2img start, or 0 under ``text_to_img``), the plan length, and
+        the guidance window clamped to the start."""
         sched, gcfg = self.sched, self.guidance_cfg
-        start = img2img_start_index(sched, self.strength)
+        start = 0 if text_to_img else img2img_start_index(sched, self.strength)
         n = sched.num_inference_steps
         guided = gcfg.guidance_type in ("transform_guidance", "direct_guidance")
         g0 = g1 = n
@@ -231,47 +240,79 @@ class ExpansionPipeline:
         return start, n, guided, g0, g1
 
     def draw_unit_inputs(self, image_latents: torch.Tensor,
-                         generators: Sequence[torch.Generator]
+                         generators: Sequence[torch.Generator], text_to_img: bool = False
                          ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
         """``draw_inputs`` with one generator per sample (per work unit), so
         that a sample's draws do not depend on the batch it is in."""
-        draws = [self.draw_inputs(image_latents[i:i + 1], g) for i, g in enumerate(generators)]
+        draws = [self.draw_inputs(image_latents[i:i + 1], g, text_to_img)
+                 for i, g in enumerate(generators)]
         return tuple(torch.cat(d, dim=0) for d in zip(*draws))
 
-    def make_split_expand(self, guide_chunk: Optional[int] = None,
+    def make_split_expand(self, text_to_img: bool = False, guide_chunk: Optional[int] = None,
                           decode_chunk: Optional[int] = None) -> "SplitExpand":
         """The expansion as its three parts (see ``SplitExpand``), with the
         guidance update and the final span + decode run on sub-batches of
         ``guide_chunk`` and ``decode_chunk`` samples."""
-        return SplitExpand(self, guide_chunk=guide_chunk, decode_chunk=decode_chunk)
+        return SplitExpand(self, text_to_img=text_to_img, guide_chunk=guide_chunk,
+                           decode_chunk=decode_chunk)
 
-    def draw_inputs(self, image_latents: torch.Tensor, generator: torch.Generator
+    def draw_inputs(self, image_latents: torch.Tensor, generator: torch.Generator,
+                    text_to_img: bool = False
                     ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
         """The expansion's random draws, in one place: img2img noise
         (standard normal, latents' shape), gamma0 (uniform [0, 1)) and beta0
-        (standard normal), both ``[B, 1, 1, C]``."""
+        (standard normal), both ``[B, 1, 1, C]``. With the pipeline's
+        ``offset_noise``, and not under ``text_to_img``, one more
+        standard-normal draw per (sample, channel), made after the others so
+        that they do not move, is added to the noise (``with_offset_noise``)."""
         b, c = image_latents.shape[0], image_latents.shape[-1]
         dev = image_latents.device
         noise = torch.randn(image_latents.shape, generator=generator, device=dev)
         gamma0 = torch.rand((b, 1, 1, c), generator=generator, device=dev)
         beta0 = torch.randn((b, 1, 1, c), generator=generator, device=dev)
+        if self.offset_noise and not text_to_img:
+            offset = torch.randn((b, 1, 1, c), generator=generator, device=dev)
+            noise = with_offset_noise(noise, offset)
         return noise, gamma0, beta0
 
+    def draw(self, image_latents: torch.Tensor, generators, text_to_img: bool = False
+             ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+        """The draws of one expand call, from one ``torch.Generator`` for the
+        batch (``draw_inputs``) or one per sample (``draw_unit_inputs``, as
+        ``ExpansionDriver`` passes them)."""
+        if isinstance(generators, torch.Generator):
+            return self.draw_inputs(image_latents, generators, text_to_img)
+        return self.draw_unit_inputs(image_latents, generators, text_to_img)
+
+    def init_latents(self, image_latents: torch.Tensor, noise: torch.Tensor,
+                     text_to_img: bool = False) -> torch.Tensor:
+        """The trajectory's first latents: the img2img-noised cached
+        latents, or under ``text_to_img`` the fp32 noise itself
+        (``image_latents`` then gives only the shape)."""
+        if text_to_img:
+            return text2img_init(noise)[0]
+        return img2img_init(self.sched, image_latents, noise, self.strength)[0]
+
     # ---- the hot path ----
-    def make_expand_fn(self) -> Callable:
+    def make_expand_fn(self, text_to_img: bool = False) -> Callable:
         """Build ``expand(image_latents, cond, uncond, targets, generator=None,
         *, noise=None, gamma0=None, beta0=None, return_aux=False)`` -> images
         ``[B, H, W, 3]`` in [0, 1].
 
-        The random draws come from ``generator`` (``draw_inputs``), unless
-        all three are handed in ready-made (a test seam for holding the port
-        against the JAX package's own draws). With ``return_aux`` it returns
-        ``(images, aux)``, where aux holds the guidance score, the gradient
-        on gamma/beta and the latents before and after the update."""
+        ``text_to_img`` starts from pure noise over the whole step plan (the
+        reference's ``--text_to_img``); the offset of ``offset_noise`` is
+        not applied then. The random draws come from ``generator``, one for
+        the batch or one per sample (``draw``), unless all three are handed
+        in ready-made (a test seam for holding the port against the JAX
+        package's own draws; ``noise`` is then the whole noise, offset
+        included, and under ``text_to_img`` the initial latents). With
+        ``return_aux`` it returns ``(images, aux)``, where aux holds the
+        guidance score, the gradient on gamma/beta and the latents before
+        and after the update."""
         sched = self.sched
         eps_fn = self.eps_fn()
         gcfg = self.guidance_cfg
-        start, n, guided, g0, g1 = self.window()
+        start, n, guided, g0, g1 = self.window(text_to_img)
         ctx = self.guidance_context() if guided else None
 
         @torch.no_grad()
@@ -282,9 +323,9 @@ class ExpansionPipeline:
                 if any(given) or generator is None:
                     raise ValueError("pass a generator, or all of noise, "
                                      "gamma0 and beta0")
-                noise, gamma0, beta0 = self.draw_inputs(image_latents, generator)
+                noise, gamma0, beta0 = self.draw(image_latents, generator, text_to_img)
             aux: Dict[str, torch.Tensor] = {}
-            latents, _ = img2img_init(sched, image_latents, noise, self.strength)
+            latents = self.init_latents(image_latents, noise, text_to_img)
             if not guided:
                 latents = denoise_range(sched, eps_fn, latents, cond, uncond, start, n)
             elif gcfg.guidance_type == "transform_guidance":
@@ -325,14 +366,16 @@ class SplitExpand:
     (``draw_unit_inputs``), in place of the reference's per-sample threefry
     keys, so a sample's image does not depend on the batch it was in; or
     all of noise, gamma0 and beta0 are handed in, as to ``make_expand_fn``.
+    ``text_to_img`` starts from pure noise, as in ``make_expand_fn``.
     """
 
-    def __init__(self, pipe: ExpansionPipeline, guide_chunk: Optional[int] = None,
-                 decode_chunk: Optional[int] = None):
+    def __init__(self, pipe: ExpansionPipeline, text_to_img: bool = False,
+                 guide_chunk: Optional[int] = None, decode_chunk: Optional[int] = None):
         self.pipe = pipe
+        self.text_to_img = text_to_img
         self.guide_chunk = guide_chunk
         self.decode_chunk = decode_chunk
-        self.start, self.n, self.guided, self.g0, self.g1 = pipe.window()
+        self.start, self.n, self.guided, self.g0, self.g1 = pipe.window(text_to_img)
         self.eps_fn = pipe.eps_fn()
         self.ctx = pipe.guidance_context() if self.guided else None
         transform = pipe.guidance_cfg.guidance_type == "transform_guidance"
@@ -349,8 +392,8 @@ class SplitExpand:
         return denoise_range(self.pipe.sched, self.eps_fn, x, cond, uncond, lo, hi)
 
     def init_span(self, image_latents, cond, uncond, noise, hi):
-        """img2img noising, then plain steps [start, hi)."""
-        x, _ = img2img_init(self.pipe.sched, image_latents, noise, self.pipe.strength)
+        """img2img noising (or pure noise), then plain steps [start, hi)."""
+        x = self.pipe.init_latents(image_latents, noise, self.text_to_img)
         return self._span(x, cond, uncond, self.start, hi)
 
     def guide(self, x, cond, uncond, targets, gamma0, beta0):
@@ -377,7 +420,7 @@ class SplitExpand:
             if len(generators) != image_latents.shape[0]:
                 raise ValueError(f"{len(generators)} generators for a batch of "
                                  f"{image_latents.shape[0]}")
-            noise, gamma0, beta0 = self.pipe.draw_unit_inputs(image_latents, generators)
+            noise, gamma0, beta0 = self.pipe.draw(image_latents, generators, self.text_to_img)
         b = image_latents.shape[0]
         if not self.guided:
             x = self.init_span(image_latents, cond, uncond, noise, self.start)

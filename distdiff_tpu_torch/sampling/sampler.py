@@ -1,6 +1,7 @@
 """DDIM sampling with classifier-free guidance (port of
 ``distdiff_tpu/sampling/sampler.py``). The denoise loop is a Python loop
-over plan indices; latents are NHWC ``[B, h, w, 4]``."""
+over plan indices; latents are NHWC ``[B, h, w, 4]``. The random draws are
+made by the caller and handed in."""
 
 from __future__ import annotations
 
@@ -51,10 +52,23 @@ def denoise_range(sched: DDIMSchedule, eps_fn: Callable, latents, cond, uncond,
 def img2img_init(sched: DDIMSchedule, image_latents: torch.Tensor,
                  noise: torch.Tensor, strength: float) -> Tuple[torch.Tensor, int]:
     """SDEdit entry: noise the cached latents to the strength-indexed
-    timestep. ``noise`` (standard normal, latents' shape) is drawn by the
-    caller. Returns (latents, start_index)."""
+    timestep. ``noise`` (latents' shape) is drawn by the caller: standard
+    normal, plus the offset under ``--offset_noise`` (``with_offset_noise``).
+    Returns (latents, start_index)."""
     start = img2img_start_index(sched, strength)
     t_enc = int(sched.timesteps[start])
     noisy = add_noise(sched, image_latents.float(), noise, t_enc)
     return noisy.to(image_latents.dtype), start
 
+
+def with_offset_noise(noise: torch.Tensor, offset: torch.Tensor) -> torch.Tensor:
+    """``--offset_noise``: the img2img noise plus 0.1x one standard-normal
+    draw per (sample, channel), ``offset`` ``[B, 1, 1, C]``, as the JAX
+    ``img2img_init`` adds it."""
+    return noise + 0.1 * offset
+
+
+def text2img_init(noise: torch.Tensor) -> Tuple[torch.Tensor, int]:
+    """Pure-noise entry (``--text_to_img``): the fp32 noise itself (DDIM's
+    initial sigma is 1), from plan index 0."""
+    return noise.float(), 0

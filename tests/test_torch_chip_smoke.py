@@ -111,7 +111,7 @@ def test_split_expand_flash_plan_and_main_shapes(smoke):
     assert smoke.expected_launches(_sd15_pipe(), units=2) == {
         "flash_fwd": 339, "flash_bwd_fused": 40, "flash_bwd_dq": 4, "flash_bwd_dkv": 4}
     shapes = smoke.gn_shapes(smoke.main_gn_calls())
-    assert len(shapes) == 42
+    assert len(shapes) == 48
     assert shapes[(4, 320, 64, 64)] == (32, {"silu", None})
     assert shapes[(2, 128, 512, 512)] == (32, {"silu"})
 
@@ -182,7 +182,7 @@ def test_gn_fused_plan_at_every_main_path_shape(smoke):
     from distdiff_tpu_torch.ops import groupnorm as gn
 
     shapes = sorted({s for name, s in smoke.gn_plan(smoke.main_gn_calls()) if name == "gn_fused"})
-    assert len(shapes) == 28
+    assert len(shapes) == 29
     for b, c, h, w in shapes:
         groups = group_count(c)
         plan = gn.fused_plan(b, c, h * w, groups, 2, "nhwc", 132, smoke.H100_SMEM_OPTIN, 0, 0)
@@ -198,7 +198,8 @@ PAIR_SHAPES = [
     (1, 128, 512, 512), (1, 256, 256, 256), (1, 256, 512, 512), (1, 512, 128, 128),
     (1, 512, 256, 256), (2, 128, 256, 256), (2, 128, 512, 512), (2, 256, 128, 128),
     (2, 256, 256, 256), (2, 256, 512, 512), (2, 512, 128, 128), (2, 512, 256, 256),
-    (2, 960, 64, 64), (4, 960, 64, 64)]
+    (2, 960, 64, 64), (4, 960, 64, 64), (8, 128, 256, 256), (8, 128, 512, 512),
+    (8, 256, 128, 128), (8, 256, 256, 256), (8, 512, 128, 128)]
 
 
 def test_pair_shapes_are_the_main_paths(smoke):
@@ -261,3 +262,111 @@ def test_pair_plan_replay_catches_faults(smoke, field, value, fault):
     plan = gn.pair_plan(2, 128, 512 * 512, 2, "nhwc", 132, 0, 0)._replace(**{field: value})
     with pytest.raises(SystemExit, match=fault):
         smoke.check_pair_plan(2, 128, 512 * 512, 2, "nhwc", plan, 0, 0)
+
+
+def test_caltech_tree_writer_gives_the_loaders_dataset(smoke, tmp_path):
+    from distdiff_tpu_torch.data import load_dataset, load_image
+
+    names = smoke.write_caltech_tree(str(tmp_path), sizes=(8, 12))
+    loaded = load_dataset("caltech-101", data_root=str(tmp_path))
+    assert len(names) == smoke.CLI_CLASSES == loaded.num_classes == 100
+    assert loaded.classnames == [n.replace("_", " ") for n in names]
+    assert len(loaded.train) == 300 and len(loaded.test) == 100
+    assert loaded.train.labels == [i // 3 for i in range(300)]
+    assert all(smoke.CLI_DROPPED[0] not in p for p in loaded.train.image_paths)
+    for path in loaded.train.image_paths[:20]:
+        img = load_image(path)
+        h, w, _ = img.shape
+        assert 8 <= h <= 12 and 8 <= w <= 12 and h != w and img.max() > img.min()
+
+
+def test_guide_checkpoint_writer_loads_through_load_weights(smoke, tmp_path):
+    from distdiff_tpu_torch.models.guide import create_model
+
+    path = str(tmp_path / "model_best.pth.tar")
+    state = smoke.write_guide_checkpoint(path)
+    saved = torch.load(path, map_location="cpu", weights_only=False)
+    assert all(k.startswith("module.") for k in saved["state_dict"])
+    guide = create_model("resnet50", num_classes=100, weight_path=path, device="cpu")
+    keys = [k for k in state if not k.endswith("num_batches_tracked")]
+    smoke.loaded_matches(guide.module, state, keys, "guide")
+    assert float(guide.module.bn1.running_var.min()) >= 0.5  # the seeded statistics
+    with pytest.raises(SystemExit, match="differs"):
+        smoke.loaded_matches(create_model("resnet50", num_classes=100, device="cpu").module,
+                             state, ["conv1.weight"], "guide")
+
+
+def test_cli_argument_list_is_the_published_recipe(smoke):
+    from distdiff_tpu_torch.cli.generate_data import check_ported, parse_args
+
+    args = parse_args(smoke.cli_argv("data", "ckpt", "guide.pth.tar", "out"))
+    check_ported(args)  # every option it sets is ported
+    assert (args.dataset, args.arch, args.guidance_type) == (
+        "caltech-101", "resnet50", "transform_guidance")
+    assert (args.strength, args.K, args.rho, args.guidance_step, args.guidance_period,
+            args.constraint_value) == (0.5, 3, 10.0, 20, 2, 0.2)
+    assert (args.num_images_per_prompt, args.train_batch_size, args.max_units, args.seed) == (
+        1, 2, 4, 0)
+    assert (args.sd_checkpoint, args.encoder_weight_path, args.output_dir) == (
+        "ckpt", "guide.pth.tar", "out")
+    assert not args.tiny and not args.fused_program and args.resolution == 512
+
+
+def test_filtered_png_writer_gives_paeth_and_average_rows_pil_reads(smoke, tmp_path):
+    import zlib
+
+    import numpy as np
+    from PIL import Image
+
+    from distdiff_tpu_torch.data import load_image
+
+    rng = np.random.default_rng(3)
+    img01 = rng.uniform(0, 1, (13, 9, 3))
+    want = np.clip(img01 * 255.0 + 0.5, 0, 255).astype(np.uint8)
+    path = str(tmp_path / "sub" / "x.png")
+    smoke.save_png_filtered(path, img01)
+    assert np.array_equal(load_image(path), want)
+    assert np.array_equal(np.asarray(Image.open(path).convert("RGB")), want)
+    data = open(path, "rb").read()
+    n = int.from_bytes(data[33:37], "big")  # the IDAT chunk follows IHDR
+    assert data[37:41] == b"IDAT"
+    rows = np.frombuffer(zlib.decompress(data[41:41 + n]), np.uint8).reshape(13, 9 * 3 + 1)
+    assert rows[:, 0].tolist() == [4, 3] * 6 + [4]
+
+
+def test_caltech_tree_writes_half_its_classes_with_paeth_and_average_rows(smoke, tmp_path):
+    import zlib
+
+    import numpy as np
+
+    smoke.write_caltech_tree(str(tmp_path), classes=4, train=1, test=1, sizes=(8, 12))
+    for ci, want in ((0, {0}), (1, {3, 4}), (2, {0}), (3, {3, 4})):
+        data = open(tmp_path / "caltech-101" / "train" / f"class_{ci:03d}" / "image_0000.png",
+                    "rb").read()
+        w, h = int.from_bytes(data[16:20], "big"), int.from_bytes(data[20:24], "big")
+        n = int.from_bytes(data[33:37], "big")
+        rows = np.frombuffer(zlib.decompress(data[41:41 + n]), np.uint8).reshape(h, 3 * w + 1)
+        assert set(rows[:, 0].tolist()) == want
+
+
+def test_require_timed_names_the_shapes_phase_2_did_not_hold(smoke):
+    import collections
+
+    records = [{"name": "flash_fwd", "shape": [4, 64, 64, 40]},
+               {"name": "gn_fused", "shape": [2, 320, 8, 8]}]
+    launched = collections.Counter({("flash_fwd", (4, 64, 64, 40)): 3,
+                                    ("gn_fused", (2, 320, 8, 8)): 1})
+    smoke.require_timed(records, launched, "phase 4")
+    launched[("flash_fwd", (8, 4096, 4096, 512))] += 1
+    with pytest.raises(SystemExit, match=r"phase 6 .*\('flash_fwd', \(8, 4096, 4096, 512\)\)"):
+        smoke.require_timed(records, launched, "phase 6")
+
+
+def test_cli_encode_batch_is_the_datasets_own(smoke):
+    import inspect
+
+    from distdiff_tpu_torch.cli import generate_data
+    from distdiff_tpu_torch.data import SDDataset
+
+    assert inspect.signature(SDDataset).parameters["encode_batch"].default == smoke.CLI_ENCODE_BATCH
+    assert "encode_batch" not in inspect.getsource(generate_data)
