@@ -52,3 +52,28 @@ def add_dataset_args(p: argparse.ArgumentParser) -> None:
     p.add_argument("--dataset", "-d", type=str, default="caltech-101")
     p.add_argument("--data_root", type=str, default="./data",
                    help="dataset root (reference convention ./data/{dataset})")
+
+
+def add_train_args(p: argparse.ArgumentParser) -> None:
+    """The trainer flag vocabulary (reference ``train.py:33-78``)."""
+    p.add_argument("--arch", "-a", type=str, default="resnet50")
+    p.add_argument("--epochs", type=int, default=100)
+    p.add_argument("--lr", "--learning-rate", type=float, default=0.1)
+    p.add_argument("--train-batch", type=int, default=64)
+    p.add_argument("--test-batch", type=int, default=100)
+    p.add_argument("--weight-decay", "--wd", type=float, default=5e-4)
+    p.add_argument("--momentum", type=float, default=0.9)
+    p.add_argument("--checkpoint", "-c", type=str, default="checkpoint")
+    p.add_argument("--resume", type=str, default="")
+    p.add_argument("--evaluate", "-e", action="store_true")
+    p.add_argument("--manualSeed", type=int, default=None)
+    p.add_argument("--pretrained", action="store_true")
+    p.add_argument("--train_fc", action="store_true")
+    p.add_argument("--accumulate", type=int, default=1)
+    p.add_argument("--input_size", type=int, default=224)
+    p.add_argument("--encoder_weight_path", type=str, default=None)
+
+
+def ensure_dir(path: str) -> str:
+    os.makedirs(path, exist_ok=True)
+    return path

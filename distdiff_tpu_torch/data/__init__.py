@@ -2,7 +2,11 @@ from distdiff_tpu_torch.data import transforms
 from distdiff_tpu_torch.data.datasets import (
     ArrayDataset,
     BatchLoader,
+    ConcatDataset,
+    DatasetByClassNames,
     ImageListDataset,
+    RepeatDataset,
+    SubsetDataset,
     load_image,
     read_png,
 )
@@ -13,7 +17,11 @@ from distdiff_tpu_torch.data.templates import CUSTOM_TEMPLATES, template_for
 __all__ = [
     "ArrayDataset",
     "BatchLoader",
+    "ConcatDataset",
+    "DatasetByClassNames",
     "ImageListDataset",
+    "RepeatDataset",
+    "SubsetDataset",
     "load_image",
     "read_png",
     "DATASETS",

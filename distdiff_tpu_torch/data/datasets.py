@@ -1,23 +1,27 @@
-"""Dataset primitives (port of ``distdiff_tpu/data/datasets.py``, the parts
-the generation path reads; the training-side datasets wait for ROADMAP
-queue 1 item 7): ``load_image``, the per-item augmentation seed,
-``ImageListDataset``, ``ArrayDataset`` and ``BatchLoader``.
+"""Dataset primitives (port of ``distdiff_tpu/data/datasets.py``):
+``load_image``, the per-item augmentation seed, ``ImageListDataset``,
+``ArrayDataset``, the expanded-tree reader ``DatasetByClassNames``, the
+``ConcatDataset``, ``RepeatDataset`` and ``SubsetDataset`` combinators, and
+``BatchLoader``.
 
 Images are ``[H, W, 3]`` uint8 numpy arrays. The machine with the card has
 neither PIL nor torchvision, so ``load_image`` decodes PNG with the standard
 library (``zlib``, ``struct``): 8-bit, non-interlaced, grey, grey+alpha,
 RGB, RGBA and palette images, every scanline filter, converted to RGB as
-PIL's ``convert("RGB")`` does. Anything else raises and names the route for
-such datasets: build the latent and prototype caches on a host that has PIL.
+PIL's ``convert("RGB")`` does. Anything else raises and names the routes
+for such datasets: build the latent and prototype caches on a host that
+has PIL (generation), or train from a PNG copy of the tree made there.
 """
 
 from __future__ import annotations
 
+import os
+import re
 import struct
 import threading
 import zlib
 from concurrent.futures import ThreadPoolExecutor
-from typing import Callable, Optional, Sequence
+from typing import Callable, List, Optional, Sequence
 
 import numpy as np
 
@@ -47,7 +51,12 @@ CACHE_ROUTE = (
     "{dataset}/{model}/image_latents*.npy) and the prototype cache (save/prototypes/"
     "{arch}/{dataset}/class_wise_prototype_K*.npz) on a host that has PIL, with "
     "either package (both write the same files), and run from the directory that "
-    "holds save/")
+    "holds save/. To train on such a dataset, train from a PNG copy of its tree made "
+    "on a host that has PIL: Image.open(p).convert(\"RGB\").save(q) for each image p "
+    "of {data_root}/{dataset}, q the same path under a new root ending in .png "
+    "(ImageOps.exif_transpose before convert where a file carries an EXIF "
+    "orientation); a copy so made has exactly the pixels the JAX package's "
+    "load_image sees")
 
 
 # One wavefront decode at a time: its numpy calls are many and small, and
@@ -227,22 +236,130 @@ class ArrayDataset:
         return arr, int(self.labels[idx])
 
 
-class BatchLoader:
-    """Threaded prefetching batch iterator in dataset order -> (images
-    ``[B, ...]``, labels ``[B]``, mask ``[B]``). The final short batch is
-    padded to the full batch size (by repeating its last item) and ``mask``
-    marks the real rows."""
+_EXPAND_RE = re.compile(r"_expand_(\d+)\.(png|jpg|jpeg)$", re.IGNORECASE)
+_IMG_EXTS = (".png", ".jpg", ".jpeg", ".bmp", ".webp")
 
-    def __init__(self, dataset, batch_size: int, num_threads: int = 4):
+
+class DatasetByClassNames(ImageListDataset):
+    """Reader for the generated-expansion tree ``{root}/{classname}/*.png``
+    (reference ``train_expanded_data_concat_original.py:91-117``). A class
+    without a directory contributes nothing. ``expand_num`` keeps only the
+    images whose ``_expand_{i}`` index is below it (reference
+    ``train_transform.py:158-169``); None keeps every image."""
+
+    def __init__(self, root: str, class_names: Sequence[str],
+                 transform: Optional[Callable] = None, expand_num: Optional[int] = None):
+        paths: List[str] = []
+        labels: List[int] = []
+        for ci, name in enumerate(class_names):
+            cdir = os.path.join(root, name)
+            if not os.path.isdir(cdir):
+                continue
+            for fname in sorted(os.listdir(cdir)):
+                if not fname.lower().endswith(_IMG_EXTS):
+                    continue
+                if expand_num is not None:
+                    m = _EXPAND_RE.search(fname)
+                    if m is not None and int(m.group(1)) >= expand_num:
+                        continue
+                paths.append(os.path.join(cdir, fname))
+                labels.append(ci)
+        super().__init__(paths, labels, transform)
+
+
+class ConcatDataset:
+    """original ⊕ expanded (reference
+    ``train_expanded_data_concat_original.py:153-156``). An item keeps its
+    index within its own dataset, and so its augmentation draws."""
+
+    def __init__(self, datasets: Sequence):
+        self.datasets = list(datasets)
+        self._offsets = np.cumsum([0] + [len(d) for d in self.datasets])
+
+    def set_epoch(self, epoch: int) -> None:
+        for d in self.datasets:
+            if hasattr(d, "set_epoch"):
+                d.set_epoch(epoch)
+
+    def __len__(self) -> int:
+        return int(self._offsets[-1])
+
+    def __getitem__(self, idx: int):
+        di = int(np.searchsorted(self._offsets, idx, side="right")) - 1
+        return self.datasets[di][idx - int(self._offsets[di])]
+
+
+class RepeatDataset:
+    """N× replication (the no-expansion control arm, reference
+    ``train_transform.py:245``)."""
+
+    def __init__(self, dataset, times: int):
+        self.dataset = dataset
+        self.times = times
+
+    def set_epoch(self, epoch: int) -> None:
+        if hasattr(self.dataset, "set_epoch"):
+            self.dataset.set_epoch(epoch)
+
+    def __len__(self) -> int:
+        return len(self.dataset) * self.times
+
+    def __getitem__(self, idx: int):
+        return self.dataset[idx % len(self.dataset)]
+
+
+class SubsetDataset:
+    def __init__(self, dataset, indices: Sequence[int]):
+        self.dataset = dataset
+        self.indices = list(indices)
+
+    def set_epoch(self, epoch: int) -> None:
+        if hasattr(self.dataset, "set_epoch"):
+            self.dataset.set_epoch(epoch)
+
+    def __len__(self) -> int:
+        return len(self.indices)
+
+    def __getitem__(self, idx: int):
+        return self.dataset[self.indices[idx]]
+
+
+class BatchLoader:
+    """Threaded prefetching batch iterator -> (images ``[B, ...]``, labels
+    ``[B]``, mask ``[B]``). With ``shuffle`` each epoch's order is
+    ``np.random.default_rng(seed + epoch)``'s permutation, as in the JAX
+    package. With ``drop_last=False`` the final short batch is padded to
+    the full batch size by repeating its last item, and ``mask`` marks the
+    real rows; ``collate(items, batch_size)`` replaces that assembly. Items
+    load on the pool; batches are put together on the caller's thread."""
+
+    def __init__(self, dataset, batch_size: int, shuffle: bool = False, seed: int = 0,
+                 drop_last: bool = False, num_threads: int = 4,
+                 collate: Optional[Callable] = None):
         self.dataset = dataset
         self.batch_size = batch_size
+        self.shuffle = shuffle
+        self.seed = seed
+        self.drop_last = drop_last
         self.num_threads = num_threads
+        self.collate = collate
         self.epoch = 0
 
     def __len__(self) -> int:
-        return (len(self.dataset) + self.batch_size - 1) // self.batch_size
+        n = len(self.dataset)
+        if self.drop_last:
+            return n // self.batch_size
+        return (n + self.batch_size - 1) // self.batch_size
+
+    def _indices(self) -> np.ndarray:
+        idx = np.arange(len(self.dataset))
+        if self.shuffle:
+            np.random.default_rng(self.seed + self.epoch).shuffle(idx)
+        return idx
 
     def _assemble(self, items):
+        if self.collate is not None:
+            return self.collate(items, self.batch_size)
         imgs = np.stack([np.asarray(it[0], np.float32) for it in items])
         labels = np.asarray([it[1] for it in items], np.int32)
         mask = np.ones(len(items), bool)
@@ -256,15 +373,16 @@ class BatchLoader:
     def __iter__(self):
         if hasattr(self.dataset, "set_epoch"):
             self.dataset.set_epoch(self.epoch)
+        idx = self._indices()
         bs = self.batch_size
         ex = ThreadPoolExecutor(max_workers=self.num_threads)
         try:
             # the items of up to three batches load on the pool while the
-            # caller uses the current one; batches are put together here
+            # caller uses the current one
             pending = []
             for bi in range(len(self)):
-                pending.append([ex.submit(self.dataset.__getitem__, i)
-                                for i in range(bi * bs, min((bi + 1) * bs, len(self.dataset)))])
+                pending.append([ex.submit(self.dataset.__getitem__, int(i))
+                                for i in idx[bi * bs:(bi + 1) * bs]])
                 if len(pending) > 2:
                     yield self._assemble([f.result() for f in pending.pop(0)])
             for batch in pending:

@@ -1,14 +1,15 @@
 """Host-side image transforms on ``[H, W, C]`` uint8 numpy arrays (port of
-``distdiff_tpu/data/transforms.py``, the parts the generation path uses:
-``Resize``, ``CenterCrop``, ``RandomCrop``, ``ToArray``, ``Normalize``,
-``sd_transform`` and ``prototype_transform``).
+``distdiff_tpu/data/transforms.py``).
 
-The JAX package resizes with PIL. ``Resize`` reproduces Pillow's
-``BILINEAR`` resampling bit for bit: a triangle filter widened by the scale
-factor when it downscales, coefficients normalised and rounded to 22-bit
-fixed point, a horizontal pass then a vertical pass, each rounded to uint8.
-``RandomCrop`` makes the same ``rng.integers`` calls, so its crops are the
-JAX package's. Every transform is ``fn(image, rng) -> image``.
+The JAX package resizes and rotates with PIL, which the machine with the
+card lacks. ``Resize`` reproduces Pillow's ``BILINEAR`` resampling bit for
+bit: a triangle filter widened by the scale factor when it downscales,
+coefficients normalised and rounded to 22-bit fixed point, a horizontal
+pass then a vertical pass, each rounded to uint8. ``RandomRotation``
+reproduces ``Image.rotate(angle, BILINEAR)`` bit for bit (``rotate``).
+The random transforms draw from the caller's ``np.random.Generator`` in
+the JAX package's order, so their choices are its choices. Every transform
+is ``fn(image, rng) -> image``.
 """
 
 from __future__ import annotations
@@ -135,6 +136,63 @@ class RandomCrop:
         return img[top:top + s, left:left + s]
 
 
+class RandomHorizontalFlip:
+    def __init__(self, p: float = 0.5):
+        self.p = p
+
+    def __call__(self, img: np.ndarray, rng) -> np.ndarray:
+        if rng.random() < self.p:
+            return img[:, ::-1]
+        return img
+
+
+def rotate(img: np.ndarray, angle: float) -> np.ndarray:
+    """``[H, W, C]`` uint8 rotated by ``angle`` degrees counter-clockwise
+    about its centre, as Pillow's ``Image.rotate(angle, BILINEAR)`` gives
+    it: the inverse affine matrix built as ``Image.rotate`` builds it (cos
+    and sin rounded to 15 digits), each output pixel's centre mapped into
+    the source, 0 where that point falls outside the image, else the four
+    neighbours (clamped to the edge) interpolated in float64 and truncated
+    to uint8 (``Geometry.c`` ``bilinear_filter32RGB``). At multiples of 90
+    degrees, where Pillow copies or transposes instead, the rounded matrix
+    maps pixel centres onto pixel centres, so this gives the same bytes."""
+    angle = angle % 360.0
+    h, w = img.shape[:2]
+    cx, cy = w / 2, h / 2
+    rad = -math.radians(angle)
+    a, b = round(math.cos(rad), 15), round(math.sin(rad), 15)
+    d, e = round(-math.sin(rad), 15), round(math.cos(rad), 15)
+    c = a * -cx + b * -cy + 0.0 + cx
+    f = d * -cx + e * -cy + 0.0 + cy
+    yo, xo = np.mgrid[0:h, 0:w].astype(np.float64)
+    xo += 0.5
+    yo += 0.5
+    xin = a * xo + b * yo + c
+    yin = d * xo + e * yo + f
+    inside = (xin >= 0.0) & (xin < w) & (yin >= 0.0) & (yin < h)
+    xin -= 0.5
+    yin -= 0.5
+    x0, y0 = np.floor(xin), np.floor(yin)
+    dx, dy = (xin - x0)[..., None], (yin - y0)[..., None]
+    x0, y0 = x0.astype(np.int64), y0.astype(np.int64)
+    xa, xb = np.clip(x0, 0, w - 1), np.clip(x0 + 1, 0, w - 1)
+    ya, yb = np.clip(y0, 0, h - 1), np.clip(y0 + 1, 0, h - 1)
+    src = img.astype(np.float64)
+    top = src[ya, xa] + (src[ya, xb] - src[ya, xa]) * dx
+    bottom = src[yb, xa] + (src[yb, xb] - src[yb, xa]) * dx
+    out = (top + (bottom - top) * dy).astype(np.uint8)
+    out[~inside] = 0
+    return out
+
+
+class RandomRotation:
+    def __init__(self, degrees: float):
+        self.degrees = degrees
+
+    def __call__(self, img: np.ndarray, rng) -> np.ndarray:
+        return rotate(img, float(rng.uniform(-self.degrees, self.degrees)))
+
+
 class ToArray:
     """uint8 HWC -> fp32 in [0, 1]."""
 
@@ -158,6 +216,28 @@ def sd_transform(size: int = 512, center_crop: bool = False) -> Compose:
         CenterCrop(size) if center_crop else RandomCrop(size),
         ToArray(),
         Normalize([0.5, 0.5, 0.5], [0.5, 0.5, 0.5]),
+    ])
+
+
+def train_transform(size: int = 224) -> Compose:
+    """Downstream training augmentation (reference ``train.py:122-129``)."""
+    return Compose([
+        Resize(int(size * 256 / 224)),
+        RandomRotation(15),
+        RandomCrop(size),
+        RandomHorizontalFlip(),
+        ToArray(),
+        Normalize(IMAGENET_MEAN, IMAGENET_STD),
+    ])
+
+
+def eval_transform(size: int = 224) -> Compose:
+    """Test-time transform (reference ``train.py:130-135``)."""
+    return Compose([
+        Resize(int(size * 256 / 224)),
+        CenterCrop(size),
+        ToArray(),
+        Normalize(IMAGENET_MEAN, IMAGENET_STD),
     ])
 
 

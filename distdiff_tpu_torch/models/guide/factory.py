@@ -23,6 +23,7 @@ from distdiff_tpu_torch.models.guide.resnet import (
     resnet50_config,
     tiny_resnet_config,
 )
+from distdiff_tpu_torch.models.init import init_weights
 
 ARCHS = ("resnet50", "tiny_resnet")
 # the reference's other guide archs, not ported yet
@@ -45,11 +46,19 @@ class GuideModel:
 
 def create_model(arch: str, num_classes: int, weight_path: Optional[str] = None,
                  input_size: int = 224,
-                 device: Union[str, torch.device] = "cuda") -> GuideModel:
-    """Build a guide (weights as the module initialises them) and load
-    ``weight_path`` into it (``load_weights``). ``input_size`` is the JAX
-    factory's init size; a ResNet takes any input size, so it is unused."""
-    del input_size
+                 device: Union[str, torch.device] = "cuda", pretrained: bool = False,
+                 trainable: bool = False) -> GuideModel:
+    """Build a guide and load ``weight_path`` into it (``load_weights``).
+
+    The guide is frozen, in eval mode, with the weights as the module
+    initialises them. ``trainable`` builds the trainer's classifier
+    instead: in training mode, gradients on, its weights drawn as flax
+    draws them (``init_weights``: lecun-normal kernels, zero biases, unit
+    norm scales) before ``weight_path`` is loaded. ``pretrained`` without a
+    ``weight_path`` changes nothing, as in the JAX factory (ImageNet
+    weights come only from a file). ``input_size`` is the JAX factory's
+    init size; a ResNet takes any input size, so it is unused."""
+    del input_size, pretrained
     device = resolve_device(device)
     if arch == "resnet50":
         cfg = resnet50_config(num_classes)
@@ -59,8 +68,13 @@ def create_model(arch: str, num_classes: int, weight_path: Optional[str] = None,
         raise NotImplementedError(f"guide arch {arch!r} is not ported: {TODO}")
     else:
         raise ValueError(f"unknown arch {arch!r}; this port has {ARCHS}")
-    module = ResNet(cfg, device=device)
-    module.requires_grad_(False)
+    if trainable:
+        module = ResNet(cfg, device="cpu")
+        init_weights(module, torch.Generator().manual_seed(0))
+        module.to(device).train()
+    else:
+        module = ResNet(cfg, device=device)
+        module.requires_grad_(False)
     gm = GuideModel(arch=arch, module=module, feature_dim=cfg.feature_dim,
                     num_classes=num_classes)
     if weight_path:

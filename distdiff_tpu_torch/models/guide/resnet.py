@@ -3,9 +3,11 @@
 with torchvision's state-dict names (``conv1``, ``bn1``, ``layer1.0.conv1``,
 ``layer1.0.downsample.0``, ``fc``).
 
-BatchNorm runs in eval mode (running statistics, eps 1e-5); the guide runs
-in fp32. ``encode_image`` takes NHWC images and returns pooled pre-logit
-features ``[B, feature_dim]``.
+The guide runs in eval mode (BatchNorm on its running statistics, eps
+1e-5), in fp32; ``encode_image`` takes NHWC images and returns pooled
+pre-logit features ``[B, feature_dim]``. In training mode (the trainer's
+build, ``models/guide/factory.py``) BatchNorm normalises with the batch's
+statistics and updates its running ones as flax does (``BatchNorm2d``).
 """
 
 from __future__ import annotations
@@ -38,8 +40,42 @@ def tiny_resnet_config(num_classes: int) -> ResNetConfig:
     return ResNetConfig(stage_sizes=(1, 1), base_width=8, num_classes=num_classes)
 
 
+class BatchNorm2d(nn.BatchNorm2d):
+    """torchvision's BatchNorm2d (its names, buffers and eval path) whose
+    training pass updates the running statistics as flax's ``BatchNorm``
+    (momentum 0.9) does: ``r = 0.9 r + 0.1 s`` with the batch's *biased*
+    variance, where torch's own update takes the unbiased one (a factor
+    n / (n - 1)). With ``update_stats`` off (a frozen backbone) training
+    normalises with the batch's statistics and leaves the running ones as
+    they are."""
+
+    FLAX_MOMENTUM = 0.9
+
+    def __init__(self, c, device=None):
+        super().__init__(c, eps=1e-5, momentum=0.1, device=device)
+        self.update_stats = True
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if not self.training:
+            return super().forward(x)
+        if not self.update_stats:
+            return F.batch_norm(x, None, None, self.weight, self.bias, True, 0.0, self.eps)
+        # momentum 1 makes the fused kernel write the batch's mean and
+        # unbiased variance into these two per-channel vectors
+        mean = torch.zeros_like(self.running_mean)
+        var = torch.zeros_like(self.running_var)
+        out = F.batch_norm(x, mean, var, self.weight, self.bias, True, 1.0, self.eps)
+        n = x.numel() // x.shape[1]
+        m = self.FLAX_MOMENTUM
+        with torch.no_grad():
+            self.running_mean.mul_(m).add_(mean, alpha=1 - m)
+            self.running_var.mul_(m).add_(var, alpha=(1 - m) * (n - 1) / n)
+            self.num_batches_tracked.add_(1)
+        return out
+
+
 def _bn(c, device):
-    return nn.BatchNorm2d(c, eps=1e-5, momentum=0.1, device=device)
+    return BatchNorm2d(c, device=device)
 
 
 class Bottleneck(nn.Module):

@@ -17,11 +17,9 @@ guide ResNet-50 and the energy run in fp32 (with TF32 off on CUDA, see
 from __future__ import annotations
 
 import dataclasses
-import math
 from typing import Callable, Dict, Optional, Sequence, Tuple, Union
 
 import torch
-import torch.nn as nn
 import torch.nn.functional as F
 
 from distdiff_tpu_torch.config import GuidanceConfig, PipelineConfig
@@ -32,6 +30,7 @@ from distdiff_tpu_torch.guidance.optimize import (
     transform_guidance,
 )
 from distdiff_tpu_torch.models.guide.factory import GuideModel
+from distdiff_tpu_torch.models.init import init_weights
 from distdiff_tpu_torch.models.text_encoder import CLIPTextEncoder
 from distdiff_tpu_torch.models.unet import UNet2DConditionModel
 from distdiff_tpu_torch.models.vae import AutoencoderKL
@@ -77,30 +76,6 @@ def resize_bicubic(img: torch.Tensor, size: int) -> torch.Tensor:
     y = F.interpolate(img.permute(0, 3, 1, 2), size=(size, size), mode="bicubic",
                       align_corners=False, antialias=True)
     return y.permute(0, 2, 3, 1)
-
-
-@torch.no_grad()
-def init_weights(module: nn.Module, generator: torch.Generator) -> None:
-    """The reference's initialisers: lecun-normal (truncated at 2 sigma)
-    kernels, zero biases, unit norm scales; BatchNorm running mean 0 and
-    variance 1; embeddings normal with std 0.02."""
-    for m in module.modules():
-        if isinstance(m, nn.Embedding):
-            nn.init.normal_(m.weight, std=0.02, generator=generator)
-        elif isinstance(m, (nn.Conv2d, nn.Linear)):
-            fan_in = m.weight[0].numel()
-            std = math.sqrt(1.0 / fan_in) / 0.87962566103423978
-            nn.init.trunc_normal_(m.weight, std=std, a=-2 * std, b=2 * std,
-                                  generator=generator)
-            if m.bias is not None:
-                m.bias.zero_()
-        elif isinstance(m, nn.BatchNorm2d):
-            m.reset_parameters()
-        elif hasattr(m, "weight") and isinstance(m.weight, nn.Parameter) \
-                and m.weight.ndim == 1:
-            m.weight.fill_(1.0)
-            if getattr(m, "bias", None) is not None:
-                m.bias.zero_()
 
 
 def cast_params_bf16(pipe: "ExpansionPipeline") -> None:

@@ -1,0 +1,5 @@
+from distdiff_tpu_torch.utils.logger import Logger, LoggerMonitor
+from distdiff_tpu_torch.utils.meters import AverageMeter, Stopwatch
+from distdiff_tpu_torch.utils.metrics import accuracy
+
+__all__ = ["Logger", "LoggerMonitor", "AverageMeter", "Stopwatch", "accuracy"]

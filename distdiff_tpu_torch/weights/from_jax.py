@@ -264,3 +264,75 @@ def submodule_state_dict_from_jax(params_np: Dict[str, Any], module: torch.nn.Mo
     the diffusers prefix it sits at (e.g. ``"down_blocks.0.resnets.0."``)
     and the block's own JAX parameter tree."""
     return _convert(params_np, _module_table(kind, module, prefix))
+
+
+# ------------------------------------------------------- trainer state
+
+def _named_tuples(tree: Any, field: str):
+    """The NamedTuple nodes of ``tree`` (an optax state, leaves as numpy)
+    that have ``field``, depth first."""
+    if hasattr(tree, "_fields"):
+        if field in tree._fields:
+            yield tree
+        children = tuple(tree)
+    elif isinstance(tree, (tuple, list)):
+        children = tree
+    elif isinstance(tree, dict):
+        children = tuple(tree.values())
+    else:
+        return
+    for child in children:
+        yield from _named_tuples(child, field)
+
+
+def _one(tree: Any, field: str, what: str):
+    found = list(_named_tuples(tree, field))
+    if len(found) != 1:
+        raise ValueError(f"the optax state has {len(found)} {what}s, expected 1")
+    return getattr(found[0], field)
+
+
+@torch.no_grad()
+def load_jax_train_state(state, jax_state) -> None:
+    """Carry a JAX ``TrainState`` (``distdiff_tpu/train/classifier.py``, its
+    leaves as numpy) into the port's ``TrainState`` (module and optimiser,
+    in place), so that a run can be split between the two packages.
+
+    ``params`` and ``batch_stats`` become the module's state dict (the
+    update counters ``num_batches_tracked`` 0). In the optax state,
+    ``sgd``'s trace becomes SGD's ``momentum_buffer`` of each parameter the
+    optimiser trains (a leaf masked out by ``train_fc`` has none), the
+    schedule's count the optimiser's ``count``, and a ``MultiSteps``
+    state's ``mini_step`` and ``acc_grads`` its accumulation."""
+    module, tx = state.module, state.tx
+    cfg = module.cfg
+    device = next(module.parameters()).device
+    variables = {"params": jax_state.params, "batch_stats": jax_state.batch_stats}
+    sd = state_dict_from_jax(variables, cfg)
+    module.load_state_dict({k: v.to(device) for k, v in sd.items()})
+
+    table = key_table(cfg)
+    by_param = {id(p): name for name, p in module.named_parameters()}
+
+    def per_param(tree) -> list:
+        """A params-shaped optax tree -> one tensor a trained parameter."""
+        flat = _flatten({"params": tree})
+        out = []
+        for p in tx.params:
+            path, shape, inverse = table[by_param[id(p)]]
+            arr = np.asarray(flat[path], np.float32)
+            if arr.shape != shape:
+                raise ValueError(f"optax leaf {path!r} has shape {arr.shape}, expected {shape}")
+            out.append(torch.from_numpy(np.array(inverse(arr), copy=True)).to(device))
+        return out
+
+    opt = jax_state.opt_state
+    multi = list(_named_tuples(opt, "mini_step"))
+    if multi:
+        ms = multi[0]
+        tx.mini_step = int(ms.mini_step)
+        tx.acc = per_param(ms.acc_grads) if tx.mini_step else None
+        opt = ms.inner_opt_state
+    for p, buf in zip(tx.params, per_param(_one(opt, "trace", "trace"))):
+        tx.sgd.state[p]["momentum_buffer"] = buf
+    tx.count = int(_one(opt, "count", "schedule count"))

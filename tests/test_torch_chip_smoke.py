@@ -370,3 +370,140 @@ def test_cli_encode_batch_is_the_datasets_own(smoke):
 
     assert inspect.signature(SDDataset).parameters["encode_batch"].default == smoke.CLI_ENCODE_BATCH
     assert "encode_batch" not in inspect.getsource(generate_data)
+
+
+def test_trainer_argument_list_is_the_jax_defaults_at_resnet50_width(smoke):
+    from distdiff_tpu.cli import train as j_train
+    from distdiff_tpu_torch.cli import train
+
+    argv = smoke.train_argv("data", "run", 2, ["--resume", "run"])
+    args = train.parse_args(argv)
+    assert vars(args) == vars(j_train.parse_args(argv))
+    assert (args.arch, args.input_size, args.train_batch, args.test_batch) == (
+        "resnet50", 224, 64, 100)
+    assert (args.lr, args.momentum, args.weight_decay, args.epochs, args.resume) == (
+        0.1, 0.9, 5e-4, 2, "run")
+    assert not (args.train_fc or args.pretrained or args.evaluate) and args.accumulate == 1
+
+
+def test_expanded_tree_writer_gives_the_readers_dataset(smoke, tmp_path):
+    from distdiff_tpu_torch.data import DatasetByClassNames
+
+    names = ["class 000", "class 001", "class 002"]
+    assert smoke.write_expanded_tree(str(tmp_path), names, per_class=2, side=12) == 6
+    ds = DatasetByClassNames(str(tmp_path), names)
+    assert ds.labels == [0, 0, 1, 1, 2, 2]
+    assert all(p.endswith(f"_expand_{i}.png") for p, i in zip(ds.image_paths, [0, 1] * 3))
+    assert ds[0][0].shape == (12, 12, 3)
+    assert len(DatasetByClassNames(str(tmp_path), names, expand_num=1)) == 3
+
+
+def test_timed_loader_yields_every_batch_and_adds_up_the_waits(smoke):
+    import time
+
+    def slow():
+        for i in range(3):
+            time.sleep(0.01)
+            yield i
+    timed = smoke.TimedLoader(type("L", (), {"__iter__": lambda self: slow(),
+                                             "__len__": lambda self: 3})())
+    assert list(timed) == [0, 1, 2] and len(timed) == 3
+    assert timed.wait_s >= 0.03
+
+
+def test_epoch_learning_rates_follow_each_calls_cosine(smoke):
+    assert smoke.epoch_lrs(2, 3) == pytest.approx([0.1, 0.05, 0.025])
+    assert smoke.epoch_lrs(1) == [0.1]
+
+
+def test_run_checker_takes_a_cpu_run_and_refuses_faults(smoke, tmp_path, monkeypatch):
+    """``check_run`` on a run of the port's CLI on the CPU (tiny_resnet, a
+    toy tree), then on the same run with a row missing and with its
+    results edited."""
+    import numpy as np
+
+    from distdiff_tpu_torch.cli import train
+    from distdiff_tpu_torch.parallel import save_png
+
+    rng = np.random.default_rng(0)
+    for split, n in (("train", 3), ("test", 2)):
+        for c in ("a", "b"):
+            for i in range(n):
+                save_png(str(tmp_path / "data" / "medmnist" / "breastmnist" / split / c
+                             / f"{i}.png"), rng.random((20, 24, 3)))
+    monkeypatch.setenv("DISTDIFF_PLATFORM", "cpu")
+    run = str(tmp_path / "run")
+    argv = ["-d", "breastmnist", "--data_root", str(tmp_path / "data"), "-a", "tiny_resnet",
+            "--input_size", "16", "--train-batch", "4", "--test-batch", "4",
+            "--manualSeed", "1", "--checkpoint", run]
+    train.main(argv + ["--epochs", "1"])
+    train.main(argv + ["--epochs", "2", "--resume", run])
+    results = smoke.check_run(run, smoke.epoch_lrs(1, 2))
+    assert set(results) == {"best_accuracy", "last_accuracy"}
+    with pytest.raises(SystemExit, match="rows"):
+        smoke.check_run(run, smoke.epoch_lrs(3))
+    with pytest.raises(SystemExit, match="lr"):
+        smoke.check_run(run, [0.1, 0.075])
+    with open(tmp_path / "run" / "results.yaml", "w") as f:
+        f.write("best_accuracy: 1000.0\nlast_accuracy: -1.0\n")
+    with pytest.raises(SystemExit, match="results"):
+        smoke.check_run(run, smoke.epoch_lrs(1, 2))
+
+
+def _tiny_batches(n_cls=5, b=4, side=16):
+    import numpy as np
+
+    rng = np.random.default_rng(0)
+    batches = []
+    for i in range(3):
+        x = rng.standard_normal((b, side, side, 3)).astype(np.float32)
+        y = rng.integers(0, n_cls, b).astype(np.int32)
+        m = np.ones(b, bool)
+        if i == 2:  # a tail of 3, padded as the loader pads
+            x[3:], y[3:], m[3:] = x[2], y[2], False
+        batches.append((x, y, m))
+    return batches
+
+
+def _card_on_the_cpu(monkeypatch):
+    """``train_agreement``'s card side built on the CPU instead."""
+    import distdiff_tpu_torch.models.guide as guide
+
+    real = guide.create_model
+    monkeypatch.setattr(guide, "create_model",
+                        lambda *a, device, **kw: real(*a, device="cpu", **kw))
+    return real("tiny_resnet", 5, device="cpu", trainable=True).module.state_dict()
+
+
+@pytest.mark.parametrize("cfg", [{}, {"accumulate": 2}, {"train_fc_only": True}])
+def test_train_agreement_reads_zero_for_the_cpu_against_itself(smoke, cfg, monkeypatch):
+    from distdiff_tpu_torch.train import TrainConfig
+
+    start = _card_on_the_cpu(monkeypatch)
+    read = smoke.train_agreement("cpu", TrainConfig(epochs=2, **cfg), _tiny_batches(), start)
+    assert read == {"loss": 0.0, "stats": 0.0, "update": 0.0, "acc_flips": 0}
+
+
+def test_train_agreement_reads_an_optimizer_fault_on_the_step(smoke, monkeypatch):
+    """The second side's learning rate 5% off: each parameter's step is 5%
+    off, over ``TRAIN_UPDATE_TOL``; the forward's readings stay 0."""
+    import dataclasses
+
+    import distdiff_tpu_torch.train as train_pkg
+    from distdiff_tpu_torch.train import TrainConfig
+
+    start = _card_on_the_cpu(monkeypatch)
+    made = []
+
+    def faulty(module, cfg, steps_per_epoch):
+        made.append(cfg)
+        if len(made) == 2:
+            cfg = dataclasses.replace(cfg, lr=cfg.lr * 1.05)
+        return real(module, cfg, steps_per_epoch)
+    real = train_pkg.make_optimizer
+    monkeypatch.setattr(train_pkg, "make_optimizer", faulty)
+    read = smoke.train_agreement("fault", TrainConfig(epochs=2), _tiny_batches(), start)
+    assert len(made) == 2
+    assert read["update"] > smoke.TRAIN_UPDATE_TOL
+    assert read["update"] == pytest.approx(0.05, rel=0.2)
+    assert read["loss"] <= smoke.TRAIN_LOSS_TOL and read["stats"] <= smoke.TRAIN_STATS_TOL

@@ -74,8 +74,44 @@ def test_port_imports_no_pil_and_no_torchvision():
     assert not bad, "\n".join(bad)
 
 
+def _functions_importing(path, top):
+    """(line, enclosing function or None) of each import of ``top``."""
+    with open(path) as f:
+        tree = ast.parse(f.read(), filename=path)
+    out = []
+
+    def walk(node, func):
+        for child in ast.iter_child_nodes(node):
+            if isinstance(child, (ast.FunctionDef, ast.AsyncFunctionDef)):
+                walk(child, child.name)
+                continue
+            names = ([a.name for a in child.names] if isinstance(child, ast.Import)
+                     else [child.module] if isinstance(child, ast.ImportFrom)
+                     and child.level == 0 else [])
+            if any(n.split(".")[0] == top for n in names):
+                out.append((child.lineno, func))
+            walk(child, func)
+    walk(tree, None)
+    return out
+
+
+def test_port_imports_no_yaml_or_orbax_and_matplotlib_only_to_plot():
+    """The card's machine has none of them: the trainer writes and reads
+    ``results.yaml`` itself and its checkpoints are ``.pth.tar`` files; the
+    logger's plots import matplotlib when they are called."""
+    bad = []
+    for path in _port_sources():
+        rel = os.path.relpath(path, ROOT)
+        for top in ("yaml", "orbax"):
+            bad += [f"{rel}:{line} imports {top}" for line, _ in _functions_importing(path, top)]
+        bad += [f"{rel}:{line} imports matplotlib in {func}"
+                for line, func in _functions_importing(path, "matplotlib")
+                if func not in ("plot", "plot_overlap", "savefig")]
+    assert not bad, "\n".join(bad)
+
+
 @pytest.mark.parametrize("entry", ["pipeline", "unet", "vae", "guide", "text_encoder",
-                                   "driver"])
+                                   "driver", "trainable_guide"])
 def test_entry_points_default_to_cuda_and_raise_without_it(monkeypatch, entry):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     build = {
@@ -85,6 +121,7 @@ def test_entry_points_default_to_cuda_and_raise_without_it(monkeypatch, entry):
         "guide": lambda: create_model("tiny_resnet", num_classes=3),
         "text_encoder": lambda: CLIPTextEncoder(TextEncoderConfig.tiny()),
         "driver": lambda: ExpansionDriver(None, None, "out"),
+        "trainable_guide": lambda: create_model("tiny_resnet", num_classes=3, trainable=True),
     }[entry]
     with pytest.raises(RuntimeError, match="device='cpu'"):
         build()
