@@ -92,7 +92,9 @@ package. Eight phases, any failure exits non-zero:
    classifier is a BatchNorm ResNet). ``tiny_resnet`` training steps in
    fp32 on the card against the CPU, each card step from the CPU's state
    on the same batch (a padded tail; plain, ``accumulate=2``,
-   ``train_fc``): the loss, running statistics and each parameter's step
+   ``train_fc`` (its running statistics move, its backbone's parameters
+   must not), and ``cli.train_transform``'s mixup, cutmix and augmix
+   steps): the loss, running statistics and each parameter's step
    held to their limits, accuracies exactly; then the plain case with TF32
    on, which must fail every limit. Then the train step
    alone at ResNet-50 width, batch 64, 224^2, timed with CUDA events on a
@@ -107,7 +109,13 @@ package. Eight phases, any failure exits non-zero:
    ``parse_logs`` on the run; the steps' device times there, images/s
    (an epoch's images over its wall time), each epoch's seconds and its
    share waiting on the loader, and the peak
-   device memory, each beside the card's name and power limit.
+   device memory, each beside the card's name and power limit. Then
+   ``cli.train_transform.main`` on the same tree at the same defaults, cut
+   to one epoch at ``--expand_num 0`` (the original-only control, 300
+   images) under each of the 8 ``--transform_type`` values, and ``default``
+   at ``--expand_num 1`` over a tree of one 512^2 ``_expand_0`` PNG an
+   original (600 items): each run's artifacts checked and its steps
+   counted, its images/s, loader share and epoch seconds printed.
 8. The card line, the kernels' JSON line (one entry per kernel; its times
    are the means over that kernel's launches in the counted runs, and
    ``shapes`` holds each timed shape's own numbers), and the
@@ -124,9 +132,11 @@ from __future__ import annotations
 import collections
 import json
 import math
+import os
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
 
 # H100 SXM data-sheet peaks (dense); recomputed beside the card nvidia-smi names.
@@ -2001,10 +2011,11 @@ def train_argv(data_root: str, run_dir: str, epochs: int, extra=()) -> list:
             "--manualSeed", "1", "--checkpoint", run_dir, *extra]
 
 
-def write_expanded_tree(root: str, class_names, per_class: int = 1, side: int = 512) -> int:
+def write_expanded_tree(root: str, class_names, stems: int = 1, side: int = 512) -> int:
     """A tree in the layout ``ExpansionDriver`` writes,
-    ``{root}/{class name}/{stem}_expand_{i}.png``: ``per_class`` seeded
-    ``side``-pixel images a class, written as ``ExpansionDriver`` writes them
+    ``{root}/{class name}/{stem}_expand_{i}.png``: the ``_expand_0`` image of
+    each of ``stems`` originals a class (``image_0000`` on), seeded
+    ``side``-pixel images written as ``ExpansionDriver`` writes them
     (``save_png``, filter 0). Returns the count."""
     import os
 
@@ -2015,11 +2026,11 @@ def write_expanded_tree(root: str, class_names, per_class: int = 1, side: int = 
     rng = np.random.default_rng(1)
     y, x = np.mgrid[0:side, 0:side].astype(np.float32)
     for name in class_names:
-        for i in range(per_class):
+        for i in range(stems):
             freq = rng.uniform(0.005, 0.05, (2, 3)).astype(np.float32)
             img = 0.5 + 0.4 * np.sin(y[..., None] * freq[0] + x[..., None] * freq[1])
-            save_png(os.path.join(root, name, f"image_0000_expand_{i}.png"), img)
-    return len(class_names) * per_class
+            save_png(os.path.join(root, name, f"image_{i:04d}_expand_0.png"), img)
+    return len(class_names) * stems
 
 
 class TimedLoader:
@@ -2093,16 +2104,21 @@ def check_run(run_dir: str, lrs: list) -> dict:
     return results
 
 
-def train_agreement(label: str, cfg, batches, start, strict: bool = True) -> dict:
+def train_agreement(label: str, cfg, batches, start, strict: bool = True,
+                    stage=None) -> dict:
     """``tiny_resnet`` training steps in fp32 on the card and on the CPU
     under ``cfg``, the card starting each step from the CPU's state
     (weights, statistics and optimiser) on the same batch, then the eval
-    step. Returns the largest reading of each kind: ``loss`` (relative),
+    step. ``stage``, ``(loss_fn, on_batch)`` of ``cli.train_transform``'s
+    ``batch_stage``, replaces the loss and prepares each batch once for
+    both devices (mixup's and cutmix's draws, AugMix's packed views).
+    Returns the largest reading of each kind: ``loss`` (relative),
     ``stats`` (absolute), ``update`` (each parameter's step, relative) and
     ``acc_flips`` (steps and eval sums whose accuracy differs; with
-    ``strict`` one fails). Whatever the CPU's step leaves unchanged (the
-    frozen backbone, a step inside an accumulation) must stay bit for bit
-    unchanged on the card.
+    ``strict`` one fails), and ``stats_moved``, the running statistics the
+    CPU's steps moved. Whatever the CPU's step leaves unchanged (the
+    frozen backbone's parameters, a step inside an accumulation) must stay
+    bit for bit unchanged on the card.
 
     Only the forward's numbers (loss, statistics) are continuous in the
     rounding; the gradient is not: where a ReLU's input lies within fp32
@@ -2126,17 +2142,21 @@ def train_agreement(label: str, cfg, batches, start, strict: bool = True) -> dic
     )
 
     n_cls = start["fc.weight"].shape[0]
+    loss_fn, on_batch = stage or (None, None)
     sides = []
     for dev in ("cpu", "cuda"):
         gm = create_model("tiny_resnet", n_cls, device=dev, trainable=True)
         gm.module.load_state_dict(start)
         tx = make_optimizer(gm.module, cfg, steps_per_epoch=len(batches))
-        sides.append((create_train_state(gm.module, tx), make_train_step(gm.module, tx),
-                      make_eval_step(gm.module)))
+        sides.append((create_train_state(gm.module, tx),
+                      make_train_step(gm.module, tx, loss_fn=loss_fn), make_eval_step(gm.module)))
     (cpu, cpu_step, cpu_eval), (card, card_step, card_eval) = sides
     params = {k for k, _ in cpu.module.named_parameters()}
-    read = {"loss": 0.0, "stats": 0.0, "update": 0.0, "acc_flips": 0}
-    for i, (x, y, m) in enumerate(batches):
+    read = {"loss": 0.0, "stats": 0.0, "update": 0.0, "acc_flips": 0, "stats_moved": 0}
+    staged = []
+    for i, batch in enumerate(batches):
+        x, y, m = on_batch(*batch) if on_batch else batch
+        staged.append((x, y, m))
         card.module.load_state_dict(cpu.module.state_dict())
         card.tx.load_state_dict(copy.deepcopy(cpu.tx.state_dict()))
         before = {k: v.detach().clone() for k, v in cpu.module.state_dict().items()}
@@ -2158,13 +2178,14 @@ def train_agreement(label: str, cfg, batches, start, strict: bool = True) -> dic
                 read["update"] = max(read["update"], float((after[k] - v).norm()) / step)
             else:
                 read["stats"] = max(read["stats"], float((after[k] - v).abs().max()))
+                read["stats_moved"] += 1
         if cfg.train_fc_only:
-            moved = [k for k, v in before.items() if not k.startswith("fc.")
-                     and not torch.equal(after[k], v)]
-            require(not moved, f"train_fc moved the backbone: {moved[:4]}")
+            moved = [k for k in params if not k.startswith("fc.")
+                     and not torch.equal(after[k], before[k])]
+            require(not moved, f"train_fc moved the backbone's parameters: {moved[:4]}")
     card.module.load_state_dict(cpu.module.state_dict())
-    cev = [float(v) for v in cpu_eval(*batches[0])]
-    gev = [float(v) for v in card_eval(*batches[0])]
+    cev = [float(v) for v in cpu_eval(*staged[0])]
+    gev = [float(v) for v in card_eval(*staged[0])]
     if gev[:3] != cev[:3]:
         read["acc_flips"] += 1
         require(not strict, f"eval step {label}: {gev} on the card, {cev} on the CPU")
@@ -2174,13 +2195,17 @@ def train_agreement(label: str, cfg, batches, start, strict: bool = True) -> dic
 
 def train_agreement_phase() -> dict:
     """``train_agreement`` plain, with ``accumulate=2`` and with
-    ``train_fc`` on 5 batches of 16 (the last a tail of 11, padded as the
-    loader pads), each reading held to its limit; then the plain case
+    ``train_fc`` (whose running statistics move, its backbone's parameters
+    not) on 5 batches of 16 (the last a tail of 11, padded as the loader
+    pads); then the steps of ``cli.train_transform``'s mixup, cutmix and
+    augmix (``batch_stage``) on the last two of them (augmix's with three
+    views an item); each reading held to its limit. Then the plain case
     with TF32 on, the control, which must fail every limit: a limit it
     passes would let a lower precision through."""
     import numpy as np
     import torch
 
+    from distdiff_tpu_torch.cli.train_transform import batch_stage
     from distdiff_tpu_torch.device import disable_tf32
     from distdiff_tpu_torch.models.guide import create_model
     from distdiff_tpu_torch.train import TrainConfig
@@ -2202,15 +2227,23 @@ def train_agreement_phase() -> dict:
     def show(read):
         return ", ".join(f"{k} {read[k]:.3e} (limit {tol:g})" for k, tol in limits.items())
 
+    views = [(np.stack([x, x[:, :, ::-1], -x], 1), y, m) for x, y, m in batches[3:]]
+    cases = [(label, cfg, batches, None) for label, cfg in (
+        ("plain", TrainConfig(epochs=2)), ("accumulate 2", TrainConfig(epochs=2, accumulate=2)),
+        ("train_fc", TrainConfig(epochs=2, train_fc_only=True)))]
+    for label in ("mixup", "cutmix", "augmix"):
+        loss_fn, on_batch, _ = batch_stage(label, np.random.default_rng(1))
+        cases.append((label, TrainConfig(epochs=2), views if label == "augmix" else batches[3:],
+                      (loss_fn, on_batch)))
     out = {}
-    for label, cfg in (("plain", TrainConfig(epochs=2)),
-                       ("accumulate 2", TrainConfig(epochs=2, accumulate=2)),
-                       ("train_fc", TrainConfig(epochs=2, train_fc_only=True))):
-        read = out[label] = train_agreement(label, cfg, batches, start)
+    for label, cfg, data, stage in cases:
+        read = out[label] = train_agreement(label, cfg, data, start, stage=stage)
         for k, tol in limits.items():
             require(read[k] <= tol, f"train step {label}: {k} {read[k]:.3e} from the CPU, "
                     f"over {tol}")
-        print(f"  {label}: 5 steps of batch {b} and the eval, card against CPU: {show(read)}")
+        require(read["stats_moved"] > 0, f"train step {label}: no running statistic moved")
+        print(f"  {label}: {len(data)} steps of batch {b} and the eval, card against CPU: "
+              f"{show(read)}; {read['stats_moved']} statistics moved")
     torch.backends.cuda.matmul.allow_tf32 = True
     torch.backends.cudnn.allow_tf32 = True
     try:
@@ -2269,134 +2302,163 @@ def train_step_timing(card: str, steps: int = 10) -> dict:
     return out
 
 
-def train_phase(card: str) -> dict:
+class TrainerProbe:
+    """Wrappers of the trainer's own functions, in place while the probe is
+    entered: each CLI run (``start_run``) records its steps (host seconds,
+    and device milliseconds between CUDA events), its epochs (wall time,
+    loader waits, steps, items) and the module of each best checkpoint.
+
+    Each wrapper goes where the trainer looks the function up when it
+    runs: the CLIs import make_train_step from the package inside their
+    bodies, fit calls run_epoch by its module-global name and the
+    checkpoint writer as ``ckpt.save_train_checkpoint``. A refactor that
+    binds one of them earlier bypasses its wrapper; the step and epoch
+    counts and the best module then fail."""
+
+    def __init__(self):
+        self.steps, self.step_ms, self.epochs, self.best = [], [], [], {}
+
+    def start_run(self) -> None:
+        self.steps.append([])
+        self.step_ms.append([])
+        self.epochs.append([])
+
+    def __enter__(self):
+        import copy
+
+        import torch
+
+        import distdiff_tpu_torch.train as train_pkg
+        from distdiff_tpu_torch.train import loops
+        from distdiff_tpu_torch.utils import checkpoints
+
+        orig_step, orig_epoch = train_pkg.make_train_step, loops.run_epoch
+        orig_save = checkpoints.save_train_checkpoint
+
+        def timed_make_train_step(*a, **kw):
+            step = orig_step(*a, **kw)
+
+            def timed(state, images, targets, mask):
+                t0 = time.perf_counter()
+                ev = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+                ev[0].record()
+                out = step(state, images, targets, mask)
+                ev[1].record()
+                ev[1].synchronize()
+                self.steps[-1].append(time.perf_counter() - t0)
+                self.step_ms[-1].append(ev[0].elapsed_time(ev[1]))
+                return out
+            return timed
+
+        def timed_run_epoch(train_step, state, loader, on_batch=None):
+            timed_loader = TimedLoader(loader)
+            t0 = time.perf_counter()
+            out = orig_epoch(train_step, state, timed_loader, on_batch)
+            torch.cuda.synchronize()
+            self.epochs[-1].append({"wall_s": time.perf_counter() - t0,
+                                    "loader_wait_s": timed_loader.wait_s, "steps": len(loader),
+                                    "images": len(loader.dataset)})
+            return out
+
+        def keep_best(out_dir, state, epoch, best_acc, is_best):
+            orig_save(out_dir, state, epoch, best_acc, is_best)
+            if is_best:
+                self.best[out_dir] = copy.deepcopy(state.module).eval()
+
+        self.saved = [(train_pkg, "make_train_step", orig_step),
+                      (loops, "run_epoch", orig_epoch),
+                      (checkpoints, "save_train_checkpoint", orig_save)]
+        train_pkg.make_train_step = timed_make_train_step
+        loops.run_epoch = timed_run_epoch
+        checkpoints.save_train_checkpoint = keep_best
+        return self
+
+    def __exit__(self, *exc):
+        for obj, name, fn in self.saved:
+            setattr(obj, name, fn)
+        return False
+
+    def show_epochs(self, labels, card: str) -> None:
+        for label, eps in zip(labels, self.epochs):
+            for e in eps:
+                print(f"  {label} epoch: {e['steps']} steps, {e['images']} images in "
+                      f"{e['wall_s']:.2f} s, {e['images'] / e['wall_s']:.1f} images/s, "
+                      f"{e['loader_wait_s'] / e['wall_s']:.3f} of it waiting on the loader "
+                      f"({card})")
+
+
+def train_phase(card: str, work: str) -> dict:
     """``cli.train.main`` at ResNet-50 width on a caltech-101 PNG tree written
-    first (100 classes, 3 train and 1 test image each, half with Paeth and
-    Average rows), 2 epochs; a resume for a third; ``cli.train_expanded.main``
-    with a tree of 100 512^2 PNGs in ``ExpansionDriver``'s layout for one
-    epoch; every artifact checked, ``model_best.pth.tar`` loaded as a
-    guide against the module it saved, ``parse_logs`` on the run. The
-    steps (host seconds, and device milliseconds between CUDA events),
-    epochs and loader waits are timed through wrappers of the trainer's
-    own functions."""
-    import copy
+    first under ``work`` (100 classes, 3 train and 1 test image each, half
+    with Paeth and Average rows), 2 epochs; a resume for a third;
+    ``cli.train_expanded.main`` with a tree of 100 512^2 PNGs in
+    ``ExpansionDriver``'s layout for one epoch; every artifact checked,
+    ``model_best.pth.tar`` loaded as a guide against the module it saved,
+    ``parse_logs`` on the run. The steps, epochs and loader waits are timed
+    through ``TrainerProbe``. Returns the numbers, the tree and its class
+    directory names."""
     import os
-    import tempfile
 
     import torch
 
-    import distdiff_tpu_torch.train as train_pkg
     from distdiff_tpu_torch.cli import parse_logs
     from distdiff_tpu_torch.cli import train as train_cli
     from distdiff_tpu_torch.cli import train_expanded as expanded_cli
     from distdiff_tpu_torch.models.guide import create_model
-    from distdiff_tpu_torch.train import loops
-    from distdiff_tpu_torch.utils import checkpoints
-
-    root = os.path.dirname(os.path.abspath(__file__))
-    steps, step_ms, epochs, best = [], [], [], {}
-    orig_step, orig_epoch = train_pkg.make_train_step, loops.run_epoch
-    orig_save = checkpoints.save_train_checkpoint
-
-    def timed_make_train_step(*a, **kw):
-        step = orig_step(*a, **kw)
-
-        def timed(state, images, targets, mask):
-            t0 = time.perf_counter()
-            ev = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-            ev[0].record()
-            out = step(state, images, targets, mask)
-            ev[1].record()
-            ev[1].synchronize()
-            steps[-1].append(time.perf_counter() - t0)
-            step_ms[-1].append(ev[0].elapsed_time(ev[1]))
-            return out
-        return timed
-
-    def timed_run_epoch(train_step, state, loader, on_batch=None):
-        timed_loader = TimedLoader(loader)
-        t0 = time.perf_counter()
-        out = orig_epoch(train_step, state, timed_loader, on_batch)
-        torch.cuda.synchronize()
-        epochs[-1].append({"wall_s": time.perf_counter() - t0,
-                           "loader_wait_s": timed_loader.wait_s, "steps": len(loader),
-                           "images": len(loader.dataset)})
-        return out
-
-    def keep_best(out_dir, state, epoch, best_acc, is_best):
-        orig_save(out_dir, state, epoch, best_acc, is_best)
-        if is_best:
-            best[out_dir] = copy.deepcopy(state.module).eval()
 
     out = {}
-    with tempfile.TemporaryDirectory(dir=root, prefix=".smoke_train_") as work:
-        t0 = time.time()
-        data = os.path.join(work, "data")
-        classes = write_caltech_tree(data)
-        n_exp = write_expanded_tree(os.path.join(work, "expanded"),
-                                    [c.replace("_", " ") for c in classes])
-        out["write_s"] = time.time() - t0
-        run = os.path.join(work, "checkpoint", "resnet50", "seed1")
-        run_exp = os.path.join(work, "checkpoint", "resnet50_expanded", "seed1")
-        # Each wrapper goes where the trainer looks the function up when it
-        # runs: run_training imports make_train_step from the package inside
-        # its body, fit calls run_epoch by its module-global name and the
-        # checkpoint writer as ``ckpt.save_train_checkpoint``. A refactor
-        # that binds one of them earlier bypasses its wrapper; the step and
-        # epoch counts and the best module below then fail.
-        saved = [(train_pkg, "make_train_step", orig_step), (loops, "run_epoch", orig_epoch),
-                 (checkpoints, "save_train_checkpoint", orig_save)]
-        torch.cuda.reset_peak_memory_stats()
-        base = torch.cuda.memory_allocated()  # what the earlier phases still hold
-        try:
-            train_pkg.make_train_step = timed_make_train_step
-            loops.run_epoch = timed_run_epoch
-            checkpoints.save_train_checkpoint = keep_best
-            runs = (("train", train_cli, train_argv(data, run, TRAIN_EPOCHS)),
-                    ("resume", train_cli, train_argv(data, run, TRAIN_EPOCHS + 1,
-                                                     ["--resume", run])),
-                    ("expanded", expanded_cli,
-                     train_argv(data, run_exp, TRAIN_EXPANDED_EPOCHS,
-                                ["--data_expanded_dir", os.path.join(work, "expanded")])))
-            for label, cli, argv in runs:
-                steps.append([])
-                step_ms.append([])
-                epochs.append([])
-                t0 = time.time()
-                result = cli.main(argv)
-                torch.cuda.synchronize()
-                out[f"{label}_main_s"] = time.time() - t0
-                out[f"{label}_result"] = result
-        finally:
-            for obj, name, fn in saved:
-                setattr(obj, name, fn)
-        out["peak_bytes"] = torch.cuda.max_memory_allocated()
-        out["trainer_peak_bytes"] = out["peak_bytes"] - base
+    t0 = time.time()
+    data = os.path.join(work, "data")
+    classes = write_caltech_tree(data)
+    n_exp = write_expanded_tree(os.path.join(work, "expanded"),
+                                [c.replace("_", " ") for c in classes])
+    out["write_s"] = time.time() - t0
+    out["data"], out["classes"] = data, classes
+    run = os.path.join(work, "checkpoint", "resnet50", "seed1")
+    run_exp = os.path.join(work, "checkpoint", "resnet50_expanded", "seed1")
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()  # what the earlier phases still hold
+    runs = (("train", train_cli, train_argv(data, run, TRAIN_EPOCHS)),
+            ("resume", train_cli, train_argv(data, run, TRAIN_EPOCHS + 1, ["--resume", run])),
+            ("expanded", expanded_cli,
+             train_argv(data, run_exp, TRAIN_EXPANDED_EPOCHS,
+                        ["--data_expanded_dir", os.path.join(work, "expanded")])))
+    with TrainerProbe() as probe:
+        for label, cli, argv in runs:
+            probe.start_run()
+            t0 = time.time()
+            result = cli.main(argv)
+            torch.cuda.synchronize()
+            out[f"{label}_main_s"] = time.time() - t0
+            out[f"{label}_result"] = result
+    steps, step_ms, epochs = probe.steps, probe.step_ms, probe.epochs
+    out["peak_bytes"] = torch.cuda.max_memory_allocated()
+    out["trainer_peak_bytes"] = out["peak_bytes"] - base
 
-        per_epoch = -(-CLI_CLASSES * CLI_TRAIN // 64)
-        require([len(e) for e in epochs] == [TRAIN_EPOCHS, 1, TRAIN_EXPANDED_EPOCHS],
-                f"epochs run {[len(e) for e in epochs]}")
-        require(len(steps[0]) == TRAIN_EPOCHS * per_epoch and len(steps[1]) == per_epoch,
-                f"steps {[len(s) for s in steps]}, want {per_epoch} an epoch")
-        require(len(steps[2]) == -(-(CLI_CLASSES * CLI_TRAIN + n_exp) // 64),
-                f"the expanded run took {len(steps[2])} steps for "
-                f"{CLI_CLASSES * CLI_TRAIN} + {n_exp} images")
-        results = check_run(run, epoch_lrs(TRAIN_EPOCHS, TRAIN_EPOCHS + 1))
-        check_run(run_exp, epoch_lrs(TRAIN_EXPANDED_EPOCHS))
-        require(results == {k: float(v) for k, v in out["resume_result"].items()},
-                f"results.yaml {results} against the run's {out['resume_result']}")
-        perfs = parse_logs.main([run])
-        require(perfs == [results["best_accuracy"]], f"parse_logs read {perfs}")
+    per_epoch = -(-CLI_CLASSES * CLI_TRAIN // 64)
+    require([len(e) for e in epochs] == [TRAIN_EPOCHS, 1, TRAIN_EXPANDED_EPOCHS],
+            f"epochs run {[len(e) for e in epochs]}")
+    require(len(steps[0]) == TRAIN_EPOCHS * per_epoch and len(steps[1]) == per_epoch,
+            f"steps {[len(s) for s in steps]}, want {per_epoch} an epoch")
+    require(len(steps[2]) == -(-(CLI_CLASSES * CLI_TRAIN + n_exp) // 64),
+            f"the expanded run took {len(steps[2])} steps for "
+            f"{CLI_CLASSES * CLI_TRAIN} + {n_exp} images")
+    results = check_run(run, epoch_lrs(TRAIN_EPOCHS, TRAIN_EPOCHS + 1))
+    check_run(run_exp, epoch_lrs(TRAIN_EXPANDED_EPOCHS))
+    require(results == {k: float(v) for k, v in out["resume_result"].items()},
+            f"results.yaml {results} against the run's {out['resume_result']}")
+    perfs = parse_logs.main([run])
+    require(perfs == [results["best_accuracy"]], f"parse_logs read {perfs}")
 
-        # model_best.pth.tar through the guide loader, against the module it saved
-        require(run in best, f"no best module was kept for {run}")
-        guide = create_model("resnet50", CLI_CLASSES, device="cuda",
-                             weight_path=os.path.join(run, "model_best.pth.tar"))
-        x = torch.randn(8, 224, 224, 3, generator=torch.Generator().manual_seed(0)).cuda()
-        with torch.no_grad():
-            diff = float((guide.module(x) - best[run](x)).abs().max())
-        require(diff <= 1e-5, f"model_best as a guide is {diff:.3e} from the trained module")
-        print(f"  model_best.pth.tar as a guide: logits {diff:.3e} from the module it saved")
+    # model_best.pth.tar through the guide loader, against the module it saved
+    require(run in probe.best, f"no best module was kept for {run}")
+    guide = create_model("resnet50", CLI_CLASSES, device="cuda",
+                         weight_path=os.path.join(run, "model_best.pth.tar"))
+    x = torch.randn(8, 224, 224, 3, generator=torch.Generator().manual_seed(0)).cuda()
+    with torch.no_grad():
+        diff = float((guide.module(x) - probe.best[run](x)).abs().max())
+    require(diff <= 1e-5, f"model_best as a guide is {diff:.3e} from the trained module")
+    print(f"  model_best.pth.tar as a guide: logits {diff:.3e} from the module it saved")
     out["step_s"] = steps
     out["step_ms"] = step_ms
     out["epochs"] = epochs
@@ -2404,17 +2466,62 @@ def train_phase(card: str) -> dict:
     print(f"  train steps in the CLI runs, device time between events: first "
           f"{step_ms[0][0]:.2f} ms, then median {statistics.median(warm):.2f} ms, "
           f"{min(warm):.2f} to {max(warm):.2f} ms over {len(warm)} ({card})")
-    for label, eps in zip(("train", "resume", "expanded"), epochs):
-        for e in eps:
-            print(f"  {label} epoch: {e['steps']} steps, {e['images']} images in "
-                  f"{e['wall_s']:.2f} s, {e['images'] / e['wall_s']:.1f} images/s, "
-                  f"{e['loader_wait_s'] / e['wall_s']:.3f} of it waiting on the loader ({card})")
+    probe.show_epochs(("train", "resume", "expanded"), card)
     out["images_per_s"] = (sum(e["images"] for eps in epochs for e in eps)
                            / sum(e["wall_s"] for eps in epochs for e in eps))
     print(f"  peak device memory {out['peak_bytes'] / 2**30:.2f} GiB, the trainer's "
           f"{out['trainer_peak_bytes'] / 2**30:.2f} GiB of it; trees written in "
           f"{out['write_s']:.2f} s; main {out['train_main_s']:.2f} s, resume "
           f"{out['resume_main_s']:.2f} s, expanded {out['expanded_main_s']:.2f} s ({card})")
+    return out
+
+
+def train_transform_phase(card: str, work: str, data: str, classes) -> dict:
+    """``cli.train_transform.main`` at the JAX defaults (ResNet-50, 224^2,
+    batch 64, fp32) on phase 7's caltech-101 tree, cut to one epoch at
+    ``--expand_num 0`` (the defaults: 100 epochs, 5): the original-only
+    control of 300 images under each of the 8 ``--transform_type`` values;
+    then ``default`` over original ⊕ expanded at ``--expand_num 1``, a tree
+    of one 512^2 ``_expand_0`` PNG an original image written first (600
+    items, the CLI's ratio assert). Each run's ``log.txt``,
+    ``results.yaml`` and checkpoints checked and its steps counted; its
+    images/s (items over the epoch's wall time; an AugMix item is three
+    views), loader share and epoch seconds printed."""
+    import os
+
+    import torch
+
+    from distdiff_tpu_torch.cli import train_transform as transform_cli
+
+    t0 = time.time()
+    expanded = os.path.join(work, "expanded_per_image")
+    n_exp = write_expanded_tree(expanded, [c.replace("_", " ") for c in classes],
+                                stems=CLI_TRAIN)
+    out = {"write_s": time.time() - t0}
+    n_orig = CLI_CLASSES * CLI_TRAIN
+    require(n_exp == n_orig, f"{n_exp} expanded images for {n_orig} originals")
+    runs = [(t, ["--transform_type", t, "--expand_num", "0"], n_orig)
+            for t in transform_cli.TRANSFORM_TYPES]
+    runs.append(("default+expanded", ["--transform_type", "default", "--expand_num", "1",
+                                      "--data_expanded_dir", expanded], 2 * n_orig))
+    with TrainerProbe() as probe:
+        for label, extra, items in runs:
+            probe.start_run()
+            run_dir = os.path.join(work, "checkpoint", "transform", label)
+            t0 = time.time()
+            transform_cli.main(train_argv(data, run_dir, 1, extra))
+            torch.cuda.synchronize()
+            out[label] = {"main_s": time.time() - t0}
+            check_run(run_dir, epoch_lrs(1))
+            (epoch,) = probe.epochs[-1]
+            require(epoch["images"] == items and len(probe.steps[-1]) == -(-items // 64),
+                    f"{label}: {epoch['images']} items in {len(probe.steps[-1])} steps, "
+                    f"want {items}")
+            out[label].update(epoch=epoch, step_ms=probe.step_ms[-1])
+    probe.show_epochs([label for label, _, _ in runs], card)
+    for label, _, _ in runs:
+        print(f"  {label}: main {out[label]['main_s']:.2f} s, steps median "
+              f"{statistics.median(out[label]['step_ms']):.2f} ms ({card})")
     return out
 
 
@@ -2751,7 +2858,16 @@ def main(argv) -> int:
     print("  -- the train step alone at ResNet-50 width")
     step_timing = train_step_timing(card)
     print("  -- ResNet-50 at full width through the CLIs")
-    trainer = train_phase(card)
+    root = os.path.dirname(os.path.abspath(__file__))
+    with tempfile.TemporaryDirectory(dir=root, prefix=".smoke_train_") as work:
+        trainer = train_phase(card, work)
+        print("  -- cli.train_transform: each --transform_type, one epoch at --expand_num 0 "
+              "(cut from 100 epochs and 5), then default over the expanded tree")
+        t1 = time.time()
+        transform = train_transform_phase(card, work, trainer["data"], trainer["classes"])
+        transform["phase_s"] = time.time() - t1
+        print(f"  cli.train_transform runs: {transform['phase_s']:.1f} s, the expanded tree "
+              f"written in {transform['write_s']:.2f} s ({card})")
     print(f"  phase 7: {time.time() - t0:.1f} s ({card})")
 
     print("== 8. result")
@@ -2772,7 +2888,8 @@ def main(argv) -> int:
                   "trainer_peak_bytes": trainer["trainer_peak_bytes"],
                   "write_s": trainer["write_s"],
                   "main_s": {k: trainer[f"{k}_main_s"] for k in ("train", "resume",
-                                                                 "expanded")}}}))
+                                                                 "expanded")},
+                  "transform": transform}}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

@@ -35,13 +35,16 @@ def parse_args(argv=None):
     return p.parse_args(argv)
 
 
-def build_dataset(args, train_tf=None, test_tf=None):
+def build_dataset(args, train_tf=None, test_tf=None, raw_train=False):
+    """``raw_train``: leave the train split untransformed (raw uint8 items),
+    for the augmix trainer, which wraps it in ``AugMixDataset`` and applies
+    the geometric and array stages itself."""
     from distdiff_tpu_torch.data import load_dataset
     from distdiff_tpu_torch.data.transforms import eval_transform, train_transform
 
     return load_dataset(
         args.dataset,
-        train_tf or train_transform(args.input_size),
+        None if raw_train else (train_tf or train_transform(args.input_size)),
         test_tf or eval_transform(args.input_size),
         data_root=args.data_root,
     )

@@ -5,8 +5,9 @@ The JAX package resizes and rotates with PIL, which the machine with the
 card lacks. ``Resize`` reproduces Pillow's ``BILINEAR`` resampling bit for
 bit: a triangle filter widened by the scale factor when it downscales,
 coefficients normalised and rounded to 22-bit fixed point, a horizontal
-pass then a vertical pass, each rounded to uint8. ``RandomRotation``
-reproduces ``Image.rotate(angle, BILINEAR)`` bit for bit (``rotate``).
+pass then a vertical pass, each rounded to uint8. ``affine`` reproduces
+``Image.transform(AFFINE)`` at ``BILINEAR`` and ``NEAREST`` bit for bit,
+and ``rotate`` (``RandomRotation``) ``Image.rotate`` through it.
 The random transforms draw from the caller's ``np.random.Generator`` in
 the JAX package's order, so their choices are its choices. Every transform
 is ``fn(image, rng) -> image``.
@@ -146,24 +147,18 @@ class RandomHorizontalFlip:
         return img
 
 
-def rotate(img: np.ndarray, angle: float) -> np.ndarray:
-    """``[H, W, C]`` uint8 rotated by ``angle`` degrees counter-clockwise
-    about its centre, as Pillow's ``Image.rotate(angle, BILINEAR)`` gives
-    it: the inverse affine matrix built as ``Image.rotate`` builds it (cos
-    and sin rounded to 15 digits), each output pixel's centre mapped into
-    the source, 0 where that point falls outside the image, else the four
-    neighbours (clamped to the edge) interpolated in float64 and truncated
-    to uint8 (``Geometry.c`` ``bilinear_filter32RGB``). At multiples of 90
-    degrees, where Pillow copies or transposes instead, the rounded matrix
-    maps pixel centres onto pixel centres, so this gives the same bytes."""
-    angle = angle % 360.0
+# Pillow's resampling filters (``PIL.Image.Resampling``)
+NEAREST, BILINEAR = 0, 2
+
+
+def _affine_bilinear(img: np.ndarray, matrix) -> np.ndarray:
+    """Pillow's ``ImagingGenericTransform`` with the bilinear filter: each
+    output pixel's centre mapped into the source in float64, 0 where that
+    point falls outside the image, else the four neighbours (clamped to the
+    edge) interpolated in float64 and truncated to uint8 (``Geometry.c``
+    ``bilinear_filter8`` / ``bilinear_filter32RGB``)."""
+    a, b, c, d, e, f = matrix
     h, w = img.shape[:2]
-    cx, cy = w / 2, h / 2
-    rad = -math.radians(angle)
-    a, b = round(math.cos(rad), 15), round(math.sin(rad), 15)
-    d, e = round(-math.sin(rad), 15), round(math.cos(rad), 15)
-    c = a * -cx + b * -cy + 0.0 + cx
-    f = d * -cx + e * -cy + 0.0 + cy
     yo, xo = np.mgrid[0:h, 0:w].astype(np.float64)
     xo += 0.5
     yo += 0.5
@@ -183,6 +178,78 @@ def rotate(img: np.ndarray, angle: float) -> np.ndarray:
     out = (top + (bottom - top) * dy).astype(np.uint8)
     out[~inside] = 0
     return out
+
+
+def _affine_nearest(img: np.ndarray, matrix) -> np.ndarray:
+    """Pillow's nearest-neighbour ``ImagingTransformAffine``. A matrix
+    without shear (``b == d == 0``) takes ``ImagingScaleAffine``: the
+    source column of output column x is the float64 running sum
+    ``c + a/2 + a + ... + a``, floored (likewise the rows). Any other takes
+    ``affine_fixed``: the centre's offsets and the four coefficients
+    rounded to 16.16 fixed point and stepped in integers, so a source
+    index is ``(c' + b' y + a' x) >> 16``, not the floor of the exact
+    mapped centre (they part where that lies within ~y/2^17 of an integer).
+    Pillow steps in float64 only past 32768 px, which raises here."""
+    a, b, c, d, e, f = matrix
+    h, w = img.shape[:2]
+    if b == 0 and d == 0:
+        xs = np.cumsum(np.r_[c + a * 0.5, np.full(w - 1, a)])
+        ys = np.cumsum(np.r_[f + e * 0.5, np.full(h - 1, e)])
+        xi = np.where(xs < 0, -1, np.trunc(xs)).astype(np.int64)[None, :]
+        yi = np.where(ys < 0, -1, np.trunc(ys)).astype(np.int64)[:, None]
+    else:
+        for x, y in ((0, 0), (w, h), (0, h), (w, 0)):
+            if abs(x * a + y * b + c) >= 32768.0 or abs(x * d + y * e + f) >= 32768.0:
+                raise ValueError(f"affine: a {h}x{w} image mapped past 32768 px, where "
+                                 "Pillow leaves 16.16 fixed point")
+
+        def fix(v):
+            return math.floor(v * 65536.0 + 0.5)
+        y, x = np.arange(h, dtype=np.int64)[:, None], np.arange(w, dtype=np.int64)[None, :]
+        xi = (fix(c + b * 0.5 + a * 0.5) + fix(b) * y + fix(a) * x) >> 16
+        yi = (fix(f + e * 0.5 + d * 0.5) + fix(e) * y + fix(d) * x) >> 16
+    inside = (xi >= 0) & (xi < w) & (yi >= 0) & (yi < h)
+    out = img[np.clip(yi, 0, h - 1), np.clip(xi, 0, w - 1)]
+    out[~inside] = 0
+    return out
+
+
+def affine(img: np.ndarray, matrix, resample: int = BILINEAR) -> np.ndarray:
+    """``img`` (``[H, W, C]`` or ``[H, W]`` uint8) through the inverse
+    affine ``matrix = (a, b, c, d, e, f)``, as Pillow's
+    ``Image.transform(size, AFFINE, matrix, resample)`` gives it: output
+    pixel (x, y) reads the source near ``(a x' + b y' + c, d x' + e y' +
+    f)``, ``x' = x + 0.5``, and 0 past the edge. ``resample`` is
+    ``BILINEAR`` or ``NEAREST``; each follows Pillow's own arithmetic
+    (``_affine_bilinear``, ``_affine_nearest``)."""
+    matrix = tuple(float(v) for v in matrix)
+    flat = img.ndim == 2
+    src = img[..., None] if flat else img
+    if resample == BILINEAR:
+        out = _affine_bilinear(src, matrix)
+    elif resample == NEAREST:
+        out = _affine_nearest(src, matrix)
+    else:
+        raise ValueError(f"resample {resample!r}: BILINEAR ({BILINEAR}) or NEAREST ({NEAREST})")
+    return out[..., 0] if flat else out
+
+
+def rotate(img: np.ndarray, angle: float, resample: int = BILINEAR) -> np.ndarray:
+    """``img`` rotated by ``angle`` degrees counter-clockwise about its
+    centre, as Pillow's ``Image.rotate(angle, resample)`` gives it: the
+    inverse affine matrix built as ``Image.rotate`` builds it (cos and sin
+    rounded to 15 digits), then ``affine``. At multiples of 90 degrees,
+    where Pillow copies or transposes instead, the rounded matrix maps
+    pixel centres onto pixel centres, so this gives the same bytes."""
+    angle = angle % 360.0
+    h, w = img.shape[:2]
+    cx, cy = w / 2, h / 2
+    rad = -math.radians(angle)
+    a, b = round(math.cos(rad), 15), round(math.sin(rad), 15)
+    d, e = round(-math.sin(rad), 15), round(math.cos(rad), 15)
+    c = a * -cx + b * -cy + 0.0 + cx
+    f = d * -cx + e * -cy + 0.0 + cy
+    return affine(img, (a, b, c, d, e, f), resample)
 
 
 class RandomRotation:

@@ -45,21 +45,17 @@ class BatchNorm2d(nn.BatchNorm2d):
     training pass updates the running statistics as flax's ``BatchNorm``
     (momentum 0.9) does: ``r = 0.9 r + 0.1 s`` with the batch's *biased*
     variance, where torch's own update takes the unbiased one (a factor
-    n / (n - 1)). With ``update_stats`` off (a frozen backbone) training
-    normalises with the batch's statistics and leaves the running ones as
-    they are."""
+    n / (n - 1)). A frozen backbone (``train_fc``) updates them too, as the
+    JAX package's step and the reference's linear probe do."""
 
     FLAX_MOMENTUM = 0.9
 
     def __init__(self, c, device=None):
         super().__init__(c, eps=1e-5, momentum=0.1, device=device)
-        self.update_stats = True
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         if not self.training:
             return super().forward(x)
-        if not self.update_stats:
-            return F.batch_norm(x, None, None, self.weight, self.bias, True, 0.0, self.eps)
         # momentum 1 makes the fused kernel write the batch's mean and
         # unbiased variance into these two per-channel vectors
         mean = torch.zeros_like(self.running_mean)

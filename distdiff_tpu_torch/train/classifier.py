@@ -18,13 +18,11 @@ from __future__ import annotations
 
 import dataclasses
 import math
-from typing import Optional
+from typing import Callable, Optional
 
 import numpy as np
 import torch
 import torch.nn.functional as F
-
-from distdiff_tpu_torch.models.guide.resnet import BatchNorm2d
 
 SHARDED = "ROADMAP queue 1 item 8"
 
@@ -42,14 +40,11 @@ class TrainConfig:
 
 
 def freeze_backbone(module: torch.nn.Module) -> None:
-    """A linear probe: every parameter but the fc layer's takes no gradient,
-    and BatchNorm leaves its running statistics as they are (it still
-    normalises a training batch by the batch's statistics)."""
+    """A linear probe: every parameter but the fc layer's takes no gradient.
+    BatchNorm still updates its running statistics in training, as the JAX
+    package's step writes ``batch_stats`` back on every step."""
     for name, p in module.named_parameters():
         p.requires_grad_(name.startswith("fc."))
-    for m in module.modules():
-        if isinstance(m, BatchNorm2d):
-            m.update_stats = False
 
 
 class Optimizer:
@@ -166,12 +161,16 @@ def _single_device(mesh, state_shardings) -> None:
 
 
 def make_train_step(module: torch.nn.Module, tx: Optimizer, mesh=None,
-                    label_smoothing: float = 0.0, state_shardings=None):
+                    label_smoothing: float = 0.0, loss_fn: Optional[Callable] = None,
+                    state_shardings=None):
     """``step(state, images, targets, mask) -> (state, metrics)``: one
     training forward (BatchNorm on the batch's statistics), the masked loss,
     its backward and ``tx.step()``. ``images`` are NHWC, on the host or the
     module's device; ``metrics`` holds the loss and the masked top-1
-    accuracy in percent, as device scalars."""
+    accuracy in percent against ``targets``, as device scalars.
+    ``loss_fn(logits, targets, mask) -> scalar`` replaces cross-entropy
+    (the cutmix, augmix and mixup trainers); the step runs eagerly, so it
+    is called anew on every batch."""
     _single_device(mesh, state_shardings)
     device = _device_of(module)
 
@@ -179,7 +178,10 @@ def make_train_step(module: torch.nn.Module, tx: Optimizer, mesh=None,
         x, t, m = _batch(images, targets, mask, device)
         state.module.train()
         logits = state.module(x)
-        loss = cross_entropy(logits, t, m, label_smoothing)
+        if loss_fn is None:
+            loss = cross_entropy(logits, t, m, label_smoothing)
+        else:
+            loss = loss_fn(logits, t, m)
         state.tx.zero_grad()
         loss.backward()
         state.tx.step()

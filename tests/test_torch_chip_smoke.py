@@ -390,12 +390,15 @@ def test_expanded_tree_writer_gives_the_readers_dataset(smoke, tmp_path):
     from distdiff_tpu_torch.data import DatasetByClassNames
 
     names = ["class 000", "class 001", "class 002"]
-    assert smoke.write_expanded_tree(str(tmp_path), names, per_class=2, side=12) == 6
+    assert smoke.write_expanded_tree(str(tmp_path), names, stems=2, side=12) == 6
     ds = DatasetByClassNames(str(tmp_path), names)
     assert ds.labels == [0, 0, 1, 1, 2, 2]
-    assert all(p.endswith(f"_expand_{i}.png") for p, i in zip(ds.image_paths, [0, 1] * 3))
+    assert all(p.endswith(f"image_{i:04d}_expand_0.png")
+               for p, i in zip(ds.image_paths, [0, 1] * 3))
     assert ds[0][0].shape == (12, 12, 3)
-    assert len(DatasetByClassNames(str(tmp_path), names, expand_num=1)) == 3
+    # one _expand_0 image an original: all kept at --expand_num 1, none at 0
+    assert len(DatasetByClassNames(str(tmp_path), names, expand_num=1)) == 6
+    assert len(DatasetByClassNames(str(tmp_path), names, expand_num=0)) == 0
 
 
 def test_timed_loader_yields_every_batch_and_adds_up_the_waits(smoke):
@@ -481,7 +484,53 @@ def test_train_agreement_reads_zero_for_the_cpu_against_itself(smoke, cfg, monke
 
     start = _card_on_the_cpu(monkeypatch)
     read = smoke.train_agreement("cpu", TrainConfig(epochs=2, **cfg), _tiny_batches(), start)
-    assert read == {"loss": 0.0, "stats": 0.0, "update": 0.0, "acc_flips": 0}
+    assert read == {"loss": 0.0, "stats": 0.0, "update": 0.0, "acc_flips": 0,
+                    "stats_moved": 3 * _running_statistics(start)}
+
+
+def _running_statistics(state):
+    return sum(k.endswith(("running_mean", "running_var")) for k in state)
+
+
+@pytest.mark.parametrize("transform_type", ["mixup", "cutmix", "augmix"])
+def test_train_agreement_takes_the_transform_stages(smoke, transform_type, monkeypatch):
+    """``cli.train_transform``'s ``batch_stage`` through ``train_agreement``:
+    each batch prepared once (augmix's three views packed into 12 rows),
+    the stage's loss on both sides; the CPU against itself reads zero."""
+    import numpy as np
+
+    from distdiff_tpu_torch.cli.train_transform import batch_stage
+    from distdiff_tpu_torch.train import TrainConfig
+
+    start = _card_on_the_cpu(monkeypatch)
+    batches = _tiny_batches()
+    if transform_type == "augmix":
+        batches = [(np.stack([x, -x, x[:, ::-1]], 1), y, m) for x, y, m in batches]
+    loss_fn, on_batch, _ = batch_stage(transform_type, np.random.default_rng(0))
+    seen = []
+
+    def spy(images, targets, mask):
+        seen.append(len(images))
+        return on_batch(images, targets, mask)
+    read = smoke.train_agreement("cpu", TrainConfig(epochs=2), batches, start,
+                                 stage=(loss_fn, spy))
+    assert seen == [4] * 3
+    assert read == {"loss": 0.0, "stats": 0.0, "update": 0.0, "acc_flips": 0,
+                    "stats_moved": 3 * _running_statistics(start)}
+
+
+def test_transform_argument_lists_are_the_jax_defaults_at_resnet50_width(smoke):
+    """Phase 7's ``cli.train_transform`` runs: the JAX parser's reading of
+    each argument list, ResNet-50 at 224^2 and batch 64, cut to one epoch."""
+    from distdiff_tpu.cli import train_transform as j_cli
+    from distdiff_tpu_torch.cli import train_transform as cli
+
+    for t in cli.TRANSFORM_TYPES:
+        argv = smoke.train_argv("data", "run", 1, ["--transform_type", t, "--expand_num", "0"])
+        args = cli.parse_args(argv)
+        assert vars(args) == vars(j_cli.parse_args(argv))
+        assert (args.arch, args.input_size, args.train_batch, args.epochs, args.lr) == (
+            "resnet50", 224, 64, 1, 0.1)
 
 
 def test_train_agreement_reads_an_optimizer_fault_on_the_step(smoke, monkeypatch):

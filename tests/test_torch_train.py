@@ -192,9 +192,10 @@ def test_train_fc_follows_jax_on_a_frozen_backbone(init):
     """The JAX package's ``train_fc`` moves the backbone too (``optax.masked``
     passes a masked-out leaf's gradient through as its update; ROADMAP §3),
     so its reference here is held to a frozen backbone: after each JAX step
-    every leaf but the fc layer's, and the BatchNorm statistics, are set
-    back to their initial values. The port's fc follows that reference and
-    its backbone does not move at all."""
+    every parameter but the fc layer's is set back to its initial value,
+    and the BatchNorm statistics the step wrote are kept. The port's fc and
+    running statistics follow that reference; its backbone's parameters do
+    not move at all, its buffers do."""
     module, variables = init
     jstate, jstep = _jax_side(module, variables, train_fc_only=True)
     state, step = _port_side(variables, train_fc_only=True)
@@ -203,16 +204,20 @@ def test_train_fc_follows_jax_on_a_frozen_backbone(init):
     for x, y, m in _batches(3, seed=7):
         jstate, jm = jstep(jstate, x, y, m)
         jstate = jstate.replace(
-            params={**jax.tree.map(jnp.asarray, frozen), "fc": jstate.params["fc"]},
-            batch_stats=jax.tree.map(jnp.asarray, variables["batch_stats"]))
+            params={**jax.tree.map(jnp.asarray, frozen), "fc": jstate.params["fc"]})
         state, pm = step(state, x, y, m)
         assert abs(float(pm["loss"]) - float(jm["loss"])) <= ATOL
     after = state.module.state_dict()
-    for k, v in before.items():
+    params = {n for n, _ in state.module.named_parameters()}
+    for k in params:
         if not k.startswith("fc."):
-            assert torch.equal(after[k], v), f"{k} moved under train_fc"
+            assert torch.equal(after[k], before[k]), f"{k} moved under train_fc"
     assert not torch.equal(after["fc.weight"], before["fc.weight"])
-    _assert_weights_close(state.module, _as_state_dict(jstate), ["fc.weight", "fc.bias"])
+    buffers = [k for k in after if k not in params and not k.endswith("num_batches_tracked")]
+    assert len(buffers) > 2 and all(not torch.equal(after[k], before[k]) for k in buffers)
+    _assert_weights_close(state.module, _as_state_dict(jstate), ["fc.weight", "fc.bias",
+                                                                  *buffers])
+    assert state.module.bn1.num_batches_tracked.item() == 3
     # only the fc layer is trained; the backbone takes no gradient
     assert [n for n, p in state.module.named_parameters() if p.requires_grad] == [
         "fc.weight", "fc.bias"]

@@ -252,8 +252,8 @@ def test_resuming_from_an_orbax_directory_names_the_route(tmp_path):
 
 def test_training_modules_import_without_pil_yaml_matplotlib_or_orbax():
     """As on the card's machine: each of these set to None in
-    ``sys.modules`` makes its import fail; the trainer's modules import and
-    its CLI parses."""
+    ``sys.modules`` makes its import fail; the trainer's modules (the
+    augmentations too) import and its CLIs parse."""
     code = (
         "import sys\n"
         "for m in ('PIL', 'yaml', 'matplotlib', 'orbax', 'jax', 'flax', 'optax'):\n"
@@ -262,7 +262,9 @@ def test_training_modules_import_without_pil_yaml_matplotlib_or_orbax():
         "import distdiff_tpu_torch.cli.parse_logs, distdiff_tpu_torch.train\n"
         "import distdiff_tpu_torch.utils.checkpoints, distdiff_tpu_torch.utils.logger\n"
         "import distdiff_tpu_torch.utils.misc, distdiff_tpu_torch.weights.from_jax\n"
+        "import distdiff_tpu_torch.train.augment, distdiff_tpu_torch.cli.train_transform as tt\n"
         "assert t.parse_args(['-a', 'tiny_resnet']).arch == 'tiny_resnet'\n"
+        "assert tt.parse_args(['--transform_type', 'augmix']).transform_type == 'augmix'\n"
         "print('imported')\n")
     out = subprocess.run([sys.executable, "-c", code], cwd=ROOT, capture_output=True,
                          text=True, timeout=300)
