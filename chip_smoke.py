@@ -3,7 +3,7 @@
 
 Run from the repository root: ``python3 chip_smoke.py``. It needs one CUDA
 card, ``nvcc`` and ``nvidia-smi``; it imports nothing of JAX or of the JAX
-package. Eight phases, any failure exits non-zero:
+package. Nine phases, any failure exits non-zero:
 
 1. Device: the card's name and power limit, torch/CUDA versions, the
    time to build the CUDA kernels from ``distdiff_tpu_torch/csrc`` (one
@@ -15,7 +15,9 @@ package. Eight phases, any failure exits non-zero:
    their Python counts), and the GroupNorm
    kernels' plans with their shared memory, held against the C side's.
 2. Kernels, each held against its plain PyTorch version on the same inputs:
-   every flash kernel at the main path's shapes in bf16 (against the plain
+   every flash kernel at the main path's shapes (SD-1.5's and phase 8's
+   SD-2.1 ones: D = 64 over 9216, 2304 and 576 tokens, D = 512 over 9216)
+   in bf16 (against the plain
    fp32 version; timed beside ``F.scaled_dot_product_attention``, a
    yardstick the port never calls) and at ragged shapes (the Hopper
    kernels also at every narrow head width and at wide ones from 129 to
@@ -104,8 +106,9 @@ package. Eight phases, any failure exits non-zero:
    with Paeth and Average rows) for 2 epochs, a resume for a third, and
    ``cli.train_expanded.main`` with a tree of 100 512^2 PNGs in
    ``ExpansionDriver``'s layout for one epoch: ``log.txt``,
-   ``results.yaml`` and both ``.pth.tar`` files checked,
-   ``model_best.pth.tar`` loaded as a guide against the module it saved,
+   ``results.yaml`` and both ``.pth.tar`` files checked (the trainer
+   writes ``model_best.pth.tar`` only in an epoch above 0%), the best
+   checkpoint loaded as a guide against the module it saved,
    ``parse_logs`` on the run; the steps' device times there, images/s
    (an epoch's images over its wall time), each epoch's seconds and its
    share waiting on the loader, and the peak
@@ -116,20 +119,42 @@ package. Eight phases, any failure exits non-zero:
    at ``--expand_num 1`` over a tree of one 512^2 ``_expand_0`` PNG an
    original (600 items): each run's artifacts checked and its steps
    counted, its images/s, loader share and epoch seconds printed.
-8. The card line, the kernels' JSON line (one entry per kernel; its times
+8. SD-2.1 768-v, DPM-Solver++(2M), DeepCache and the rollout_remat modes,
+   after phases 4-6's pipelines are freed. SD-2.1 at full width (UNet
+   865.9M, heads 64 wide, linear projections, v-prediction; seeded random
+   weights) at batch 2, 768^2, the phase-4 recipe: a warm-up call, a
+   counted call (each flash kernel's launches by shape and each GroupNorm
+   kernel's by shape against the plan, peak memory) and two more timed.
+   Then ``cli.generate_data.main --model sd21 --scheduler dpmpp
+   --resolution 768`` from an SD-2.1 fp16 checkpoint (2.6 GB), a ResNet-50
+   guide and a caltech-101 tree written first, cut to 1 train image a
+   class (100 latents) and 2 images: the loaded weights, the PNGs, the
+   caches and the launches by shape against the plan. Then SD-1.5 at batch 2 under
+   ``dpmpp`` and under ``deep_cache`` (interval 3, branch 0), each through
+   ``make_expand_fn`` and ``SplitExpand``, timed and counted against the
+   plan; the guidance update under each of the eight ``rollout_remat``
+   modes (its launches against the mode's plan, time, peak memory, and its
+   latents, gradients and scores against "step_nr"'s at a stated bf16
+   tolerance); and the fp32 ``tiny()`` expand on the card against the CPU
+   under ``dpmpp``, ``deep_cache``, SD-2.1's shape (its gelu text tower
+   too) and each mode, at phase 3's tolerance. Each counted run fails on a
+   launched shape phase 2 did not hold.
+9. The card line, the kernels' JSON line (one entry per kernel; its times
    are the means over that kernel's launches in the counted runs, and
    ``shapes`` holds each timed shape's own numbers), and the
    ``{"ok": true, ...}`` line.
 
-``python3 chip_smoke.py --profile [--json PATH]`` runs phase 1, builds the
-main path and traces one warm expand call with ``torch.profiler`` instead:
-device time by layer and by kernel, and the device's idle share (and the
-per-kernel table as JSON at PATH).
+``python3 chip_smoke.py --profile [--sd21] [--json PATH]`` runs phase 1,
+builds the main path (with ``--sd21`` phase 8's SD-2.1 768-v path) and
+traces one warm expand call with ``torch.profiler`` instead: device time
+by layer and by kernel, and the device's idle share (and the per-kernel
+table as JSON at PATH).
 """
 
 from __future__ import annotations
 
 import collections
+import gc
 import json
 import math
 import os
@@ -406,19 +431,10 @@ def check_pair_plan(b, c, s, itemsize, lay, plan, x_ptr, y_ptr) -> None:
     require(bool((hits == 1).all()), f"{what}: rows not covered exactly once")
 
 
-def kernel_phase():
-    """Hold every kernel against its plain version at the main-path shapes
-    (timed), and at ragged shapes (checked only: q and kv lengths off the
-    tiles, the 77-token kv of cross-attention, head widths off the padded
-    ones, every narrow width, wide widths from 129 to 512, views off
-    16-byte alignment); returns one record per timed (kernel, shape)."""
-    import torch
-    import torch.nn.functional as F
-
-    from distdiff_tpu_torch.ops import flash
-
-    dev = torch.device("cuda")
-    gen = torch.Generator(device=dev).manual_seed(0)
+def flash_shapes() -> list:
+    """Phase 2's flash shapes: (label, B, H, Tq, Tk, D, kernels to run,
+    timed: True, False (checked only) or "offset" (checked on views one
+    element into their storage))."""
     cfg_b = 2 * BATCH  # CFG doubles the UNet batch
     split = ["flash_bwd_dq", "flash_bwd_dkv"]
     every = ["flash_fwd", "flash_bwd_fused"] + split
@@ -434,6 +450,14 @@ def kernel_phase():
         ("vae_mid1", 1, 1, 4096, 4096, 512, ["flash_fwd"] + split, True),
         # phase 6's dataset encode, CLI_ENCODE_BATCH images a call
         ("vae_mid_enc", CLI_ENCODE_BATCH, 1, 4096, 4096, 512, ["flash_fwd"], True),
+        # phase 8: SD-2.1 at 768^2 (96^2 latents), heads 64 wide at every
+        # level, the CFG pair of batch 2; its VAE mid-block over 9216
+        # tokens; the CLI's dataset encode at 768^2
+        ("sd21_96", cfg_b, 5, 9216, 9216, 64, ["flash_fwd", "flash_bwd_fused"], True),
+        ("sd21_48", cfg_b, 10, 2304, 2304, 64, ["flash_fwd", "flash_bwd_fused"], True),
+        ("sd21_24", cfg_b, 20, 576, 576, 64, ["flash_fwd", "flash_bwd_fused"], True),
+        ("sd21_vae_mid", BATCH, 1, 9216, 9216, 512, ["flash_fwd"] + split, True),
+        ("sd21_vae_enc", CLI_ENCODE_BATCH, 1, 9216, 9216, 512, ["flash_fwd"], True),
         ("ragged", 1, 3, 300, 130, 40, every, False),
         ("cross", 2, 2, 200, 77, 64, every, False),
         ("odd", 2, 1, 129, 70, 33, every, False),
@@ -473,6 +497,24 @@ def kernel_phase():
         ("w512", 1, 2, 63, 129, 512, wide, False),
         ("offset512", 1, 1, 200, 150, 512, wide, "offset"),
     ]
+    return shapes
+
+
+def kernel_phase():
+    """Hold every kernel against its plain version at the main-path shapes
+    (timed), and at ragged shapes (checked only: q and kv lengths off the
+    tiles, the 77-token kv of cross-attention, head widths off the padded
+    ones, every narrow width, wide widths from 129 to 512, views off
+    16-byte alignment); returns one record per timed (kernel, shape)."""
+    import torch
+    import torch.nn.functional as F
+
+    from distdiff_tpu_torch.ops import flash
+
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(0)
+    split = ["flash_bwd_dq", "flash_bwd_dkv"]
+    shapes = flash_shapes()
     entries = []
     for label, b, h, tq, tk, d, names, timed in shapes:
         bh = b * h
@@ -1253,33 +1295,133 @@ def gn_kernel_phase(shapes, timed=True) -> list:
     return entries
 
 
-def expected_launches(pipe, units: int = 1) -> dict:
-    """Flash kernel launches of one transform-guided expand call, from the
-    plan: UNet forwards = plain steps + 2 x period (rollout and its
-    recompute in the backward) for each of ``units`` guidance sub-batches;
-    VAE mid-block forwards = 2 x period per sub-batch + the final decode."""
+# Attention forwards of one transform rollout step, forward and backward, by
+# rollout_remat mode: (UNet calls, VAE mid-block attentions) for each step
+# but the last, then for the last ("tail*" leave it without the outer
+# checkpoint). The forward runs once; an outer checkpoint re-runs the step,
+# the UNet's inner checkpoints re-run its blocks (its attentions are in
+# them; the decoder's mid-block attention is in none of the decoder's), and
+# "decode" re-runs the decode + guide leg.
+ROLLOUT_CALLS = {
+    "step_nr": ((2, 2), (2, 2)),
+    "step": ((3, 2), (3, 2)),
+    "step_nru": ((2, 2), (2, 2)),
+    "decode_nr": ((3, 2), (3, 2)),
+    "block": ((2, 1), (2, 1)),
+    "decode": ((2, 2), (2, 2)),
+    "tail": ((3, 2), (2, 1)),
+    "tail_decode_nr": ((3, 2), (2, 1)),
+}
+
+
+def rollout_calls(mode: str, period: int):
+    """(UNet calls, VAE attention forwards) over a rollout of ``period``
+    steps, forward and backward, under ``mode``."""
+    first, last = ROLLOUT_CALLS[mode]
+    return ((period - 1) * first[0] + last[0], (period - 1) * first[1] + last[1])
+
+
+def unet_attentions(ucfg, side: int, levels=None) -> list:
+    """(heads, tokens, head width, count) of the self-attentions of one UNet
+    call on a side^2 latent (``levels``: the down levels it runs, as a
+    DeepCache shallow call runs only those up to its branch)."""
+    boc, n, L = ucfg.block_out_channels, len(ucfg.block_out_channels), ucfg.layers_per_block
+    out = []
+    for bi in (range(n) if levels is None else levels):
+        s = side
+        for _ in range(bi):
+            s = _down(s)
+        if ucfg.cross_attention[bi] and ucfg.depth_at(bi) > 0:
+            h = ucfg.heads_at(bi)
+            out.append((h, s * s, boc[bi] // h, ucfg.depth_at(bi) * (2 * L + 1)))
+    if levels is None:  # the mid block's transformer, at the deepest level
+        s = side
+        for _ in range(n - 1):
+            s = _down(s)
+        h = ucfg.heads_at(n - 1)
+        out.append((h, s * s, boc[-1] // h, ucfg.depth_at(n - 1)))
+    return out
+
+
+def span_unet_calls(pipe, lo: int, hi: int) -> tuple:
+    """(full, shallow) UNet calls of the plain steps [lo, hi): all full, or
+    under DeepCache a full call on the span's first step and every
+    cache_interval steps after it."""
+    cfg = pipe.config
+    if not getattr(cfg, "deep_cache", False):
+        return max(hi - lo, 0), 0
+    interval = max(cfg.cache_interval, 1)
+    full = sum(1 for i in range(lo, hi) if (i - lo) % interval == 0)
+    return full, max(hi - lo, 0) - full
+
+
+def flash_plan(pipe, batch: int, guide_chunk=None,
+               parts=("plain", "rollout", "decode")) -> collections.Counter:
+    """Flash kernel launches by (kernel, (BH, Tq, Tk, D)) of one
+    transform-guided expand call at ``batch`` (guidance on sub-batches of
+    ``guide_chunk``): the plain steps' UNet calls on the CFG pair (full,
+    or DeepCache's shallow ones), the rollout's by ``rollout_calls`` with
+    one backward per attention, and the final decode (``parts`` keeps some
+    of the three). Attention over at most 256 kv tokens takes no kernel;
+    D <= 128 takes the fused backward, wider the split pair."""
     from distdiff_tpu_torch.schedulers import guidance_window, img2img_start_index
 
-    cfg, ucfg, gcfg = pipe.config, pipe.config.unet, pipe.guidance_cfg
+    cfg, gcfg = pipe.config, pipe.guidance_cfg
     n = pipe.sched.num_inference_steps
     start = img2img_start_index(pipe.sched, pipe.strength)
     g0, _ = guidance_window(pipe.sched, gcfg.guidance_step, gcfg.guidance_period)
-    period = gcfg.guidance_period
-    per_unet = 0  # self-attentions with kv > 256 tokens in one UNet forward
-    for bi in range(len(ucfg.block_out_channels)):
-        side = cfg.latent_size // 2 ** bi
-        if ucfg.cross_attention[bi] and side * side > 256:
-            per_unet += ucfg.depth_at(bi) * (2 * ucfg.layers_per_block + 1)
-    vae_tokens = cfg.latent_size ** 2
-    vae_flash = vae_tokens > 256
-    unet_fwd = (g0 - start) + 2 * period * units + (n - g0)
-    vae_big_d = max(pipe.config.vae.block_out_channels) > 128
-    return {
-        "flash_fwd": unet_fwd * per_unet + (2 * period * units + 1) * vae_flash,
-        "flash_bwd_fused": period * per_unet * units,
-        "flash_bwd_dq": period * vae_flash * vae_big_d * units,
-        "flash_bwd_dkv": period * vae_flash * vae_big_d * units,
-    }
+    chunk = guide_chunk or batch
+    units = batch // chunk
+    ls = cfg.latent_size
+    unet_fwd, vae_fwd = rollout_calls(gcfg.rollout_remat, gcfg.guidance_period)
+    full, shallow = (a + b for a, b in zip(span_unet_calls(pipe, start, g0),
+                                           span_unet_calls(pipe, g0, n)))
+    plan = collections.Counter()
+
+    def attend(b, heads, tokens, d, fwd, bwd):
+        if tokens <= 256:
+            return
+        shape = (b * heads, tokens, tokens, d)
+        plan[("flash_fwd", shape)] += fwd
+        for name in (("flash_bwd_fused",) if d <= 128 else ("flash_bwd_dq", "flash_bwd_dkv")):
+            plan[(name, shape)] += bwd
+
+    c = cfg.vae.block_out_channels[-1]
+    if "plain" in parts:
+        for h, t, d, k in unet_attentions(cfg.unet, ls):
+            attend(2 * batch, h, t, d, k * full, 0)
+        if shallow:
+            for h, t, d, k in unet_attentions(cfg.unet, ls, levels=range(cfg.cache_branch + 1)):
+                attend(2 * batch, h, t, d, k * shallow, 0)
+    if "rollout" in parts:
+        for h, t, d, k in unet_attentions(cfg.unet, ls):
+            attend(2 * chunk, h, t, d, k * unet_fwd * units, k * gcfg.guidance_period * units)
+        attend(chunk, 1, ls * ls, c, vae_fwd * units, gcfg.guidance_period * units)
+    if "decode" in parts:
+        attend(batch, 1, ls * ls, c, 1, 0)
+    return plan
+
+
+def expected_launches(pipe, units: int = 1) -> dict:
+    """Flash kernel launches of one transform-guided expand call, by kernel
+    (``flash_plan``'s totals), its guidance on ``units`` sub-batches."""
+    totals = dict.fromkeys(PRODUCTS, 0)
+    for (name, _), c in flash_plan(pipe, units, guide_chunk=1).items():
+        totals[name] += c
+    return totals
+
+
+def check_flash_plan(got: dict, want, what: str) -> None:
+    """Every flash kernel's launches by shape against the plan, each kernel
+    launched at least once."""
+    for key in sorted(set(got) | set(want)):
+        g, w = got.get(key, 0), want.get(key, 0)
+        if key[0] in PRODUCTS:
+            print(f"  {key[0]} {list(key[1])}: {g} (plan: {w})")
+            require(g == w, f"{what}: {key[0]} {list(key[1])}: {g} launches, the plan says {w}")
+    for name in PRODUCTS:
+        require(sum(c for (k, _), c in got.items() if k == name) > 0,
+                f"{what}: {name} never launched")
 
 
 def agreement_phase() -> None:
@@ -1373,10 +1515,11 @@ def agreement_phase() -> None:
 FP32_TOL = 1e-3  # fp32 card against fp32 CPU (see agree_fp32)
 
 
-def tiny_fp32_pipes(seed: int = 8):
+def tiny_fp32_pipes(seed: int = 8, edit=None):
     """The fp32 tiny() pipeline (the VAE at width 160, so that its mid-block
-    takes the split dq/dkv pair) on the CPU and on the card with the same
-    weights; guided-expand inputs; and a CPU generator for the draws."""
+    takes the split dq/dkv pair; ``edit(config)`` changes it further) on the
+    CPU and on the card with the same weights; guided-expand inputs; and a
+    CPU generator for the draws."""
     import dataclasses
 
     import torch
@@ -1390,6 +1533,8 @@ def tiny_fp32_pipes(seed: int = 8):
     gen = torch.Generator().manual_seed(seed)
     cfg = dataclasses.replace(PipelineConfig.tiny(sample_size=48), vae=VAEConfig(
         block_out_channels=(16, 160), layers_per_block=1, dtype=torch.float32))
+    if edit is not None:
+        cfg = edit(cfg)
     guides = [create_model("tiny_resnet", num_classes=3, device=d) for d in ("cpu", dev)]
     init_weights(guides[0].module, gen)
     guides[1].module.load_state_dict(guides[0].module.state_dict())
@@ -1408,6 +1553,22 @@ def tiny_fp32_pipes(seed: int = 8):
               torch.randn(2, 16, 32, generator=gen), torch.randn(2, 16, 32, generator=gen),
               torch.tensor([1, 2]))
     return pipes, inputs, gen
+
+
+def tiny_expand(pipe, device, inputs, draws, split=False) -> list:
+    """The guided expand of ``pipe`` on ``device`` from the CPU's inputs and
+    draws, through ``make_expand_fn`` (or ``SplitExpand``): the image, and
+    the updated latents (transform guidance) and the score, on the CPU."""
+    if split:
+        img = pipe.make_split_expand()(*(t.to(device) for t in inputs),
+                                       **{k: v.to(device) for k, v in draws.items()})
+        return [img.float().cpu()]
+    img, aux = pipe.make_expand_fn()(
+        *(t.to(device) for t in inputs), return_aux=True,
+        **{k: v.to(device) for k, v in draws.items()})
+    if "latents_after" not in aux:  # direct guidance: the image and the score
+        return [t.float().cpu() for t in (img, aux["score"])]
+    return [t.float().cpu() for t in (img, aux["latents_after"], aux["score"])]
 
 
 def agree_fp32(what_got_want) -> None:
@@ -1446,12 +1607,7 @@ def fp32_agreement_phase() -> None:
     draws = dict(zip(("noise", "gamma0", "beta0"), pipes[0].draw_inputs(inputs[0], gen)))
 
     def run(pipe, device):
-        img, aux = pipe.make_expand_fn()(
-            *(t.to(device) for t in inputs), return_aux=True,
-            **{k: v.to(device) for k, v in draws.items()})
-        if "latents_after" not in aux:  # direct guidance: the image and the score
-            return [t.float().cpu() for t in (img, aux["score"])]
-        return [t.float().cpu() for t in (img, aux["latents_after"], aux["score"])]
+        return tiny_expand(pipe, device, inputs, draws)
 
     t0 = time.time()
     want = run(pipes[0], "cpu")
@@ -1836,15 +1992,16 @@ def write_guide_checkpoint(path: str, num_classes: int = CLI_CLASSES, seed: int 
     return state
 
 
-def cli_argv(data_root: str, checkpoint: str, guide_path: str, output_dir: str) -> list:
+def cli_argv(data_root: str, checkpoint: str, guide_path: str, output_dir: str,
+             units: int = CLI_UNITS) -> list:
     """The published recipe (``distdiff_tpu/cli/generate_data.py``'s usage)
-    on the written tree, checkpoint and guide, cut to ``CLI_UNITS`` images."""
+    on the written tree, checkpoint and guide, cut to ``units`` images."""
     return ["-d", "caltech-101", "--data_root", data_root, "--sd_checkpoint", checkpoint,
             "-a", "resnet50", "--encoder_weight_path", guide_path,
             "--guidance_type", "transform_guidance", "--strength", "0.5", "--K", str(CLI_K),
             "--rho", "10.0", "--guidance_step", "20", "--guidance_period", "2",
             "--constraint_value", "0.2", "--num_images_per_prompt", "1",
-            "--train_batch_size", str(CLI_BATCH), "--max_units", str(CLI_UNITS),
+            "--train_batch_size", str(CLI_BATCH), "--max_units", str(units),
             "--seed", "0", "--output_dir", output_dir]
 
 
@@ -2071,7 +2228,8 @@ def check_run(run_dir: str, lrs: list) -> dict:
     finite row an epoch, the learning rates ``lrs``),
     ``results.yaml`` (the best and last valid accuracy of the log),
     ``checkpoint.pth.tar`` (its keys, its epoch, its best accuracy) and
-    ``model_best.pth.tar``. Returns the results."""
+    ``model_best.pth.tar`` (there exactly when the best accuracy is above
+    0). Returns the results."""
     import os
 
     import torch
@@ -2099,8 +2257,13 @@ def check_run(run_dir: str, lrs: list) -> dict:
             and saved["epoch"] == epochs
             and abs(saved["best_acc"] - results["best_accuracy"]) <= 1e-9,
             f"{run_dir}/checkpoint.pth.tar: epoch {saved.get('epoch')}, keys {sorted(saved)}")
-    require(os.path.exists(os.path.join(run_dir, "model_best.pth.tar")),
-            f"{run_dir}: no model_best.pth.tar")
+    # the trainer writes model_best.pth.tar only in an epoch that beats the
+    # best so far, which starts at 0% (the reference's rule): at chance on 100
+    # classes a short run may never beat it, and then there is none
+    has_best = os.path.exists(os.path.join(run_dir, "model_best.pth.tar"))
+    require(has_best == (results["best_accuracy"] > 0),
+            f"{run_dir}: model_best.pth.tar {'present' if has_best else 'absent'} at best "
+            f"accuracy {results['best_accuracy']}")
     return results
 
 
@@ -2313,10 +2476,10 @@ class TrainerProbe:
     bodies, fit calls run_epoch by its module-global name and the
     checkpoint writer as ``ckpt.save_train_checkpoint``. A refactor that
     binds one of them earlier bypasses its wrapper; the step and epoch
-    counts and the best module then fail."""
+    counts and the saved modules then fail."""
 
     def __init__(self):
-        self.steps, self.step_ms, self.epochs, self.best = [], [], [], {}
+        self.steps, self.step_ms, self.epochs, self.best, self.last = [], [], [], {}, {}
 
     def start_run(self) -> None:
         self.steps.append([])
@@ -2362,8 +2525,9 @@ class TrainerProbe:
 
         def keep_best(out_dir, state, epoch, best_acc, is_best):
             orig_save(out_dir, state, epoch, best_acc, is_best)
+            self.last[out_dir] = copy.deepcopy(state.module).eval()
             if is_best:
-                self.best[out_dir] = copy.deepcopy(state.module).eval()
+                self.best[out_dir] = self.last[out_dir]
 
         self.saved = [(train_pkg, "make_train_step", orig_step),
                       (loops, "run_epoch", orig_epoch),
@@ -2393,7 +2557,7 @@ def train_phase(card: str, work: str) -> dict:
     with Paeth and Average rows), 2 epochs; a resume for a third;
     ``cli.train_expanded.main`` with a tree of 100 512^2 PNGs in
     ``ExpansionDriver``'s layout for one epoch; every artifact checked,
-    ``model_best.pth.tar`` loaded as a guide against the module it saved,
+    the best checkpoint loaded as a guide against the module it saved,
     ``parse_logs`` on the run. The steps, epochs and loader waits are timed
     through ``TrainerProbe``. Returns the numbers, the tree and its class
     directory names."""
@@ -2450,15 +2614,20 @@ def train_phase(card: str, work: str) -> dict:
     perfs = parse_logs.main([run])
     require(perfs == [results["best_accuracy"]], f"parse_logs read {perfs}")
 
-    # model_best.pth.tar through the guide loader, against the module it saved
-    require(run in probe.best, f"no best module was kept for {run}")
+    # the best checkpoint through the guide loader, against the module it
+    # saved: model_best.pth.tar, or where no epoch beat 0% (check_run) the
+    # last epoch's checkpoint.pth.tar, which has the same layout
+    require(run in probe.last and (run in probe.best) == (results["best_accuracy"] > 0),
+            f"{run}: modules kept {sorted(probe.last)}, best {sorted(probe.best)}")
+    name, module = (("model_best.pth.tar", probe.best[run]) if run in probe.best
+                    else ("checkpoint.pth.tar", probe.last[run]))
     guide = create_model("resnet50", CLI_CLASSES, device="cuda",
-                         weight_path=os.path.join(run, "model_best.pth.tar"))
+                         weight_path=os.path.join(run, name))
     x = torch.randn(8, 224, 224, 3, generator=torch.Generator().manual_seed(0)).cuda()
     with torch.no_grad():
-        diff = float((guide.module(x) - probe.best[run](x)).abs().max())
-    require(diff <= 1e-5, f"model_best as a guide is {diff:.3e} from the trained module")
-    print(f"  model_best.pth.tar as a guide: logits {diff:.3e} from the module it saved")
+        diff = float((guide.module(x) - module(x)).abs().max())
+    require(diff <= 1e-5, f"{name} as a guide is {diff:.3e} from the trained module")
+    print(f"  {name} as a guide: logits {diff:.3e} from the module it saved")
     out["step_s"] = steps
     out["step_ms"] = step_ms
     out["epochs"] = epochs
@@ -2561,6 +2730,422 @@ def t2i_offset_phase() -> None:
             f"the fp32 runs did not go through the kernels: {counts}")
 
 
+# ------------------------------------------------------------- phase 8
+
+SD21_CLI_TRAIN = 1  # train images a class (3 in phase 6): 100 latents at 768^2
+SD21_CLI_UNITS = 2  # one batch of 2 work units
+# The eight rollout_remat modes against "step_nr" in bf16. Every mode
+# recomputes the same forward, so the scores agree to 1e-4 of their size.
+# The backward sums its bf16 gradients in another order where a mode
+# checkpoints (a skip connection's two paths, the fused backward's dq
+# atomics), which moves gamma's and beta's gradients by a few bf16 steps:
+# 2^-5 of their largest magnitude. The updated latents, lat (1 + gamma) +
+# beta with gamma and beta rho gradients from the draws, then move by at
+# most rho (|d g_gamma| max|lat| + |d g_beta|), plus one bf16 step of
+# their largest magnitude (2^-7).
+MODE_SCORE_TOL = 1e-4
+MODE_GRAD_TOL = 2.0 ** -5
+MODE_LAT_STEP = 2.0 ** -7
+
+
+def sd21_gn_calls() -> list:
+    """(times, batch, norms) of every GroupNorm of phase 8's SD-2.1 runs:
+    the guided expand at batch 2, 768^2 (the CLI's too), and the CLI's
+    dataset encode at 768^2, CLI_ENCODE_BATCH images a call."""
+    import types
+
+    from distdiff_tpu_torch.config import GuidanceConfig, PipelineConfig
+    from distdiff_tpu_torch.schedulers import make_schedule
+
+    cfg = PipelineConfig.sd21()
+    pipe = types.SimpleNamespace(config=cfg, guidance_cfg=GuidanceConfig(),
+                                 sched=make_schedule(cfg.num_inference_steps), strength=0.5)
+    return expand_gn_calls(pipe, BATCH) + [sd21_encode_gn_call(cfg)]
+
+
+def sd21_encode_gn_call(cfg) -> tuple:
+    """(times, batch, norms) of the SD-2.1 CLI run's dataset encode."""
+    return (-(-CLI_CLASSES * SD21_CLI_TRAIN // CLI_ENCODE_BATCH), CLI_ENCODE_BATCH,
+            vae_encode_norms(cfg.vae, cfg.sample_size))
+
+
+def gn_only(by_shape) -> dict:
+    return {k: c for k, c in by_shape.items() if k[0] in GN_KERNELS}
+
+
+def counted_call(fn):
+    """``fn()`` with every launch count set to 0 just before and read just
+    after: (its result, launches by (kernel, shape), seconds, peak bytes
+    allocated over the call)."""
+    import torch
+
+    from distdiff_tpu_torch.ops import flash
+    from distdiff_tpu_torch.ops import groupnorm as gn
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    flash.reset_launch_counts()
+    gn.reset_launch_counts()
+    t0 = time.time()
+    out = fn()
+    torch.cuda.synchronize()
+    secs = time.time() - t0
+    by_shape = collections.Counter(flash.launch_shapes) + collections.Counter(gn.launch_shapes)
+    return out, by_shape, secs, torch.cuda.max_memory_allocated()
+
+
+def wall_s(fn) -> float:
+    import torch
+
+    t0 = time.time()
+    fn()
+    torch.cuda.synchronize()
+    return time.time() - t0
+
+
+def check_images(img, side: int, what: str) -> None:
+    import torch
+
+    require(tuple(img.shape) == (BATCH, side, side, 3), f"{what}: image shape {tuple(img.shape)}")
+    require(bool(torch.isfinite(img).all()), f"{what}: non-finite image")
+    require(float(img.min()) >= 0.0 and float(img.max()) <= 1.0, f"{what}: image outside [0, 1]")
+
+
+def kernel_ms_of_call(records, by_shape, what: str) -> dict:
+    """Each kernel's launches in a counted call and phase 2's time of them:
+    launches x ms at each shape, summed."""
+    out = {}
+    for name in REPLACES:
+        recs = {tuple(r["shape"]): r for r in records if r["name"] == name}
+        launches = {shape: c for (k, shape), c in by_shape.items() if k == name}
+        if not launches:
+            continue
+        ms = sum(recs[shape]["ms"] * c for shape, c in launches.items())
+        bound = sum(recs[shape]["bound_ms"] * c for shape, c in launches.items())
+        out[name] = {"launches": sum(launches.values()), "ms": ms, "bound_ms": bound}
+        print(f"  {what} {name}: {out[name]['launches']} launches, {ms:.2f} ms of kernel time "
+              f"a call by phase 2's times (bound {bound:.2f} ms)")
+    return out
+
+
+def sd21_phase(records, card: str) -> dict:
+    """SD-2.1 768-v at full width (UNet 865.9M, heads 64 wide, 1024-wide
+    context, linear projections; the SD-1.x VAE; v-prediction), seeded
+    random weights, batch 2, 768^2, DDIM-50 at strength 0.5, CFG 7.5,
+    transform guidance at plan index 30 over 2 steps: a warm-up call, a
+    counted call (each kernel's launches by shape against the plan, peak
+    memory) and two more timed calls."""
+    import torch
+
+    from distdiff_tpu_torch.config import PipelineConfig
+    from distdiff_tpu_torch.ops import groupnorm as gn
+
+    dev = torch.device("cuda")
+    pipe, expand, inputs = build_path(PipelineConfig.sd21())
+    require(pipe.sched.prediction_type == "v_prediction", "SD-2.1 is not v-prediction")
+
+    def gen(seed):
+        return torch.Generator(device=dev).manual_seed(seed)
+
+    cold = wall_s(lambda: expand(*inputs, gen(1)))
+    (img, aux), by_shape, secs, peak = counted_call(
+        lambda: expand(*inputs, gen(2), return_aux=True))
+    runs = [secs] + [wall_s(lambda s=s: expand(*inputs, gen(s))) for s in (3, 4)]
+    warm = statistics.median(runs)
+    print(f"  SD-2.1 768^2 expand batch {BATCH}: first call {cold:.2f} s, warm {warm:.3f} s/batch "
+          f"(median of {[round(r, 3) for r in runs]}), peak memory {peak / 2**30:.2f} GiB "
+          f"({card})")
+    check_images(img, 768, "SD-2.1")
+    for name in ("grad_gamma", "grad_beta"):
+        g = aux[name]
+        require(bool(torch.isfinite(g).all()) and float(g.abs().max()) > 0.0,
+                f"SD-2.1: {name} is zero or not finite")
+    moved = float((aux["latents_after"] - aux["latents_before"]).abs().max())
+    require(moved > 0.0, "SD-2.1: guidance left the latents unchanged")
+    print(f"  images in [{float(img.min()):.3f}, {float(img.max()):.3f}]; latents moved up to "
+          f"{moved:.4f}; score {aux['score'].tolist()}")
+    check_flash_plan(by_shape, flash_plan(pipe, BATCH), "phase 8 SD-2.1")
+    check_gn_plan(gn_only(by_shape), gn_plan(expand_gn_calls(pipe, BATCH),
+                                             smem_limit=gn._device_limits(dev)[0]))
+    require_timed(records, by_shape, "phase 8 (SD-2.1)")
+    kernels = kernel_ms_of_call(records, by_shape, "SD-2.1 call:")
+    del pipe, expand, inputs, img, aux
+    torch.cuda.empty_cache()
+    return {"warm_s": warm, "runs": runs, "cold_s": cold, "peak_bytes": peak,
+            "by_shape": by_shape, "kernels": kernels}
+
+
+def sd21_cli_phase(records, card: str) -> dict:
+    """``cli.generate_data.main --model sd21 --scheduler dpmpp --resolution
+    768`` on the published recipe, from files written first: an SD-2.1 fp16
+    diffusers-layout checkpoint (linear projections, the 23-layer OpenCLIP
+    tower; 2.6 GB), a ResNet-50 guide of 100 classes and a caltech-101 PNG
+    tree cut to SD21_CLI_TRAIN train images a class, and SD21_CLI_UNITS
+    images. The loaded
+    weights, the PNGs, the caches and every kernel's launches by shape
+    against the plan (the dataset encode, then one SplitExpand call)."""
+    import os
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    from distdiff_tpu_torch.cli import generate_data as cli
+    from distdiff_tpu_torch.config import PipelineConfig
+    from distdiff_tpu_torch.ops import groupnorm as gn
+    from distdiff_tpu_torch.parallel import read_png
+    from distdiff_tpu_torch.schedulers import DPMSchedule
+    from distdiff_tpu_torch.weights.safetensors import load_file
+    from distdiff_tpu_torch.weights.synth import COMPONENT_FILES, write_synth_checkpoint
+
+    dev = torch.device("cuda")
+    root = os.path.dirname(os.path.abspath(__file__))
+    secs, seen = {}, {}
+    with tempfile.TemporaryDirectory(dir=root, prefix=".smoke_sd21_") as work:
+        t0 = time.time()
+        ckpt = write_synth_checkpoint(os.path.join(work, "sd21"), PipelineConfig.sd21(), seed=1)
+        secs["write checkpoint"] = time.time() - t0
+        t0 = time.time()
+        guide_path = os.path.join(work, "checkpoint", "model_best.pth.tar")
+        os.makedirs(os.path.dirname(guide_path))
+        write_guide_checkpoint(guide_path)
+        data = os.path.join(work, "data")
+        write_caltech_tree(data, train=SD21_CLI_TRAIN)
+        secs["write guide and PNG tree"] = time.time() - t0
+        argv = cli_argv(data, ckpt, guide_path, "out", units=SD21_CLI_UNITS) + [
+            "--model", "sd21", "--scheduler", "dpmpp", "--resolution", "768"]
+        build = cli.build_pipeline
+
+        def keep(*a, **kw):
+            seen["pipe"] = build(*a, **kw)
+            return seen["pipe"]
+
+        cwd = os.getcwd()
+        cli.build_pipeline = keep
+        try:
+            os.chdir(work)
+            stats, by_shape, secs["whole CLI"], peak = counted_call(lambda: cli.main(argv))
+        finally:
+            os.chdir(cwd)
+            cli.build_pipeline = build
+        pipe = seen["pipe"]
+        require(pipe.config.unet.linear_projection and pipe.config.sample_size == 768
+                and isinstance(pipe.sched, DPMSchedule)
+                and pipe.sched.prediction_type == "v_prediction",
+                f"the CLI built {pipe.config}")
+        for comp, (sub, fname) in COMPONENT_FILES.items():
+            written = load_file(os.path.join(ckpt, sub, fname))
+            keys = sorted(written)
+            module = getattr(pipe, "text_encoder" if comp == "text" else comp)
+            loaded_matches(module, written, keys[::max(1, len(keys) // 5)], comp)
+        pngs = sorted(os.path.join(d, f) for d, _, fs in os.walk(os.path.join(work, "out"))
+                      for f in fs if f.endswith(".png"))
+        require(stats["written"] == len(pngs) == SD21_CLI_UNITS,
+                f"{stats['written']} written, {len(pngs)} PNGs, {SD21_CLI_UNITS} units")
+        for path in pngs:
+            png = read_png(path)
+            require(png.shape == (768, 768, 3) and png.max() > png.min(),
+                    f"{path}: {png.shape}, flat {png.max() == png.min()}")
+        n_train = CLI_CLASSES * SD21_CLI_TRAIN
+        lat_path = [os.path.join(d, f) for d, _, fs in os.walk(os.path.join(work, "save"))
+                    for f in fs if f.startswith("image_latents_768")]
+        require(len(lat_path) == 1, f"latent caches {lat_path}")
+        latents = np.load(lat_path[0])
+        require(latents.shape == (n_train, 96, 96, 4) and bool(np.isfinite(latents).all()),
+                f"latent cache {latents.shape}, want {n_train} finite [96, 96, 4] latents")
+        protos = np.load(os.path.join(work, cli.prototype_cache_path(
+            "resnet50", "caltech-101", CLI_K)))
+        require(protos["local_prototypes"].shape == (CLI_CLASSES, CLI_K, 2048),
+                f"prototype cache {protos['local_prototypes'].shape}")
+    secs["driver"] = stats["seconds"]
+    encodes = -(-n_train // CLI_ENCODE_BATCH)
+    want = flash_plan(pipe, CLI_BATCH)
+    want[("flash_fwd", (CLI_ENCODE_BATCH, 96 * 96, 96 * 96, 512))] += encodes
+    check_flash_plan(by_shape, want, "phase 8 SD-2.1 CLI")
+    check_gn_plan(gn_only(by_shape), gn_plan(
+        expand_gn_calls(pipe, CLI_BATCH) + [sd21_encode_gn_call(pipe.config)],
+        smem_limit=gn._device_limits(dev)[0]))
+    require_timed(records, by_shape, "phase 8 (SD-2.1 CLI)")
+    for stage, s in secs.items():
+        print(f"  {stage}: {s:.2f} s ({card})")
+    print(f"  {len(pngs)} PNGs of 768x768x3; latent cache {latents.shape}; peak memory "
+          f"{peak / 2**30:.2f} GiB")
+    del seen, pipe
+    torch.cuda.empty_cache()
+    return {"secs": secs, "stats": stats, "by_shape": by_shape, "peak_bytes": peak}
+
+
+def sd15_solver_phase(records, card: str) -> dict:
+    """SD-1.5 at batch 2 under ``dpmpp`` and under ``deep_cache`` (interval
+    3, branch 0), each through ``make_expand_fn`` (a warm-up, a counted
+    call, two more timed) and ``SplitExpand`` (a counted call, one more
+    timed), each counted call's flash launches by shape against the plan.
+    Returns the timings, the pipeline and its inputs."""
+    import dataclasses
+
+    import torch
+
+    from distdiff_tpu_torch.schedulers import build_schedule
+
+    dev = torch.device("cuda")
+    pipe, _, inputs = build_path()
+
+    def gen(seed):
+        return torch.Generator(device=dev).manual_seed(seed)
+
+    def gens(seed):
+        return [gen(seed + i) for i in range(BATCH)]
+
+    out, by_shape = {}, collections.Counter()
+    for label, kw in (("dpmpp", dict(scheduler="dpmpp")),
+                      ("deep_cache", dict(deep_cache=True, cache_interval=3, cache_branch=0))):
+        cfg = dataclasses.replace(pipe.config, **kw)
+        vp = dataclasses.replace(pipe, config=cfg, sched=build_schedule(
+            cfg.scheduler, cfg.num_inference_steps, prediction_type=cfg.prediction_type))
+        fused, split = vp.make_expand_fn(), vp.make_split_expand()
+        wall_s(lambda: fused(*inputs, gen(1)))
+        img, shapes, secs, peak = counted_call(lambda: fused(*inputs, gen(2)))
+        check_images(img, 512, label)
+        check_flash_plan(shapes, flash_plan(vp, BATCH), f"phase 8 {label}, make_expand_fn")
+        require_timed(records, shapes, f"phase 8 ({label})")
+        runs = [secs] + [wall_s(lambda s=s: fused(*inputs, gen(s))) for s in (3, 4)]
+        simg, sshapes, ssecs, speak = counted_call(lambda: split(*inputs, gens(10)))
+        check_images(simg, 512, f"{label} SplitExpand")
+        check_flash_plan(sshapes, flash_plan(vp, BATCH), f"phase 8 {label}, SplitExpand")
+        require_timed(records, sshapes, f"phase 8 ({label} SplitExpand)")
+        sruns = [ssecs, wall_s(lambda: split(*inputs, gens(20)))]
+        by_shape += shapes + sshapes
+        out[label] = {"warm_s": statistics.median(runs), "runs": runs, "peak_bytes": peak,
+                      "split_runs": sruns, "split_peak_bytes": speak}
+        print(f"  SD-1.5 {label} batch {BATCH}: make_expand_fn {statistics.median(runs):.3f} "
+              f"s/batch (median of {[round(r, 3) for r in runs]}), SplitExpand "
+              f"{[round(r, 3) for r in sruns]} s, peak {peak / 2**30:.2f} / "
+              f"{speak / 2**30:.2f} GiB ({card})")
+    return out, by_shape, pipe, inputs
+
+
+def modes_phase(records, pipe, inputs, card: str) -> tuple:
+    """The transform guidance update alone at SD-1.5 batch 2, plan index
+    30, under each of the eight rollout_remat modes on the same latents and
+    draws: a counted call (its flash launches by shape against the mode's
+    plan, its peak memory) and two more timed; its updated latents,
+    gradients and scores against "step_nr"'s."""
+    import dataclasses
+
+    import torch
+
+    from distdiff_tpu_torch.config import ROLLOUT_REMAT_MODES
+    from distdiff_tpu_torch.guidance import transform_guidance
+
+    dev = torch.device("cuda")
+    lat, cond, uncond, targets = inputs
+    noise, gamma0, beta0 = pipe.draw_inputs(lat, torch.Generator(device=dev).manual_seed(7))
+    start, _, _, g0, _ = pipe.window()
+    with torch.no_grad():
+        x = pipe.denoise_ranged()(pipe.init_latents(lat, noise), cond, uncond, start, g0)
+    base_cfg = pipe.guidance_cfg
+    out, by_shape, ref = {}, collections.Counter(), None
+    order = ["step_nr"] + [m for m in ROLLOUT_REMAT_MODES if m != "step_nr"]
+    try:
+        for mode in order:
+            pipe.guidance_cfg = dataclasses.replace(base_cfg, rollout_remat=mode)
+            ctx = pipe.guidance_context()
+
+            def run(ctx=ctx):
+                return transform_guidance(ctx, x, cond, uncond, targets, g0, gamma0, beta0)
+
+            (up, score, grads), shapes, secs, peak = counted_call(run)
+            check_flash_plan(shapes, flash_plan(pipe, BATCH, parts=("rollout",)),
+                             f"phase 8 rollout_remat={mode}")
+            require_timed(records, shapes, f"phase 8 ({mode})")
+            by_shape += shapes
+            runs = [secs] + [wall_s(run) for _ in range(2)]
+            got = {"latents": up.float(), "gamma": grads[0], "beta": grads[1],
+                   "score": score}
+            if ref is None:
+                ref = got
+            diff = {k: float((got[k] - ref[k]).abs().max()) for k in got}
+            scale = {k: float(ref[k].abs().max()) for k in got}
+            lat_tol = (base_cfg.rho * (diff["gamma"] * float(x.float().abs().max()) + diff["beta"])
+                       + MODE_LAT_STEP * scale["latents"])
+            tols = {"latents": lat_tol / scale["latents"], "gamma": MODE_GRAD_TOL,
+                    "beta": MODE_GRAD_TOL, "score": MODE_SCORE_TOL}
+            errs = {k: diff[k] / scale[k] for k in got}
+            out[mode] = {"s": statistics.median(runs), "runs": runs, "peak_bytes": peak,
+                         "rel_err": errs, "rel_tol": tols}
+            print(f"  {mode}: {statistics.median(runs):.3f} s (median of "
+                  f"{[round(r, 3) for r in runs]}), peak {peak / 2**30:.2f} GiB; against "
+                  f"step_nr, of its size: " + ", ".join(
+                      f"{k} {errs[k]:.2e} (tol {tols[k]:.1e})" for k in got) + f" ({card})")
+            for k in got:
+                require(math.isfinite(errs[k]) and errs[k] <= tols[k],
+                        f"rollout_remat={mode}: {k} {errs[k]:.3e} of its size from step_nr's "
+                        f"(tol {tols[k]:.1e})")
+    finally:
+        pipe.guidance_cfg = base_cfg
+    return out, by_shape
+
+
+def solver_fp32_phase() -> None:
+    """The fp32 tiny() pipeline on the card against the port on the CPU,
+    with the same weights and draws, at phase 3's tolerance: under dpmpp
+    (make_expand_fn and SplitExpand), under deep_cache (interval 2, both
+    entry points), in SD-2.1's shape (v-prediction, linear projections,
+    heads of one width, the gelu text tower, its text held too), and
+    under each rollout_remat mode."""
+    import dataclasses
+
+    import torch
+
+    from distdiff_tpu_torch.config import ROLLOUT_REMAT_MODES
+    from distdiff_tpu_torch.models import HashTokenizer
+    from distdiff_tpu_torch.ops import flash
+    from distdiff_tpu_torch.ops import groupnorm as gn
+
+    dev = torch.device("cuda")
+
+    def sd21_shape(c):
+        return dataclasses.replace(
+            c, prediction_type="v_prediction",
+            unet=dataclasses.replace(c.unet, linear_projection=True, num_attention_heads=(2, 4)),
+            text_encoder=dataclasses.replace(c.text_encoder, activation="gelu"))
+
+    variants = (("dpmpp", lambda c: dataclasses.replace(c, scheduler="dpmpp")),
+                ("deep_cache", lambda c: dataclasses.replace(c, deep_cache=True,
+                                                              cache_interval=2)),
+                ("SD-2.1 shape", sd21_shape))
+    flash.reset_launch_counts()
+    gn.reset_launch_counts()
+    for label, edit in variants:
+        pipes, inputs, gen = tiny_fp32_pipes(seed=10, edit=edit)
+        draws = dict(zip(("noise", "gamma0", "beta0"), pipes[0].draw_inputs(inputs[0], gen)))
+        for split in (False, True):
+            want = tiny_expand(pipes[0], "cpu", inputs, draws, split)
+            got = tiny_expand(pipes[1], dev, inputs, draws, split)
+            print(f"  {label}, {'SplitExpand' if split else 'make_expand_fn'}:")
+            agree_fp32(zip(("image", "updated latents", "guidance score"), got, want))
+        if label == "SD-2.1 shape":
+            ids = torch.as_tensor(HashTokenizer(vocab_size=1000, max_length=16)(
+                ["a photo of an owl", ""])).long()
+            text = [p.encode_text(ids.to(d)).float().cpu() for p, d in zip(pipes, ("cpu", dev))]
+            agree_fp32([("gelu text tower", text[1], text[0])])
+    pipes, inputs, gen = tiny_fp32_pipes(seed=11)
+    draws = dict(zip(("noise", "gamma0", "beta0"), pipes[0].draw_inputs(inputs[0], gen)))
+    for mode in ROLLOUT_REMAT_MODES:
+        for pipe in pipes:
+            pipe.guidance_cfg = dataclasses.replace(pipe.guidance_cfg, rollout_remat=mode)
+        want = tiny_expand(pipes[0], "cpu", inputs, draws)
+        got = tiny_expand(pipes[1], dev, inputs, draws)
+        print(f"  rollout_remat={mode}:")
+        agree_fp32(zip(("image", "updated latents", "guidance score"), got, want))
+    torch.cuda.synchronize()
+    counts = dict(flash.launch_counts, **gn.launch_counts)
+    print(f"  launches over the fp32 card runs: {counts}")
+    require(all(counts[k] > 0 for k in ("flash_fwd", "flash_bwd_fused", "flash_bwd_dq",
+                                        "flash_bwd_dkv", "gn_fused")),
+            f"the fp32 runs did not go through the kernels: {counts}")
+
+
 def check_gn_plan(got: dict, want) -> None:
     """Every GroupNorm kernel's launches by shape against the plan."""
     totals = {k: [0, 0] for k in GN_KERNELS}
@@ -2634,10 +3219,11 @@ def summarize(records, by_shape) -> list:
     return entries
 
 
-def build_path():
-    """The main path at full SD-1.5 geometry on the card: the pipeline
-    (seeded random weights, bf16 UNet/VAE, fp32 ResNet-50 guide with 100
-    classes and random prototypes), its expand function and its inputs."""
+def build_path(config=None):
+    """The main path at full SD-1.5 geometry (or ``config``'s, e.g.
+    ``PipelineConfig.sd21()``) on the card: the pipeline (seeded random
+    weights, bf16 UNet/VAE, fp32 ResNet-50 guide with 100 classes and
+    random prototypes), its expand function and its inputs."""
     import torch
 
     from distdiff_tpu_torch.config import GuidanceConfig, PipelineConfig
@@ -2645,6 +3231,7 @@ def build_path():
     from distdiff_tpu_torch.models.init import init_weights
     from distdiff_tpu_torch.sampling import ExpansionPipeline, SamplerConfig, cast_params_bf16
 
+    config = PipelineConfig.sd15() if config is None else config
     dev = torch.device("cuda")
     gen = torch.Generator(device=dev).manual_seed(0)
     guide = create_model("resnet50", num_classes=100, device=dev)
@@ -2654,7 +3241,7 @@ def build_path():
     gp = torch.randn(100, fd, generator=gen, device=dev)
     lp = torch.randn(100, gcfg.K, fd, generator=gen, device=dev)
     pipe = ExpansionPipeline.create(
-        PipelineConfig.sd15(), sampler_cfg=SamplerConfig(guidance_scale=7.5),
+        config, sampler_cfg=SamplerConfig(guidance_scale=7.5),
         guidance_cfg=gcfg, guide=guide, global_protos=gp, local_protos=lp,
         strength=0.5, seed=0, device=dev)
     cast_params_bf16(pipe)
@@ -2662,9 +3249,10 @@ def build_path():
           f"{sum(p.numel() for p in pipe.vae.parameters()) / 1e6:.1f}M, guide "
           f"{sum(p.numel() for p in guide.module.parameters()) / 1e6:.1f}M")
     ls = pipe.config.latent_size
+    ctx = config.unet.cross_attention_dim
     lat = torch.randn(BATCH, ls, ls, 4, generator=gen, device=dev) * 0.18
-    cond = torch.randn(BATCH, 77, 768, generator=gen, device=dev)
-    uncond = torch.randn(BATCH, 77, 768, generator=gen, device=dev)
+    cond = torch.randn(BATCH, 77, ctx, generator=gen, device=dev)
+    uncond = torch.randn(BATCH, 77, ctx, generator=gen, device=dev)
     targets = torch.randint(0, 100, (BATCH,), generator=gen, device=dev)
     return pipe, pipe.make_expand_fn(), (lat, cond, uncond, targets)
 
@@ -2753,8 +3341,11 @@ def main(argv) -> int:
     ptxas_phase()
 
     if "--profile" in argv:
-        print("== profile of the main path")
-        _, expand, inputs = build_path()
+        from distdiff_tpu_torch.config import PipelineConfig
+
+        sd21 = "--sd21" in argv
+        print(f"== profile of the {'SD-2.1 768-v' if sd21 else 'main'} path")
+        _, expand, inputs = build_path(PipelineConfig.sd21() if sd21 else None)
         json_path = argv[argv.index("--json") + 1] if "--json" in argv else None
         profile_path(expand, inputs, json_path)
         return 0
@@ -2764,7 +3355,7 @@ def main(argv) -> int:
     print("  -- fp32 flash")
     fp32_records = flash_f32_phase()
     print("  -- GroupNorm")
-    records += gn_kernel_phase(gn_shapes(main_gn_calls()))
+    records += gn_kernel_phase(gn_shapes(main_gn_calls() + sd21_gn_calls()))
 
     print("== 3. agreement at a small geometry")
     agreement_phase()
@@ -2870,10 +3461,34 @@ def main(argv) -> int:
               f"written in {transform['write_s']:.2f} s ({card})")
     print(f"  phase 7: {time.time() - t0:.1f} s ({card})")
 
-    print("== 8. result")
+    print("== 8. SD-2.1 768-v, DPM-Solver++(2M), DeepCache and the rollout_remat modes")
+    del pipe, expand, inputs, img, aux, gg, gb  # phases 4-6's pipelines go first
+    front.pop("split")
+    front.pop("items")
+    gc.collect()
+    torch.cuda.empty_cache()
+    t0 = time.time()
+    sd21 = sd21_phase(records, card)
+    print("  -- cli.generate_data --model sd21 --scheduler dpmpp from files on disk")
+    sd21_cli = sd21_cli_phase(records, card)
+    print("  -- SD-1.5 under dpmpp and under deep_cache")
+    solvers, solver_shapes, pipe, inputs = sd15_solver_phase(records, card)
+    print("  -- the guidance update under each rollout_remat mode, SD-1.5 batch 2")
+    modes, mode_shapes = modes_phase(records, pipe, inputs, card)
+    del pipe, inputs
+    gc.collect()
+    torch.cuda.empty_cache()
+    print("  -- fp32 tiny() on the card against the CPU: dpmpp, deep_cache, SD-2.1's shape, "
+          "the modes")
+    solver_fp32_phase()
+    print(f"  phase 8: {time.time() - t0:.1f} s ({card})")
+
+    print("== 9. result")
     print(card)
     print(json.dumps({
-        "kernels": summarize(records, by_shape + front["by_shape"] + cli["by_shape"]),
+        "kernels": summarize(records, by_shape + front["by_shape"] + cli["by_shape"]
+                             + sd21["by_shape"] + sd21_cli["by_shape"] + solver_shapes
+                             + mode_shapes),
         "fp32_flash": fp32_records, "expand_warm_s": warm_s,
         "expand_warm_s_runs": warm_runs, "expand_peak_bytes": peak,
         "split_expand_warm_s": split["warm_s"], "split_expand_warm_s_runs": split["runs"],
@@ -2889,7 +3504,12 @@ def main(argv) -> int:
                   "write_s": trainer["write_s"],
                   "main_s": {k: trainer[f"{k}_main_s"] for k in ("train", "resume",
                                                                  "expanded")},
-                  "transform": transform}}))
+                  "transform": transform},
+        "sd21": {"warm_s": sd21["warm_s"], "runs": sd21["runs"], "cold_s": sd21["cold_s"],
+                 "peak_bytes": sd21["peak_bytes"], "kernels": sd21["kernels"],
+                 "cli_seconds": sd21_cli["secs"], "cli_driver": sd21_cli["stats"],
+                 "cli_peak_bytes": sd21_cli["peak_bytes"]},
+        "solvers": solvers, "rollout_remat": modes}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

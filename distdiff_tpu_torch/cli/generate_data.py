@@ -2,18 +2,20 @@
 the reference's ``generate_data.py`` role with its full flag vocabulary and
 defaults, vestigial DreamBooth flags accepted as logged no-ops.
 
-Pipeline: the SD-1.x pipeline with weights from a diffusers-layout
-directory (``--sd_checkpoint``; seeded random weights with a loud warning
-otherwise) -> ``SDDataset`` with its text-embedding and VAE-latent caches ->
-the guide (``--encoder_weight_path``) and its cached prototypes ->
-``ExpansionDriver`` writing ``{output_dir}/{classname}/{stem}_expand_{i}.png``.
+Pipeline: the SD-1.5 (or with ``--model sd21`` SD-2.1 768-v) pipeline with
+weights from a diffusers-layout directory (``--sd_checkpoint``; seeded
+random weights with a loud warning otherwise), sampled by DDIM or
+``--scheduler dpmpp`` (DPM-Solver++(2M)), optionally with ``--deep_cache``
+-> ``SDDataset`` with its text-embedding and VAE-latent caches -> the guide
+(``--encoder_weight_path``) and its cached prototypes -> ``ExpansionDriver``
+writing ``{output_dir}/{classname}/{stem}_expand_{i}.png``.
 
 It runs on the card; ``DISTDIFF_PLATFORM=cpu`` runs it on the CPU (with
-``--tiny``, the toy config). A flag whose module is not ported (``--model
-sd21|sdxl``, ``--scheduler dpmpp``, ``--deep_cache``, ``--int8``,
-``--lora``, ``--params_path``, ``--save_params``, ``--mesh_model`` > 1, a
-guide arch other than ``resnet50``) raises ``NotImplementedError`` naming
-its ROADMAP item.
+``--tiny``, the toy config; with ``--tiny --model sd21`` the toy config in
+v-prediction). A flag whose module is not ported (``--model sdxl``,
+``--int8``, ``--lora``, ``--params_path``, ``--save_params``,
+``--mesh_model`` > 1, a guide arch other than ``resnet50``) raises
+``NotImplementedError`` naming its ROADMAP item.
 
 Usage (the reference recipe, ``scripts/exps/expand_diff.sh``):
   python -m distdiff_tpu_torch.cli.generate_data -d caltech-101 -a resnet50 \
@@ -65,8 +67,10 @@ def build_parser():
                    help="local diffusers-format SD checkpoint dir to convert")
     p.add_argument("--model", type=str, default="sd15",
                    choices=["sd15", "sd21", "sdxl"],
-                   help="diffusion backbone: sd15 (reference recipe); sd21 "
-                        "and sdxl are not ported (ROADMAP queue 1 item 8)")
+                   help="diffusion backbone: sd15 (reference recipe), sd21 "
+                        "(SD-2.1 768-v: OpenCLIP-H text tower, v-prediction; "
+                        "pass --resolution 768); sdxl is not ported (ROADMAP "
+                        "queue 1 item 8)")
     p.add_argument("--params_path", type=str, default=None,
                    help="the JAX package's orbax parameter tree (not read by "
                         "the port: ROADMAP queue 1 item 8)")
@@ -84,11 +88,11 @@ def build_parser():
                         "default: the model config's plan, 50 / tiny 10)")
     p.add_argument("--scheduler", type=str, default="ddim",
                    choices=["ddim", "dpmpp"],
-                   help="sampling solver: ddim (dpmpp, DPM-Solver++(2M), is "
-                        "not ported: ROADMAP queue 1 item 8)")
+                   help="sampling solver: ddim (the reference's) or dpmpp "
+                        "(DPM-Solver++(2M))")
     p.add_argument("--deep_cache", action="store_true",
-                   help="DeepCache-style feature caching (not ported: "
-                        "ROADMAP queue 1 item 8)")
+                   help="DeepCache-style deep-feature caching in the plain "
+                        "denoise spans (approximate, opt-in; ddim only)")
     p.add_argument("--cache_interval", type=int, default=3,
                    help="full UNet step every N steps under --deep_cache")
     p.add_argument("--cache_branch", type=int, default=0,
@@ -273,11 +277,9 @@ def check_ported(args) -> None:
     """Raise ``NotImplementedError``, naming the ROADMAP item, for a flag
     whose module the port does not have yet; none is ignored quietly."""
     unported = []
-    if args.model != "sd15":
+    if args.model == "sdxl":
         unported.append(f"--model {args.model}")
-    if args.scheduler != "ddim":
-        unported.append(f"--scheduler {args.scheduler}")
-    for flag in ("deep_cache", "int8", "lora", "params_path", "save_params"):
+    for flag in ("int8", "lora", "params_path", "save_params"):
         if getattr(args, flag):
             unported.append(f"--{flag}")
     if args.mesh_model != 1:
@@ -292,8 +294,9 @@ def check_ported(args) -> None:
 
 
 def build_pipeline(args, device=None):
-    """The SD-1.x pipeline of ``args`` on ``device`` (default: ``cli_device()``),
-    with the weights of ``--sd_checkpoint`` when given."""
+    """The pipeline of ``args`` (``--model``, ``--scheduler``,
+    ``--deep_cache``) on ``device`` (default: ``cli_device()``), with the
+    weights of ``--sd_checkpoint`` when given."""
     from distdiff_tpu_torch.config import GuidanceConfig, PipelineConfig
     from distdiff_tpu_torch.sampling import ExpansionPipeline, SamplerConfig, cast_params_bf16
 
@@ -301,12 +304,24 @@ def build_pipeline(args, device=None):
     device = cli_device() if device is None else device
     if args.tiny:
         config = PipelineConfig.tiny(sample_size=min(args.resolution, 64))
+        if args.model == "sd21":  # the toy config in SD-2.1's v-prediction
+            config = dataclasses.replace(config, prediction_type="v_prediction")
         guide_input = config.sample_size
+    elif args.model == "sd21":
+        config = PipelineConfig.sd21(sample_size=args.resolution)
+        guide_input = 224
     else:
         config = dataclasses.replace(PipelineConfig.sd15(), sample_size=args.resolution)
         guide_input = 224
     if args.steps is not None:
         config = dataclasses.replace(config, num_inference_steps=args.steps)
+    config = dataclasses.replace(config, scheduler=args.scheduler)
+    if args.deep_cache:
+        config = dataclasses.replace(config, deep_cache=True, cache_interval=args.cache_interval,
+                                     cache_branch=args.cache_branch)
+        if config.scheduler != "ddim":  # refused before any cache is built
+            raise NotImplementedError(
+                "deep_cache composes with the DDIM solver only (config.scheduler='ddim')")
     gcfg = GuidanceConfig(
         guidance_type=args.guidance_type,
         guidance_step=args.guidance_step,

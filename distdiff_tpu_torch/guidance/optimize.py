@@ -8,10 +8,15 @@
   * direct: at every window step, advance the trajectory and descend the
     energy gradient on the latents themselves.
 
-Each rollout step (UNet step + VAE decode + resize + guide encode) of the
-transform mode runs under ``torch.utils.checkpoint`` (non-reentrant): the
-counterpart of the reference's ``rollout_remat="step"``, the only mode
-ported.
+Where the transform mode's backward recomputes instead of storing is
+``GuidanceConfig.rollout_remat``, as in the JAX package: an outer
+non-reentrant ``torch.utils.checkpoint`` around each rollout step (UNet
+step + VAE decode + resize + guide encode) in the "step*", "tail*" and
+"decode_nr" modes ("tail*" leaves the last step without one), a checkpoint
+around the decode + guide leg alone in "decode", and the models' inner
+per-block checkpoints, which ``ExpansionPipeline.guidance_context`` turns
+on or off in the eps and decode functions it hands over. Every mode gives
+the same values.
 """
 
 from __future__ import annotations
@@ -46,12 +51,19 @@ class GuidanceContext:
 
 
 def _step_energy(ctx: GuidanceContext, x, i: int, cond, uncond, targets,
-                 do_normalize: bool):
-    """One DDIM step + decode + encode -> (x_next, per-sample energies [B])."""
+                 do_normalize: bool, remat_decode: bool = False):
+    """One DDIM step + decode + encode -> (x_next, per-sample energies [B]).
+    ``remat_decode`` checkpoints the decode + encode leg alone (its input
+    is the small pred-x0 latents; the decoder's activations are the
+    rollout's largest)."""
     t = int(ctx.sched.timesteps[i])
     eps = ctx.eps_fn(x, t, cond, uncond)
     x_next, x0 = ddim_step(ctx.sched, eps, i, x)
-    feats = ctx.encode_fn(ctx.decode_fn(x0))
+
+    def feat_fn(z):
+        return ctx.encode_fn(ctx.decode_fn(z))
+
+    feats = checkpoint(feat_fn, x0, use_reentrant=False) if remat_decode else feat_fn(x0)
     if do_normalize:
         feats = normalize(feats)
     e = hierarchical_energy_per_sample(
@@ -76,9 +88,8 @@ def transform_guidance(
     """Returns (updated latents at the same plan index, per-sample scores,
     (grad_gamma, grad_beta))."""
     cfg = ctx.cfg
-    if cfg.rollout_remat != "step":
-        raise NotImplementedError(
-            f"rollout_remat={cfg.rollout_remat!r}: only 'step' is ported")
+    mode = cfg.rollout_remat
+    outer = mode.startswith(("step", "tail")) or mode == "decode_nr"
     do_norm = cfg.normalize_features if cfg.normalize_features is not None else False
     lat32 = latents.float()
     gamma = gamma0.float().detach().requires_grad_(True)
@@ -86,10 +97,17 @@ def transform_guidance(
     with torch.enable_grad():
         x = (lat32 * (1.0 + gamma) + beta).to(latents.dtype)
         score = torch.zeros(latents.shape[0], dtype=torch.float32, device=latents.device)
-        for i in range(window_start, window_start + cfg.guidance_period):
+        last = window_start + cfg.guidance_period - 1
+        for i in range(window_start, last + 1):
             def step(xx, i=i):
-                return _step_energy(ctx, xx, i, cond, uncond, targets, do_norm)
-            x, e = checkpoint(step, x, use_reentrant=False)
+                return _step_energy(ctx, xx, i, cond, uncond, targets, do_norm,
+                                    remat_decode=mode == "decode")
+            # "tail*": the last step's backward runs first, so without its
+            # outer checkpoint only its own residuals are live at once
+            if outer and not (mode.startswith("tail") and i == last):
+                x, e = checkpoint(step, x, use_reentrant=False)
+            else:
+                x, e = step(x)
             score = score + e
         score = score / cfg.guidance_period
         # Sum over the batch: each sample's gamma/beta gradient equals its

@@ -14,12 +14,15 @@ timestep MLP is fp32.
 
 from __future__ import annotations
 
+import copy
+import dataclasses
 import math
 from typing import Optional
 
 import torch
 import torch.nn as nn
 import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
 
 from distdiff_tpu_torch.ops import attention as attn_op
 from distdiff_tpu_torch.ops.groupnorm import group_norm
@@ -254,6 +257,28 @@ class BasicTransformerBlock(nn.Module):
         return x + self.ff(self.norm3(x))
 
 
+def remat_call(remat: bool, module: nn.Module, *args):
+    """``module(*args)``, under a non-reentrant ``torch.utils.checkpoint``
+    when ``remat`` is set and autograd records (where the JAX package puts
+    ``nn.remat``): the backward recomputes the block from its inputs
+    instead of keeping its activations. The values are the same."""
+    if remat and torch.is_grad_enabled():
+        return checkpoint(module, *args, use_reentrant=False)
+    return module(*args)
+
+
+def with_remat(model: nn.Module, remat: bool) -> nn.Module:
+    """``model`` (a UNet or an ``AutoencoderKL``, each with a ``config``
+    holding ``remat``) with its inner checkpoints set to ``remat``: the
+    model itself when they already are, else a shallow copy that shares
+    every parameter and submodule and differs in its config alone."""
+    if model.config.remat == remat:
+        return model
+    view = copy.copy(model)
+    view.config = dataclasses.replace(model.config, remat=remat)
+    return view
+
+
 class Block(nn.Module):
     """A container named like diffusers' down/mid/up blocks: ``resnets``,
     ``attentions`` (possibly empty) and, when given, ``samplers`` under
@@ -268,25 +293,39 @@ class Block(nn.Module):
 
 
 class Transformer2DModel(nn.Module):
-    """SpatialTransformer: GN -> 1x1 proj_in -> blocks over HW tokens ->
-    1x1 proj_out, residual."""
+    """SpatialTransformer: GN -> proj_in -> blocks over HW tokens ->
+    proj_out, residual. The projections are 1x1 convolutions (SD-1.x), or
+    with ``linear`` linear layers on the tokens (diffusers'
+    ``use_linear_projection``, SD-2.x): the same function, stored as
+    [C, C, 1, 1] or [C, C]."""
 
     def __init__(self, c, heads, head_dim, context_dim, depth=1,
-                 dtype=torch.float32, device=None):
+                 dtype=torch.float32, device=None, linear=False):
         super().__init__()
+        self.linear = linear
+        proj = ((lambda: Linear(c, c, dtype=dtype, device=device)) if linear
+                else (lambda: Conv2d(c, c, 1, dtype=dtype, device=device)))
         self.norm = GroupNorm(c, device=device)
-        self.proj_in = Conv2d(c, c, 1, dtype=dtype, device=device)
+        self.proj_in = proj()
         self.transformer_blocks = nn.ModuleList([
             BasicTransformerBlock(c, heads, head_dim, context_dim, dtype=dtype,
                                   device=device)
             for _ in range(depth)])
-        self.proj_out = Conv2d(c, c, 1, dtype=dtype, device=device)
+        self.proj_out = proj()
 
     def forward(self, x, context):
         b, c, h, w = x.shape
-        y = self.proj_in(self.norm(x))
+        y = self.norm(x)
+        if not self.linear:
+            y = self.proj_in(y)
         y = y.flatten(2).transpose(1, 2)                    # [B, HW, C]
+        if self.linear:
+            y = self.proj_in(y)
         for block in self.transformer_blocks:
             y = block(y, context)
+        if self.linear:
+            y = self.proj_out(y)
         y = y.transpose(1, 2).reshape(b, c, h, w)
-        return self.proj_out(y) + x
+        if not self.linear:
+            y = self.proj_out(y)
+        return y + x

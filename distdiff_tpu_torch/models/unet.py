@@ -1,15 +1,19 @@
-"""UNet2DCondition (port of ``distdiff_tpu/models/unet.py``), SD-1.x and
-tiny geometries, with diffusers' state-dict names.
+"""UNet2DCondition (port of ``distdiff_tpu/models/unet.py``), SD-1.x,
+SD-2.1 and tiny geometries, with diffusers' state-dict names.
 
 The public call takes NHWC latents ``[B, h, w, C_in]`` and returns the fp32
-prediction in NHWC; inside, the network runs NCHW. The reference's
-``deep_cache``/``segment`` variants and SDXL's additive conditioning are not
-ported; its ``nn.remat`` does not change values and has no counterpart.
+prediction in NHWC; inside, the network runs NCHW. It takes the JAX
+package's DeepCache arguments (``return_cache``, ``deep_cache``,
+``cache_branch``); its pipeline-parallel ``segment``/``skips`` and SDXL's
+additive conditioning are not ported. With ``config.remat``, and only while
+autograd records, each ``ResnetBlock2D`` and ``Transformer2DModel`` runs
+under a non-reentrant ``torch.utils.checkpoint``, where the JAX package
+puts its ``nn.remat``; the values are the same either way.
 """
 
 from __future__ import annotations
 
-from typing import Union
+from typing import Optional, Union
 
 import torch
 import torch.nn as nn
@@ -25,6 +29,7 @@ from distdiff_tpu_torch.models.layers import (
     TimestepEmbedding,
     Transformer2DModel,
     Upsample2D,
+    remat_call,
     timestep_embedding,
 )
 
@@ -45,7 +50,8 @@ class UNet2DConditionModel(nn.Module):
         def transformer(ch, bi):
             heads = cfg.heads_at(bi)
             return Transformer2DModel(ch, heads, ch // heads, ctx_dim,
-                                      depth=cfg.depth_at(bi), **kw)
+                                      depth=cfg.depth_at(bi),
+                                      linear=cfg.linear_projection, **kw)
 
         self.conv_in = SmallConv3x3(cfg.in_channels, boc[0], **kw)
         self.time_embedding = TimestepEmbedding(boc[0], temb, dtype=dt, device=device)
@@ -92,13 +98,32 @@ class UNet2DConditionModel(nn.Module):
         self.conv_out = SmallConv3x3(boc[0], cfg.out_channels, dtype=dt,
                                      out_dtype=torch.float32, device=device)
 
-    def forward(self, sample: torch.Tensor, timestep, encoder_hidden_states: torch.Tensor
-                ) -> torch.Tensor:
+    def _block(self, module, *args):
+        return remat_call(self.config.remat, module, *args)
+
+    def forward(self, sample: torch.Tensor, timestep, encoder_hidden_states: torch.Tensor,
+                deep_cache: Optional[torch.Tensor] = None, return_cache: bool = False,
+                cache_branch: int = 0):
         """``sample [B, h, w, C_in]`` (NHWC), ``timestep`` int or ``[B]``,
-        ``encoder_hidden_states [B, T, D_ctx]`` -> fp32 ``[B, h, w, C_out]``."""
+        ``encoder_hidden_states [B, T, D_ctx]`` -> fp32 ``[B, h, w, C_out]``.
+
+        DeepCache (Ma et al. 2023): ``return_cache=True`` runs the whole
+        network and also returns the feature entering up group
+        ``n_blocks - 1 - cache_branch`` (the output of everything below
+        down level ``cache_branch``); ``deep_cache=<that feature>`` runs
+        only down levels ``<= cache_branch``, stopping before that level's
+        downsample, takes the cached feature in place of the deep
+        subnetwork and runs the remaining up groups. The feature is NCHW,
+        as the network holds it."""
         cfg = self.config
         dt = cfg.dtype
         b = sample.shape[0]
+        n_blocks = len(cfg.block_out_channels)
+        shallow = deep_cache is not None
+        if shallow or return_cache:
+            if not 0 <= cache_branch < n_blocks - 1:
+                raise ValueError(f"cache_branch {cache_branch} outside [0, {n_blocks - 1})")
+        cache_ui = n_blocks - 1 - cache_branch  # the up group the cache enters
         t = torch.as_tensor(timestep, device=sample.device).reshape(-1)
         if t.shape[0] == 1 and b > 1:
             t = t.expand(b)
@@ -107,27 +132,41 @@ class UNet2DConditionModel(nn.Module):
         x = self.conv_in(sample.permute(0, 3, 1, 2).to(dt))
 
         skips = [x]
-        for blk in self.down_blocks:
+        down = self.down_blocks[:cache_branch + 1] if shallow else self.down_blocks
+        for bi, blk in enumerate(down):
             for li, res in enumerate(blk.resnets):
-                x = res(x, temb)
+                x = self._block(res, x, temb)
                 if len(blk.attentions):
-                    x = blk.attentions[li](x, context)
+                    x = self._block(blk.attentions[li], x, context)
                 skips.append(x)
-            if hasattr(blk, "downsamplers"):
+            # the shallow path stops before cache_branch's downsample: its
+            # skip belongs to the cached deep subnetwork
+            if hasattr(blk, "downsamplers") and not (shallow and bi == cache_branch):
                 x = blk.downsamplers[0](x)
                 skips.append(x)
 
-        x = self.mid_block.resnets[0](x, temb)
-        x = self.mid_block.attentions[0](x, context)
-        x = self.mid_block.resnets[1](x, temb)
+        if shallow:
+            x = deep_cache.to(dt)
+            up_groups = range(cache_ui, n_blocks)
+        else:
+            x = self._block(self.mid_block.resnets[0], x, temb)
+            x = self._block(self.mid_block.attentions[0], x, context)
+            x = self._block(self.mid_block.resnets[1], x, temb)
+            up_groups = range(n_blocks)
 
-        for blk in self.up_blocks:
+        cache_out = None
+        for ui in up_groups:
+            blk = self.up_blocks[ui]
+            if return_cache and ui == cache_ui:
+                cache_out = x
             for li, res in enumerate(blk.resnets):
-                x = res(torch.cat([x, skips.pop()], dim=1), temb)
+                x = self._block(res, torch.cat([x, skips.pop()], dim=1), temb)
                 if len(blk.attentions):
-                    x = blk.attentions[li](x, context)
+                    x = self._block(blk.attentions[li], x, context)
             if hasattr(blk, "upsamplers"):
                 x = blk.upsamplers[0](x)
+        assert not skips, f"unconsumed skip states: {len(skips)}"
 
         x = self.conv_out(self.conv_norm_out(x))
-        return x.float().permute(0, 2, 3, 1)
+        out = x.float().permute(0, 2, 3, 1)
+        return (out, cache_out) if return_cache else out

@@ -2,8 +2,11 @@
 state-dict names. Public calls take and return NHWC; inside it runs NCHW.
 
 The decoder is the guidance gradient's path. Its mid-block attention is a
-single head of width C (512 at SD geometry) over the latent's 64^2 tokens,
-so it reaches the flash kernels at D = 512.
+single head of width C (512 at SD geometry) over the latent's 64^2 tokens
+(96^2 at 768^2), so it reaches the flash kernels at D = 512. With
+``config.remat``, and only while autograd records, each decoder
+``ResnetBlock2D`` runs under a non-reentrant checkpoint, where the JAX
+package puts its ``nn.remat``.
 """
 
 from __future__ import annotations
@@ -24,6 +27,7 @@ from distdiff_tpu_torch.models.layers import (
     ResnetBlock2D,
     SmallConv3x3,
     Upsample2D,
+    remat_call,
 )
 from distdiff_tpu_torch.ops import attention as attn_op
 
@@ -57,10 +61,10 @@ def _mid_block(c, dtype, device):
         [VAEAttention(c, dtype=dtype, device=device)])
 
 
-def _run_mid(mid, x):
-    x = mid.resnets[0](x)
+def _run_mid(mid, x, remat=False):
+    x = remat_call(remat, mid.resnets[0], x)
     x = mid.attentions[0](x)
-    return mid.resnets[1](x)
+    return remat_call(remat, mid.resnets[1], x)
 
 
 class Encoder(nn.Module):
@@ -122,12 +126,12 @@ class Decoder(nn.Module):
                                      out_dtype=torch.float32, device=device)
         self.dtype = dt
 
-    def forward(self, z):
+    def forward(self, z, remat: bool = False):
         x = self.conv_in(z.to(self.dtype))
-        x = _run_mid(self.mid_block, x)
+        x = _run_mid(self.mid_block, x, remat)
         for blk in self.up_blocks:
             for res in blk.resnets:
-                x = res(x)
+                x = remat_call(remat, res, x)
             if hasattr(blk, "upsamplers"):
                 x = blk.upsamplers[0](x)
         return self.conv_out(self.conv_norm_out(x))
@@ -163,5 +167,6 @@ class AutoencoderKL(nn.Module):
         return mean + torch.exp(0.5 * logvar) * noise
 
     def decode(self, z: torch.Tensor) -> torch.Tensor:
-        img = self.decoder(self.post_quant_conv(z.float().permute(0, 3, 1, 2)))
+        img = self.decoder(self.post_quant_conv(z.float().permute(0, 3, 1, 2)),
+                           remat=self.config.remat)
         return img.permute(0, 2, 3, 1)

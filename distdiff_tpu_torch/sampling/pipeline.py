@@ -3,9 +3,12 @@
 ``encode_images``, ``encode_text``, ``make_expand_fn``, ``SplitExpand`` and
 the pieces they use).
 
-Noise cached latents to the img2img start, denoise with CFG, splice the
-DistDiff guidance in at the window, decode to images in [0, 1]. Eager
-PyTorch: the plain denoise runs without autograd, the guidance leg with it.
+Noise cached latents to the img2img start, denoise with CFG (DDIM or
+DPM-Solver++(2M), ``config.scheduler``; DeepCache under
+``config.deep_cache``), splice the DistDiff guidance in at the window,
+decode to images in [0, 1]. Eager PyTorch: the plain denoise runs without
+autograd, the guidance leg with it, its recompute placed by
+``GuidanceConfig.rollout_remat``.
 
 Precision: the UNet, VAE and text encoder run in their config's dtype (bf16
 at SD-1.5 geometry; ``cast_params_bf16`` also stores their weights in
@@ -31,6 +34,7 @@ from distdiff_tpu_torch.guidance.optimize import (
 )
 from distdiff_tpu_torch.models.guide.factory import GuideModel
 from distdiff_tpu_torch.models.init import init_weights
+from distdiff_tpu_torch.models.layers import with_remat
 from distdiff_tpu_torch.models.text_encoder import CLIPTextEncoder
 from distdiff_tpu_torch.models.unet import UNet2DConditionModel
 from distdiff_tpu_torch.models.vae import AutoencoderKL
@@ -45,10 +49,17 @@ from distdiff_tpu_torch.sampling.sampler import (
 )
 from distdiff_tpu_torch.schedulers import (
     DDIMSchedule,
+    DPMSchedule,
+    build_schedule,
     guidance_window,
     img2img_start_index,
-    make_schedule,
 )
+
+# the rollout_remat modes whose rollout runs the UNet, or the VAE decoder,
+# without its inner per-block checkpoints
+UNET_NO_REMAT = ("step_nru", "step_nr")
+DECODER_NO_REMAT = ("step_nr", "decode_nr", "tail_decode_nr")
+
 
 def _clamp_window(guidance_type: str, start: int, g0: int, g1: int,
                   step_in_plan: bool = False, n: Optional[int] = None):
@@ -124,11 +135,8 @@ class ExpansionPipeline:
         device = resolve_device(device)
         if device.type == "cuda":
             disable_tf32()
-        if guidance_cfg.rollout_remat != "step":
-            raise NotImplementedError(
-                f"rollout_remat={guidance_cfg.rollout_remat!r}: only 'step' is ported")
-        sched = make_schedule(config.num_inference_steps,
-                              prediction_type=config.prediction_type)
+        sched = build_schedule(config.scheduler, config.num_inference_steps,
+                               prediction_type=config.prediction_type)
         unet = UNet2DConditionModel(config.unet, device=device)
         vae = AutoencoderKL(config.vae, device=device)
         text_encoder = CLIPTextEncoder(config.text_encoder, device=device)
@@ -154,6 +162,46 @@ class ExpansionPipeline:
     def eps_fn(self) -> Callable:
         return make_eps_fn(self.unet, self.sampler_cfg)
 
+    def cached_eps_fns(self) -> Tuple[Callable, Callable]:
+        """(eps_full, eps_shallow) of the DeepCache loop at
+        ``config.cache_branch``; the guidance rollout never takes them."""
+        from distdiff_tpu_torch.sampling.deepcache import make_cached_eps_fns
+
+        branch = self.config.cache_branch
+
+        def unet_full(x, t, ctx):
+            return self.unet(x, t, ctx, return_cache=True, cache_branch=branch)
+
+        def unet_shallow(x, t, ctx, cache):
+            return self.unet(x, t, ctx, deep_cache=cache, cache_branch=branch)
+
+        return make_cached_eps_fns(unet_full, unet_shallow, self.sampler_cfg)
+
+    def denoise_ranged(self) -> Callable:
+        """``ranged(x, cond, uncond, lo, hi)``: the plain denoise of plan
+        steps [lo, hi) that every expansion path takes, DeepCache's under
+        ``config.deep_cache`` (DDIM only), else ``denoise_range`` (DDIM or
+        DPM-Solver++ by the schedule)."""
+        sched = self.sched
+        if not self.config.deep_cache:
+            eps_fn = self.eps_fn()
+
+            def ranged(x, cond, uncond, lo, hi):
+                return denoise_range(sched, eps_fn, x, cond, uncond, lo, hi)
+            return ranged
+        if isinstance(sched, DPMSchedule):
+            raise NotImplementedError(
+                "deep_cache composes with the DDIM solver only (config.scheduler='ddim')")
+        from distdiff_tpu_torch.sampling.deepcache import denoise_range_cached
+
+        eps_full, eps_shallow = self.cached_eps_fns()
+        interval = self.config.cache_interval
+
+        def ranged(x, cond, uncond, lo, hi):
+            return denoise_range_cached(sched, eps_full, eps_shallow, x, cond, uncond,
+                                        lo, hi, interval)
+        return ranged
+
     @torch.no_grad()
     def encode_images(self, images: torch.Tensor,
                       generator: Optional[torch.Generator] = None) -> torch.Tensor:
@@ -167,14 +215,16 @@ class ExpansionPipeline:
         """Token ids ``[B, T]`` -> the text context ``[B, T, D]`` (fp32)."""
         return self.text_encoder(input_ids)
 
-    def decode_latents(self, latents: torch.Tensor) -> torch.Tensor:
-        """Latents -> images in [-1, 1] (fp32, NHWC)."""
-        return self.vae.decode(latents.float() / self.config.vae.scaling_factor)
+    def decode_latents(self, latents: torch.Tensor, vae=None) -> torch.Tensor:
+        """Latents -> images in [-1, 1] (fp32, NHWC), through ``vae``
+        (default: the pipeline's)."""
+        vae = self.vae if vae is None else vae
+        return vae.decode(latents.float() / self.config.vae.scaling_factor)
 
-    def guide_decode_fn(self, x0_latent: torch.Tensor) -> torch.Tensor:
+    def guide_decode_fn(self, x0_latent: torch.Tensor, vae=None) -> torch.Tensor:
         """pred_x0 latents -> guide-ready images: VAE decode, no
         denormalisation, bicubic resize to the guide's input size."""
-        return resize_bicubic(self.decode_latents(x0_latent),
+        return resize_bicubic(self.decode_latents(x0_latent, vae),
                               self.guidance_cfg.guide_input_size)
 
     def guide_encode_fn(self, images: torch.Tensor) -> torch.Tensor:
@@ -183,10 +233,17 @@ class ExpansionPipeline:
         return self.guide.encode_image(images).float()
 
     def guidance_context(self) -> GuidanceContext:
+        """The rollout's functions for ``rollout_remat``: the "step_nru" and
+        "step_nr" modes run the UNet, and "step_nr", "decode_nr" and
+        "tail_decode_nr" the VAE decoder, without their inner checkpoints
+        (views of the same modules, ``with_remat``)."""
+        mode = self.guidance_cfg.rollout_remat
+        unet = with_remat(self.unet, False) if mode in UNET_NO_REMAT else self.unet
+        vae = with_remat(self.vae, False) if mode in DECODER_NO_REMAT else self.vae
         return GuidanceContext(
             sched=self.sched,
-            eps_fn=self.eps_fn(),
-            decode_fn=self.guide_decode_fn,
+            eps_fn=make_eps_fn(unet, self.sampler_cfg),
+            decode_fn=lambda z: self.guide_decode_fn(z, vae),
             encode_fn=self.guide_encode_fn,
             cfg=self.guidance_cfg,
             global_protos=self.global_protos,
@@ -284,8 +341,7 @@ class ExpansionPipeline:
         ``return_aux`` it returns ``(images, aux)``, where aux holds the
         guidance score, the gradient on gamma/beta and the latents before
         and after the update."""
-        sched = self.sched
-        eps_fn = self.eps_fn()
+        ranged = self.denoise_ranged()
         gcfg = self.guidance_cfg
         start, n, guided, g0, g1 = self.window(text_to_img)
         ctx = self.guidance_context() if guided else None
@@ -302,24 +358,24 @@ class ExpansionPipeline:
             aux: Dict[str, torch.Tensor] = {}
             latents = self.init_latents(image_latents, noise, text_to_img)
             if not guided:
-                latents = denoise_range(sched, eps_fn, latents, cond, uncond, start, n)
+                latents = ranged(latents, cond, uncond, start, n)
             elif gcfg.guidance_type == "transform_guidance":
                 # plain to the window, one affine optimisation at g0, then
                 # plain from g0 (the trigger step denoises normally after
                 # the update)
-                latents = denoise_range(sched, eps_fn, latents, cond, uncond, start, g0)
+                latents = ranged(latents, cond, uncond, start, g0)
                 aux["latents_before"] = latents
                 latents, score, (g_gamma, g_beta) = transform_guidance(
                     ctx, latents, cond, uncond, targets, g0, gamma0, beta0)
                 aux.update(latents_after=latents, score=score,
                            grad_gamma=g_gamma, grad_beta=g_beta)
-                latents = denoise_range(sched, eps_fn, latents, cond, uncond, g0, n)
+                latents = ranged(latents, cond, uncond, g0, n)
             else:  # direct guidance advances [g0, g1) itself
-                latents = denoise_range(sched, eps_fn, latents, cond, uncond, start, g0)
+                latents = ranged(latents, cond, uncond, start, g0)
                 latents, score = direct_guidance(ctx, latents, cond, uncond,
                                                  targets, (g0, g1))
                 aux["score"] = score
-                latents = denoise_range(sched, eps_fn, latents, cond, uncond, g1, n)
+                latents = ranged(latents, cond, uncond, g1, n)
             img = self.decode_latents(latents)
             img = torch.clamp(img / 2.0 + 0.5, 0.0, 1.0)
             return (img, aux) if return_aux else img
@@ -351,7 +407,7 @@ class SplitExpand:
         self.guide_chunk = guide_chunk
         self.decode_chunk = decode_chunk
         self.start, self.n, self.guided, self.g0, self.g1 = pipe.window(text_to_img)
-        self.eps_fn = pipe.eps_fn()
+        self.ranged = pipe.denoise_ranged()
         self.ctx = pipe.guidance_context() if self.guided else None
         transform = pipe.guidance_cfg.guidance_type == "transform_guidance"
         self.resume = self.g0 if transform else self.g1
@@ -364,7 +420,7 @@ class SplitExpand:
         return [(i, i + c) for i in range(0, b, c)]
 
     def _span(self, x, cond, uncond, lo, hi):
-        return denoise_range(self.pipe.sched, self.eps_fn, x, cond, uncond, lo, hi)
+        return self.ranged(x, cond, uncond, lo, hi)
 
     def init_span(self, image_latents, cond, uncond, noise, hi):
         """img2img noising (or pure noise), then plain steps [start, hi)."""

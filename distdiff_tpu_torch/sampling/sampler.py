@@ -1,20 +1,23 @@
-"""DDIM sampling with classifier-free guidance (port of
+"""Sampling with classifier-free guidance (port of
 ``distdiff_tpu/sampling/sampler.py``). The denoise loop is a Python loop
-over plan indices; latents are NHWC ``[B, h, w, 4]``. The random draws are
-made by the caller and handed in."""
+over plan indices, DDIM or DPM-Solver++(2M) by the schedule's type; latents
+are NHWC ``[B, h, w, 4]``. The random draws are made by the caller and
+handed in."""
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Callable, Tuple
+from typing import Callable, Optional, Tuple
 
 import torch
 
 from distdiff_tpu_torch.sampling.conditioning import cond_concat
 from distdiff_tpu_torch.schedulers import (
     DDIMSchedule,
+    DPMSchedule,
     add_noise,
     ddim_step,
+    denoise_range_dpm,
     img2img_start_index,
 )
 
@@ -41,12 +44,32 @@ def make_eps_fn(unet: Callable, cfg: SamplerConfig) -> Callable:
 
 def denoise_range(sched: DDIMSchedule, eps_fn: Callable, latents, cond, uncond,
                   start: int, stop: int) -> torch.Tensor:
-    """Run plan steps [start, stop)."""
+    """Run plan steps [start, stop): the DPM-Solver++(2M) loop on a
+    ``DPMSchedule`` (its x0 history empty at ``start``), else DDIM."""
+    if isinstance(sched, DPMSchedule):
+        return denoise_range_dpm(sched, eps_fn, latents, cond, uncond, start, stop)
     x = latents
     for i in range(start, stop):
         e = eps_fn(x, int(sched.timesteps[i]), cond, uncond)
         x, _ = ddim_step(sched, e, i, x)
     return x
+
+
+def sample(sched: DDIMSchedule, eps_fn: Callable, init_latents, cond, uncond,
+           start_index: int = 0,
+           guided_segment: Optional[Tuple[int, int, Callable]] = None) -> torch.Tensor:
+    """Denoise from plan index ``start_index`` to the end. With
+    ``guided_segment = (g0, g1, guide_fn)``: plain steps [start, g0), then
+    ``guide_fn(latents, cond, uncond)``, which advances the trajectory over
+    [g0, g1), then plain steps [g1, end)."""
+    n = sched.num_inference_steps
+    if guided_segment is None:
+        return denoise_range(sched, eps_fn, init_latents, cond, uncond, start_index, n)
+    g0, g1, guide_fn = guided_segment
+    g0 = max(g0, start_index)
+    x = denoise_range(sched, eps_fn, init_latents, cond, uncond, start_index, g0)
+    x = guide_fn(x, cond, uncond)
+    return denoise_range(sched, eps_fn, x, cond, uncond, g1, n)
 
 
 def img2img_init(sched: DDIMSchedule, image_latents: torch.Tensor,

@@ -1,12 +1,16 @@
-"""The diffusers SD-1.x state-dict geometry (keys and shapes), enumerated
-(the port's copy of the SD-1.x part of ``distdiff_tpu/weights/
-sd15_geometry.py``; SDXL's waits for it).
+"""The diffusers SD-1.x and SD-2.x state-dict geometry (keys and shapes),
+enumerated (the port's copy of the SD-1.x/2.x part of
+``distdiff_tpu/weights/sd15_geometry.py``; SDXL's waits for it).
 
 ``sd15_unet_state_shapes``, ``sd15_vae_state_shapes`` and
 ``sd15_text_state_shapes`` give, at their defaults, the key list a
 ``runwayml/stable-diffusion-v1-5`` save ships (UNet 859,520,964, VAE
-83,653,863 and text encoder 123,060,480 parameters), and the list diffusers
-would write for another SD-1.x geometry (the tiny test config).
+83,653,863 and text encoder 123,060,480 parameters); with ``ctx=1024,
+linear_proj=True`` and ``d=1024, layers=23`` the list of a
+``stabilityai/stable-diffusion-2-1`` save (UNet 865,910,724, text encoder
+340,387,840; the VAE is SD-1.x's), and the list diffusers would write for
+another such geometry (the tiny test configs). ``PARAM_TOTALS`` pins the
+published totals.
 """
 
 from __future__ import annotations
@@ -36,8 +40,8 @@ def _resnet(prefix: str, cin: int, cout: int, temb: int | None,
 
 def _transformer2d(prefix: str, c: int, ctx: int, out: Dict[str, Shape],
                    depth: int = 1, linear_proj: bool = False) -> None:
-    """Transformer2DModel. SD-1.5: depth 1, conv projections. SDXL: per-block
-    depth (2/10) and LINEAR proj_in/out (use_linear_projection=True)."""
+    """Transformer2DModel. SD-1.5: depth 1, conv projections. SD-2.x: LINEAR
+    proj_in/out (use_linear_projection=True)."""
     out[f"{prefix}.norm.weight"] = (c,)
     out[f"{prefix}.norm.bias"] = (c,)
     proj_shape = (c, c) if linear_proj else (c, c, 1, 1)
@@ -236,3 +240,13 @@ def sd15_text_state_shapes(
         out[f"{p}.layer_norm2.weight"] = (d,)
         out[f"{p}.layer_norm2.bias"] = (d,)
     return out
+
+
+PARAM_TOTALS = {
+    "unet": 859_520_964,
+    "vae": 83_653_863,
+    "text": 123_060_480,
+    # SD-2.1 (diffusers' stabilityai/stable-diffusion-2-1)
+    "sd21_unet": 865_910_724,
+    "sd21_text": 340_387_840,
+}

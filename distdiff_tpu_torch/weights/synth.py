@@ -1,11 +1,13 @@
-"""A diffusers-layout SD-1.x checkpoint on disk with seeded random weights
-(port of ``distdiff_tpu/weights/synth.py``, SD-1.x only; SDXL waits for
-ROADMAP queue 1 item 8).
+"""A diffusers-layout SD-1.x or SD-2.x checkpoint on disk with seeded random
+weights (port of ``distdiff_tpu/weights/synth.py``; SDXL waits for ROADMAP
+queue 1 item 8).
 
 The directory holds the exact key set, shapes, dtypes and file names of a
-diffusers ``runwayml/stable-diffusion-v1-5`` save (``sd15_geometry``) and a
-structurally valid ``tokenizer/merges.txt`` + ``vocab.json``, so the
-``--sd_checkpoint`` load path runs end to end without a real checkpoint.
+diffusers ``runwayml/stable-diffusion-v1-5`` save, or under
+``linear_projection`` (SD-2.1) a ``stabilityai/stable-diffusion-2-1`` one
+(``sd15_geometry``), and a structurally valid ``tokenizer/merges.txt`` +
+``vocab.json``, so the ``--sd_checkpoint`` load path runs end to end
+without a real checkpoint.
 The draws are the JAX writer's (``np.random.default_rng(seed)``, the same
 components and keys in the same order), so both write the same arrays.
 """
@@ -25,18 +27,16 @@ from distdiff_tpu_torch.weights.sd15_geometry import (
     sd15_vae_state_shapes,
 )
 
-SDXL_TODO = ("SDXL (and SD-2.1's linear projections) are not ported: "
-             "ROADMAP queue 1 item 8")
+SDXL_TODO = "SDXL is not ported: ROADMAP queue 1 item 8"
 
 
 def state_shapes_for_config(config):
-    """The diffusers state-dict key/shape sets of an SD-1.x
+    """The diffusers state-dict key/shape sets of an SD-1.x or SD-2.x
     ``PipelineConfig``, by component (``vae``, ``text``, ``unet``, in the
     JAX writer's order)."""
     u, v, t = config.unet, config.vae, config.text_encoder
     if (getattr(config, "text_encoder_2", None) is not None
-            or getattr(u, "addition_embed_dim", None) is not None
-            or getattr(u, "linear_projection", False)):
+            or getattr(u, "addition_embed_dim", None) is not None):
         raise NotImplementedError(SDXL_TODO)
     return {
         "vae": sd15_vae_state_shapes(chans=v.block_out_channels, layers=v.layers_per_block,
@@ -48,7 +48,8 @@ def state_shapes_for_config(config):
                                        ctx=u.cross_attention_dim,
                                        cross_attention=u.cross_attention,
                                        in_channels=u.in_channels, out_channels=u.out_channels,
-                                       temb_mult=u.time_embed_dim_mult),
+                                       temb_mult=u.time_embed_dim_mult,
+                                       linear_proj=u.linear_projection),
     }
 
 

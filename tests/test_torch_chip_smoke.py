@@ -421,8 +421,8 @@ def test_epoch_learning_rates_follow_each_calls_cosine(smoke):
 
 def test_run_checker_takes_a_cpu_run_and_refuses_faults(smoke, tmp_path, monkeypatch):
     """``check_run`` on a run of the port's CLI on the CPU (tiny_resnet, a
-    toy tree), then on the same run with a row missing and with its
-    results edited."""
+    toy tree), then on the same run with a row missing, with
+    ``model_best.pth.tar``'s presence flipped and with its results edited."""
     import numpy as np
 
     from distdiff_tpu_torch.cli import train
@@ -447,6 +447,16 @@ def test_run_checker_takes_a_cpu_run_and_refuses_faults(smoke, tmp_path, monkeyp
         smoke.check_run(run, smoke.epoch_lrs(3))
     with pytest.raises(SystemExit, match="lr"):
         smoke.check_run(run, [0.1, 0.075])
+    # model_best.pth.tar is there exactly when an epoch beat 0%: flipping its
+    # presence against the run's best accuracy is refused
+    best = tmp_path / "run" / "model_best.pth.tar"
+    assert best.exists() == (results["best_accuracy"] > 0)
+    if best.exists():
+        best.unlink()
+    else:
+        best.write_bytes((tmp_path / "run" / "checkpoint.pth.tar").read_bytes())
+    with pytest.raises(SystemExit, match="model_best"):
+        smoke.check_run(run, smoke.epoch_lrs(1, 2))
     with open(tmp_path / "run" / "results.yaml", "w") as f:
         f.write("best_accuracy: 1000.0\nlast_accuracy: -1.0\n")
     with pytest.raises(SystemExit, match="results"):
@@ -556,3 +566,165 @@ def test_train_agreement_reads_an_optimizer_fault_on_the_step(smoke, monkeypatch
     assert read["update"] > smoke.TRAIN_UPDATE_TOL
     assert read["update"] == pytest.approx(0.05, rel=0.2)
     assert read["loss"] <= smoke.TRAIN_LOSS_TOL and read["stats"] <= smoke.TRAIN_STATS_TOL
+
+
+# ------------------------------------------------------------- phase 8
+
+def _pipe(config, **guidance):
+    return types.SimpleNamespace(config=config, guidance_cfg=GuidanceConfig(**guidance),
+                                 sched=make_schedule(config.num_inference_steps), strength=0.5)
+
+
+def test_sd21_flash_launch_plan_by_shape(smoke):
+    plan = smoke.flash_plan(_pipe(PipelineConfig.sd21()), 2)
+    # 25 plain + 2 rollout + 2 recomputed UNet calls on the CFG pair of 2,
+    # 5 self-attentions at each of the 96^2, 48^2 and 24^2 levels (5, 10
+    # and 20 heads of 64; the mid block's 12^2 takes no kernel), one
+    # backward each in the rollout; 5 VAE mid-block attentions over 9216
+    # tokens at D = 512, 2 backwards by the split pair
+    unet = {(20, 9216, 9216, 64), (40, 2304, 2304, 64), (80, 576, 576, 64)}
+    vae = (2, 9216, 9216, 512)
+    want = {("flash_fwd", s): 145 for s in unet}
+    want.update({("flash_bwd_fused", s): 10 for s in unet})
+    want.update({("flash_fwd", vae): 5, ("flash_bwd_dq", vae): 2, ("flash_bwd_dkv", vae): 2})
+    assert dict(plan) == want
+    assert smoke.expected_launches(_pipe(PipelineConfig.sd21())) == {
+        "flash_fwd": 440, "flash_bwd_fused": 30, "flash_bwd_dq": 2, "flash_bwd_dkv": 2}
+
+
+def test_sd21_groupnorm_shapes_at_768(smoke):
+    cfg = PipelineConfig.sd21()
+    unet = smoke.unet_norms(cfg.unet, 96)
+    assert len(unet) == 61 and unet[0] == (320, 96, "silu") and (2560, 12, "silu") in unet
+    assert smoke.vae_decode_norms(cfg.vae, 96)[-1] == (128, 768, "silu")
+    assert smoke.vae_encode_norms(cfg.vae, 768)[-1] == (512, 96, "silu")
+    shapes = smoke.gn_shapes(smoke.sd21_gn_calls())
+    assert len(shapes) == 26
+    assert shapes[(4, 320, 96, 96)] == (32, {"silu", None})
+    assert shapes[(2, 128, 768, 768)] == (32, {"silu"})
+    assert shapes[(8, 128, 768, 768)] == (32, {"silu"})  # the CLI's encode
+    plan = smoke.gn_plan(smoke.expand_gn_calls(_pipe(cfg), 2))
+    assert {k: sum(n for (name, _), n in plan.items() if name == k)
+            for k in smoke.GN_KERNELS} == {"gn_fused": 1653, "gn_stats": 266, "gn_apply": 266}
+    # the 96^2 x 960 norm of every UNet call takes the pair
+    assert plan[("gn_stats", (4, 960, 96, 96))] == 29
+
+
+def test_deep_cache_and_mode_plans(smoke):
+    import dataclasses
+
+    dc = _pipe(dataclasses.replace(PipelineConfig.sd15(), deep_cache=True, cache_interval=3))
+    # [25, 30): full at 25, 28; [30, 50): every third from 30
+    assert smoke.span_unet_calls(dc, 25, 30) == (2, 3)
+    assert smoke.span_unet_calls(dc, 30, 50) == (7, 13)
+    # 9 full calls x 10 long self-attentions, 16 shallow x the 5 at 64^2,
+    # the rollout's 4 x 10, 5 VAE
+    assert smoke.expected_launches(dc)["flash_fwd"] == 90 + 80 + 40 + 5
+    fwd = {mode: smoke.flash_plan(_pipe(PipelineConfig.sd15(), rollout_remat=mode), 2,
+                                  parts=("rollout",))[("flash_fwd", (32, 4096, 4096, 40))]
+           for mode in smoke.ROLLOUT_CALLS}
+    # 5 attentions at 64^2 a UNet call; the inner checkpoints add a call a step
+    assert fwd == {"step_nr": 20, "step": 30, "step_nru": 20, "decode_nr": 30, "block": 20,
+                   "decode": 20, "tail": 25, "tail_decode_nr": 25}
+
+
+def test_phase2_holds_every_shape_phase8_launches(smoke):
+    import dataclasses
+
+    timed = {(name, (b * h, tq, tk, d)) for _, b, h, tq, tk, d, names, t in smoke.flash_shapes()
+             if t is True for name in names}
+    sd21, sd15 = PipelineConfig.sd21(), PipelineConfig.sd15()
+    plans = [smoke.flash_plan(_pipe(sd21), 2),
+             {("flash_fwd", (smoke.CLI_ENCODE_BATCH, 9216, 9216, 512)): 13},
+             smoke.flash_plan(_pipe(dataclasses.replace(sd15, scheduler="dpmpp")), 2),
+             smoke.flash_plan(_pipe(dataclasses.replace(sd15, deep_cache=True)), 2)]
+    plans += [smoke.flash_plan(_pipe(sd15, rollout_remat=m), 2, parts=("rollout",))
+              for m in smoke.ROLLOUT_CALLS]
+    for plan in plans:
+        assert set(plan) <= timed, set(plan) - timed
+    held = set(smoke.gn_shapes(smoke.main_gn_calls() + smoke.sd21_gn_calls()))
+    launched = smoke.gn_plan(smoke.expand_gn_calls(_pipe(sd21), 2)
+                             + [smoke.sd21_encode_gn_call(sd21)]
+                             + smoke.expand_gn_calls(_pipe(sd15), 2))
+    assert {shape for _, shape in launched} <= held
+
+
+@pytest.fixture(scope="module")
+def tiny_pipe():
+    import numpy as np
+
+    from distdiff_tpu_torch.models.guide import create_model
+    from distdiff_tpu_torch.sampling import ExpansionPipeline, SamplerConfig
+
+    rng = np.random.RandomState(0)
+    guide = create_model("tiny_resnet", num_classes=3, device="cpu")
+    fd = guide.feature_dim
+    return ExpansionPipeline.create(
+        PipelineConfig.tiny(sample_size=32), sampler_cfg=SamplerConfig(guidance_scale=3.0),
+        guidance_cfg=GuidanceConfig(guidance_step=4, guidance_period=2, K=2,
+                                    guide_input_size=32, rho=0.5),
+        guide=guide, global_protos=rng.randn(3, fd).astype(np.float32),
+        local_protos=rng.randn(3, 2, fd).astype(np.float32), device="cpu")
+
+
+def _count_forwards(modules):
+    counts = [0] * len(modules)
+    handles = []
+    for i, group in enumerate(modules):
+        for m in group:
+            def pre(module, args, i=i):
+                counts[i] += 1
+            handles.append(m.register_forward_pre_hook(pre))
+    return counts, handles
+
+
+@pytest.mark.parametrize("mode", ["step_nr", "step", "step_nru", "decode_nr", "block",
+                                  "decode", "tail", "tail_decode_nr"])
+def test_rollout_calls_are_the_ports_recompute(smoke, tiny_pipe, mode):
+    """ROLLOUT_CALLS, from which phase 8 plans each mode's launches, against
+    the attention forwards the port runs in one rollout, counted with hooks."""
+    import dataclasses
+
+    from distdiff_tpu_torch.guidance import transform_guidance
+    from distdiff_tpu_torch.models.layers import Transformer2DModel
+    from distdiff_tpu_torch.models.vae import VAEAttention
+
+    pipe = tiny_pipe
+    pipe.guidance_cfg = dataclasses.replace(pipe.guidance_cfg, rollout_remat=mode)
+    unet_attn = [m for m in pipe.unet.modules() if isinstance(m, Transformer2DModel)]
+    vae_attn = [m for m in pipe.vae.decoder.modules() if isinstance(m, VAEAttention)]
+    counts, handles = _count_forwards([unet_attn, vae_attn])
+    gen = torch.Generator().manual_seed(0)
+    x = torch.randn(2, 16, 16, 4, generator=gen) * 0.2
+    try:
+        transform_guidance(pipe.guidance_context(), x, torch.randn(2, 8, 32, generator=gen),
+                           torch.randn(2, 8, 32, generator=gen), torch.tensor([0, 1]), 6,
+                           torch.rand(2, 1, 1, 4, generator=gen),
+                           torch.randn(2, 1, 1, 4, generator=gen))
+    finally:
+        for h in handles:
+            h.remove()
+    unet_calls, vae_fwd = smoke.rollout_calls(mode, 2)
+    assert counts == [unet_calls * len(unet_attn), vae_fwd * len(vae_attn)]
+
+
+def test_deep_cache_span_plan_is_the_ports_loop(smoke, tiny_pipe):
+    import dataclasses
+
+    pipe = dataclasses.replace(tiny_pipe, config=dataclasses.replace(
+        tiny_pipe.config, deep_cache=True, cache_interval=3))
+    counts, handles = _count_forwards([[pipe.unet.mid_block.attentions[0]],
+                                       [pipe.unet.conv_in]])
+    gen = torch.Generator().manual_seed(1)
+    x = torch.randn(2, 16, 16, 4, generator=gen)
+    cond, uncond = torch.randn(2, 8, 32, generator=gen), torch.randn(2, 8, 32, generator=gen)
+    try:
+        with torch.no_grad():
+            pipe.denoise_ranged()(x, cond, uncond, 3, 10)
+    finally:
+        for h in handles:
+            h.remove()
+    full, shallow = smoke.span_unet_calls(pipe, 3, 10)
+    assert (full, shallow) == (3, 4)
+    # the mid block runs in full calls only; conv_in in every call
+    assert counts == [full, full + shallow]

@@ -2,7 +2,9 @@
 (every dest and default), the refusal of every unported option, the device
 rule (the card, or the CPU under ``DISTDIFF_PLATFORM=cpu``), and ``main``
 end to end on the CPU at ``--tiny`` against the JAX CLI on the same files:
-the same output paths, latent cache and prototypes."""
+the same output paths, latent cache and prototypes; the same under
+``--model sd21``, ``--scheduler dpmpp`` and ``--deep_cache``, and the
+refusal of ``--deep_cache --scheduler dpmpp`` by both CLIs."""
 
 import os
 import subprocess
@@ -43,8 +45,7 @@ def test_parser_has_the_jax_parsers_dests_and_defaults():
 
 
 UNPORTED = [
-    ["--model", "sd21"], ["--model", "sdxl"], ["--scheduler", "dpmpp"], ["--deep_cache"],
-    ["--int8"], ["--lora", "adapter.npz"], ["--params_path", "params"],
+    ["--model", "sdxl"], ["--int8"], ["--lora", "adapter.npz"], ["--params_path", "params"],
     ["--save_params", "params"], ["--mesh_model", "2"],
     # the guide archs the port lacks (open_clip_vit_b32 is the default -a)
     ["--guidance_type", "transform_guidance"],
@@ -152,3 +153,71 @@ def test_tiny_cli_on_the_cpu_matches_the_jax_cli(toy_files, jax_run, tmp_path, m
         assert got[key].shape == want[key].shape
         # fp32 guides on the same weights and images: summation order only
         np.testing.assert_allclose(got[key], want[key], atol=1e-5, rtol=0)
+
+
+# ------------------------------------ the options ported with SD-2.1 and DPM
+
+@pytest.fixture(scope="module")
+def port_default_pngs(toy_files, tmp_path_factory):
+    """The port's PNGs under the default options, by path."""
+    work = tmp_path_factory.mktemp("port_default")
+    cwd = os.getcwd()
+    os.chdir(work)
+    os.environ["DISTDIFF_PLATFORM"] = "cpu"
+    try:
+        cli.main(_argv(toy_files))
+    finally:
+        os.environ.pop("DISTDIFF_PLATFORM")
+        os.chdir(cwd)
+    from distdiff_tpu_torch.parallel import read_png
+
+    return {p: read_png(os.path.join(work, p)) for p in _outputs(str(work)) if p.endswith(".png")}
+
+
+OPTIONS = {"sd21": ["--model", "sd21"], "dpmpp": ["--scheduler", "dpmpp"],
+           "deep_cache": ["--deep_cache", "--cache_interval", "2"]}
+
+
+@pytest.mark.parametrize("option", list(OPTIONS))
+def test_tiny_cli_option_matches_the_jax_cli(toy_files, port_default_pngs, option, tmp_path,
+                                             monkeypatch):
+    extra = OPTIONS[option]
+    jwork = tmp_path / "jax"
+    os.makedirs(jwork)
+    monkeypatch.chdir(jwork)
+    jstats = j_cli.main(_argv(toy_files, extra))
+    monkeypatch.setenv("DISTDIFF_PLATFORM", "cpu")
+    monkeypatch.chdir(tmp_path)
+    args = cli.parse_args(_argv(toy_files, extra))
+    pipe = cli.build_pipeline(args)
+    assert (pipe.config.prediction_type, pipe.config.scheduler, pipe.config.deep_cache) == {
+        "sd21": ("v_prediction", "ddim", False), "dpmpp": ("epsilon", "dpmpp", False),
+        "deep_cache": ("epsilon", "ddim", True)}[option]
+    stats = cli.main(_argv(toy_files, extra))
+    assert stats["written"] == jstats["written"] == 5
+    # the same PNGs (by path), latent cache and prototype cache as JAX's run
+    got = [p for p in _outputs(str(tmp_path)) if not p.startswith("jax" + os.sep)]
+    assert got == _outputs(str(jwork))
+    from distdiff_tpu_torch.parallel import read_png
+
+    pngs = {p: read_png(os.path.join(tmp_path, p)) for p in got if p.endswith(".png")}
+    assert sorted(pngs) == sorted(port_default_pngs)
+    # the option changed the images (the draws are the default run's)
+    assert max(np.abs(pngs[p].astype(int) - port_default_pngs[p].astype(int)).max()
+               for p in pngs) > 0
+    lat = "save/vae_embedding/breastmnist/CompVis--stable-diffusion-v1-4/image_latents_32.npy"
+    np.testing.assert_allclose(np.load(tmp_path / lat), np.load(jwork / lat), atol=1e-5, rtol=0)
+
+
+def test_deep_cache_under_dpmpp_is_refused_by_both_clis(toy_files, tmp_path, monkeypatch):
+    argv = _argv(toy_files, ["--deep_cache", "--scheduler", "dpmpp"])
+    monkeypatch.chdir(tmp_path)
+    with pytest.raises(NotImplementedError, match="DDIM solver only"):
+        j_cli.main(argv)
+    monkeypatch.setenv("DISTDIFF_PLATFORM", "cpu")
+    port = tmp_path / "port"
+    os.makedirs(port)
+    monkeypatch.chdir(port)
+    with pytest.raises(NotImplementedError, match="DDIM solver only"):
+        cli.main(argv)
+    assert _outputs(str(port)) == []  # refused before any cache or image
