@@ -3,7 +3,7 @@
 
 Run from the repository root: ``python3 chip_smoke.py``. It needs one CUDA
 card, ``nvcc`` and ``nvidia-smi``; it imports nothing of JAX or of the JAX
-package. Nine phases, any failure exits non-zero:
+package. Ten phases, any failure exits non-zero:
 
 1. Device: the card's name and power limit, torch/CUDA versions, the
    time to build the CUDA kernels from ``distdiff_tpu_torch/csrc`` (one
@@ -15,11 +15,13 @@ package. Nine phases, any failure exits non-zero:
    their Python counts), and the GroupNorm
    kernels' plans with their shared memory, held against the C side's.
 2. Kernels, each held against its plain PyTorch version on the same inputs:
-   every flash kernel at the main path's shapes (SD-1.5's and phase 8's
-   SD-2.1 ones: D = 64 over 9216, 2304 and 576 tokens, D = 512 over 9216)
-   in bf16 (against the plain
+   every flash kernel at the main path's shapes (SD-1.5's, phase 8's
+   SD-2.1 ones: D = 64 over 9216, 2304 and 576 tokens, D = 512 over 9216,
+   and phase 9's SDXL ones: D = 64 over 4096 and 1024 tokens, D = 512
+   over 16384) in bf16 (against the plain
    fp32 version; timed beside ``F.scaled_dot_product_attention``, a
-   yardstick the port never calls) and at ragged shapes (the Hopper
+   yardstick the port never calls, whose kernels past D = 128 are
+   printed) and at ragged shapes (the Hopper
    kernels also at every narrow head width and at wide ones from 129 to
    512, lengths one row on either side of their tiles, the 77-token kv,
    and views off 16-byte alignment, which take the staged loads; the split
@@ -139,13 +141,27 @@ package. Nine phases, any failure exits non-zero:
    under ``dpmpp``, ``deep_cache``, SD-2.1's shape (its gelu text tower
    too) and each mode, at phase 3's tolerance. Each counted run fails on a
    launched shape phase 2 did not hold.
-9. The card line, the kernels' JSON line (one entry per kernel; its times
+9. SDXL-base at full width (UNet 2,567.5M with the additive
+   conditioning, the OpenCLIP-bigG and CLIP-L towers, the SDXL VAE;
+   seeded random weights), batch 2, 1024^2, the phase-4 recipe, its
+   conditioning from both towers on the card: a first call, a counted call
+   (launches by shape against the plan, peak memory) and two more timed;
+   then ``SDXLPipeline`` text-to-image (DDIM-50) on the same modules,
+   counted and timed; then ``cli.generate_data.main --model sdxl
+   --resolution 1024`` from an SDXL fp16 checkpoint (6.9 GB, all four
+   components' loaded tensors against the written ones), a ResNet-50
+   guide and a caltech-101 tree cut to 1 train image a class and 2
+   images; then the fp32 ``sdxl_tiny`` guided expand, ``encode_text_pair``
+   and ``SDXLPipeline`` img2img on the card against the CPU. Each counted
+   run fails on a launched shape phase 2 did not hold.
+10. The card line, the kernels' JSON line (one entry per kernel; its times
    are the means over that kernel's launches in the counted runs, and
    ``shapes`` holds each timed shape's own numbers), and the
    ``{"ok": true, ...}`` line.
 
-``python3 chip_smoke.py --profile [--sd21] [--json PATH]`` runs phase 1,
-builds the main path (with ``--sd21`` phase 8's SD-2.1 768-v path) and
+``python3 chip_smoke.py --profile [--sd21 | --sdxl] [--json PATH]`` runs
+phase 1, builds the main path (with ``--sd21`` phase 8's SD-2.1 768-v
+path, with ``--sdxl`` phase 9's SDXL-base path) and
 traces one warm expand call with ``torch.profiler`` instead: device time
 by layer and by kernel, and the device's idle share (and the per-kernel
 table as JSON at PATH).
@@ -233,6 +249,19 @@ def time_ms(fn, iters: int) -> float:
         b.synchronize()
         times.append(a.elapsed_time(b))
     return statistics.median(times)
+
+
+def device_kernels(fn) -> list:
+    """The names of the device kernels one call of ``fn`` launches (what
+    the library call resolved to), by ``torch.profiler``."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    return sorted({ev.name[:80] for ev in prof.events()
+                   if ev.device_type == torch.autograd.DeviceType.CUDA})
 
 
 def bound(name, bh, tq, tk, d, itemsize=2):
@@ -458,6 +487,14 @@ def flash_shapes() -> list:
         ("sd21_24", cfg_b, 20, 576, 576, 64, ["flash_fwd", "flash_bwd_fused"], True),
         ("sd21_vae_mid", BATCH, 1, 9216, 9216, 512, ["flash_fwd"] + split, True),
         ("sd21_vae_enc", CLI_ENCODE_BATCH, 1, 9216, 9216, 512, ["flash_fwd"], True),
+        # phase 9: SDXL-base at 1024^2 (128^2 latents), heads 64 wide at the
+        # 64^2 and 32^2 levels (10 and 20 heads; none at 128^2), the CFG pair
+        # of batch 2; its VAE mid-block over 16384 tokens; the CLI's dataset
+        # encode at 1024^2
+        ("sdxl_64", cfg_b, 10, 4096, 4096, 64, ["flash_fwd", "flash_bwd_fused"], True),
+        ("sdxl_32", cfg_b, 20, 1024, 1024, 64, ["flash_fwd", "flash_bwd_fused"], True),
+        ("sdxl_vae_mid", BATCH, 1, 16384, 16384, 512, ["flash_fwd"] + split, True),
+        ("sdxl_vae_enc", CLI_ENCODE_BATCH, 1, 16384, 16384, 512, ["flash_fwd"], True),
         ("ragged", 1, 3, 300, 130, 40, every, False),
         ("cross", 2, 2, 200, 77, 64, every, False),
         ("odd", 2, 1, 129, 70, 33, every, False),
@@ -537,9 +574,13 @@ def kernel_phase():
         o, lse = flash.flash_fwd(q, k, v)
         torch.cuda.synchronize()
         delta = flash.attention_delta(o, do)
-        ref_grads = flash.flash_bwd_reference(q, k, v, o, lse, do)
+        # the plain backward and SDPA's graph only where a backward kernel
+        # runs (at [8,16384,16384,512] each score matrix is 8.6 GB in fp32)
+        backward = any(name != "flash_fwd" for name in names)
+        ref_grads = flash.flash_bwd_reference(q, k, v, o, lse, do) if backward else None
         if timed:
             q4, k4, v4, do4 = (x.view(b, h, -1, d) for x in (q, k, v, do))
+        if timed and backward:
             qg, kg, vg = (x.clone().requires_grad_(True) for x in (q4, k4, v4))
             sdpa_out = F.scaled_dot_product_attention(qg, kg, vg)
 
@@ -599,6 +640,9 @@ def kernel_phase():
             ms = time_ms(run, iters)
             plain_ms = time_ms(plain, 5)
             lib_ms = time_ms(lib, iters)
+            if d > 128:  # SDPA's flash backend stops at 256: say which one ran
+                print(f"  sdpa {'forward' if name == 'flash_fwd' else 'backward'} at "
+                      f"{label}: {device_kernels(lib)}")
             b_ms, b_by = bound(name, bh, tq, tk, d)
             entry = {
                 "name": name, "route": "cuda",
@@ -610,7 +654,7 @@ def kernel_phase():
             print(f"  {name} {label} [{bh},{tq},{d}]: kernel {ms:.3f} ms, plain "
                   f"{plain_ms:.3f} ms, sdpa {lib_ms:.3f} ms, bound {b_ms:.4f} ms ({b_by})")
             entries.append(entry)
-        if timed:
+        if timed and backward:
             del sdpa_out, qg, kg, vg
         del ref_grads, ref_o
         torch.cuda.empty_cache()
@@ -1046,6 +1090,17 @@ def expand_gn_calls(pipe, batch: int, guide_chunk=None) -> list:
             (1, batch, dec)]
 
 
+def _recipe_pipe(config):
+    """What the planners read of a pipeline running the phase-4 recipe."""
+    import types
+
+    from distdiff_tpu_torch.config import GuidanceConfig
+    from distdiff_tpu_torch.schedulers import make_schedule
+
+    return types.SimpleNamespace(config=config, guidance_cfg=GuidanceConfig(),
+                                 sched=make_schedule(config.num_inference_steps), strength=0.5)
+
+
 def gn_shapes(calls) -> dict:
     """Every distinct (B, C, H, W) of ``calls`` with the activations it
     sees."""
@@ -1411,15 +1466,16 @@ def expected_launches(pipe, units: int = 1) -> dict:
     return totals
 
 
-def check_flash_plan(got: dict, want, what: str) -> None:
+def check_flash_plan(got: dict, want, what: str, every_kernel: bool = True) -> None:
     """Every flash kernel's launches by shape against the plan, each kernel
-    launched at least once."""
+    launched at least once (with ``every_kernel``; a call without guidance
+    runs no backward)."""
     for key in sorted(set(got) | set(want)):
         g, w = got.get(key, 0), want.get(key, 0)
         if key[0] in PRODUCTS:
             print(f"  {key[0]} {list(key[1])}: {g} (plan: {w})")
             require(g == w, f"{what}: {key[0]} {list(key[1])}: {g} launches, the plan says {w}")
-    for name in PRODUCTS:
+    for name in PRODUCTS if every_kernel else ():
         require(sum(c for (k, _), c in got.items() if k == name) > 0,
                 f"{what}: {name} never launched")
 
@@ -1697,14 +1753,10 @@ def main_gn_calls() -> list:
     SD-1.5 geometry: the guided expand at batch 2 (phases 4 and 6), the same
     split with guide_chunk=1 (phase 5), the VAE encode of phase 5's 512^2
     images, and phase 6's dataset encode (CLI_ENCODE_BATCH images a call)."""
-    import types
-
-    from distdiff_tpu_torch.config import GuidanceConfig, PipelineConfig
-    from distdiff_tpu_torch.schedulers import make_schedule
+    from distdiff_tpu_torch.config import PipelineConfig
 
     cfg = PipelineConfig.sd15()
-    pipe = types.SimpleNamespace(config=cfg, guidance_cfg=GuidanceConfig(),
-                                 sched=make_schedule(cfg.num_inference_steps), strength=0.5)
+    pipe = _recipe_pipe(cfg)
     return (expand_gn_calls(pipe, BATCH) + expand_gn_calls(pipe, BATCH, guide_chunk=1)
             + [(1, BATCH, vae_encode_norms(cfg.vae, cfg.sample_size)),
                (-(-CLI_CLASSES * CLI_TRAIN // CLI_ENCODE_BATCH), CLI_ENCODE_BATCH,
@@ -2040,8 +2092,8 @@ def cli_phase() -> dict:
     from distdiff_tpu_torch.ops import flash
     from distdiff_tpu_torch.ops import groupnorm as gn
     from distdiff_tpu_torch.parallel import read_png
-    from distdiff_tpu_torch.weights.safetensors import load_file
-    from distdiff_tpu_torch.weights.synth import COMPONENT_FILES, write_synth_checkpoint
+    from distdiff_tpu_torch.weights.convert import COMPONENTS
+    from distdiff_tpu_torch.weights.synth import write_synth_checkpoint
 
     root = os.path.dirname(os.path.abspath(__file__))
     secs, seen = {}, {}
@@ -2094,11 +2146,7 @@ def cli_phase() -> dict:
         secs["driver"] = stats["seconds"]
 
         pipe, sd = seen["pipe"], seen["sd"]
-        for comp, (sub, fname) in COMPONENT_FILES.items():
-            written = load_file(os.path.join(ckpt, sub, fname))
-            keys = sorted(written)
-            module = getattr(pipe, "text_encoder" if comp == "text" else comp)
-            loaded_matches(module, written, keys[::max(1, len(keys) // 5)], comp)
+        check_loaded(pipe, ckpt, COMPONENTS)
         guide = seen["guide"][0]
         gkeys = sorted(k for k in guide_state if not k.endswith("num_batches_tracked"))
         loaded_matches(guide.module, guide_state, gkeys[::max(1, len(gkeys) // 8)], "guide")
@@ -2752,15 +2800,10 @@ def sd21_gn_calls() -> list:
     """(times, batch, norms) of every GroupNorm of phase 8's SD-2.1 runs:
     the guided expand at batch 2, 768^2 (the CLI's too), and the CLI's
     dataset encode at 768^2, CLI_ENCODE_BATCH images a call."""
-    import types
-
-    from distdiff_tpu_torch.config import GuidanceConfig, PipelineConfig
-    from distdiff_tpu_torch.schedulers import make_schedule
+    from distdiff_tpu_torch.config import PipelineConfig
 
     cfg = PipelineConfig.sd21()
-    pipe = types.SimpleNamespace(config=cfg, guidance_cfg=GuidanceConfig(),
-                                 sched=make_schedule(cfg.num_inference_steps), strength=0.5)
-    return expand_gn_calls(pipe, BATCH) + [sd21_encode_gn_call(cfg)]
+    return expand_gn_calls(_recipe_pipe(cfg), BATCH) + [sd21_encode_gn_call(cfg)]
 
 
 def sd21_encode_gn_call(cfg) -> tuple:
@@ -2895,8 +2938,8 @@ def sd21_cli_phase(records, card: str) -> dict:
     from distdiff_tpu_torch.ops import groupnorm as gn
     from distdiff_tpu_torch.parallel import read_png
     from distdiff_tpu_torch.schedulers import DPMSchedule
-    from distdiff_tpu_torch.weights.safetensors import load_file
-    from distdiff_tpu_torch.weights.synth import COMPONENT_FILES, write_synth_checkpoint
+    from distdiff_tpu_torch.weights.convert import COMPONENTS
+    from distdiff_tpu_torch.weights.synth import write_synth_checkpoint
 
     dev = torch.device("cuda")
     root = os.path.dirname(os.path.abspath(__file__))
@@ -2933,11 +2976,7 @@ def sd21_cli_phase(records, card: str) -> dict:
                 and isinstance(pipe.sched, DPMSchedule)
                 and pipe.sched.prediction_type == "v_prediction",
                 f"the CLI built {pipe.config}")
-        for comp, (sub, fname) in COMPONENT_FILES.items():
-            written = load_file(os.path.join(ckpt, sub, fname))
-            keys = sorted(written)
-            module = getattr(pipe, "text_encoder" if comp == "text" else comp)
-            loaded_matches(module, written, keys[::max(1, len(keys) // 5)], comp)
+        check_loaded(pipe, ckpt, COMPONENTS)
         pngs = sorted(os.path.join(d, f) for d, _, fs in os.walk(os.path.join(work, "out"))
                       for f in fs if f.endswith(".png"))
         require(stats["written"] == len(pngs) == SD21_CLI_UNITS,
@@ -3146,6 +3185,319 @@ def solver_fp32_phase() -> None:
             f"the fp32 runs did not go through the kernels: {counts}")
 
 
+# ------------------------------------------------------------- phase 9
+
+SDXL_SIDE = 1024
+SDXL_CLI_TRAIN = 1  # train images a class (3 in phase 6): 100 latents at 1024^2
+SDXL_CLI_UNITS = 2  # one batch of 2 work units
+SDXL_T2I_STEPS = 50
+
+
+def sdxl_encode_gn_call(cfg) -> tuple:
+    """(times, batch, norms) of the SDXL CLI run's dataset encode."""
+    return (-(-CLI_CLASSES * SDXL_CLI_TRAIN // CLI_ENCODE_BATCH), CLI_ENCODE_BATCH,
+            vae_encode_norms(cfg.vae, cfg.sample_size))
+
+
+def t2i_gn_calls(cfg, batch: int, steps: int) -> list:
+    """(times, batch, norms) of one ``SDXLPipeline`` text-to-image call:
+    ``steps`` UNet calls on the CFG pair, one decode."""
+    ls = cfg.latent_size
+    return [(steps, 2 * batch, unet_norms(cfg.unet, ls)), (1, batch, vae_decode_norms(cfg.vae, ls))]
+
+
+def t2i_flash_plan(cfg, batch: int, steps: int) -> collections.Counter:
+    """Flash launches by (kernel, shape) of one text-to-image call: forwards
+    only (no guidance), over more than 256 kv tokens."""
+    ls = cfg.latent_size
+    plan = collections.Counter()
+    for h, t, d, k in unet_attentions(cfg.unet, ls):
+        if t > 256:
+            plan[("flash_fwd", (2 * batch * h, t, t, d))] += k * steps
+    if ls * ls > 256:
+        plan[("flash_fwd", (batch, ls * ls, ls * ls, cfg.vae.block_out_channels[-1]))] += 1
+    return plan
+
+
+def sdxl_gn_calls() -> list:
+    """(times, batch, norms) of every GroupNorm of phase 9's SDXL runs: the
+    guided expand at batch 2, 1024^2 (the CLI's too; the text-to-image call
+    has the same shapes), and the CLI's dataset encode at 1024^2,
+    CLI_ENCODE_BATCH images a call."""
+    from distdiff_tpu_torch.config import PipelineConfig
+
+    cfg = PipelineConfig.sdxl_base()
+    return (expand_gn_calls(_recipe_pipe(cfg), BATCH) + t2i_gn_calls(cfg, BATCH, SDXL_T2I_STEPS)
+            + [sdxl_encode_gn_call(cfg)])
+
+
+def check_loaded(pipe, ckpt: str, components: dict) -> None:
+    """A fifth of each component's keys: the loaded tensor against the
+    checkpoint's (``weights/convert.py`` ``COMPONENTS`` or
+    ``SDXL_COMPONENTS``: component -> (directory, the pipeline's
+    attribute))."""
+    from distdiff_tpu_torch.weights.safetensors import load_file
+    from distdiff_tpu_torch.weights.synth import COMPONENT_FILES
+
+    for comp, (_, attr) in components.items():
+        sub, fname = COMPONENT_FILES[comp]
+        written = load_file(os.path.join(ckpt, sub, fname))
+        keys = sorted(written)
+        loaded_matches(getattr(pipe, attr), written, keys[::max(1, len(keys) // 5)], comp)
+
+
+def sdxl_phase(records, card: str) -> dict:
+    """SDXL-base at full width (UNet 2,567.5M with the additive conditioning,
+    the bigG and CLIP-L towers, the SDXL VAE; seeded random weights) at
+    batch 2, 1024^2, the phase-4 recipe (DDIM-50, strength 0.5, CFG 7.5,
+    transform guidance at plan index 30 over 2 steps, ResNet-50 guide), the
+    conditioning from both towers on the card: a first call, a counted call
+    (each kernel's launches by shape against the plan, peak memory) and two
+    more timed. Then ``SDXLPipeline`` text-to-image on the same modules at
+    batch 2, DDIM-50: a warm-up and a counted, timed call."""
+    import torch
+
+    from distdiff_tpu_torch.config import PipelineConfig
+    from distdiff_tpu_torch.ops import groupnorm as gn
+    from distdiff_tpu_torch.sampling.sdxl import SDXLPipeline
+
+    dev = torch.device("cuda")
+    t0 = time.time()
+    pipe, expand, inputs = build_path(PipelineConfig.sdxl_base())
+    build_s = time.time() - t0
+    cfg = pipe.config
+    n_params = {name: sum(p.numel() for p in getattr(pipe, name).parameters())
+                for name in ("unet", "text_encoder", "text_encoder_2", "vae")}
+    print(f"  parameters {n_params}; built with seeded weights in {build_s:.1f} s; rollout_remat "
+          f"{pipe.guidance_cfg.rollout_remat!r}")
+    require(n_params["unet"] == 2_567_463_684 and n_params["text_encoder_2"] == 694_659_840,
+            f"SDXL parameter counts {n_params}")
+
+    def gen(seed):
+        return torch.Generator(device=dev).manual_seed(seed)
+
+    cold = wall_s(lambda: expand(*inputs, gen(1)))
+    (img, aux), by_shape, secs, peak = counted_call(
+        lambda: expand(*inputs, gen(2), return_aux=True))
+    runs = [secs] + [wall_s(lambda s=s: expand(*inputs, gen(s))) for s in (3, 4)]
+    warm = statistics.median(runs)
+    print(f"  SDXL {SDXL_SIDE}^2 guided expand batch {BATCH}: first call {cold:.2f} s, warm "
+          f"{warm:.3f} s/batch (median of {[round(r, 3) for r in runs]}), peak memory "
+          f"{peak / 2**30:.2f} GiB ({card})")
+    check_images(img, SDXL_SIDE, "SDXL")
+    for name in ("grad_gamma", "grad_beta"):
+        g = aux[name]
+        require(bool(torch.isfinite(g).all()) and float(g.abs().max()) > 0.0,
+                f"SDXL: {name} is zero or not finite")
+    moved = float((aux["latents_after"] - aux["latents_before"]).abs().max())
+    require(moved > 0.0, "SDXL: guidance left the latents unchanged")
+    print(f"  images in [{float(img.min()):.3f}, {float(img.max()):.3f}]; latents moved up to "
+          f"{moved:.4f}; score {aux['score'].tolist()}")
+    smem = gn._device_limits(dev)[0]
+    check_flash_plan(by_shape, flash_plan(pipe, BATCH), "phase 9 SDXL")
+    check_gn_plan(gn_only(by_shape), gn_plan(expand_gn_calls(pipe, BATCH), smem_limit=smem))
+    require_timed(records, by_shape, "phase 9 (SDXL)")
+    kernels = kernel_ms_of_call(records, by_shape, "SDXL call:")
+    del img, aux
+
+    print("  -- SDXLPipeline text-to-image, the same modules")
+    t2i = SDXLPipeline(config=cfg, sampler_cfg=pipe.sampler_cfg, sched=pipe.sched,
+                       unet=pipe.unet, vae=pipe.vae, text_encoder=pipe.text_encoder,
+                       text_encoder_2=pipe.text_encoder_2, device=dev)
+    sample = t2i.make_sample_fn(text_to_img=True)
+    args = inputs[:3]  # the latents (their shape) and the {"ctx", "add"} conds
+    t2i_cold = wall_s(lambda: sample(*args, gen(5)))
+    t2i_img, t2i_shapes, t2i_s, t2i_peak = counted_call(lambda: sample(*args, gen(6)))
+    check_images(t2i_img, SDXL_SIDE, "SDXL text-to-image")
+    check_flash_plan(t2i_shapes, t2i_flash_plan(cfg, BATCH, SDXL_T2I_STEPS),
+                     "phase 9 SDXL text-to-image", every_kernel=False)
+    check_gn_plan(gn_only(t2i_shapes), gn_plan(t2i_gn_calls(cfg, BATCH, SDXL_T2I_STEPS),
+                                               smem_limit=smem))
+    require_timed(records, t2i_shapes, "phase 9 (SDXL text-to-image)")
+    print(f"  SDXL text-to-image batch {BATCH}, DDIM-{SDXL_T2I_STEPS}: first call {t2i_cold:.2f} s, "
+          f"warm {t2i_s:.3f} s/batch, peak memory {t2i_peak / 2**30:.2f} GiB ({card})")
+    del pipe, expand, inputs, t2i, sample, args, t2i_img
+    gc.collect()
+    torch.cuda.empty_cache()
+    return {"warm_s": warm, "runs": runs, "cold_s": cold, "peak_bytes": peak,
+            "build_s": build_s, "by_shape": by_shape + t2i_shapes, "kernels": kernels,
+            "t2i_warm_s": t2i_s, "t2i_cold_s": t2i_cold, "t2i_peak_bytes": t2i_peak}
+
+
+def sdxl_cli_phase(records, card: str) -> dict:
+    """``cli.generate_data.main --model sdxl --resolution 1024`` on the
+    published recipe, from files written first: an SDXL fp16
+    diffusers-layout checkpoint (``text_encoder_2`` and the UNet's
+    ``add_embedding`` too; 6.9 GB), a ResNet-50 guide of 100 classes and a
+    caltech-101 PNG tree cut to SDXL_CLI_TRAIN train images a class, and
+    SDXL_CLI_UNITS images. The loaded weights of all four components, the
+    PNGs, the caches and every kernel's launches by shape against the plan
+    (the dataset encode, then one SplitExpand call)."""
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    from distdiff_tpu_torch.cli import generate_data as cli
+    from distdiff_tpu_torch.config import PipelineConfig
+    from distdiff_tpu_torch.ops import groupnorm as gn
+    from distdiff_tpu_torch.parallel import read_png
+    from distdiff_tpu_torch.weights.convert import SDXL_COMPONENTS
+    from distdiff_tpu_torch.weights.synth import write_synth_checkpoint
+
+    dev = torch.device("cuda")
+    root = os.path.dirname(os.path.abspath(__file__))
+    secs, seen = {}, {}
+    side, ls = SDXL_SIDE, SDXL_SIDE // 8
+    with tempfile.TemporaryDirectory(dir=root, prefix=".smoke_sdxl_") as work:
+        t0 = time.time()
+        ckpt = write_synth_checkpoint(os.path.join(work, "sdxl"), PipelineConfig.sdxl_base(),
+                                      seed=2)
+        secs["write checkpoint"] = time.time() - t0
+        t0 = time.time()
+        guide_path = os.path.join(work, "checkpoint", "model_best.pth.tar")
+        os.makedirs(os.path.dirname(guide_path))
+        write_guide_checkpoint(guide_path)
+        data = os.path.join(work, "data")
+        write_caltech_tree(data, train=SDXL_CLI_TRAIN)
+        secs["write guide and PNG tree"] = time.time() - t0
+        argv = cli_argv(data, ckpt, guide_path, "out", units=SDXL_CLI_UNITS) + [
+            "--model", "sdxl", "--resolution", str(side)]
+        build = cli.build_pipeline
+
+        def keep(*a, **kw):
+            t = time.time()
+            seen["pipe"] = build(*a, **kw)
+            secs["build and load"] = time.time() - t
+            return seen["pipe"]
+
+        cwd = os.getcwd()
+        cli.build_pipeline = keep
+        try:
+            os.chdir(work)
+            stats, by_shape, secs["whole CLI"], peak = counted_call(lambda: cli.main(argv))
+        finally:
+            os.chdir(cwd)
+            cli.build_pipeline = build
+        pipe = seen["pipe"]
+        require(pipe.is_sdxl and pipe.config.sample_size == side
+                and pipe.config.vae.scaling_factor == 0.13025,
+                f"the CLI built {pipe.config}")
+        check_loaded(pipe, ckpt, SDXL_COMPONENTS)
+        pngs = sorted(os.path.join(d, f) for d, _, fs in os.walk(os.path.join(work, "out"))
+                      for f in fs if f.endswith(".png"))
+        require(stats["written"] == len(pngs) == SDXL_CLI_UNITS,
+                f"{stats['written']} written, {len(pngs)} PNGs, {SDXL_CLI_UNITS} units")
+        for path in pngs:
+            png = read_png(path)
+            require(png.shape == (side, side, 3) and png.max() > png.min(),
+                    f"{path}: {png.shape}, flat {png.max() == png.min()}")
+        n_train = CLI_CLASSES * SDXL_CLI_TRAIN
+        lat_path = [os.path.join(d, f) for d, _, fs in os.walk(os.path.join(work, "save"))
+                    for f in fs if f.startswith(f"image_latents_{side}")]
+        require(len(lat_path) == 1, f"latent caches {lat_path}")
+        latents = np.load(lat_path[0])
+        require(latents.shape == (n_train, ls, ls, 4) and bool(np.isfinite(latents).all()),
+                f"latent cache {latents.shape}, want {n_train} finite [{ls}, {ls}, 4] latents")
+        protos = np.load(os.path.join(work, cli.prototype_cache_path(
+            "resnet50", "caltech-101", CLI_K)))
+        require(protos["local_prototypes"].shape == (CLI_CLASSES, CLI_K, 2048),
+                f"prototype cache {protos['local_prototypes'].shape}")
+    secs["driver"] = stats["seconds"]
+    encodes = -(-n_train // CLI_ENCODE_BATCH)
+    want = flash_plan(pipe, CLI_BATCH)
+    want[("flash_fwd", (CLI_ENCODE_BATCH, ls * ls, ls * ls, 512))] += encodes
+    check_flash_plan(by_shape, want, "phase 9 SDXL CLI")
+    check_gn_plan(gn_only(by_shape), gn_plan(
+        expand_gn_calls(pipe, CLI_BATCH) + [sdxl_encode_gn_call(pipe.config)],
+        smem_limit=gn._device_limits(dev)[0]))
+    require_timed(records, by_shape, "phase 9 (SDXL CLI)")
+    for stage, s in secs.items():
+        print(f"  {stage}: {s:.2f} s ({card})")
+    print(f"  {len(pngs)} PNGs of {side}x{side}x3; latent cache {latents.shape}; peak memory "
+          f"{peak / 2**30:.2f} GiB")
+    del seen, pipe
+    gc.collect()
+    torch.cuda.empty_cache()
+    return {"secs": secs, "stats": stats, "by_shape": by_shape, "peak_bytes": peak}
+
+
+def sdxl_fp32_pipes(seed: int = 12):
+    """``sdxl_tiny`` at 96^2 in fp32 (latents 48^2, so that the 24^2 level's
+    attention takes the flash kernels; the VAE at width 160, so that its
+    mid-block takes the split pair) on the CPU and on the card with the
+    same weights, and the conditioning of both towers on the CPU."""
+    import dataclasses
+
+    import torch
+
+    from distdiff_tpu_torch.config import PipelineConfig, VAEConfig
+    from distdiff_tpu_torch.models import HashTokenizer
+
+    def edit(_):
+        cfg = PipelineConfig.sdxl_tiny(sample_size=96)
+        return dataclasses.replace(cfg, vae=VAEConfig(
+            block_out_channels=(16, 160), layers_per_block=1, dtype=torch.float32))
+
+    pipes, (lat, _, _, targets), gen = tiny_fp32_pipes(seed=seed, edit=edit)
+    pipes[1].text_encoder_2.load_state_dict(pipes[0].text_encoder_2.state_dict())
+    tok = HashTokenizer(vocab_size=1000, max_length=16)
+    ids = torch.as_tensor(tok(["a photo of an owl", "a photo of a lynx"])).long()
+    uids = torch.as_tensor(tok(["", ""])).long()
+    cond, uncond = pipes[0].encode_text_pair(ids, ids), pipes[0].encode_text_pair(uids, uids)
+    return pipes, (lat, cond, uncond, targets), gen, (ids, uids)
+
+
+def sdxl_fp32_phase() -> None:
+    """The fp32 ``sdxl_tiny`` guided expand (make_expand_fn, transform
+    guidance), ``encode_text_pair`` and ``SDXLPipeline`` img2img on the
+    card against the CPU, with the same weights and draws, at phase 3's
+    tolerance; the flash and GroupNorm kernels launched."""
+    import torch
+
+    from distdiff_tpu_torch.ops import flash
+    from distdiff_tpu_torch.ops import groupnorm as gn
+    from distdiff_tpu_torch.sampling.conditioning import cond_to
+    from distdiff_tpu_torch.sampling.sdxl import SDXLPipeline
+
+    dev = torch.device("cuda")
+    flash.reset_launch_counts()
+    gn.reset_launch_counts()
+    pipes, inputs, gen, (ids, uids) = sdxl_fp32_pipes()
+    draws = dict(zip(("noise", "gamma0", "beta0"), pipes[0].draw_inputs(inputs[0], gen)))
+
+    def run(pipe, device):
+        lat, cond, uncond, targets = inputs
+        img, aux = pipe.make_expand_fn()(
+            lat.to(device), cond_to(cond, device), cond_to(uncond, device), targets.to(device),
+            return_aux=True, **{k: v.to(device) for k, v in draws.items()})
+        return [t.float().cpu() for t in (img, aux["latents_after"], aux["score"])]
+
+    print("  SDXL tiny guided expand:")
+    agree_fp32(zip(("image", "updated latents", "guidance score"), run(pipes[1], dev),
+                   run(pipes[0], "cpu")))
+    pair = [p.encode_text_pair(i.to(d), i.to(d)) for p, i, d in
+            zip(pipes, (ids, ids), ("cpu", dev))]
+    agree_fp32([(f"encode_text_pair {k}", pair[1][k].float().cpu(), pair[0][k])
+                for k in ("ctx", "add")])
+    images = []
+    for pipe, device in zip(pipes, ("cpu", dev)):
+        sdxl = SDXLPipeline(config=pipe.config, sampler_cfg=pipe.sampler_cfg, sched=pipe.sched,
+                            unet=pipe.unet, vae=pipe.vae, text_encoder=pipe.text_encoder,
+                            text_encoder_2=pipe.text_encoder_2, device=torch.device(device))
+        c, u = (cond_to(x, device) for x in inputs[1:3])
+        images.append(sdxl.make_sample_fn(text_to_img=False)(
+            inputs[0].to(device), c, u, noise=draws["noise"].to(device)).float().cpu())
+    print("  SDXLPipeline img2img:")
+    agree_fp32([("image", images[1], images[0])])
+    torch.cuda.synchronize()
+    counts = dict(flash.launch_counts, **gn.launch_counts)
+    print(f"  launches over the fp32 SDXL card runs: {counts}")
+    require(all(counts[k] > 0 for k in ("flash_fwd", "flash_bwd_fused", "flash_bwd_dq",
+                                        "flash_bwd_dkv", "gn_fused")),
+            f"the fp32 SDXL runs did not go through the kernels: {counts}")
+
+
 def check_gn_plan(got: dict, want) -> None:
     """Every GroupNorm kernel's launches by shape against the plan."""
     totals = {k: [0, 0] for k in GN_KERNELS}
@@ -3223,7 +3575,8 @@ def build_path(config=None):
     """The main path at full SD-1.5 geometry (or ``config``'s, e.g.
     ``PipelineConfig.sd21()``) on the card: the pipeline (seeded random
     weights, bf16 UNet/VAE, fp32 ResNet-50 guide with 100 classes and
-    random prototypes), its expand function and its inputs."""
+    random prototypes), its expand function and its inputs (for SDXL the
+    conditioning of both text towers on prompts, else random contexts)."""
     import torch
 
     from distdiff_tpu_torch.config import GuidanceConfig, PipelineConfig
@@ -3251,8 +3604,17 @@ def build_path(config=None):
     ls = pipe.config.latent_size
     ctx = config.unet.cross_attention_dim
     lat = torch.randn(BATCH, ls, ls, 4, generator=gen, device=dev) * 0.18
-    cond = torch.randn(BATCH, 77, ctx, generator=gen, device=dev)
-    uncond = torch.randn(BATCH, 77, ctx, generator=gen, device=dev)
+    if pipe.is_sdxl:  # both towers on the card: the {"ctx", "add"} dicts
+        from distdiff_tpu_torch.models import HashTokenizer
+
+        tok = HashTokenizer(config.text_encoder.vocab_size, config.text_encoder.max_length)
+        ids = torch.as_tensor(tok([f"a photo of a class_{i:03d}" for i in range(BATCH)]),
+                              device=dev).long()
+        uids = torch.as_tensor(tok([""] * BATCH), device=dev).long()
+        cond, uncond = pipe.encode_text_pair(ids, ids), pipe.encode_text_pair(uids, uids)
+    else:
+        cond = torch.randn(BATCH, 77, ctx, generator=gen, device=dev)
+        uncond = torch.randn(BATCH, 77, ctx, generator=gen, device=dev)
     targets = torch.randint(0, 100, (BATCH,), generator=gen, device=dev)
     return pipe, pipe.make_expand_fn(), (lat, cond, uncond, targets)
 
@@ -3343,9 +3705,11 @@ def main(argv) -> int:
     if "--profile" in argv:
         from distdiff_tpu_torch.config import PipelineConfig
 
-        sd21 = "--sd21" in argv
-        print(f"== profile of the {'SD-2.1 768-v' if sd21 else 'main'} path")
-        _, expand, inputs = build_path(PipelineConfig.sd21() if sd21 else None)
+        sd21, sdxl = "--sd21" in argv, "--sdxl" in argv
+        print(f"== profile of the {'SD-2.1 768-v' if sd21 else 'SDXL-base' if sdxl else 'main'} "
+              f"path")
+        _, expand, inputs = build_path(PipelineConfig.sd21() if sd21 else
+                                       PipelineConfig.sdxl_base() if sdxl else None)
         json_path = argv[argv.index("--json") + 1] if "--json" in argv else None
         profile_path(expand, inputs, json_path)
         return 0
@@ -3355,7 +3719,7 @@ def main(argv) -> int:
     print("  -- fp32 flash")
     fp32_records = flash_f32_phase()
     print("  -- GroupNorm")
-    records += gn_kernel_phase(gn_shapes(main_gn_calls() + sd21_gn_calls()))
+    records += gn_kernel_phase(gn_shapes(main_gn_calls() + sd21_gn_calls() + sdxl_gn_calls()))
 
     print("== 3. agreement at a small geometry")
     agreement_phase()
@@ -3483,12 +3847,21 @@ def main(argv) -> int:
     solver_fp32_phase()
     print(f"  phase 8: {time.time() - t0:.1f} s ({card})")
 
-    print("== 9. result")
+    print("== 9. SDXL-base at 1024^2: the guided expand, text-to-image, the CLI")
+    t0 = time.time()
+    sdxl = sdxl_phase(records, card)
+    print("  -- cli.generate_data --model sdxl from files on disk")
+    sdxl_cli = sdxl_cli_phase(records, card)
+    print("  -- fp32 sdxl_tiny on the card against the CPU")
+    sdxl_fp32_phase()
+    print(f"  phase 9: {time.time() - t0:.1f} s ({card})")
+
+    print("== 10. result")
     print(card)
     print(json.dumps({
         "kernels": summarize(records, by_shape + front["by_shape"] + cli["by_shape"]
                              + sd21["by_shape"] + sd21_cli["by_shape"] + solver_shapes
-                             + mode_shapes),
+                             + mode_shapes + sdxl["by_shape"] + sdxl_cli["by_shape"]),
         "fp32_flash": fp32_records, "expand_warm_s": warm_s,
         "expand_warm_s_runs": warm_runs, "expand_peak_bytes": peak,
         "split_expand_warm_s": split["warm_s"], "split_expand_warm_s_runs": split["runs"],
@@ -3509,7 +3882,11 @@ def main(argv) -> int:
                  "peak_bytes": sd21["peak_bytes"], "kernels": sd21["kernels"],
                  "cli_seconds": sd21_cli["secs"], "cli_driver": sd21_cli["stats"],
                  "cli_peak_bytes": sd21_cli["peak_bytes"]},
-        "solvers": solvers, "rollout_remat": modes}))
+        "solvers": solvers, "rollout_remat": modes,
+        "sdxl": {k: sdxl[k] for k in ("warm_s", "runs", "cold_s", "peak_bytes", "build_s",
+                                      "kernels", "t2i_warm_s", "t2i_cold_s", "t2i_peak_bytes")}
+        | {"cli_seconds": sdxl_cli["secs"], "cli_driver": sdxl_cli["stats"],
+           "cli_peak_bytes": sdxl_cli["peak_bytes"]}}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

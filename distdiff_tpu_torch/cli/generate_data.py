@@ -2,8 +2,9 @@
 the reference's ``generate_data.py`` role with its full flag vocabulary and
 defaults, vestigial DreamBooth flags accepted as logged no-ops.
 
-Pipeline: the SD-1.5 (or with ``--model sd21`` SD-2.1 768-v) pipeline with
-weights from a diffusers-layout directory (``--sd_checkpoint``; seeded
+Pipeline: the SD-1.5 (or with ``--model sd21`` SD-2.1 768-v, with
+``--model sdxl`` SDXL-base) pipeline with weights from a diffusers-layout
+directory (``--sd_checkpoint``; seeded
 random weights with a loud warning otherwise), sampled by DDIM or
 ``--scheduler dpmpp`` (DPM-Solver++(2M)), optionally with ``--deep_cache``
 -> ``SDDataset`` with its text-embedding and VAE-latent caches -> the guide
@@ -12,8 +13,10 @@ writing ``{output_dir}/{classname}/{stem}_expand_{i}.png``.
 
 It runs on the card; ``DISTDIFF_PLATFORM=cpu`` runs it on the CPU (with
 ``--tiny``, the toy config; with ``--tiny --model sd21`` the toy config in
-v-prediction). A flag whose module is not ported (``--model sdxl``,
-``--int8``, ``--lora``, ``--params_path``, ``--save_params``,
+v-prediction, with ``--tiny --model sdxl`` ``PipelineConfig.sdxl_tiny``).
+SDXL's conditioning is the ``{"ctx", "add"}`` dict of ``encode_text_pair``,
+both towers fed the same tokenization. A flag whose module is not ported
+(``--int8``, ``--lora``, ``--params_path``, ``--save_params``,
 ``--mesh_model`` > 1, a guide arch other than ``resnet50``) raises
 ``NotImplementedError`` naming its ROADMAP item.
 
@@ -69,8 +72,9 @@ def build_parser():
                    choices=["sd15", "sd21", "sdxl"],
                    help="diffusion backbone: sd15 (reference recipe), sd21 "
                         "(SD-2.1 768-v: OpenCLIP-H text tower, v-prediction; "
-                        "pass --resolution 768); sdxl is not ported (ROADMAP "
-                        "queue 1 item 8)")
+                        "pass --resolution 768), sdxl (SDXL-base: dual text "
+                        "towers, additive conditioning; pass --resolution "
+                        "1024)")
     p.add_argument("--params_path", type=str, default=None,
                    help="the JAX package's orbax parameter tree (not read by "
                         "the port: ROADMAP queue 1 item 8)")
@@ -277,8 +281,6 @@ def check_ported(args) -> None:
     """Raise ``NotImplementedError``, naming the ROADMAP item, for a flag
     whose module the port does not have yet; none is ignored quietly."""
     unported = []
-    if args.model == "sdxl":
-        unported.append(f"--model {args.model}")
     for flag in ("int8", "lora", "params_path", "save_params"):
         if getattr(args, flag):
             unported.append(f"--{flag}")
@@ -303,10 +305,16 @@ def build_pipeline(args, device=None):
     check_ported(args)
     device = cli_device() if device is None else device
     if args.tiny:
-        config = PipelineConfig.tiny(sample_size=min(args.resolution, 64))
+        if args.model == "sdxl":
+            config = PipelineConfig.sdxl_tiny(sample_size=min(args.resolution, 64))
+        else:
+            config = PipelineConfig.tiny(sample_size=min(args.resolution, 64))
         if args.model == "sd21":  # the toy config in SD-2.1's v-prediction
             config = dataclasses.replace(config, prediction_type="v_prediction")
         guide_input = config.sample_size
+    elif args.model == "sdxl":
+        config = PipelineConfig.sdxl_base(sample_size=args.resolution)
+        guide_input = 224
     elif args.model == "sd21":
         config = PipelineConfig.sd21(sample_size=args.resolution)
         guide_input = 224
@@ -345,10 +353,10 @@ def build_pipeline(args, device=None):
     if config.unet.dtype == torch.bfloat16:
         cast_params_bf16(pipe)
     if args.sd_checkpoint:
-        from distdiff_tpu_torch.weights.convert import load_sd_checkpoint
+        from distdiff_tpu_torch.weights.convert import load_sd_checkpoint, load_sdxl_checkpoint
 
         # strict: a missing, extra or mis-shaped key raises
-        load_sd_checkpoint(args.sd_checkpoint, pipe)
+        (load_sdxl_checkpoint if pipe.is_sdxl else load_sd_checkpoint)(args.sd_checkpoint, pipe)
         log.info("loaded SD checkpoint from %s (validated)", args.sd_checkpoint)
     else:
         log.warning("NO SD WEIGHTS PROVIDED — using random init. Pass --sd_checkpoint "
@@ -429,9 +437,19 @@ def main(argv=None):
         # text conditioning; refuse unless this is a toy run
         strict=bool(args.sd_checkpoint) and not args.tiny)
 
-    def encode_text_fn(prompts):
-        ids = torch.as_tensor(tokenizer(list(prompts)), device=device).long()
-        return pipe.encode_text(ids).float().cpu().numpy()
+    if pipe.is_sdxl:
+        from distdiff_tpu_torch.sampling.conditioning import cond_asarray
+
+        def encode_text_fn(prompts):
+            # both towers take the same CLIP-BPE ids, as in the JAX package
+            # (diffusers' tokenizer_2 pads with "!" where this pads with
+            # the end-of-text token)
+            ids = torch.as_tensor(tokenizer(list(prompts)), device=device).long()
+            return cond_asarray(pipe.encode_text_pair(ids, ids))
+    else:
+        def encode_text_fn(prompts):
+            ids = torch.as_tensor(tokenizer(list(prompts)), device=device).long()
+            return pipe.encode_text(ids).float().cpu().numpy()
 
     def encode_images_fn(images):
         return pipe.encode_images(torch.as_tensor(images, device=device)).float().cpu().numpy()

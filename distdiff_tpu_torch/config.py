@@ -1,10 +1,10 @@
 """Model / pipeline configuration dataclasses (port of
 ``distdiff_tpu/config.py``).
 
-The SD-1.x, SD-2.1 and tiny geometries of the guided expansion path (the
-UNet, the VAE, the CLIP or OpenCLIP text encoder) are carried over; dtypes
-are ``torch.dtype``s. SDXL's pooled projection (``embed_dim``) waits for
-SDXL.
+The SD-1.x, SD-2.1, SDXL-base and tiny geometries of the guided expansion
+path (the UNet, the VAE, the CLIP or OpenCLIP text encoders) are carried
+over; dtypes are ``torch.dtype``s. The JAX package's ``int8`` switch waits
+for ``ops/quant.py`` (ROADMAP queue 1 item 8).
 """
 
 from __future__ import annotations
@@ -18,7 +18,7 @@ import torch
 @dataclasses.dataclass(frozen=True)
 class UNetConfig:
     """UNet2DCondition architecture (SD-1.x geometry by default; SD-2.1 via
-    :meth:`sd21`)."""
+    :meth:`sd21`, SDXL-base via :meth:`sdxl_base`)."""
 
     in_channels: int = 4
     out_channels: int = 4
@@ -26,10 +26,16 @@ class UNetConfig:
     layers_per_block: int = 2
     # Per down-block: does it carry cross-attention transformers?
     cross_attention: Tuple[bool, ...] = (True, True, True, False)
+    # int (uniform) or per-block tuple (SDXL: (0, 2, 10))
     transformer_depth: Any = 1
+    # int (uniform) or per-block tuple (SDXL: heads 64 wide, (5, 10, 20))
     num_attention_heads: Any = 8
     cross_attention_dim: int = 768
     time_embed_dim_mult: int = 4
+    # SDXL's additive conditioning: the width of [pooled text | fourier
+    # time ids] fed through ``add_embedding`` into the time embedding
+    # (2816 = 1280 + 6 * 256 for SDXL-base); None: no such input
+    addition_embed_dim: Optional[int] = None
     # diffusers' use_linear_projection (SD-2.x): the transformers' proj_in
     # and proj_out are linear [C, C] layers on the tokens instead of 1x1
     # convolutions [C, C, 1, 1]; the same function either way.
@@ -67,6 +73,22 @@ class UNetConfig:
         )
 
     @staticmethod
+    def sdxl_base() -> "UNetConfig":
+        """SDXL-base: three levels (320/640/1280), no attention at the top
+        level, transformer depths 0/2/10, heads 64 wide, the 2048-wide
+        dual-tower context, linear projections and the 2816-wide additive
+        conditioning (2,567,463,684 parameters)."""
+        return UNetConfig(
+            block_out_channels=(320, 640, 1280),
+            cross_attention=(False, True, True),
+            transformer_depth=(0, 2, 10),
+            num_attention_heads=(5, 10, 20),
+            cross_attention_dim=2048,
+            addition_embed_dim=2816,
+            linear_projection=True,
+        )
+
+    @staticmethod
     def tiny() -> "UNetConfig":
         return UNetConfig(
             block_out_channels=(32, 64),
@@ -98,6 +120,12 @@ class VAEConfig:
         return VAEConfig()
 
     @staticmethod
+    def sdxl() -> "VAEConfig":
+        """SDXL's retrained VAE: SD-1.x's architecture, latent scale
+        0.13025."""
+        return VAEConfig(scaling_factor=0.13025)
+
+    @staticmethod
     def tiny() -> "VAEConfig":
         return VAEConfig(
             block_out_channels=(16, 32),
@@ -118,6 +146,9 @@ class TextEncoderConfig:
     max_length: int = 77
     # CLIP uses quick_gelu; newer OpenCLIP text towers use gelu.
     activation: str = "quick_gelu"
+    # when set, a bias-free ``text_projection`` maps the pooled end-of-text
+    # hidden state to this width (SDXL's text_encoder_2, zero-shot heads)
+    embed_dim: Optional[int] = None
     dtype: torch.dtype = torch.bfloat16
 
     @staticmethod
@@ -130,6 +161,16 @@ class TextEncoderConfig:
         layers, width 1024, 16 heads, gelu (340,387,840 parameters)."""
         return TextEncoderConfig(
             hidden_size=1024, num_layers=23, num_heads=16, activation="gelu",
+        )
+
+    @staticmethod
+    def sdxl_big() -> "TextEncoderConfig":
+        """SDXL's text_encoder_2: the OpenCLIP-bigG text tower, width 1280,
+        32 layers, 20 heads, gelu, projected pooled output (694,659,840
+        parameters)."""
+        return TextEncoderConfig(
+            hidden_size=1280, num_layers=32, num_heads=20, activation="gelu",
+            embed_dim=1280,
         )
 
     @staticmethod
@@ -148,6 +189,10 @@ class PipelineConfig:
     vae: VAEConfig = dataclasses.field(default_factory=VAEConfig.sd15)
     text_encoder: TextEncoderConfig = dataclasses.field(
         default_factory=TextEncoderConfig.sd15)
+    # SDXL's second text tower (OpenCLIP-bigG); None for SD-1.x and SD-2.x.
+    # When set, the conditioning is the {"ctx", "add"} dict
+    # (sampling/conditioning.py)
+    text_encoder_2: Optional[TextEncoderConfig] = None
     sample_size: int = 512  # pixel resolution
     num_inference_steps: int = 50
     # the UNet's output: "epsilon" (SD-1.x) or "v_prediction" (SD-2.1 768-v)
@@ -176,6 +221,19 @@ class PipelineConfig:
         return PipelineConfig()
 
     @staticmethod
+    def sdxl_base(sample_size: int = 1024) -> "PipelineConfig":
+        """SDXL-base: the three-level UNet with additive conditioning, the
+        SDXL VAE (SD-1.x geometry, scale 0.13025), CLIP-L and OpenCLIP-bigG
+        text towers."""
+        return PipelineConfig(
+            unet=UNetConfig.sdxl_base(),
+            vae=VAEConfig.sdxl(),
+            text_encoder=TextEncoderConfig.sd15(),
+            text_encoder_2=TextEncoderConfig.sdxl_big(),
+            sample_size=sample_size,
+        )
+
+    @staticmethod
     def sd21(sample_size: int = 768,
              prediction_type: str = "v_prediction") -> "PipelineConfig":
         """SD-2.1, 768-v by default; ``sample_size=512,
@@ -187,6 +245,38 @@ class PipelineConfig:
             text_encoder=TextEncoderConfig.sd21(),
             sample_size=sample_size,
             prediction_type=prediction_type,
+        )
+
+    @staticmethod
+    def sdxl_tiny(sample_size: int = 32) -> "PipelineConfig":
+        """SDXL in toy widths: per-block depths, heads and the level with no
+        attention, both text towers, the additive conditioning, the linear
+        projections; fp32, no inner checkpoints."""
+        return PipelineConfig(
+            unet=UNetConfig(
+                block_out_channels=(16, 32, 64),
+                layers_per_block=1,
+                cross_attention=(False, True, True),
+                transformer_depth=(0, 1, 2),
+                num_attention_heads=(2, 2, 4),
+                cross_attention_dim=48,
+                addition_embed_dim=16 + 6 * 8,
+                linear_projection=True,
+                dtype=torch.float32,
+                remat=False,
+            ),
+            vae=VAEConfig.tiny(),
+            text_encoder=TextEncoderConfig(
+                vocab_size=1000, hidden_size=16, num_layers=2, num_heads=2,
+                max_length=16, dtype=torch.float32,
+            ),
+            text_encoder_2=TextEncoderConfig(
+                vocab_size=1000, hidden_size=32, num_layers=2, num_heads=2,
+                max_length=16, embed_dim=16, activation="gelu", dtype=torch.float32,
+            ),
+            sample_size=sample_size,
+            num_inference_steps=10,
+            max_text_length=16,
         )
 
     @staticmethod

@@ -1,11 +1,12 @@
 """Generation-side dataset: images, cached VAE latents and text embeddings
-(port of ``distdiff_tpu/data/sd_dataset.py``, SD-1.x conditioning; SDXL's
-``{"ctx", "add"}`` pairs wait for ROADMAP queue 1 item 8).
+(port of ``distdiff_tpu/data/sd_dataset.py``).
 
 * Per-class text embeddings are computed once from the dataset's caption
   template (or, with ``language_enhance``, one per sentence of the
   per-class bank ``{data_root}/{dataset}_le.pkl``), plus the uncond ("")
-  embedding.
+  embedding. A conditioning value is a text-context array, or SDXL's
+  ``{"ctx", "add"}`` dict of arrays, handled key by key
+  (``sampling/conditioning.py``).
 * The VAE latents of every train image are encoded in batches and cached at
   ``save/vae_embedding/{dataset}/{model}/image_latents.npy``: the JAX
   package's path and ``.npy`` format, so a cache written by either package
@@ -27,6 +28,12 @@ from distdiff_tpu_torch.data.datasets import load_image
 from distdiff_tpu_torch.data.registry import load_dataset
 from distdiff_tpu_torch.data.templates import template_for
 from distdiff_tpu_torch.data.transforms import sd_transform
+from distdiff_tpu_torch.sampling.conditioning import (
+    cond_asarray,
+    cond_index,
+    cond_leading_dim,
+    cond_stack,
+)
 
 VAE_EMBED_DIR = "save/vae_embedding"
 
@@ -34,8 +41,9 @@ VAE_EMBED_DIR = "save/vae_embedding"
 @dataclasses.dataclass
 class SDItem:
     latent: np.ndarray   # [h, w, 4] scaled VAE latent
-    cond: np.ndarray     # [T, D] text embedding
-    uncond: np.ndarray   # [T, D] the "" embedding
+    # [T, D] text embedding, or SDXL's {"ctx": [T, 2048], "add": [2816]}
+    cond: object
+    uncond: object       # the "" embedding, in the same form
     class_name: str
     image_path: str
     target: int
@@ -55,7 +63,8 @@ class SDDataset:
         cache_root: str = ".",
         encode_batch: int = 8,
     ):
-        """``encode_text_fn``: prompts -> ``[N, T, D]``; ``encode_images_fn``:
+        """``encode_text_fn``: prompts -> ``[N, T, D]`` (SDXL: ``{"ctx":
+        [N, T, D], "add": [N, A]}``); ``encode_images_fn``:
         ``[b, size, size, 3]`` images in [-1, 1] -> scaled latents."""
         self.dataset_name = dataset
         self.size = size
@@ -75,13 +84,13 @@ class SDDataset:
             with open(le_path, "rb") as f:
                 bank = pickle.load(f)
             bank = {k.replace("_", " "): v for k, v in bank.items()}
-            self.class_embeds = [np.asarray(encode_text_fn(list(bank[c])))
+            self.class_embeds = [cond_asarray(encode_text_fn(list(bank[c])))
                                  for c in self.class_names]
         else:
             template = template_for(dataset)
-            self.class_embeds = np.asarray(
+            self.class_embeds = cond_asarray(
                 encode_text_fn([template.format(c) for c in self.class_names]))
-        self.uncond_embed = np.asarray(encode_text_fn([""]))[0]
+        self.uncond_embed = cond_index(cond_asarray(encode_text_fn([""])), 0)
         self.latents = self._load_or_encode_latents(encode_images_fn, model_name,
                                                     cache_root, encode_batch)
 
@@ -124,9 +133,9 @@ class SDDataset:
         target = self.labels[idx]
         if self.language_enhance:
             sents = self.class_embeds[target]
-            cond = sents[int(self.rng.integers(0, len(sents)))]
+            cond = cond_index(sents, int(self.rng.integers(0, cond_leading_dim(sents))))
         else:
-            cond = self.class_embeds[target]
+            cond = cond_index(self.class_embeds, target)
         return SDItem(latent=self.latents[idx], cond=cond, uncond=self.uncond_embed,
                       class_name=self.class_names[target],
                       image_path=self.image_paths[idx], target=int(target))
@@ -134,11 +143,11 @@ class SDDataset:
 
 def collate_sd(items: List[SDItem]):
     """Stack SDItems into batch arrays (reference ``collate_fn``,
-    ``generate_data.py:642-684``)."""
+    ``generate_data.py:642-684``); conditioning key by key, as numpy."""
     return {
         "latents": np.stack([it.latent for it in items]),
-        "cond": np.stack([it.cond for it in items]),
-        "uncond": np.stack([it.uncond for it in items]),
+        "cond": cond_asarray(cond_stack([it.cond for it in items])),
+        "uncond": cond_asarray(cond_stack([it.uncond for it in items])),
         "targets": np.asarray([it.target for it in items], np.int32),
         "class_names": [it.class_name for it in items],
         "image_paths": [it.image_path for it in items],

@@ -8,13 +8,19 @@ The causal attention over 77 tokens is plain ``torch.matmul`` and softmax,
 as the reference computes it outside its kernels. Precision follows the
 reference: layers compute in the config's dtype, layer norms (eps 1e-6, as
 flax's) keep fp32 statistics, the softmax is fp32, and the output is fp32.
-SDXL's ``penultimate_hidden`` and ``sdxl_outputs`` wait for SDXL.
+
+With ``embed_dim`` set, the module also holds the bias-free
+``text_projection`` of transformers' ``CLIPTextModelWithProjection``
+(SDXL's ``text_encoder_2``): the pooled embedding is the final hidden state
+at the end-of-text token (the highest id, ``argmax(input_ids)``) through it,
+in fp32. SDXL conditions on ``penultimate_hidden``, the state after all
+blocks but the last, without the final layer norm.
 """
 
 from __future__ import annotations
 
 import math
-from typing import Union
+from typing import Optional, Tuple, Union
 
 import torch
 import torch.nn as nn
@@ -112,18 +118,58 @@ class CLIPTextEncoder(nn.Module):
                  device: Union[str, torch.device] = "cuda"):
         super().__init__()
         self.config = config
-        self.text_model = CLIPTextTransformer(config, device=resolve_device(device))
+        device = resolve_device(device)
+        self.text_model = CLIPTextTransformer(config, device=device)
+        if config.embed_dim is not None:
+            self.text_projection = Linear(config.hidden_size, config.embed_dim, bias=False,
+                                          device=device)
 
-    def hidden_states(self, input_ids: torch.Tensor) -> torch.Tensor:
+    def _embed(self, input_ids: torch.Tensor):
         dt = self.config.dtype
         tm = self.text_model
         t = input_ids.shape[1]
         x = tm.embeddings.token_embedding(input_ids).to(dt)
         x = x + tm.embeddings.position_embedding.weight[None, :t].to(dt)
-        causal = torch.ones((t, t), dtype=torch.bool, device=x.device).tril()
-        for layer in tm.encoder.layers:
+        return x, torch.ones((t, t), dtype=torch.bool, device=x.device).tril()
+
+    def _pool(self, h: torch.Tensor, input_ids: torch.Tensor) -> torch.Tensor:
+        """The final hidden state at the end-of-text token, projected."""
+        if self.config.embed_dim is None:
+            raise ValueError("the pooled output needs TextEncoderConfig.embed_dim")
+        eot = input_ids.argmax(dim=-1)
+        return self.text_projection(h[torch.arange(h.shape[0], device=h.device), eot])
+
+    def hidden_states(self, input_ids: torch.Tensor) -> torch.Tensor:
+        x, causal = self._embed(input_ids)
+        for layer in self.text_model.encoder.layers:
             x = layer(x, causal)
-        return tm.final_layer_norm(x).float()
+        return self.text_model.final_layer_norm(x).float()
+
+    def penultimate_hidden(self, input_ids: torch.Tensor) -> torch.Tensor:
+        """The state after every block but the last, without the final layer
+        norm (diffusers' ``hidden_states[-2]``): SDXL's conditioning tap."""
+        x, causal = self._embed(input_ids)
+        for layer in self.text_model.encoder.layers[:-1]:
+            x = layer(x, causal)
+        return x.float()
+
+    def sdxl_outputs(self, input_ids: torch.Tensor
+                     ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
+        """(``penultimate_hidden`` [B, T, D], the pooled projection [B,
+        embed_dim] or None without ``embed_dim``) in one pass."""
+        x, causal = self._embed(input_ids)
+        layers = self.text_model.encoder.layers
+        for layer in layers[:-1]:
+            x = layer(x, causal)
+        penult = x.float()
+        if self.config.embed_dim is None:
+            return penult, None
+        h = self.text_model.final_layer_norm(layers[-1](x, causal)).float()
+        return penult, self._pool(h, input_ids)
+
+    def encode_pooled(self, input_ids: torch.Tensor) -> torch.Tensor:
+        """The pooled projection ``[B, embed_dim]`` alone."""
+        return self._pool(self.hidden_states(input_ids), input_ids)
 
     def forward(self, input_ids: torch.Tensor) -> torch.Tensor:
         return self.hidden_states(input_ids)

@@ -1,11 +1,12 @@
 """UNet2DCondition (port of ``distdiff_tpu/models/unet.py``), SD-1.x,
-SD-2.1 and tiny geometries, with diffusers' state-dict names.
+SD-2.1, SDXL-base and tiny geometries, with diffusers' state-dict names.
 
 The public call takes NHWC latents ``[B, h, w, C_in]`` and returns the fp32
-prediction in NHWC; inside, the network runs NCHW. It takes the JAX
-package's DeepCache arguments (``return_cache``, ``deep_cache``,
-``cache_branch``); its pipeline-parallel ``segment``/``skips`` and SDXL's
-additive conditioning are not ported. With ``config.remat``, and only while
+prediction in NHWC; inside, the network runs NCHW. It takes SDXL's additive
+conditioning (``added_cond``, through ``add_embedding`` in fp32 into the
+time embedding) and the JAX package's DeepCache arguments
+(``return_cache``, ``deep_cache``, ``cache_branch``); its pipeline-parallel
+``segment``/``skips`` are not ported. With ``config.remat``, and only while
 autograd records, each ``ResnetBlock2D`` and ``Transformer2DModel`` runs
 under a non-reentrant ``torch.utils.checkpoint``, where the JAX package
 puts its ``nn.remat``; the values are the same either way.
@@ -55,6 +56,9 @@ class UNet2DConditionModel(nn.Module):
 
         self.conv_in = SmallConv3x3(cfg.in_channels, boc[0], **kw)
         self.time_embedding = TimestepEmbedding(boc[0], temb, dtype=dt, device=device)
+        if cfg.addition_embed_dim is not None:
+            self.add_embedding = TimestepEmbedding(cfg.addition_embed_dim, temb, dtype=dt,
+                                                   device=device)
 
         skips = [boc[0]]
         x_ch = boc[0]
@@ -102,10 +106,13 @@ class UNet2DConditionModel(nn.Module):
         return remat_call(self.config.remat, module, *args)
 
     def forward(self, sample: torch.Tensor, timestep, encoder_hidden_states: torch.Tensor,
+                added_cond: Optional[torch.Tensor] = None,
                 deep_cache: Optional[torch.Tensor] = None, return_cache: bool = False,
                 cache_branch: int = 0):
         """``sample [B, h, w, C_in]`` (NHWC), ``timestep`` int or ``[B]``,
         ``encoder_hidden_states [B, T, D_ctx]`` -> fp32 ``[B, h, w, C_out]``.
+        ``added_cond [B, addition_embed_dim]`` (SDXL's [pooled | time ids])
+        is required when the config has ``addition_embed_dim``.
 
         DeepCache (Ma et al. 2023): ``return_cache=True`` runs the whole
         network and also returns the feature entering up group
@@ -128,6 +135,12 @@ class UNet2DConditionModel(nn.Module):
         if t.shape[0] == 1 and b > 1:
             t = t.expand(b)
         temb = self.time_embedding(timestep_embedding(t, cfg.block_out_channels[0]))
+        if cfg.addition_embed_dim is not None:
+            if added_cond is None:
+                raise ValueError("this UNet config has addition_embed_dim: pass added_cond "
+                                 "([pooled text | time-id embeddings], SDXL's additive "
+                                 "conditioning)")
+            temb = temb + self.add_embedding(added_cond.float())
         context = encoder_hidden_states.to(dt)
         x = self.conv_in(sample.permute(0, 3, 1, 2).to(dt))
 

@@ -30,7 +30,7 @@ import torch
 from distdiff_tpu_torch.data.datasets import PNG_SIGNATURE, read_png  # noqa: F401 (re-exported)
 from distdiff_tpu_torch.device import resolve_device
 from distdiff_tpu_torch.parallel.manifest import WorkUnit, build_manifest, chunk_units
-from distdiff_tpu_torch.sampling.conditioning import cond_stack
+from distdiff_tpu_torch.sampling.conditioning import cond_stack, cond_to
 
 log = logging.getLogger("distdiff.driver")
 
@@ -101,8 +101,8 @@ class ExpansionDriver:
         items = [self.sd[u.dataset_index] for u in units]
         dev = self.device
         latents = torch.stack([torch.as_tensor(it.latent) for it in items]).to(dev)
-        cond = cond_stack([it.cond for it in items]).to(dev)
-        uncond = cond_stack([it.uncond for it in items]).to(dev)
+        cond = cond_to(cond_stack([it.cond for it in items]), dev)
+        uncond = cond_to(cond_stack([it.uncond for it in items]), dev)
         targets = torch.as_tensor([int(it.target) for it in items], device=dev)
         return latents, cond, uncond, targets, self.generators(units)
 

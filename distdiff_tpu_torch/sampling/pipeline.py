@@ -1,7 +1,12 @@
 """End-to-end guided expansion pipeline (port of
 ``distdiff_tpu/sampling/pipeline.py``: ``ExpansionPipeline.create``,
-``encode_images``, ``encode_text``, ``make_expand_fn``, ``SplitExpand`` and
-the pieces they use).
+``encode_images``, ``encode_text``, ``encode_text_pair``,
+``make_expand_fn``, ``SplitExpand`` and the pieces they use).
+
+SD-1.x and SD-2.x condition on a text-context tensor; SDXL (a config with
+``text_encoder_2``) on the ``{"ctx", "add"}`` dict of ``encode_text_pair``,
+which every function here passes on as an opaque value
+(``sampling/conditioning.py``).
 
 Noise cached latents to the img2img start, denoise with CFG (DDIM or
 DPM-Solver++(2M), ``config.scheduler``; DeepCache under
@@ -20,6 +25,7 @@ guide ResNet-50 and the energy run in fp32 (with TF32 off on CUDA, see
 from __future__ import annotations
 
 import dataclasses
+import functools
 from typing import Callable, Dict, Optional, Sequence, Tuple, Union
 
 import torch
@@ -33,7 +39,7 @@ from distdiff_tpu_torch.guidance.optimize import (
     transform_guidance,
 )
 from distdiff_tpu_torch.models.guide.factory import GuideModel
-from distdiff_tpu_torch.models.init import init_weights
+from distdiff_tpu_torch.models.init import build_diffusion_modules
 from distdiff_tpu_torch.models.layers import with_remat
 from distdiff_tpu_torch.models.text_encoder import CLIPTextEncoder
 from distdiff_tpu_torch.models.unet import UNet2DConditionModel
@@ -45,8 +51,10 @@ from distdiff_tpu_torch.sampling.sampler import (
     img2img_init,
     make_eps_fn,
     text2img_init,
+    unet_apply,
     with_offset_noise,
 )
+from distdiff_tpu_torch.sampling.sdxl import encode_text_pair
 from distdiff_tpu_torch.schedulers import (
     DDIMSchedule,
     DPMSchedule,
@@ -89,12 +97,13 @@ def resize_bicubic(img: torch.Tensor, size: int) -> torch.Tensor:
     return y.permute(0, 2, 3, 1)
 
 
-def cast_params_bf16(pipe: "ExpansionPipeline") -> None:
-    """Store the UNet's, VAE's and text encoder's weights as bf16, in place.
+def cast_params_bf16(pipe) -> None:
+    """Store the UNet's, VAE's and text encoders' weights as bf16, in place.
     Normalisation statistics stay fp32 (computed from fp32 casts); the guide
     stays fp32."""
-    for m in (pipe.unet, pipe.vae, pipe.text_encoder):
-        m.to(torch.bfloat16)
+    for m in (pipe.unet, pipe.vae, pipe.text_encoder, pipe.text_encoder_2):
+        if m is not None:
+            m.to(torch.bfloat16)
 
 
 @dataclasses.dataclass
@@ -107,6 +116,8 @@ class ExpansionPipeline:
     vae: AutoencoderKL
     text_encoder: CLIPTextEncoder
     device: torch.device
+    # SDXL's second (OpenCLIP-bigG) text tower; None for SD-1.x and SD-2.x
+    text_encoder_2: Optional[CLIPTextEncoder] = None
     guide: Optional[GuideModel] = None
     global_protos: Optional[torch.Tensor] = None
     local_protos: Optional[torch.Tensor] = None
@@ -128,7 +139,8 @@ class ExpansionPipeline:
     ) -> "ExpansionPipeline":
         """Build the pipeline with seeded random UNet/VAE/text-encoder
         weights (load a diffusers checkpoint with
-        ``weights.convert.load_sd_checkpoint``, or converted weights with
+        ``weights.convert.load_sd_checkpoint`` or, for SDXL,
+        ``load_sdxl_checkpoint``, or converted weights with
         ``load_state_dict``, afterwards). ``offset_noise`` adds the
         per-(sample, channel) offset to the img2img noise
         (``--offset_noise``)."""
@@ -137,14 +149,7 @@ class ExpansionPipeline:
             disable_tf32()
         sched = build_schedule(config.scheduler, config.num_inference_steps,
                                prediction_type=config.prediction_type)
-        unet = UNet2DConditionModel(config.unet, device=device)
-        vae = AutoencoderKL(config.vae, device=device)
-        text_encoder = CLIPTextEncoder(config.text_encoder, device=device)
-        gen = torch.Generator(device=device).manual_seed(seed)
-        for m in (unet, vae, text_encoder):
-            init_weights(m, gen)
-            m.requires_grad_(False)
-            m.eval()
+        unet, vae, text_encoder, text_encoder_2 = build_diffusion_modules(config, device, seed)
 
         def protos(p):
             return None if p is None else torch.as_tensor(
@@ -153,14 +158,18 @@ class ExpansionPipeline:
         return ExpansionPipeline(
             config=config, sampler_cfg=sampler_cfg, guidance_cfg=guidance_cfg,
             sched=sched, unet=unet, vae=vae, text_encoder=text_encoder,
-            device=device, guide=guide,
+            text_encoder_2=text_encoder_2, device=device, guide=guide,
             global_protos=protos(global_protos), local_protos=protos(local_protos),
             strength=strength, offset_noise=offset_noise,
         )
 
     # ---- building blocks ----
+    @property
+    def is_sdxl(self) -> bool:
+        return self.config.text_encoder_2 is not None
+
     def eps_fn(self) -> Callable:
-        return make_eps_fn(self.unet, self.sampler_cfg)
+        return make_eps_fn(functools.partial(unet_apply, self.unet), self.sampler_cfg)
 
     def cached_eps_fns(self) -> Tuple[Callable, Callable]:
         """(eps_full, eps_shallow) of the DeepCache loop at
@@ -170,10 +179,10 @@ class ExpansionPipeline:
         branch = self.config.cache_branch
 
         def unet_full(x, t, ctx):
-            return self.unet(x, t, ctx, return_cache=True, cache_branch=branch)
+            return unet_apply(self.unet, x, t, ctx, return_cache=True, cache_branch=branch)
 
         def unet_shallow(x, t, ctx, cache):
-            return self.unet(x, t, ctx, deep_cache=cache, cache_branch=branch)
+            return unet_apply(self.unet, x, t, ctx, deep_cache=cache, cache_branch=branch)
 
         return make_cached_eps_fns(unet_full, unet_shallow, self.sampler_cfg)
 
@@ -215,6 +224,14 @@ class ExpansionPipeline:
         """Token ids ``[B, T]`` -> the text context ``[B, T, D]`` (fp32)."""
         return self.text_encoder(input_ids)
 
+    def encode_text_pair(self, ids_1: torch.Tensor, ids_2: torch.Tensor,
+                         time_ids: Optional[torch.Tensor] = None) -> Dict[str, torch.Tensor]:
+        """SDXL's ``{"ctx", "add"}`` conditioning (``sdxl.encode_text_pair``)."""
+        if not self.is_sdxl:
+            raise ValueError("encode_text_pair is SDXL's (config.text_encoder_2)")
+        return encode_text_pair(self.text_encoder, self.text_encoder_2, self.config,
+                                ids_1, ids_2, time_ids)
+
     def decode_latents(self, latents: torch.Tensor, vae=None) -> torch.Tensor:
         """Latents -> images in [-1, 1] (fp32, NHWC), through ``vae``
         (default: the pipeline's)."""
@@ -242,7 +259,7 @@ class ExpansionPipeline:
         vae = with_remat(self.vae, False) if mode in DECODER_NO_REMAT else self.vae
         return GuidanceContext(
             sched=self.sched,
-            eps_fn=make_eps_fn(unet, self.sampler_cfg),
+            eps_fn=make_eps_fn(functools.partial(unet_apply, unet), self.sampler_cfg),
             decode_fn=lambda z: self.guide_decode_fn(z, vae),
             encode_fn=self.guide_encode_fn,
             cfg=self.guidance_cfg,

@@ -28,9 +28,19 @@ class SamplerConfig:
     do_classifier_free_guidance: bool = True
 
 
+def unet_apply(unet: Callable, x, t, ctx, **kw):
+    """The UNet on a conditioning value: a text context, or SDXL's
+    ``{"ctx", "add"}`` dict (the context and the additive vector)."""
+    if isinstance(ctx, dict):
+        return unet(x, t, ctx["ctx"], ctx["add"], **kw)
+    return unet(x, t, ctx, **kw)
+
+
 def make_eps_fn(unet: Callable, cfg: SamplerConfig) -> Callable:
     """eps(x, t, cond, uncond): one CFG-merged UNet evaluation, with the
-    uncond/cond pair batched through a single UNet call."""
+    uncond/cond pair batched through a single UNet call. ``unet(x, t,
+    ctx)`` takes the conditioning as the caller holds it (``cond`` and
+    ``uncond`` are opaque here: tensors, or SDXL's dicts)."""
 
     def eps_fn(x, t, cond, uncond):
         if cfg.do_classifier_free_guidance:

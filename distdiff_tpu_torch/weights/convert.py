@@ -1,6 +1,7 @@
-"""Load a diffusers-layout SD-1.x checkpoint directory into the port's
-modules (the port's counterpart of ``distdiff_tpu/weights/convert.py``
-``convert_sd_checkpoint``).
+"""Load a diffusers-layout SD-1.x, SD-2.x or SDXL checkpoint directory into
+the port's modules (the port's counterpart of
+``distdiff_tpu/weights/convert.py`` ``convert_sd_checkpoint`` and
+``convert_sdxl_checkpoint``).
 
 The port's UNet and VAE keep diffusers' state-dict names and its text
 encoder transformers' ``CLIPTextModel`` names, so a checkpoint loads with no
@@ -27,6 +28,8 @@ log = logging.getLogger("distdiff.convert")
 # component -> (sub-directory, the pipeline attribute holding its module)
 COMPONENTS = {"unet": ("unet", "unet"), "vae": ("vae", "vae"),
               "text": ("text_encoder", "text_encoder")}
+# SDXL adds the projected OpenCLIP-bigG tower
+SDXL_COMPONENTS = dict(COMPONENTS, text_2=("text_encoder_2", "text_encoder_2"))
 # the position-ids buffer some transformers saves carry beside the weights
 POSITION_IDS = "text_model.embeddings.position_ids"
 
@@ -83,9 +86,22 @@ def load_sd_checkpoint(checkpoint_dir: str,
     cast to its module's dtype and device. ``strict=False`` loads the keys
     that match and skips the others. Returns the tensors loaded per
     component."""
+    return _load(checkpoint_dir, pipe_or_modules, COMPONENTS, strict)
+
+
+def load_sdxl_checkpoint(checkpoint_dir: str,
+                         pipe_or_modules: Union[object, Mapping[str, torch.nn.Module]],
+                         strict: bool = True) -> Dict[str, int]:
+    """``load_sd_checkpoint`` for an SDXL directory: also ``text_encoder_2``
+    (with its ``text_projection.weight``) into the pipeline's
+    ``text_encoder_2`` (mapping key ``text_2``)."""
+    return _load(checkpoint_dir, pipe_or_modules, SDXL_COMPONENTS, strict)
+
+
+def _load(checkpoint_dir, pipe_or_modules, components, strict) -> Dict[str, int]:
     refuse_t5(checkpoint_dir)
     loaded = {}
-    for comp, (sub, attr) in COMPONENTS.items():
+    for comp, (sub, attr) in components.items():
         module = (pipe_or_modules[comp] if isinstance(pipe_or_modules, Mapping)
                   else getattr(pipe_or_modules, attr))
         path = find_weights(os.path.join(checkpoint_dir, sub))

@@ -35,6 +35,7 @@ def map_unet_key(key: str) -> Optional[str]:
     """diffusers UNet2DConditionModel name -> the JAX UNet2DCondition path."""
     k = key
     k = re.sub(r"^time_embedding\.linear_(\d)\.", r"time_embedding/linear_\1/", k)
+    k = re.sub(r"^add_embedding\.linear_(\d)\.", r"add_embedding/linear_\1/", k)
     k = re.sub(r"^conv_in\.", "conv_in/", k)
     k = re.sub(r"^conv_norm_out\.", "conv_norm_out/", k)
     k = re.sub(r"^conv_out\.", "conv_out/", k)
@@ -94,6 +95,8 @@ def map_text_key(key: str) -> Optional[str]:
         return "token_embedding/embedding"
     if k == "embeddings.position_embedding.weight":
         return "position_embedding"
+    if k == "text_projection.weight":  # a bare [hidden, embed] parameter in JAX
+        return "text_projection"
     k = re.sub(r"^encoder\.layers\.(\d+)\.", r"layers_\1/", k)
     k = k.replace("self_attn.", "").replace("mlp.", "")
     k = re.sub(r"(q_proj|k_proj|v_proj|out_proj|fc1|fc2)\.", r"\1/", k)
@@ -167,6 +170,8 @@ def _entry(kind: str, key: str, shape: Tuple[int, ...]) -> Entry:
     mapped = {"unet": map_unet_key, "vae": map_vae_key, "text": map_text_key}[kind](key)
     if mapped is None:
         return None, shape, _identity
+    if mapped == "text_projection":
+        return mapped, (shape[1], shape[0]), _from_dense
     if mapped.endswith("/weight"):
         return _weight_entry(mapped, shape)
     return mapped, shape, _identity

@@ -1,6 +1,6 @@
-"""The diffusers SD-1.x and SD-2.x state-dict geometry (keys and shapes),
-enumerated (the port's copy of the SD-1.x/2.x part of
-``distdiff_tpu/weights/sd15_geometry.py``; SDXL's waits for it).
+"""The diffusers SD-1.x, SD-2.x and SDXL state-dict geometry (keys and
+shapes), enumerated (the port's copy of
+``distdiff_tpu/weights/sd15_geometry.py``).
 
 ``sd15_unet_state_shapes``, ``sd15_vae_state_shapes`` and
 ``sd15_text_state_shapes`` give, at their defaults, the key list a
@@ -9,8 +9,11 @@ enumerated (the port's copy of the SD-1.x/2.x part of
 linear_proj=True`` and ``d=1024, layers=23`` the list of a
 ``stabilityai/stable-diffusion-2-1`` save (UNet 865,910,724, text encoder
 340,387,840; the VAE is SD-1.x's), and the list diffusers would write for
-another such geometry (the tiny test configs). ``PARAM_TOTALS`` pins the
-published totals.
+another such geometry (the tiny test configs). ``sdxl_unet_state_shapes``
+and ``sdxl_text2_state_shapes`` give a
+``stabilityai/stable-diffusion-xl-base-1.0`` save's UNet (2,567,463,684)
+and ``text_encoder_2`` (694,659,840; its ``text_encoder`` and VAE have
+SD-1.5's geometry). ``PARAM_TOTALS`` pins the published totals.
 """
 
 from __future__ import annotations
@@ -144,6 +147,85 @@ def sd15_unet_state_shapes(
     return out
 
 
+def sdxl_unet_state_shapes(
+    chans=(320, 640, 1280),
+    layers: int = 2,
+    ctx: int = 2048,
+    cross_attention=(False, True, True),
+    transformer_depth=(0, 2, 10),
+    addition_embed_dim: int = 2816,
+    in_channels: int = 4,
+    out_channels: int = 4,
+    temb_mult: int = 4,
+) -> Dict[str, Shape]:
+    """The diffusers SDXL UNet: per-block transformer depth (the mid block
+    takes the deepest level's), linear projections, and the
+    ``add_embedding`` MLP beside the time embedding. Defaults = SDXL-base."""
+    chans = list(chans)
+    temb = chans[0] * temb_mult
+    nb = len(chans)
+    out: Dict[str, Shape] = {}
+    out["conv_in.weight"] = (chans[0], in_channels, 3, 3)
+    out["conv_in.bias"] = (chans[0],)
+    for emb, d_in in (("time_embedding", chans[0]), ("add_embedding", addition_embed_dim)):
+        out[f"{emb}.linear_1.weight"] = (temb, d_in)
+        out[f"{emb}.linear_1.bias"] = (temb,)
+        out[f"{emb}.linear_2.weight"] = (temb, temb)
+        out[f"{emb}.linear_2.bias"] = (temb,)
+
+    for i in range(nb):
+        cin = chans[0] if i == 0 else chans[i - 1]
+        cout = chans[i]
+        for j in range(layers):
+            _resnet(f"down_blocks.{i}.resnets.{j}", cin if j == 0 else cout, cout, temb, out)
+            if cross_attention[i] and transformer_depth[i] > 0:
+                _transformer2d(f"down_blocks.{i}.attentions.{j}", cout, ctx, out,
+                               depth=transformer_depth[i], linear_proj=True)
+        if i < nb - 1:
+            out[f"down_blocks.{i}.downsamplers.0.conv.weight"] = (cout, cout, 3, 3)
+            out[f"down_blocks.{i}.downsamplers.0.conv.bias"] = (cout,)
+
+    _resnet("mid_block.resnets.0", chans[-1], chans[-1], temb, out)
+    _transformer2d("mid_block.attentions.0", chans[-1], ctx, out,
+                   depth=transformer_depth[-1], linear_proj=True)
+    _resnet("mid_block.resnets.1", chans[-1], chans[-1], temb, out)
+
+    rev = list(reversed(chans))
+    rev_attn = list(reversed(list(cross_attention)))
+    rev_depth = list(reversed(list(transformer_depth)))
+    for i in range(nb):
+        prev_out = rev[i - 1] if i > 0 else rev[0]
+        cout = rev[i]
+        skip_src = rev[min(i + 1, nb - 1)]
+        for j in range(layers + 1):
+            res_skip = skip_src if j == layers else cout
+            res_in = prev_out if j == 0 else cout
+            _resnet(f"up_blocks.{i}.resnets.{j}", res_in + res_skip, cout, temb, out)
+            if rev_attn[i] and rev_depth[i] > 0:
+                _transformer2d(f"up_blocks.{i}.attentions.{j}", cout, ctx, out,
+                               depth=rev_depth[i], linear_proj=True)
+        if i < nb - 1:
+            out[f"up_blocks.{i}.upsamplers.0.conv.weight"] = (cout, cout, 3, 3)
+            out[f"up_blocks.{i}.upsamplers.0.conv.bias"] = (cout,)
+
+    out["conv_norm_out.weight"] = (chans[0],)
+    out["conv_norm_out.bias"] = (chans[0],)
+    out["conv_out.weight"] = (out_channels, chans[0], 3, 3)
+    out["conv_out.bias"] = (out_channels,)
+    return out
+
+
+def sdxl_text2_state_shapes(d: int = 1280, ff: int | None = None, layers: int = 32,
+                            vocab: int = 49408, pos: int = 77,
+                            embed: int = 1280) -> Dict[str, Shape]:
+    """SDXL's ``text_encoder_2``: the OpenCLIP-bigG text tower as
+    transformers' ``CLIPTextModelWithProjection`` (a bias-free
+    ``text_projection`` Linear, ``[embed, d]``). Defaults = SDXL-base."""
+    out = sd15_text_state_shapes(d=d, ff=ff, layers=layers, vocab=vocab, pos=pos)
+    out["text_projection.weight"] = (embed, d)
+    return out
+
+
 def _vae_attention(prefix: str, c: int, out: Dict[str, Shape]) -> None:
     out[f"{prefix}.group_norm.weight"] = (c,)
     out[f"{prefix}.group_norm.bias"] = (c,)
@@ -249,4 +331,7 @@ PARAM_TOTALS = {
     # SD-2.1 (diffusers' stabilityai/stable-diffusion-2-1)
     "sd21_unet": 865_910_724,
     "sd21_text": 340_387_840,
+    # SDXL-base (diffusers' stabilityai/stable-diffusion-xl-base-1.0)
+    "sdxl_unet": 2_567_463_684,
+    "sdxl_text2": 694_659_840,
 }

@@ -1,11 +1,13 @@
-"""A diffusers-layout SD-1.x or SD-2.x checkpoint on disk with seeded random
-weights (port of ``distdiff_tpu/weights/synth.py``; SDXL waits for ROADMAP
-queue 1 item 8).
+"""A diffusers-layout SD-1.x, SD-2.x or SDXL checkpoint on disk with seeded
+random weights (port of ``distdiff_tpu/weights/synth.py``).
 
 The directory holds the exact key set, shapes, dtypes and file names of a
-diffusers ``runwayml/stable-diffusion-v1-5`` save, or under
-``linear_projection`` (SD-2.1) a ``stabilityai/stable-diffusion-2-1`` one
-(``sd15_geometry``), and a structurally valid ``tokenizer/merges.txt`` +
+diffusers ``runwayml/stable-diffusion-v1-5`` save, under
+``linear_projection`` (SD-2.1) a ``stabilityai/stable-diffusion-2-1`` one,
+or for a config with ``text_encoder_2`` a
+``stabilityai/stable-diffusion-xl-base-1.0`` one (``text_encoder_2/`` and
+the UNet's ``add_embedding``; ``sd15_geometry``), and a structurally valid
+``tokenizer/merges.txt`` +
 ``vocab.json``, so the ``--sd_checkpoint`` load path runs end to end
 without a real checkpoint.
 The draws are the JAX writer's (``np.random.default_rng(seed)``, the same
@@ -25,32 +27,44 @@ from distdiff_tpu_torch.weights.sd15_geometry import (
     sd15_text_state_shapes,
     sd15_unet_state_shapes,
     sd15_vae_state_shapes,
+    sdxl_text2_state_shapes,
+    sdxl_unet_state_shapes,
 )
-
-SDXL_TODO = "SDXL is not ported: ROADMAP queue 1 item 8"
 
 
 def state_shapes_for_config(config):
-    """The diffusers state-dict key/shape sets of an SD-1.x or SD-2.x
-    ``PipelineConfig``, by component (``vae``, ``text``, ``unet``, in the
-    JAX writer's order)."""
-    u, v, t = config.unet, config.vae, config.text_encoder
-    if (getattr(config, "text_encoder_2", None) is not None
-            or getattr(u, "addition_embed_dim", None) is not None):
-        raise NotImplementedError(SDXL_TODO)
-    return {
+    """The diffusers state-dict key/shape sets of a ``PipelineConfig``, by
+    component (``vae``, ``text``, ``unet`` and for SDXL ``text_2``, in the
+    JAX writer's order). A config with ``text_encoder_2`` takes SDXL's
+    UNet layout (per-block depth, linear projections, ``add_embedding``)."""
+    u, v, t, t2 = config.unet, config.vae, config.text_encoder, config.text_encoder_2
+    out = {
         "vae": sd15_vae_state_shapes(chans=v.block_out_channels, layers=v.layers_per_block,
                                      lat=v.latent_channels),
         "text": sd15_text_state_shapes(d=t.hidden_size, ff=t.hidden_size * t.mlp_ratio,
                                        layers=t.num_layers, vocab=t.vocab_size,
                                        pos=t.max_length),
-        "unet": sd15_unet_state_shapes(chans=u.block_out_channels, layers=u.layers_per_block,
-                                       ctx=u.cross_attention_dim,
-                                       cross_attention=u.cross_attention,
-                                       in_channels=u.in_channels, out_channels=u.out_channels,
-                                       temb_mult=u.time_embed_dim_mult,
-                                       linear_proj=u.linear_projection),
     }
+    if t2 is not None:
+        depth = u.transformer_depth
+        if not isinstance(depth, (tuple, list)):
+            depth = tuple(depth for _ in u.block_out_channels)
+        out["unet"] = sdxl_unet_state_shapes(
+            chans=u.block_out_channels, layers=u.layers_per_block, ctx=u.cross_attention_dim,
+            cross_attention=u.cross_attention, transformer_depth=depth,
+            addition_embed_dim=u.addition_embed_dim, in_channels=u.in_channels,
+            out_channels=u.out_channels, temb_mult=u.time_embed_dim_mult)
+    else:
+        out["unet"] = sd15_unet_state_shapes(
+            chans=u.block_out_channels, layers=u.layers_per_block, ctx=u.cross_attention_dim,
+            cross_attention=u.cross_attention, in_channels=u.in_channels,
+            out_channels=u.out_channels, temb_mult=u.time_embed_dim_mult,
+            linear_proj=u.linear_projection)
+    if t2 is not None:
+        out["text_2"] = sdxl_text2_state_shapes(
+            d=t2.hidden_size, ff=t2.hidden_size * t2.mlp_ratio, layers=t2.num_layers,
+            vocab=t2.vocab_size, pos=t2.max_length, embed=t2.embed_dim)
+    return out
 
 
 def write_synth_tokenizer(checkpoint_dir: str, vocab_size: int) -> None:
@@ -78,6 +92,7 @@ COMPONENT_FILES = {
     "unet": ("unet", "diffusion_pytorch_model.safetensors"),
     "vae": ("vae", "diffusion_pytorch_model.safetensors"),
     "text": ("text_encoder", "model.safetensors"),
+    "text_2": ("text_encoder_2", "model.safetensors"),
 }
 
 

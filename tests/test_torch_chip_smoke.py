@@ -3,6 +3,7 @@ prints no result, its launch plan for the SD-1.5 recipe, and the kernels'
 JSON entries it builds from per-shape records."""
 
 import importlib.util
+import math
 import os
 import types
 
@@ -728,3 +729,99 @@ def test_deep_cache_span_plan_is_the_ports_loop(smoke, tiny_pipe):
     assert (full, shallow) == (3, 4)
     # the mid block runs in full calls only; conv_in in every call
     assert counts == [full, full + shallow]
+
+
+# ------------------------------------------------------------- phase 9
+
+def test_sdxl_flash_launch_plan_by_shape(smoke):
+    cfg = PipelineConfig.sdxl_base()
+    plan = smoke.flash_plan(_pipe(cfg), 2)
+    # 25 plain + 2 rollout + 2 recomputed UNet calls on the CFG pair of 2;
+    # each call: 10 self-attentions at 64^2 (two transformer blocks in each
+    # of 2 down and 3 up attentions, 10 heads of 64), 60 at 32^2 (ten
+    # blocks in each of 5 attentions and the mid block's, 20 heads); none at
+    # 128^2. One backward each in the rollout. 5 VAE mid-block attentions
+    # over 16384 tokens at D = 512, 2 backwards by the split pair
+    at64, at32, vae = (40, 4096, 4096, 64), (80, 1024, 1024, 64), (2, 16384, 16384, 512)
+    assert dict(plan) == {
+        ("flash_fwd", at64): 290, ("flash_bwd_fused", at64): 20,
+        ("flash_fwd", at32): 1740, ("flash_bwd_fused", at32): 120,
+        ("flash_fwd", vae): 5, ("flash_bwd_dq", vae): 2, ("flash_bwd_dkv", vae): 2}
+    assert smoke.unet_attentions(cfg.unet, 128) == [(10, 4096, 64, 10), (20, 1024, 64, 50),
+                                                    (20, 1024, 64, 10)]
+    # text-to-image: 50 UNet calls, one decode, no backward
+    assert dict(smoke.t2i_flash_plan(cfg, 2, 50)) == {
+        ("flash_fwd", at64): 500, ("flash_fwd", at32): 3000, ("flash_fwd", vae): 1}
+
+
+def test_sdxl_groupnorm_plan_at_1024(smoke):
+    cfg = PipelineConfig.sdxl_base()
+    unet = smoke.unet_norms(cfg.unet, 128)
+    # 2 + 2 + 3 + 3 resnets at three levels with 2 norms, 4 mid-block norms,
+    # conv_norm_out; 10 transformers' norms (none at 128^2)
+    assert len(unet) == 46 and sum(act is None for _, _, act in unet) == 11
+    assert unet[0] == (320, 128, "silu") and (2560, 32, "silu") in unet
+    assert smoke.vae_decode_norms(cfg.vae, 128)[-1] == (128, 1024, "silu")
+    assert (256, 1024, "silu") in smoke.vae_decode_norms(cfg.vae, 128)
+    shapes = smoke.gn_shapes(smoke.sdxl_gn_calls())
+    assert len(shapes) == 24
+    assert shapes[(2, 256, 1024, 1024)] == (32, {"silu"})  # 537M elements
+    assert shapes[(8, 128, 1024, 1024)] == (32, {"silu"})  # the CLI's encode, 1.07e9
+    assert all(math.prod(s) < 2 ** 31 for s in shapes)
+    plan = smoke.gn_plan(smoke.expand_gn_calls(_pipe(cfg), 2))
+    assert {k: sum(n for (name, _), n in plan.items() if name == k)
+            for k in smoke.GN_KERNELS} == {"gn_fused": 928, "gn_stats": 556, "gn_apply": 556}
+    # text-to-image: each of 50 UNet calls' and one decode's norms is one
+    # gn_fused launch or one gn_stats + gn_apply pair
+    t2i = smoke.gn_plan(smoke.t2i_gn_calls(cfg, 2, 50))
+    totals = {k: sum(n for (name, _), n in t2i.items() if name == k) for k in smoke.GN_KERNELS}
+    assert totals["gn_fused"] + totals["gn_stats"] == 50 * 46 + 30
+    assert totals["gn_stats"] == totals["gn_apply"]
+
+
+def test_phase2_holds_every_shape_phase9_launches(smoke):
+    timed = {(name, (b * h, tq, tk, d)) for _, b, h, tq, tk, d, names, t in smoke.flash_shapes()
+             if t is True for name in names}
+    cfg = PipelineConfig.sdxl_base()
+    plans = [smoke.flash_plan(_pipe(cfg), 2), smoke.t2i_flash_plan(cfg, 2, 50),
+             {("flash_fwd", (smoke.CLI_ENCODE_BATCH, 16384, 16384, 512)): 13}]
+    for plan in plans:
+        assert set(plan) <= timed, set(plan) - timed
+    held = set(smoke.gn_shapes(smoke.main_gn_calls() + smoke.sd21_gn_calls()
+                               + smoke.sdxl_gn_calls()))
+    launched = smoke.gn_plan(smoke.expand_gn_calls(_pipe(cfg), 2)
+                             + smoke.t2i_gn_calls(cfg, 2, 50)
+                             + [smoke.sdxl_encode_gn_call(cfg)])
+    assert {shape for _, shape in launched} <= held
+
+
+def test_sdxl_planners_follow_the_ports_unet(smoke):
+    """unet_norms and unet_attentions, from which phase 9 plans its
+    launches, against the norms and self-attentions one UNet call of the
+    port runs at an SDXL topology (sdxl_tiny at 64^2 latents: three levels,
+    no attention at the first, per-level depths and heads), by hooks."""
+    from distdiff_tpu_torch.models import UNet2DConditionModel
+    from distdiff_tpu_torch.models.layers import GroupNorm
+
+    cfg = PipelineConfig.sdxl_tiny().unet
+    unet = UNet2DConditionModel(cfg, device="cpu")
+    seen, attn = [], []
+    norms = [m for m in unet.modules() if isinstance(m, GroupNorm)]
+    selfs = [m.attn1 for m in unet.modules() if hasattr(m, "attn1")]
+    handles = [m.register_forward_pre_hook(
+        lambda mod, args: seen.append((args[0].shape[1], args[0].shape[-1], mod.act)))
+        for m in norms]
+    handles += [m.register_forward_pre_hook(
+        lambda mod, args: attn.append((mod.heads, args[0].shape[1]))) for m in selfs]
+    gen = torch.Generator().manual_seed(0)
+    try:
+        with torch.no_grad():
+            unet(torch.randn(1, 64, 64, 4, generator=gen), 10,
+                 torch.randn(1, 8, cfg.cross_attention_dim, generator=gen),
+                 torch.randn(1, cfg.addition_embed_dim, generator=gen))
+    finally:
+        for h in handles:
+            h.remove()
+    assert seen == smoke.unet_norms(cfg, 64)
+    want = [(h, t) for h, t, _, k in smoke.unet_attentions(cfg, 64) for _ in range(k)]
+    assert sorted(attn) == sorted(want)

@@ -45,7 +45,8 @@ def test_parser_has_the_jax_parsers_dests_and_defaults():
 
 
 UNPORTED = [
-    ["--model", "sdxl"], ["--int8"], ["--lora", "adapter.npz"], ["--params_path", "params"],
+    # SDXL is ported; its int8 spans are not (the case keeps its id)
+    pytest.param(["--model", "sdxl", "--int8"], id="model_sdxl"), ["--int8"], ["--lora", "adapter.npz"], ["--params_path", "params"],
     ["--save_params", "params"], ["--mesh_model", "2"],
     # the guide archs the port lacks (open_clip_vit_b32 is the default -a)
     ["--guidance_type", "transform_guidance"],

@@ -23,6 +23,7 @@ from distdiff_tpu_torch.ops import _build, attention, flash
 from distdiff_tpu_torch.ops import groupnorm as gn
 from distdiff_tpu_torch.parallel import ExpansionDriver
 from distdiff_tpu_torch.sampling import ExpansionPipeline
+from distdiff_tpu_torch.sampling.sdxl import SDXLPipeline
 
 torch.set_num_threads(1)
 
@@ -111,7 +112,8 @@ def test_port_imports_no_yaml_or_orbax_and_matplotlib_only_to_plot():
 
 
 @pytest.mark.parametrize("entry", ["pipeline", "unet", "vae", "guide", "text_encoder",
-                                   "driver", "trainable_guide"])
+                                   "driver", "trainable_guide", "sdxl_pipeline",
+                                   "sdxl_expansion"])
 def test_entry_points_default_to_cuda_and_raise_without_it(monkeypatch, entry):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     build = {
@@ -122,6 +124,8 @@ def test_entry_points_default_to_cuda_and_raise_without_it(monkeypatch, entry):
         "text_encoder": lambda: CLIPTextEncoder(TextEncoderConfig.tiny()),
         "driver": lambda: ExpansionDriver(None, None, "out"),
         "trainable_guide": lambda: create_model("tiny_resnet", num_classes=3, trainable=True),
+        "sdxl_pipeline": lambda: SDXLPipeline.create(PipelineConfig.sdxl_tiny()),
+        "sdxl_expansion": lambda: ExpansionPipeline.create(PipelineConfig.sdxl_tiny()),
     }[entry]
     with pytest.raises(RuntimeError, match="device='cpu'"):
         build()

@@ -26,6 +26,7 @@ from distdiff_tpu.sampling import ExpansionPipeline as JExpansionPipeline
 from distdiff_tpu_torch.config import GuidanceConfig, PipelineConfig
 from distdiff_tpu_torch.models import HashTokenizer
 from distdiff_tpu_torch.models.guide import create_model
+from distdiff_tpu_torch.models.init import init_weights
 from distdiff_tpu_torch.parallel import (
     ExpansionDriver,
     build_manifest,
@@ -36,7 +37,6 @@ from distdiff_tpu_torch.parallel import (
 )
 from distdiff_tpu_torch.parallel.driver import unit_seed
 from distdiff_tpu_torch.sampling import ExpansionPipeline, SamplerConfig, SplitExpand
-from distdiff_tpu_torch.sampling.pipeline import init_weights
 from distdiff_tpu_torch.weights.from_jax import state_dict_from_jax
 
 torch.set_num_threads(1)

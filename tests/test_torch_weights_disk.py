@@ -188,8 +188,19 @@ def test_sd15_geometry_matches_jax_shapes():
 
 
 def test_sdxl_geometry_raises_naming_the_roadmap():
-    with pytest.raises(NotImplementedError, match="queue 1 item 8"):
-        state_shapes_for_config(JPipelineConfig.sdxl_tiny())
+    """SDXL's geometry is ported (it raised before): the port's key sets at
+    the JAX package's ``sdxl_tiny`` are the JAX writer's, and the port's
+    modules carry exactly them. What still raises naming the ROADMAP item
+    is the CLI's ``--int8`` (``test_torch_cli.py``)."""
+    from distdiff_tpu_torch.models import CLIPTextEncoder, UNet2DConditionModel
+
+    got = state_shapes_for_config(JPipelineConfig.sdxl_tiny())
+    assert got == j_state_shapes(JPipelineConfig.sdxl_tiny())
+    cfg = PipelineConfig.sdxl_tiny()
+    assert got == state_shapes_for_config(cfg)
+    for comp, module in (("unet", UNet2DConditionModel(cfg.unet, device="meta")),
+                         ("text_2", CLIPTextEncoder(cfg.text_encoder_2, device="meta"))):
+        assert {k: tuple(v.shape) for k, v in module.state_dict().items()} == got[comp]
 
 
 # ------------------------------------------------------------- safetensors

@@ -59,32 +59,56 @@ def inputs(latent_size, ctx_dim=32, seed=1):
 
 
 def jax_draws(key, lat):
-    """The draws the JAX expand (and SplitExpand) makes from one key:
-    img2img noise, gamma0, beta0, as writable numpy arrays."""
+    """The draws the JAX expand (and SplitExpand) makes from one key, or
+    from a ``[B]`` array of per-sample keys: img2img noise, gamma0, beta0,
+    as writable numpy arrays."""
+    c = lat.shape[-1]
+    if key.ndim >= 1:  # per-sample: fold_in 0 / 1 for noise / guide, then 0 / 1 again
+        k_noise = jax.vmap(lambda k: jax.random.fold_in(k, 0))(key)
+        k_guide = jax.vmap(lambda k: jax.random.fold_in(k, 1))(key)
+        noise = jax.vmap(lambda k: jax.random.normal(k, lat.shape[1:], jnp.float32))(k_noise)
+        gamma0 = jax.vmap(lambda k: jax.random.uniform(jax.random.fold_in(k, 0), (1, 1, c)))(
+            k_guide)
+        beta0 = jax.vmap(lambda k: jax.random.normal(jax.random.fold_in(k, 1), (1, 1, c)))(
+            k_guide)
+        return [np.array(a) for a in (noise, gamma0, beta0)]
     k_noise, k_guide = jax.random.split(key)
     noise = jax.random.normal(k_noise, lat.shape, jnp.float32)
     k_gamma, k_beta = jax.random.split(k_guide)
-    shape = (lat.shape[0], 1, 1, lat.shape[-1])
+    shape = (lat.shape[0], 1, 1, c)
     return [np.array(a) for a in (noise, jax.random.uniform(k_gamma, shape, jnp.float32),
                                   jax.random.normal(k_beta, shape, jnp.float32))]
 
 
-def run_both(jpipe, params, tpipe, path, key=7, seed=1):
+def to_torch(x):
+    """A numpy array, or a dict of them (SDXL's conditioning), as torch."""
+    if isinstance(x, dict):
+        return {k: torch.from_numpy(np.asarray(v)) for k, v in x.items()}
+    return torch.from_numpy(np.asarray(x))
+
+
+def run_both(jpipe, params, tpipe, path, key=7, seed=1, conds=None, split_kw=None):
     """The JAX pipeline's and the port's images (numpy) on the same inputs
     and draws, through ``make_expand_fn`` (path "fused") or ``SplitExpand``
-    (path "split")."""
+    (path "split", built by both with ``split_kw``: ``guide_chunk``,
+    ``decode_chunk``). ``conds`` replaces the random text contexts with a
+    given (cond, uncond) pair, numpy arrays or SDXL's dicts of them."""
     lat, cond, uncond, targets = inputs(tpipe.config.latent_size,
                                         tpipe.config.unet.cross_attention_dim, seed)
+    if conds is not None:
+        cond, uncond = conds
     key = jax.random.key(key)
+    if split_kw:  # the JAX SplitExpand slices the keys with the batch: per-sample keys
+        key = jax.random.split(key, len(lat))
     kw = dict(zip(("noise", "gamma0", "beta0"),
                   (torch.from_numpy(a) for a in jax_draws(key, lat))))
-    jargs = (params, jnp.asarray(lat), jnp.asarray(cond), jnp.asarray(uncond),
-             jnp.asarray(targets), key)
-    targs = [torch.from_numpy(a) for a in (lat, cond, uncond, targets)]
+    jargs = (params, jnp.asarray(lat), jax.tree.map(jnp.asarray, cond),
+             jax.tree.map(jnp.asarray, uncond), jnp.asarray(targets), key)
+    targs = [to_torch(a) for a in (lat, cond, uncond, targets)]
     if path == "fused":
         ref = np.asarray(jax.jit(jpipe.make_expand_fn())(*jargs))
         got = tpipe.make_expand_fn()(*targs, **kw)
     else:
-        ref = np.asarray(jpipe.make_split_expand()(*jargs))
-        got = tpipe.make_split_expand()(*targs, **kw)
+        ref = np.asarray(jpipe.make_split_expand(**(split_kw or {}))(*jargs))
+        got = tpipe.make_split_expand(**(split_kw or {}))(*targs, **kw)
     return ref, got.numpy(), (targs, kw)
