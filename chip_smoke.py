@@ -3,7 +3,7 @@
 
 Run from the repository root: ``python3 chip_smoke.py``. It needs one CUDA
 card, ``nvcc`` and ``nvidia-smi``; it imports nothing of JAX or of the JAX
-package. Ten phases, any failure exits non-zero:
+package. Eleven phases, any failure exits non-zero:
 
 1. Device: the card's name and power limit, torch/CUDA versions, the
    time to build the CUDA kernels from ``distdiff_tpu_torch/csrc`` (one
@@ -154,17 +154,40 @@ package. Ten phases, any failure exits non-zero:
    images; then the fp32 ``sdxl_tiny`` guided expand, ``encode_text_pair``
    and ``SDXLPipeline`` img2img on the card against the CPU. Each counted
    run fails on a launched shape phase 2 did not hold.
-10. The card line, the kernels' JSON line (one entry per kernel; its times
+10. LoRA fine-tuning of the diffusion UNet (``train/lora.py``). The fp32
+   LoRA step (the denoising loss and its backward to the adapter, the
+   UNet's inner checkpoints on) on the card against the CPU with the same
+   weights, adapter and draws, at phase 3's tolerance (the loss, the
+   adapter gradients, one AdamW update), for the tiny() UNet, in SD-2.1's
+   shape under v-prediction and for sdxl_tiny (24^2 and 48^2 latents,
+   whose 576-token level takes the fp32 flash kernels); the adapter
+   gradients at SD-1.5 width, batch 2, through the kernels against the
+   plain attention in bf16 (phase 3's rule) and in fp32 (phase 3's fp32
+   tolerance); the step at
+   ``cli.train_lora``'s defaults (SD-1.5 stored in bf16, batch 8 at
+   512^2 without CFG, rank 8, AdamW lr 1e-4): a counted step (launches by
+   shape against the plan: flash_fwd 10 and flash_bwd_fused 5 at each of
+   [64,4096,40] and [64,1024,80], the norms by gn_plan, peak memory) and
+   10 steps timed by CUDA events; then ``cli.train_lora.main`` from
+   phase 6's writers' files (the caltech-101 tree cut to 1 train image a
+   class), cut to 20 steps with an adapter every 10 (both files' keys,
+   shapes and alpha, the launches, each stage's seconds, steps/s), and
+   ``cli.generate_data.main --lora`` on that adapter through the published
+   recipe cut to 2 images (every adapted UNet leaf equals the merge of
+   the written weight bit for bit, every other leaf the written weight,
+   and an adapter with b = 0 leaves the bytes as they were). Each counted
+   run fails on a launched shape phase 2 did not hold.
+11. The card line, the kernels' JSON line (one entry per kernel; its times
    are the means over that kernel's launches in the counted runs, and
    ``shapes`` holds each timed shape's own numbers), and the
    ``{"ok": true, ...}`` line.
 
-``python3 chip_smoke.py --profile [--sd21 | --sdxl] [--json PATH]`` runs
-phase 1, builds the main path (with ``--sd21`` phase 8's SD-2.1 768-v
-path, with ``--sdxl`` phase 9's SDXL-base path) and
-traces one warm expand call with ``torch.profiler`` instead: device time
-by layer and by kernel, and the device's idle share (and the per-kernel
-table as JSON at PATH).
+``python3 chip_smoke.py --profile [--sd21 | --sdxl | --lora] [--json PATH]``
+runs phase 1, builds the main path (with ``--sd21`` phase 8's SD-2.1
+768-v path, with ``--sdxl`` phase 9's SDXL-base path, with ``--lora``
+phase 10's LoRA step) and traces one warm expand call (or step) with
+``torch.profiler`` instead: device time by layer and by kernel, and the
+device's idle share (and the per-kernel table as JSON at PATH).
 """
 
 from __future__ import annotations
@@ -172,6 +195,7 @@ from __future__ import annotations
 import collections
 import gc
 import json
+import logging
 import math
 import os
 import statistics
@@ -495,6 +519,10 @@ def flash_shapes() -> list:
         ("sdxl_32", cfg_b, 20, 1024, 1024, 64, ["flash_fwd", "flash_bwd_fused"], True),
         ("sdxl_vae_mid", BATCH, 1, 16384, 16384, 512, ["flash_fwd"] + split, True),
         ("sdxl_vae_enc", CLI_ENCODE_BATCH, 1, 16384, 16384, 512, ["flash_fwd"], True),
+        # phase 10: SD-1.5's LoRA train step at cli.train_lora's batch of 8
+        # (no CFG), 8 heads at the 64^2 and 32^2 levels
+        ("lora64", LORA_BATCH, 8, 4096, 4096, 40, ["flash_fwd", "flash_bwd_fused"], True),
+        ("lora32", LORA_BATCH, 8, 1024, 1024, 80, ["flash_fwd", "flash_bwd_fused"], True),
         ("ragged", 1, 3, 300, 130, 40, every, False),
         ("cross", 2, 2, 200, 77, 64, every, False),
         ("odd", 2, 1, 129, 70, 33, every, False),
@@ -3498,6 +3526,606 @@ def sdxl_fp32_phase() -> None:
             f"the fp32 SDXL runs did not go through the kernels: {counts}")
 
 
+# ------------------------------------------------------------- phase 10
+
+# cli.train_lora's defaults: batch 8 at 512^2, rank 8 with alpha = rank,
+# AdamW lr 1e-4 and weight decay 1e-2
+LORA_BATCH = 8
+LORA_RANK = 8
+LORA_LR = 1e-4
+LORA_WD = 1e-2
+LORA_TIMED = 10  # steps timed by CUDA events
+LORA_CLI_TRAIN = 1  # train images a class (3 in phase 6): 100 latents
+LORA_CLI_STEPS = 20  # cut from the CLI's 1000
+LORA_CLI_SAVE = 10
+LORA_CLI_UNITS = 2  # images of the generate_data --lora run: one batch
+# SD-1.5's adapter at the default targets (to_q, to_k, to_v, to_out) and rank 8
+LORA_SD15_LEAVES = 128
+LORA_SD15_PARAMS = 1_594_368
+# one AdamW update, card against CPU: the share of elements more than
+# lr / 10 apart (tests/test_torch_lora.py's rule)
+LORA_UPDATE_SHARE = 1e-3
+# std of the test adapters' b: a delta (alpha/r) a b^T of std 0.005, a
+# tenth to a third of the lecun-normal weights'. At ten times that the
+# delta is as large as the weights and the random UNet's adapter gradients
+# chaotic: bf16 rounding moves them further than a planted fault does
+LORA_B_STD = 0.005
+# the bf16 kernels' adapter gradients: their l2 distance from the fp32
+# plain run's at most this many times the bf16 plain run's, between the
+# sound kernels' and planted faults' readings (scripts/torch_lora_grad_gate.py
+# prints them)
+LORA_BF16_GRAD_RATIO = 2.0
+
+
+def lora_flash_plan(ucfg, side: int, batch: int) -> collections.Counter:
+    """Flash launches by (kernel, shape) of one LoRA train step on a side^2
+    latent at ``batch`` (no CFG): each self-attention over more than 256
+    tokens runs its forward once, and again in the backward when the UNet
+    recomputes its blocks (``ucfg.remat``), and one fused backward."""
+    plan = collections.Counter()
+    for h, t, d, k in unet_attentions(ucfg, side):
+        if t <= 256:
+            continue
+        shape = (batch * h, t, t, d)
+        plan[("flash_fwd", shape)] += k * (2 if ucfg.remat else 1)
+        plan[("flash_bwd_fused", shape)] += k
+    return plan
+
+
+def lora_gn_calls(ucfg, side: int, batch: int) -> list:
+    """(times, batch, norms) of one LoRA train step at the default targets
+    (in the transformers): the norms of the blocks from the first
+    transformer on run again in the backward's recompute (``ucfg.remat``). The
+    blocks before it hold no adapted weight and take no input that needs a
+    gradient, so the backward never reaches them; conv_norm_out sits in no
+    block. The backward of a norm is the plain formula: no kernel."""
+    norms = unet_norms(ucfg, side)
+    first = next(i for i, (_, _, act) in enumerate(norms) if act is None)
+    return [(1, batch, norms[:first] + norms[-1:]),
+            (2 if ucfg.remat else 1, batch, norms[first:-1])]
+
+
+def lora_main_gn_calls() -> list:
+    """(times, batch, norms) of phase 10's counted steps: SD-1.5 at batch
+    LORA_BATCH (the CLI's steps too; its dataset encode is phase 6's)."""
+    from distdiff_tpu_torch.config import PipelineConfig
+
+    cfg = PipelineConfig.sd15()
+    return lora_gn_calls(cfg.unet, cfg.latent_size, LORA_BATCH)
+
+
+def lora_unet(ucfg, dev, seed: int):
+    """A UNet of ``ucfg`` on ``dev`` with seeded random weights (the same
+    for every dtype of ``ucfg``), frozen, in eval mode; fp32 products and
+    convolutions on the card in full fp32 (TF32 off), as the pipelines
+    set them."""
+    import torch
+
+    from distdiff_tpu_torch.device import disable_tf32
+    from distdiff_tpu_torch.models import UNet2DConditionModel
+    from distdiff_tpu_torch.models.init import init_weights
+
+    if torch.device(dev).type == "cuda":
+        disable_tf32()
+    unet = UNet2DConditionModel(ucfg, device=dev)
+    init_weights(unet, torch.Generator(device=dev).manual_seed(seed))
+    unet.requires_grad_(False)
+    return unet.eval()
+
+
+def lora_adapter(unet, gen, rank: int = LORA_RANK) -> dict:
+    """An adapter of ``unet`` drawn from the CPU generator ``gen``: init_lora's
+    ``a``, and ``b`` normal with std LORA_B_STD (so that ``a`` has a
+    gradient too), on the UNet's device."""
+    import torch
+
+    from distdiff_tpu_torch.train.lora import init_lora
+
+    lora = init_lora(gen, unet, rank=rank)
+    for pair in lora.values():
+        with torch.no_grad():
+            pair["b"].copy_(LORA_B_STD * torch.randn(pair["b"].shape, generator=gen))
+    return lora
+
+
+def flat_grads(grads) -> "torch.Tensor":
+    import torch
+
+    return torch.cat([grads[k][p].float().flatten().cpu() for k in sorted(grads)
+                      for p in ("a", "b")])
+
+
+def lora_agreement_phase() -> dict:
+    """The fp32 LoRA step (inner checkpoints on) on the card against the
+    port on the CPU with the same weights, adapter and draws: the loss and
+    the adapter gradients (relative to the largest) at phase 3's tolerance,
+    and one AdamW update as tests/test_torch_lora.py holds it (AdamW moves
+    an element by about lr whatever its gradient's size, so one whose
+    gradient is within fp32 noise of 0 may move the other way: at most
+    2 lr apart, and at most LORA_UPDATE_SHARE of the elements more than
+    lr / 10 apart), for the tiny() UNet (epsilon), the same in
+    SD-2.1's shape (linear projections, per-level heads) under
+    v-prediction, and sdxl_tiny with its dict conditioning. Latents of 24^2
+    (48^2 for sdxl_tiny, whose first level has no attention), so that the
+    576-token level takes flash_fwd_f32 and flash_bwd_fused_f32."""
+    import dataclasses
+
+    import torch
+
+    from distdiff_tpu_torch.config import PipelineConfig
+    from distdiff_tpu_torch.ops import flash
+    from distdiff_tpu_torch.ops import groupnorm as gn
+    from distdiff_tpu_torch.schedulers import make_schedule
+    from distdiff_tpu_torch.train.lora import (
+        draw_t_noise,
+        lora_value_and_grad,
+        make_lora_train_step,
+        make_optimizer,
+    )
+
+    dev = torch.device("cuda")
+    tiny = PipelineConfig.tiny(sample_size=48).unet
+    cases = (("sd15 epsilon", tiny, "epsilon", 24),
+             ("sd21 v-prediction", dataclasses.replace(
+                 tiny, linear_projection=True, num_attention_heads=(2, 4)), "v_prediction", 24),
+             ("sdxl_tiny", dataclasses.replace(PipelineConfig.sdxl_tiny(96).unet, remat=True),
+              "epsilon", 48))
+    out = {}
+    for label, ucfg, pred, ls in cases:
+        gen = torch.Generator().manual_seed(21)
+        cpu = lora_unet(ucfg, "cpu", 21)
+        card = lora_unet(ucfg, dev, 21)
+        card.load_state_dict(cpu.state_dict())
+        sched = make_schedule(50, prediction_type=pred)
+        lat = torch.randn(2, ls, ls, 4, generator=gen) * 0.5
+        ctx = torch.randn(2, 16, ucfg.cross_attention_dim, generator=gen)
+        if ucfg.addition_embed_dim:
+            ctx = {"ctx": ctx, "add": torch.randn(2, ucfg.addition_embed_dim, generator=gen)}
+        t, noise = draw_t_noise(gen, 2, (ls, ls, 4), len(sched.alphas_cumprod))
+        loras = [lora_adapter(cpu, gen)]
+        loras.append({k: {p: v.detach().to(dev, copy=True).requires_grad_() for p, v in pair.items()}
+                      for k, pair in loras[0].items()})
+
+        def on(x, d):
+            return {k: v.to(d) for k, v in x.items()} if isinstance(x, dict) else x.to(d)
+
+        flash.reset_launch_counts()
+        gn.reset_launch_counts()
+        res = []
+        for unet, lora, d in ((cpu, loras[0], "cpu"), (card, loras[1], dev)):
+            loss, grads = lora_value_and_grad(unet, sched, lora, on(lat, d), on(ctx, d),
+                                              t.to(d), noise.to(d), float(LORA_RANK))
+            before = {k: {p: v.detach().clone() for p, v in pair.items()}
+                      for k, pair in lora.items()}
+            step = make_lora_train_step(unet, sched, make_optimizer(lora, LORA_LR, LORA_WD),
+                                        float(LORA_RANK))
+            step(lora, on(lat, d), on(ctx, d), t.to(d), noise.to(d))
+            moved = flat_grads({k: {p: lora[k][p].detach() - before[k][p] for p in pair}
+                                for k, pair in lora.items()})
+            res.append((float(loss), flat_grads(grads), moved))
+        torch.cuda.synchronize()
+        launched = dict(flash.launch_counts, **gn.launch_counts)
+        (l_cpu, g_cpu, m_cpu), (l_card, g_card, m_card) = res
+        errs = {"loss (relative)": abs(l_card - l_cpu) / abs(l_cpu),
+                "adapter gradients (relative)": float((g_card - g_cpu).abs().max()
+                                                      / g_cpu.abs().max())}
+        apart = (m_card - m_cpu).abs()
+        update, share = float(apart.max()), float((apart > LORA_LR / 10).float().mean())
+        ok = update <= 2 * LORA_LR and share <= LORA_UPDATE_SHARE
+        print(f"  {label}: launches {launched}; one AdamW update, card against CPU: largest "
+              f"difference {update:.3e} ({update / LORA_LR:.3f} lr, tol 2 lr), share over "
+              f"lr / 10 {share:.3e} (tol {LORA_UPDATE_SHARE:.0e}) {'ok' if ok else 'FAIL'}")
+        require(ok, f"one AdamW update of the fp32 LoRA step on the card strays from the "
+                f"CPU's ({label})")
+        for what, err in errs.items():
+            ok = math.isfinite(err) and err <= FP32_TOL
+            print(f"  {label} {what}: card against CPU {err:.3e} (tol {FP32_TOL:.1e}) "
+                  f"{'ok' if ok else 'FAIL'}")
+            require(ok, f"the fp32 LoRA step on the card strays from the CPU's on {what} "
+                    f"({label})")
+        require(launched["flash_fwd"] > 0 and launched["flash_bwd_fused"] > 0,
+                f"{label}: the fp32 LoRA step did not go through the flash kernels: {launched}")
+        out[label] = dict(errs, update=update, update_share=share, launches=launched)
+        del cpu, card
+    return out
+
+
+def lora_grad_inputs(seed: int = 31):
+    """Latents, context, timesteps and noise of batch BATCH for SD-1.5's
+    512^2 (64^2 latents) on the card, drawn from ``seed``."""
+    import torch
+
+    from distdiff_tpu_torch.config import PipelineConfig
+    from distdiff_tpu_torch.train.lora import draw_t_noise
+
+    dev = torch.device("cuda")
+    cfg = PipelineConfig.sd15()
+    ls = cfg.latent_size
+    gen = torch.Generator().manual_seed(seed)
+    lat = (torch.randn(BATCH, ls, ls, 4, generator=gen) * 0.18).to(dev)
+    ctx = torch.randn(BATCH, 77, cfg.unet.cross_attention_dim, generator=gen).to(dev)
+    t, noise = draw_t_noise(gen, BATCH, (ls, ls, 4), 1000)
+    return lat, ctx, t.to(dev), noise.to(dev)
+
+
+def lora_grad_run(inputs, dtype, plain: bool = False, bwd=None, b_scale: float = 1.0,
+                  adapter_seed: int = 32):
+    """(loss, flat adapter gradients on the CPU) of one LoRA step (the
+    loss and its backward, inner checkpoints on) of SD-1.5 at full width in
+    ``dtype`` on ``inputs`` (``lora_grad_inputs``), seeded random weights,
+    the adapter of ``adapter_seed`` with b scaled by ``b_scale``: through
+    the kernels, or the plain attention (``plain``); ``bwd`` in place of
+    ``flash_bwd_fused`` (a planted fault)."""
+    import dataclasses
+
+    import torch
+
+    from distdiff_tpu_torch.config import PipelineConfig
+    from distdiff_tpu_torch.ops import attention, flash
+    from distdiff_tpu_torch.schedulers import make_schedule
+    from distdiff_tpu_torch.train.lora import lora_value_and_grad
+
+    cfg = PipelineConfig.sd15()
+    unet = lora_unet(dataclasses.replace(cfg.unet, dtype=dtype), "cuda", 31)
+    lora = lora_adapter(unet, torch.Generator().manual_seed(adapter_seed))
+    with torch.no_grad():
+        for pair in lora.values():
+            pair["b"].mul_(b_scale)
+    small_kv, fused = attention.SMALL_KV, flash.flash_bwd_fused
+    if plain:
+        attention.SMALL_KV = 10 ** 9
+    flash.flash_bwd_fused = bwd or fused
+    try:
+        loss, grads = lora_value_and_grad(unet, make_schedule(50), lora, *inputs,
+                                          float(LORA_RANK))
+        torch.cuda.synchronize()
+    finally:
+        attention.SMALL_KV, flash.flash_bwd_fused = small_kv, fused
+    out = float(loss), flat_grads(grads)
+    del unet, lora, grads
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def lora_grad_phase() -> dict:
+    """SD-1.5 at full width, batch 2, 512^2, rank 8: the adapter gradients
+    of one LoRA step in bf16 through the kernels, in bf16 through the plain
+    attention, in fp32 through the kernels and in fp32 through the plain
+    attention, on the same weights, adapter and draws (``lora_grad_run``).
+    The bf16 kernels' loss stays within twice the plain bf16 run's
+    distance from the fp32 run (plus 1e-3), phase 3's rule, and their
+    gradients' l2 distance from the fp32 run within LORA_BF16_GRAD_RATIO
+    times the plain bf16 run's; the fp32 kernels' gradients within
+    FP32_TOL of the largest. A control, the bf16 kernels with
+    flash_bwd_fused's dk dropped (the fault that read nearest the limit),
+    must fail the gradient limit."""
+    import torch
+
+    from distdiff_tpu_torch.ops import flash
+
+    inputs = lora_grad_inputs()
+    fused = flash.flash_bwd_fused
+
+    def drop_dk(*args):
+        dq, dk, dv = fused(*args)
+        return dq, torch.zeros_like(dk), dv
+
+    control = "bf16 kernels, dk dropped (control)"
+    res = {label: lora_grad_run(inputs, dtype, plain, bwd)
+           for label, dtype, plain, bwd in (("bf16 kernels", torch.bfloat16, False, None),
+                                            ("bf16 plain", torch.bfloat16, True, None),
+                                            ("fp32 kernels", torch.float32, False, None),
+                                            ("fp32 plain", torch.float32, True, None),
+                                            (control, torch.bfloat16, False, drop_dk))}
+    ref_loss, ref = res["fp32 plain"]
+    l2 = {label: float((g - ref).norm() / ref.norm()) for label, (_, g) in res.items()
+          if label != "fp32 plain"}
+    out = {"gradient l2 (relative)": l2,
+           "fp32 kernels max (relative)": float((res["fp32 kernels"][1] - ref).abs().max()
+                                                / ref.abs().max())}
+    print(f"  adapter gradients against fp32 plain, l2 (relative): {l2}")
+    # fp32 on both sides, the kernels' TF32 products against the plain
+    # attention: phase 3's fp32 tolerance, relative to the largest gradient
+    err32 = out["fp32 kernels max (relative)"]
+    ok = math.isfinite(err32) and err32 <= FP32_TOL
+    print(f"  adapter gradients (relative), fp32 kernels against fp32 plain: {err32:.3e} "
+          f"(tol {FP32_TOL:.1e}) {'ok' if ok else 'FAIL'}")
+    require(ok, "the LoRA step's fp32 gradients through the kernels stray from the plain run")
+    err_k, err_p = (abs(res[label][0] - ref_loss) / abs(ref_loss)
+                    for label in ("bf16 kernels", "bf16 plain"))
+    tol = 2.0 * err_p + 1e-3
+    ok = math.isfinite(err_k) and err_k <= tol
+    print(f"  loss (relative) against fp32: bf16 kernels {err_k:.3e}, bf16 plain {err_p:.3e} "
+          f"(tol {tol:.3e}) {'ok' if ok else 'FAIL'}")
+    require(ok, "the LoRA step's loss through the kernels strays from the fp32 run")
+    out["loss"] = {"kernels": err_k, "plain": err_p, "tol": tol}
+    ratios = {label: l2[label] / l2["bf16 plain"] for label in ("bf16 kernels", control)}
+    for label, ratio in ratios.items():
+        ok = math.isfinite(ratio) and ratio <= LORA_BF16_GRAD_RATIO
+        want = label != control
+        print(f"  adapter gradients, l2 distance from fp32 over the bf16 plain run's: {label} "
+              f"{ratio:.3f} (limit {LORA_BF16_GRAD_RATIO}, must "
+              f"{'hold' if want else 'fail'}) {'ok' if ok == want else 'FAIL'}")
+        require(ok == want, f"the LoRA step's bf16 gradient gate: {label} reads {ratio:.3f}, "
+                f"limit {LORA_BF16_GRAD_RATIO}")
+    out["adapter gradients"] = {"ratio": ratios["bf16 kernels"], "control": ratios[control],
+                                "limit": LORA_BF16_GRAD_RATIO}
+    return out
+
+
+def build_lora_step(gen):
+    """The SD-1.5 LoRA train step at cli.train_lora's defaults on the card
+    (UNet stored in bf16, seeded random weights, an adapter from ``gen``):
+    (config, the adapter, the step, latents and a context of batch 8)."""
+    import torch
+
+    from distdiff_tpu_torch.config import PipelineConfig
+    from distdiff_tpu_torch.schedulers import make_schedule
+    from distdiff_tpu_torch.train.lora import init_lora, make_lora_train_step, make_optimizer
+
+    dev = torch.device("cuda")
+    cfg = PipelineConfig.sd15()
+    ls, b = cfg.latent_size, LORA_BATCH
+    unet = lora_unet(cfg.unet, dev, 41).to(torch.bfloat16)
+    lora = init_lora(gen, unet, rank=LORA_RANK)
+    step = make_lora_train_step(unet, make_schedule(50), make_optimizer(lora, LORA_LR, LORA_WD),
+                                float(LORA_RANK))
+    lat = (torch.randn(b, ls, ls, 4, generator=gen) * 0.18).to(dev)
+    ctx = torch.randn(b, 77, cfg.unet.cross_attention_dim, generator=gen).to(dev)
+    return cfg, unet, lora, step, lat, ctx
+
+
+def lora_step_phase(records, card: str) -> dict:
+    """The LoRA train step at cli.train_lora's defaults on SD-1.5 at full
+    width (UNet 859.5M stored in bf16, as the CLI stores it; seeded random
+    weights): batch 8 at 512^2 (64^2 latents, no CFG), rank 8, alpha 8,
+    AdamW lr 1e-4, weight decay 1e-2, the UNet's inner checkpoints on. A
+    warm-up step, a counted step (each kernel's launches by shape against
+    the plan, peak memory), then LORA_TIMED steps timed by CUDA events on
+    a batch and draws already on the card."""
+    import torch
+
+    from distdiff_tpu_torch.ops import groupnorm as gn
+    from distdiff_tpu_torch.train.lora import draw_t_noise, lora_table
+
+    dev = torch.device("cuda")
+    t0 = time.time()
+    gen = torch.Generator().manual_seed(41)
+    cfg, unet, lora, step, lat, ctx = build_lora_step(gen)
+    ls, b = cfg.latent_size, LORA_BATCH
+    n = sum(v.numel() for pair in lora.values() for v in pair.values())
+    print(f"  adapter: {len(lora)} leaves, {n} parameters (rank {LORA_RANK})")
+    require((len(lora), n) == (LORA_SD15_LEAVES, LORA_SD15_PARAMS),
+            f"SD-1.5's adapter has {len(lora)} leaves and {n} parameters")
+    require(len(lora_table(unet)) == len(lora), "lora_table and init_lora disagree")
+    draws = [tuple(x.to(dev) for x in draw_t_noise(gen, b, (ls, ls, 4), 1000))
+             for _ in range(LORA_TIMED + 2)]
+    build_s = time.time() - t0
+    t0 = time.time()
+    first = float(step(lora, lat, ctx, *draws[0]))
+    first_s = time.time() - t0
+    loss, by_shape, counted_s, peak = counted_call(lambda: step(lora, lat, ctx, *draws[1]))
+    check_flash_plan(by_shape, lora_flash_plan(cfg.unet, ls, b), "phase 10 LoRA step",
+                     every_kernel=False)
+    for name in ("flash_fwd", "flash_bwd_fused"):
+        require(any(k == name for k, _ in by_shape), f"phase 10: {name} never launched")
+    check_gn_plan(gn_only(by_shape), gn_plan(lora_gn_calls(cfg.unet, ls, b),
+                                             smem_limit=gn._device_limits(dev)[0]))
+    require_timed(records, by_shape, "phase 10 (LoRA step)")
+    times = []
+    for i in range(LORA_TIMED):
+        a, e = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        a.record()
+        last = step(lora, lat, ctx, *draws[2 + i])
+        e.record()
+        e.synchronize()
+        times.append(a.elapsed_time(e))
+    losses = [first, float(loss), float(last)]
+    require(all(math.isfinite(v) for v in losses), f"non-finite LoRA loss {losses}")
+    moved = max(float(pair["b"].detach().abs().max()) for pair in lora.values())
+    require(moved > 0, "the LoRA steps left b at 0")
+    step_ms = statistics.median(times)
+    kernels = kernel_ms_of_call(records, by_shape, "LoRA step")
+    norms = call_weighted(records, gn_only(by_shape), GN_KERNELS)
+    for name, m in norms.items():
+        print(f"  LoRA step {name}, its {m['shapes']} shapes weighted by its {m['launches']} "
+              f"launches (phase 2's times): kernel {m['ms']:.4f} ms, plain {m['plain_ms']:.4f} "
+              f"ms, F.group_norm+silu {m['library_ms']:.4f} ms, bound {m['bound_ms']:.4f} ms")
+    print(f"  SD-1.5 LoRA step, batch {b}, 512^2, rank {LORA_RANK}: build {build_s:.1f} s, "
+          f"first step {first_s:.2f} s, counted step {counted_s:.3f} s; median of "
+          f"{LORA_TIMED} steps {step_ms:.1f} ms ({[round(x, 1) for x in times]}), "
+          f"{b * 1000.0 / step_ms:.2f} images/s; peak memory {peak / 2**30:.2f} GiB; losses "
+          f"{[round(v, 4) for v in losses]}; |b| max {moved:.3e} ({card})")
+    del unet, lora, step, draws
+    gc.collect()
+    torch.cuda.empty_cache()
+    return {"step_ms": step_ms, "step_ms_runs": times, "peak_bytes": peak, "build_s": build_s,
+            "first_step_s": first_s, "by_shape": by_shape, "kernels": kernels,
+            "norms": norms, "losses": losses}
+
+
+class StepRecords(logging.Handler):
+    """Keeps the arguments of cli.train_lora's "step %d/%d ..." records."""
+
+    def __init__(self):
+        super().__init__(logging.INFO)
+        self.records = []
+
+    def emit(self, record):
+        if record.msg.startswith("step "):
+            self.records.append(record.args)
+
+
+def lora_cli_phase(records, card: str) -> dict:
+    """``cli.train_lora.main`` at its defaults (SD-1.5, batch 8, 512^2,
+    rank 8) from files written first (phase 6's writers: an SD-1.5 fp16
+    diffusers-layout checkpoint, a ResNet-50 guide of 100 classes, a
+    caltech-101 PNG tree cut to LORA_CLI_TRAIN train images a class), cut
+    to LORA_CLI_STEPS steps with an adapter saved every LORA_CLI_SAVE: both
+    files' keys, shapes and alpha, the launches by shape against the plan,
+    each stage's seconds and the steps/s. Then ``cli.generate_data.main
+    --lora`` on that adapter through the published recipe cut to
+    LORA_CLI_UNITS images: every adapted leaf of its UNet equals the merge
+    of the written weight bit for bit, every other leaf the written weight;
+    an adapter with b = 0 merged into that UNet leaves its bytes as they
+    were."""
+    import numpy as np
+    import torch
+
+    import distdiff_tpu_torch.data as data_pkg
+    from distdiff_tpu_torch.cli import generate_data as gen_cli
+    from distdiff_tpu_torch.cli import train_lora as lora_cli
+    from distdiff_tpu_torch.config import PipelineConfig
+    from distdiff_tpu_torch.ops import groupnorm as gn
+    from distdiff_tpu_torch.parallel import read_png
+    from distdiff_tpu_torch.train.lora import load_lora, lora_table, merge_lora
+    from distdiff_tpu_torch.weights.safetensors import load_file
+    from distdiff_tpu_torch.weights.synth import COMPONENT_FILES, write_synth_checkpoint
+
+    dev = torch.device("cuda")
+    root = os.path.dirname(os.path.abspath(__file__))
+    cfg = PipelineConfig.sd15()
+    ls = cfg.latent_size
+    secs, seen = {}, {}
+    log = StepRecords()
+    logger = logging.getLogger("distdiff.train_lora")
+    build, dataset = gen_cli.build_pipeline, data_pkg.SDDataset
+
+    def keep(*a, **kw):
+        t = time.time()
+        seen["pipe"] = build(*a, **kw)
+        secs[f"{seen['what']}: build and load"] = time.time() - t
+        return seen["pipe"]
+
+    def timed_dataset(*a, **kw):
+        t = time.time()
+        sd = dataset(*a, **kw)
+        secs[f"{seen['what']}: dataset and caches"] = time.time() - t
+        return sd
+
+    with tempfile.TemporaryDirectory(dir=root, prefix=".smoke_lora_") as work:
+        t0 = time.time()
+        ckpt = write_synth_checkpoint(os.path.join(work, "sd15"), cfg, seed=4)
+        secs["write checkpoint"] = time.time() - t0
+        t0 = time.time()
+        guide_path = os.path.join(work, "checkpoint", "model_best.pth.tar")
+        os.makedirs(os.path.dirname(guide_path))
+        write_guide_checkpoint(guide_path)
+        data = os.path.join(work, "data")
+        write_caltech_tree(data, train=LORA_CLI_TRAIN)
+        secs["write guide and PNG tree"] = time.time() - t0
+        argv = ["--dataset", "caltech-101", "--data_root", data, "--output_dir", "lora_run",
+                "--sd_checkpoint", ckpt, "--steps", str(LORA_CLI_STEPS), "--save_every",
+                str(LORA_CLI_SAVE), "--log_every", str(LORA_CLI_SAVE)]
+        gen_argv = cli_argv(data, ckpt, guide_path, "out", units=LORA_CLI_UNITS) + [
+            "--lora", os.path.join("lora_run", "lora.npz")]
+        cwd = os.getcwd()
+        gen_cli.build_pipeline, data_pkg.SDDataset = keep, timed_dataset
+        level = logger.level
+        logger.setLevel(logging.INFO)
+        logger.addHandler(log)
+        try:
+            os.chdir(work)
+            seen["what"] = "train_lora"
+            out, train_shapes, secs["train_lora: whole CLI"], train_peak = counted_call(
+                lambda: lora_cli.main(argv))
+            train_pipe = seen.pop("pipe")
+            table = {k: shape for k, (_, shape) in lora_table(train_pipe.unet).items()}
+            del train_pipe
+            gc.collect()
+            torch.cuda.empty_cache()
+            seen["what"] = "generate_data --lora"
+            stats, gen_shapes, secs["generate_data --lora: whole CLI"], gen_peak = counted_call(
+                lambda: gen_cli.main(gen_argv))
+        finally:
+            os.chdir(cwd)
+            gen_cli.build_pipeline, data_pkg.SDDataset = build, dataset
+            logger.removeHandler(log)
+            logger.setLevel(level)
+        # the adapter files
+        require(out == os.path.join("lora_run", "lora.npz"), f"train_lora returned {out}")
+        for name in ("lora.npz", f"lora_{LORA_CLI_SAVE:06d}.npz"):
+            npz = np.load(os.path.join(work, "lora_run", name))
+            require(sorted(npz.files) == sorted(
+                ["__alpha__"] + [f"{k}::{p}" for k in table for p in ("a", "b")]),
+                f"{name}: {len(npz.files)} entries, want {2 * len(table) + 1}")
+            require(len(table) == LORA_SD15_LEAVES and float(npz["__alpha__"]) == LORA_RANK,
+                    f"{name}: {len(table)} leaves, alpha {float(npz['__alpha__'])}")
+            for k, (n_in, n_out) in table.items():
+                require(npz[f"{k}::a"].shape == (n_in, LORA_RANK)
+                        and npz[f"{k}::b"].shape == (LORA_RANK, n_out)
+                        and npz[f"{k}::a"].dtype == np.float32
+                        and bool(np.isfinite(npz[f"{k}::b"]).all()), f"{name} {k}: shapes")
+        steps = log.records
+        require(len(steps) == LORA_CLI_STEPS // LORA_CLI_SAVE, f"step log {steps}")
+        steps_per_s = steps[-1][3]
+        # the generate_data --lora run
+        pipe = seen.pop("pipe")
+        pngs = sorted(os.path.join(d, f) for d, _, fs in os.walk(os.path.join(work, "out"))
+                      for f in fs if f.endswith(".png"))
+        require(stats["written"] == len(pngs) == LORA_CLI_UNITS,
+                f"{stats['written']} written, {len(pngs)} PNGs, {LORA_CLI_UNITS} units")
+        for path in pngs:
+            png = read_png(path)
+            require(png.shape == (512, 512, 3) and png.max() > png.min(),
+                    f"{path}: {png.shape}, flat {png.max() == png.min()}")
+        lora, alpha = load_lora(os.path.join(work, "lora_run", "lora.npz"), device=dev)
+        sub, fname = COMPONENT_FILES["unet"]
+        written = load_file(os.path.join(ckpt, sub, fname))
+        adapted = {name: k for k, (name, _) in lora_table(pipe.unet).items()}
+        own = pipe.unet.state_dict()
+        for name, w in own.items():
+            base = written[name].to(dev).to(w.dtype)
+            if name in adapted:
+                a, b_ = lora[adapted[name]]["a"], lora[adapted[name]]["b"]
+                # the merge's formula, written out here
+                want = (base.float() + ((a.float() @ b_.float()) * (alpha / a.shape[1]))
+                        .t().reshape(base.shape)).to(w.dtype)
+            else:
+                want = base
+            require(torch.equal(w, want), f"generate_data --lora: UNet leaf {name} is not "
+                    f"{'the merge of the written weight' if name in adapted else 'the written weight'}")
+        require(len(adapted) == LORA_SD15_LEAVES, f"{len(adapted)} adapted leaves")
+        snapshot = {k: v.clone() for k, v in own.items()}
+        zero = {k: {"a": pair["a"], "b": torch.zeros_like(pair["b"])} for k, pair in lora.items()}
+        merge_lora(pipe.unet, zero, alpha)
+        require(all(torch.equal(v, snapshot[k]) for k, v in pipe.unet.state_dict().items()),
+                "an adapter with b = 0 changed the UNet's bytes")
+    n_train = CLI_CLASSES * LORA_CLI_TRAIN
+    encodes = -(-n_train // CLI_ENCODE_BATCH)
+    want = collections.Counter()
+    for key, c in lora_flash_plan(cfg.unet, ls, LORA_BATCH).items():
+        want[key] += c * LORA_CLI_STEPS
+    want[("flash_fwd", (CLI_ENCODE_BATCH, ls * ls, ls * ls, 512))] += encodes
+    print("  train_lora CLI launches:")
+    check_flash_plan(train_shapes, want, "phase 10 train_lora CLI", every_kernel=False)
+    limit = gn._device_limits(dev)[0]
+    steps_gn = [(times * LORA_CLI_STEPS, b, norms)
+                for times, b, norms in lora_gn_calls(cfg.unet, ls, LORA_BATCH)]
+    check_gn_plan(gn_only(train_shapes), gn_plan(
+        steps_gn + [(encodes, CLI_ENCODE_BATCH, vae_encode_norms(cfg.vae, cfg.sample_size))],
+        smem_limit=limit))
+    print("  generate_data --lora launches (the latent cache read, not encoded):")
+    check_flash_plan(gen_shapes, flash_plan(pipe, CLI_BATCH), "phase 10 generate_data --lora")
+    check_gn_plan(gn_only(gen_shapes), gn_plan(expand_gn_calls(pipe, CLI_BATCH),
+                                               smem_limit=limit))
+    for what, shapes in (("train_lora CLI", train_shapes), ("generate_data --lora", gen_shapes)):
+        require_timed(records, shapes, f"phase 10 ({what})")
+    secs["train_lora: steps"] = LORA_CLI_STEPS / steps_per_s
+    for stage, s in secs.items():
+        print(f"  {stage}: {s:.2f} s ({card})")
+    print(f"  train_lora: {steps_per_s:.3f} steps/s over {LORA_CLI_STEPS} steps "
+          f"({LORA_BATCH * steps_per_s:.2f} images/s), peak memory {train_peak / 2**30:.2f} "
+          f"GiB; generate_data --lora: {len(pngs)} PNGs, peak {gen_peak / 2**30:.2f} GiB ({card})")
+    del seen, pipe, own, snapshot
+    gc.collect()
+    torch.cuda.empty_cache()
+    return {"secs": secs, "steps_per_s": steps_per_s, "stats": stats,
+            "by_shape": train_shapes + gen_shapes, "train_peak_bytes": train_peak,
+            "generate_peak_bytes": gen_peak}
+
+
 def check_gn_plan(got: dict, want) -> None:
     """Every GroupNorm kernel's launches by shape against the plan."""
     totals = {k: [0, 0] for k in GN_KERNELS}
@@ -3633,7 +4261,8 @@ CATEGORIES = [
 
 
 def profile_path(expand, inputs, json_path=None) -> None:
-    """torch.profiler over one warm expand call: device time by layer and by
+    """torch.profiler over one warm call of ``expand(*inputs, generator)``
+    (an expand call, or the LoRA step): device time by layer and by
     kernel, and the device's idle share of the call's wall time; with
     ``json_path``, also the per-kernel table as JSON there."""
     import os
@@ -3661,7 +4290,7 @@ def profile_path(expand, inputs, json_path=None) -> None:
         low = name.lower()
         cat = next((c for c, keys in CATEGORIES if any(k in low for k in keys)), "other")
         by_cat[cat] = by_cat.get(cat, 0.0) + ms
-    print(f"  one warm expand call under the profiler: wall {wall_s * 1e3:.1f} ms, device "
+    print(f"  one warm call under the profiler: wall {wall_s * 1e3:.1f} ms, device "
           f"busy {busy_ms:.1f} ms, idle share {1 - busy_ms / (wall_s * 1e3):.3f}, "
           f"{n_launches} device kernels")
     for cat, ms in sorted(by_cat.items(), key=lambda kv: -kv[1]):
@@ -3702,6 +4331,20 @@ def main(argv) -> int:
     print(f"  kernel build {time.time() - t0:.1f} s ({_build.build_info})")
     ptxas_phase()
 
+    if "--profile" in argv and "--lora" in argv:
+        from distdiff_tpu_torch.train.lora import draw_t_noise
+
+        print("== profile of the LoRA step (SD-1.5, batch 8, 512^2, rank 8)")
+        cfg, _, lora, step, lat, ctx = build_lora_step(torch.Generator().manual_seed(41))
+        side = cfg.latent_size
+
+        def one_step(gen):
+            return step(lora, lat, ctx, *draw_t_noise(gen, LORA_BATCH, (side, side, 4), 1000))
+
+        json_path = argv[argv.index("--json") + 1] if "--json" in argv else None
+        profile_path(one_step, (), json_path)
+        return 0
+
     if "--profile" in argv:
         from distdiff_tpu_torch.config import PipelineConfig
 
@@ -3719,7 +4362,8 @@ def main(argv) -> int:
     print("  -- fp32 flash")
     fp32_records = flash_f32_phase()
     print("  -- GroupNorm")
-    records += gn_kernel_phase(gn_shapes(main_gn_calls() + sd21_gn_calls() + sdxl_gn_calls()))
+    records += gn_kernel_phase(gn_shapes(main_gn_calls() + sd21_gn_calls() + sdxl_gn_calls()
+                                         + lora_main_gn_calls()))
 
     print("== 3. agreement at a small geometry")
     agreement_phase()
@@ -3856,12 +4500,27 @@ def main(argv) -> int:
     sdxl_fp32_phase()
     print(f"  phase 9: {time.time() - t0:.1f} s ({card})")
 
-    print("== 10. result")
+    print("== 10. LoRA at SD-1.5 width: the step, cli.train_lora, generate_data --lora")
+    t0 = time.time()
+    print("  -- the fp32 LoRA step on the card against the CPU")
+    lora_agree = lora_agreement_phase()
+    print("  -- the adapter gradients through the kernels, SD-1.5 batch 2")
+    lora_grads = lora_grad_phase()
+    print(f"  -- the step at cli.train_lora's defaults (batch {LORA_BATCH}, 512^2, rank "
+          f"{LORA_RANK})")
+    lora_step = lora_step_phase(records, card)
+    print(f"  -- cli.train_lora ({LORA_CLI_STEPS} steps, cut from 1000) and generate_data "
+          f"--lora from files on disk")
+    lora_cli = lora_cli_phase(records, card)
+    print(f"  phase 10: {time.time() - t0:.1f} s ({card})")
+
+    print("== 11. result")
     print(card)
     print(json.dumps({
         "kernels": summarize(records, by_shape + front["by_shape"] + cli["by_shape"]
                              + sd21["by_shape"] + sd21_cli["by_shape"] + solver_shapes
-                             + mode_shapes + sdxl["by_shape"] + sdxl_cli["by_shape"]),
+                             + mode_shapes + sdxl["by_shape"] + sdxl_cli["by_shape"]
+                             + lora_step["by_shape"] + lora_cli["by_shape"]),
         "fp32_flash": fp32_records, "expand_warm_s": warm_s,
         "expand_warm_s_runs": warm_runs, "expand_peak_bytes": peak,
         "split_expand_warm_s": split["warm_s"], "split_expand_warm_s_runs": split["runs"],
@@ -3886,7 +4545,15 @@ def main(argv) -> int:
         "sdxl": {k: sdxl[k] for k in ("warm_s", "runs", "cold_s", "peak_bytes", "build_s",
                                       "kernels", "t2i_warm_s", "t2i_cold_s", "t2i_peak_bytes")}
         | {"cli_seconds": sdxl_cli["secs"], "cli_driver": sdxl_cli["stats"],
-           "cli_peak_bytes": sdxl_cli["peak_bytes"]}}))
+           "cli_peak_bytes": sdxl_cli["peak_bytes"]},
+        "lora": {"agreement": lora_agree, "gradients": lora_grads,
+                 "step_ms": lora_step["step_ms"], "step_ms_runs": lora_step["step_ms_runs"],
+                 "step_peak_bytes": lora_step["peak_bytes"], "kernels": lora_step["kernels"],
+                 "norms": lora_step["norms"],
+                 "cli_seconds": lora_cli["secs"], "cli_steps_per_s": lora_cli["steps_per_s"],
+                 "cli_peak_bytes": lora_cli["train_peak_bytes"],
+                 "generate_driver": lora_cli["stats"],
+                 "generate_peak_bytes": lora_cli["generate_peak_bytes"]}}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

@@ -15,10 +15,12 @@ It runs on the card; ``DISTDIFF_PLATFORM=cpu`` runs it on the CPU (with
 ``--tiny``, the toy config; with ``--tiny --model sd21`` the toy config in
 v-prediction, with ``--tiny --model sdxl`` ``PipelineConfig.sdxl_tiny``).
 SDXL's conditioning is the ``{"ctx", "add"}`` dict of ``encode_text_pair``,
-both towers fed the same tokenization. A flag whose module is not ported
-(``--int8``, ``--lora``, ``--params_path``, ``--save_params``,
-``--mesh_model`` > 1, a guide arch other than ``resnet50``) raises
-``NotImplementedError`` naming its ROADMAP item.
+both towers fed the same tokenization. ``--lora FILE`` (``cli.train_lora``'s
+adapter, or the JAX package's: the same ``.npz``) is merged into the UNet
+after the checkpoint load and the bf16 cast. A flag whose module is not
+ported (``--int8``, ``--params_path``, ``--save_params``, ``--mesh_model`` >
+1, a guide arch other than ``resnet50``) raises ``NotImplementedError``
+naming its ROADMAP item.
 
 Usage (the reference recipe, ``scripts/exps/expand_diff.sh``):
   python -m distdiff_tpu_torch.cli.generate_data -d caltech-101 -a resnet50 \
@@ -164,8 +166,8 @@ def build_parser():
                    help="run make_expand_fn (one function for the whole "
                         "trajectory) instead of SplitExpand")
     p.add_argument("--lora", type=str, default=None,
-                   help="LoRA adapter merged into the UNet (not ported: "
-                        "ROADMAP queue 1 item 8)")
+                   help="LoRA adapter .npz (cli.train_lora output) merged "
+                        "into the UNet weights before sampling")
     p.add_argument("--lora_alpha", type=float, default=None,
                    help="override the alpha stored in the --lora file")
     p.add_argument("--save_params", type=str, default=None,
@@ -281,7 +283,7 @@ def check_ported(args) -> None:
     """Raise ``NotImplementedError``, naming the ROADMAP item, for a flag
     whose module the port does not have yet; none is ignored quietly."""
     unported = []
-    for flag in ("int8", "lora", "params_path", "save_params"):
+    for flag in ("int8", "params_path", "save_params"):
         if getattr(args, flag):
             unported.append(f"--{flag}")
     if args.mesh_model != 1:
@@ -298,7 +300,8 @@ def check_ported(args) -> None:
 def build_pipeline(args, device=None):
     """The pipeline of ``args`` (``--model``, ``--scheduler``,
     ``--deep_cache``) on ``device`` (default: ``cli_device()``), with the
-    weights of ``--sd_checkpoint`` when given."""
+    weights of ``--sd_checkpoint`` when given and the ``--lora`` adapter
+    merged into its UNet."""
     from distdiff_tpu_torch.config import GuidanceConfig, PipelineConfig
     from distdiff_tpu_torch.sampling import ExpansionPipeline, SamplerConfig, cast_params_bf16
 
@@ -361,6 +364,15 @@ def build_pipeline(args, device=None):
     else:
         log.warning("NO SD WEIGHTS PROVIDED — using random init. Pass --sd_checkpoint "
                     "(a local diffusers directory) for real generation.")
+    if args.lora:
+        # baked into the stored (bf16 at full width) weights once, before sampling
+        from distdiff_tpu_torch.train.lora import load_lora, merge_lora
+
+        lora, alpha = load_lora(args.lora, device=device)
+        if args.lora_alpha is not None:
+            alpha = args.lora_alpha
+        merge_lora(pipe.unet, lora, alpha)
+        log.info("merged LoRA adapter %s (alpha=%g, %d leaves)", args.lora, alpha, len(lora))
     if (gcfg.guidance_type in ("transform_guidance", "direct_guidance")
             and not pipe.guidance_active(text_to_img=args.text_to_img)):
         # the reference silently produces unguided samples here; say so
@@ -458,7 +470,7 @@ def main(argv=None):
                    encode_images_fn=encode_images_fn,
                    model_name=args.pretrained_model_name_or_path,
                    size=pipe.config.sample_size, language_enhance=args.language_enhance,
-                   data_root=args.data_root)
+                   data_root=args.data_root, model=args.model)
     if args.guidance_type != "none":
         guide, gp, lp = prepare_guide_and_prototypes(args, pipe, sd)
         pipe.guide = guide

@@ -8,9 +8,12 @@
   ``{"ctx", "add"}`` dict of arrays, handled key by key
   (``sampling/conditioning.py``).
 * The VAE latents of every train image are encoded in batches and cached at
-  ``save/vae_embedding/{dataset}/{model}/image_latents.npy``: the JAX
-  package's path and ``.npy`` format, so a cache written by either package
-  is read by the other.
+  ``save/vae_embedding/{dataset}/{checkpoint}/image_latents.npy``: for
+  SD-1.x the JAX package's path and ``.npy`` format, so a cache written by
+  either package is read by the other. Under another diffusion model
+  (``model`` "sd21" or "sdxl": another VAE or scaling factor) the name
+  ends in ``_{model}``, where the JAX package keys the cache on the
+  checkpoint name and the size only.
 * Items carry (latent, cond, uncond, class name, path, target), which
   ``ExpansionDriver`` batches onto the device.
 """
@@ -62,14 +65,19 @@ class SDDataset:
         data_root: Optional[str] = None,
         cache_root: str = ".",
         encode_batch: int = 8,
+        seed: int = 0,
+        model: str = "sd15",
     ):
         """``encode_text_fn``: prompts -> ``[N, T, D]`` (SDXL: ``{"ctx":
         [N, T, D], "add": [N, A]}``); ``encode_images_fn``:
-        ``[b, size, size, 3]`` images in [-1, 1] -> scaled latents."""
+        ``[b, size, size, 3]`` images in [-1, 1] -> scaled latents;
+        ``seed``: the crops' and sentence draws' generator;
+        ``model``: the CLI's ``--model``, which keys the latent cache."""
         self.dataset_name = dataset
+        self.model = model
         self.size = size
         self.center_crop = center_crop
-        self.rng = np.random.default_rng(0)
+        self.rng = np.random.default_rng(seed)
         self.loaded = load_dataset(dataset, data_root=data_root)
         self.class_names = self.loaded.classnames
         train = self.loaded.train
@@ -97,10 +105,13 @@ class SDDataset:
     # ------------------------------------------------------------------
     def cache_path(self, model_name: str, cache_root: str = ".") -> str:
         """The latent cache: the reference's name at 512 without centre crop,
-        suffixed with the size (and ``_cc``) otherwise, so that another
-        geometry never reads stale latents."""
+        suffixed with the size (and ``_cc``) otherwise, and with the model
+        but for SD-1.x, so that another geometry or another VAE never reads
+        stale latents."""
         suffix = ("" if (self.size == 512 and not self.center_crop)
                   else f"_{self.size}" + ("_cc" if self.center_crop else ""))
+        if self.model != "sd15":
+            suffix += f"_{self.model}"
         return os.path.join(cache_root, VAE_EMBED_DIR, self.dataset_name,
                             model_name.replace("/", "--"), f"image_latents{suffix}.npy")
 

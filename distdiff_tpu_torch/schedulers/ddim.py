@@ -29,6 +29,10 @@ class DDIMSchedule:
     num_train_timesteps: int = 1000
     num_inference_steps: int = 50
     prediction_type: str = "epsilon"
+    # alphas_cumprod as a tensor on each device a tensor timestep indexed
+    # it on (``alphas_at``), copied there once
+    device_tables: dict = dataclasses.field(default_factory=dict, init=False, repr=False,
+                                            compare=False)
 
 
 def make_schedule(
@@ -118,6 +122,20 @@ def ddim_step(
     return prev.to(orig_dtype), x0.to(orig_dtype)
 
 
+def alphas_at(sched: DDIMSchedule, timestep, device) -> torch.Tensor:
+    """fp32 ``alphas_cumprod[timestep]`` on ``device``. A tensor
+    ``timestep`` indexes the schedule's copy of the table on its own device,
+    made at the first such call, so that timesteps drawn on the card stay
+    there and the table is not copied again."""
+    if isinstance(timestep, torch.Tensor):
+        table = sched.device_tables.get(timestep.device)
+        if table is None:
+            table = torch.as_tensor(sched.alphas_cumprod, device=timestep.device)
+            sched.device_tables[timestep.device] = table
+        return table[timestep].to(device)
+    return torch.as_tensor(sched.alphas_cumprod[np.asarray(timestep)], device=device)
+
+
 def add_noise(
     sched: DDIMSchedule,
     x0: torch.Tensor,
@@ -125,10 +143,9 @@ def add_noise(
     timestep,
 ) -> torch.Tensor:
     """Forward-process noising ``x_t = sqrt(a_t) x0 + sqrt(1-a_t) eps``.
-    ``timestep`` (an int or a per-sample sequence) indexes the training
-    discretization."""
-    a = torch.as_tensor(sched.alphas_cumprod[np.asarray(timestep)],
-                        device=x0.device)
+    ``timestep`` (an int, a per-sample sequence, or an int64 tensor on
+    ``x0``'s device) indexes the training discretization."""
+    a = alphas_at(sched, timestep, x0.device)
     while a.ndim < x0.ndim:
         a = a[..., None]
     out = a.sqrt() * x0.float() + (1.0 - a).sqrt() * noise.float()

@@ -57,7 +57,7 @@ def make_dpm_schedule(num_inference_steps: int = 50, lower_order_final: bool = T
     sa, ss, sl = tables(base.step_alphas)
     pa, ps, pl = tables(base.step_alphas_prev)
     return DPMSchedule(
-        **{f.name: getattr(base, f.name) for f in dataclasses.fields(DDIMSchedule)},
+        **{f.name: getattr(base, f.name) for f in dataclasses.fields(DDIMSchedule) if f.init},
         step_alpha_sqrt=sa, step_sigma=ss, step_lambda=sl,
         prev_alpha_sqrt=pa, prev_sigma=ps, prev_lambda=pl,
         lower_order_final=lower_order_final,

@@ -177,6 +177,13 @@ def _entry(kind: str, key: str, shape: Tuple[int, ...]) -> Entry:
     return mapped, shape, _identity
 
 
+def jax_leaf(kind: str, key: str, shape: Tuple[int, ...]) -> Tuple[Optional[str], Tuple[int, ...]]:
+    """(JAX path, JAX shape) of the port's state-dict ``key`` of ``shape``
+    in a model of ``kind`` ("unet", "vae" or "text")."""
+    path, jshape, _ = _entry(kind, key, tuple(shape))
+    return path, jshape
+
+
 def _port_model(config: Config):
     from distdiff_tpu_torch.models.text_encoder import CLIPTextEncoder
     from distdiff_tpu_torch.models.unet import UNet2DConditionModel

@@ -2,6 +2,7 @@
 prints no result, its launch plan for the SD-1.5 recipe, and the kernels'
 JSON entries it builds from per-shape records."""
 
+import collections
 import importlib.util
 import math
 import os
@@ -825,3 +826,73 @@ def test_sdxl_planners_follow_the_ports_unet(smoke):
     assert seen == smoke.unet_norms(cfg, 64)
     want = [(h, t) for h, t, _, k in smoke.unet_attentions(cfg, 64) for _ in range(k)]
     assert sorted(attn) == sorted(want)
+
+
+# ------------------------------------------------------------- phase 10
+
+def test_lora_step_plan_at_sd15_and_phase2_holds_it(smoke):
+    cfg = PipelineConfig.sd15()
+    plan = smoke.lora_flash_plan(cfg.unet, cfg.latent_size, smoke.LORA_BATCH)
+    # batch 8 without CFG: 8 x 8 heads; 5 self-attentions at 64^2 (D = 40)
+    # and 5 at 32^2 (D = 80), each forward again in the backward's
+    # recompute, one fused backward each; 16^2 and the 8^2 mid block take
+    # no kernel
+    at64, at32 = (64, 4096, 4096, 40), (64, 1024, 1024, 80)
+    assert dict(plan) == {("flash_fwd", at64): 10, ("flash_bwd_fused", at64): 5,
+                          ("flash_fwd", at32): 10, ("flash_bwd_fused", at32): 5}
+    timed = {(name, (b * h, tq, tk, d)) for _, b, h, tq, tk, d, names, t in smoke.flash_shapes()
+             if t is True for name in names}
+    assert set(plan) <= timed
+    calls = smoke.lora_gn_calls(cfg.unet, cfg.latent_size, smoke.LORA_BATCH)
+    norms = smoke.unet_norms(cfg.unet, 64)
+    # down_blocks.0.resnets.0's two norms come before the first adapted
+    # layer: the backward does not recompute them
+    assert calls == [(1, 8, norms[:2] + norms[-1:]), (2, 8, norms[2:-1])] and len(norms) == 61
+    launched = smoke.gn_plan(calls)
+    held = set(smoke.gn_shapes(smoke.main_gn_calls() + smoke.sd21_gn_calls()
+                               + smoke.sdxl_gn_calls() + smoke.lora_main_gn_calls()))
+    assert {shape for _, shape in launched} <= held
+    totals = {k: sum(n for (name, _), n in launched.items() if name == k) for k in smoke.GN_KERNELS}
+    assert totals["gn_fused"] + totals["gn_stats"] == 3 + 2 * 58
+    assert totals["gn_stats"] == totals["gn_apply"] > 0
+
+
+def test_lora_step_plans_follow_the_ports_step(smoke):
+    """lora_flash_plan and lora_gn_calls, from which phase 10 plans its
+    launches, against the self-attention and GroupNorm forwards of one
+    LoRA step of the port (the tiny UNet, 24^2 latents, with its inner
+    checkpoints and without them), by hooks."""
+    import dataclasses
+
+    from distdiff_tpu_torch.models import UNet2DConditionModel
+    from distdiff_tpu_torch.models.layers import GroupNorm
+    from distdiff_tpu_torch.train import lora as tl
+
+    for remat in (True, False):
+        cfg = dataclasses.replace(PipelineConfig.tiny().unet, remat=remat)
+        unet = UNet2DConditionModel(cfg, device="cpu").requires_grad_(False)
+        gen = torch.Generator().manual_seed(0)
+        lora = tl.init_lora(gen, unet, rank=2)
+        seen, attn = [], []
+        handles = [m.register_forward_pre_hook(
+            lambda mod, args: seen.append((args[0].shape[1], args[0].shape[-1], mod.act)))
+            for m in unet.modules() if isinstance(m, GroupNorm)]
+        handles += [m.attn1.register_forward_pre_hook(
+            lambda mod, args: attn.append((mod.heads, args[0].shape[1])))
+            for m in unet.modules() if hasattr(m, "attn1")]
+        t, noise = tl.draw_t_noise(gen, 2, (24, 24, 4), 1000)
+        try:
+            tl.lora_value_and_grad(unet, make_schedule(10), lora, torch.randn(2, 24, 24, 4),
+                                   torch.randn(2, 6, cfg.cross_attention_dim), t, noise, 2.0)
+        finally:
+            for h in handles:
+                h.remove()
+        want = collections.Counter()
+        for times, _, norms in smoke.lora_gn_calls(cfg, 24, 2):
+            for norm in norms:
+                want[norm] += times
+        assert collections.Counter(seen) == want, remat
+        plan = smoke.lora_flash_plan(cfg, 24, 2)
+        long = collections.Counter((h, tok) for h, tok in attn if tok > 256)
+        assert {(bh // 2, tq): c for (name, (bh, tq, _, _)), c in plan.items()
+                if name == "flash_fwd"} == dict(long) and long, remat

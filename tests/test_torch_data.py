@@ -383,6 +383,35 @@ def test_latent_caches_are_read_across_packages(toy, tmp_path):
     assert template_for("breastmnist") == "a breast ultrasound image of {}."
 
 
+def test_latent_cache_is_keyed_on_the_model(toy, tmp_path):
+    """An SD-1.5 latent cache at 1024 is not read under ``--model sdxl``
+    (another VAE, scaled by 0.13025) nor ``sd21``: each model encodes and
+    reads back its own file; SD-1.5's keeps the JAX package's name."""
+    root, jpipe, _ = toy
+    _, (tt, _) = _encoders(toy)
+
+    def encoder(value):
+        def encode(images):
+            assert images.shape[1:] == (1024, 1024, 3)
+            return np.full((len(images), 128, 128, 4), value, np.float32)
+        return encode
+
+    kw = dict(size=1024, data_root=root, encode_batch=4, cache_root=str(tmp_path))
+    made = {model: SDDataset("breastmnist", tt, encoder(v), model=model, **kw)
+            for model, v in (("sd15", 1.0), ("sdxl", 2.0), ("sd21", 3.0))}
+    ckpt = "CompVis/stable-diffusion-v1-4"
+    paths = {m: ds.cache_path(ckpt, str(tmp_path)) for m, ds in made.items()}
+    assert [os.path.basename(p) for p in paths.values()] == [
+        "image_latents_1024.npy", "image_latents_1024_sdxl.npy", "image_latents_1024_sd21.npy"]
+    j_ds = JSDDataset.__new__(JSDDataset)
+    j_ds.dataset_name, j_ds.size, j_ds.center_crop = "breastmnist", 1024, False
+    assert paths["sd15"] == j_ds._cache_path(ckpt, str(tmp_path))
+    for (model, ds), v in zip(made.items(), (1.0, 2.0, 3.0)):
+        assert ds.latents.shape == (5, 128, 128, 4) and (ds.latents == v).all(), model
+        again = SDDataset("breastmnist", tt, _refuse, model=model, **kw)
+        np.testing.assert_array_equal(again.latents, ds.latents)
+
+
 def test_image_list_dataset_seeds_each_item():
     from distdiff_tpu_torch.data.datasets import _item_rng, set_data_seed
 

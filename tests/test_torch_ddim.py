@@ -10,6 +10,7 @@ from distdiff_tpu.sampling.pipeline import _clamp_window as j_clamp_window
 from distdiff_tpu.schedulers import ddim as jddim
 from distdiff_tpu_torch.sampling.pipeline import _clamp_window
 from distdiff_tpu_torch.schedulers import ddim
+from distdiff_tpu_torch.schedulers.dpm import make_dpm_schedule
 
 torch.set_num_threads(1)
 
@@ -131,6 +132,25 @@ def test_add_noise_golden():
     for b, tb in enumerate([3, 997]):
         ref_b = np.sqrt(acp[tb]) * x0[b] + np.sqrt(1 - acp[tb]) * eps[b]
         np.testing.assert_allclose(out.numpy()[b], ref_b, rtol=2e-6, atol=2e-6)
+
+
+def test_tensor_timesteps_index_one_copy_of_the_table():
+    """An int64 tensor of timesteps gives add_noise's and alphas_at's
+    values of the same list, from one copy of the table a device, made at
+    the first call and kept on the schedule (a DPM schedule too)."""
+    rng = np.random.RandomState(3)
+    x0 = torch.from_numpy(rng.randn(2, 4, 4, 4).astype(np.float32))
+    eps = torch.from_numpy(rng.randn(2, 4, 4, 4).astype(np.float32))
+    for sched in (ddim.make_schedule(50), make_dpm_schedule(20)):
+        assert sched.device_tables == {}
+        t = torch.tensor([3, 997], dtype=torch.int64)
+        want = ddim.add_noise(sched, x0, eps, [3, 997])
+        assert torch.equal(ddim.add_noise(sched, x0, eps, t), want)
+        table = sched.device_tables[t.device]
+        assert torch.equal(ddim.alphas_at(sched, t, "cpu"),
+                           torch.from_numpy(sched.alphas_cumprod[[3, 997]]))
+        assert list(sched.device_tables) == [t.device]
+        assert sched.device_tables[t.device] is table
 
 
 def test_img2img_start_and_guidance_window_golden():

@@ -1,8 +1,12 @@
 """The port's eight ``rollout_remat`` modes: the transform guidance's updated
-latents, scores and gamma/beta gradients against the JAX package in the
-same mode and against the port's "step_nr", and the block forwards each
-mode runs in one rollout's forward and backward, counted with hooks, which
-show where each mode recomputes."""
+latents, scores and gamma/beta gradients against the JAX package's update
+and against the port's "step_nr", and the block forwards each mode runs in
+one rollout's forward and backward, counted with hooks, which show where
+each mode recomputes. The JAX update is computed once, in the JAX
+package's default mode ("step"): a mode places checkpoints and changes no
+value (the JAX package's ``tests/test_guidance.py``
+``test_rollout_remat_modes_equivalent`` holds six of its modes to
+"step"), so each port mode is held to the one JAX run."""
 
 import dataclasses
 
@@ -44,7 +48,23 @@ def setup():
     ins = dict(lat=lat, cond=cond, uncond=uncond, targets=np.array([1, 2]),
                gamma0=gamma0, beta0=beta0, k_guide=k_guide)
     base = _port(tpipe, "step_nr", ins)
-    return jpipe, params, tpipe, ins, base
+    return jpipe, params, tpipe, ins, base, _jax(jpipe, params, ins)
+
+
+def _jax(jpipe, params, ins):
+    """JAX's updated latents, score and gamma/beta gradients, in its
+    default mode."""
+    assert jpipe.guidance_cfg.rollout_remat == "step"
+    ctx = jpipe.guidance_context()
+    jup, jscore = jax.jit(lambda p, *a: j_transform_guidance(ctx, p, *a, G0))(
+        params, *(jnp.asarray(ins[k]) for k in ("lat", "cond", "uncond", "targets")),
+        ins["k_guide"])
+    jup, jscore = np.asarray(jup), np.asarray(jscore)
+    rho = KW["rho"]
+    gamma0, beta0 = ins["gamma0"][:, 0, 0], ins["beta0"][:, 0, 0]
+    jgb = (beta0 - jup[:, 0, 0]) / rho
+    jgg = (1.0 + gamma0 + beta0 - jup[:, 0, 1]) / rho - jgb
+    return jup, jscore, jgg, jgb
 
 
 def _port(tpipe, mode, ins):
@@ -65,18 +85,8 @@ def test_the_default_mode_and_the_refusal_of_others():
 
 @pytest.mark.parametrize("mode", ROLLOUT_REMAT_MODES)
 def test_mode_matches_jax_and_step_nr(setup, mode):
-    jpipe, params, tpipe, ins, base = setup
+    _, _, tpipe, ins, base, (jup, jscore, jgg, jgb) = setup
     up, score, gg, gb = _port(tpipe, mode, ins)
-    jpipe.guidance_cfg = dataclasses.replace(jpipe.guidance_cfg, rollout_remat=mode)
-    ctx = jpipe.guidance_context()
-    jup, jscore = jax.jit(lambda p, *a: j_transform_guidance(ctx, p, *a, G0))(
-        params, *(jnp.asarray(ins[k]) for k in ("lat", "cond", "uncond", "targets")),
-        ins["k_guide"])
-    jup, jscore = np.asarray(jup), np.asarray(jscore)
-    rho = KW["rho"]
-    gamma0, beta0 = ins["gamma0"][:, 0, 0], ins["beta0"][:, 0, 0]
-    jgb = (beta0 - jup[:, 0, 0]) / rho
-    jgg = (1.0 + gamma0 + beta0 - jup[:, 0, 1]) / rho - jgb
     # fp32 rollouts (2 UNet steps, 2 decodes, the guide) and their
     # backward on the same weights: XLA's and torch's summation orders
     np.testing.assert_allclose(up, jup, atol=2e-5, rtol=0)
@@ -109,7 +119,7 @@ WANT = {  # per step, in UNet calls and decodes: (U, C, V, D) each step
 
 
 def test_each_mode_recomputes_where_it_says(setup):
-    _, _, tpipe, ins, _ = setup
+    _, _, tpipe, ins, _, _ = setup
     counts, handles = {}, []
 
     def hook(key):

@@ -296,31 +296,53 @@ def _guided(gtype):
     return dict(GUIDE_KW, guidance_type=gtype)
 
 
+@pytest.fixture(scope="module")
+def fused_transform(pipelines):
+    """The JAX package's and the port's ``make_expand_fn`` under transform
+    guidance (``pipelines``' guidance) on the same inputs and draws:
+    (JAX's images, the port's, the port's inputs and draws)."""
+    jpipe, params, tpipe = pipelines
+    assert tpipe.guidance_cfg.guidance_type == jpipe.guidance_cfg.guidance_type == \
+        "transform_guidance"
+    return run_both(jpipe, params, tpipe, "fused", conds=_conds(jpipe, params))
+
+
 @pytest.mark.parametrize("gtype", ["transform_guidance", "direct_guidance"])
-def test_guided_expand_matches_jax(checkpoint, gtype):
-    path, tcfg = checkpoint
-    jcfg = JPipelineConfig.sdxl_tiny(sample_size=SAMPLE)
-    jpipe, params, tpipe = tiny_pipelines(jcfg, tcfg, guide_kw=_guided(gtype),
-                                          params=convert_sdxl_checkpoint(path, config=jcfg))
-    load_sdxl_checkpoint(path, tpipe)
-    ref, got, _ = run_both(jpipe, params, tpipe, "fused", conds=_conds(jpipe, params))
+def test_guided_expand_matches_jax(checkpoint, gtype, request):
+    if gtype == "transform_guidance":  # the pipelines fixture's guidance
+        ref, got, _ = request.getfixturevalue("fused_transform")
+    else:
+        path, tcfg = checkpoint
+        jcfg = JPipelineConfig.sdxl_tiny(sample_size=SAMPLE)
+        jpipe, params, tpipe = tiny_pipelines(jcfg, tcfg, guide_kw=_guided(gtype),
+                                              params=convert_sdxl_checkpoint(path, config=jcfg))
+        load_sdxl_checkpoint(path, tpipe)
+        ref, got, _ = run_both(jpipe, params, tpipe, "fused", conds=_conds(jpipe, params))
     assert got.shape == ref.shape == (2, SAMPLE, SAMPLE, 3)
     np.testing.assert_allclose(got, ref, atol=TOL_RUN, rtol=0)
 
 
 @pytest.mark.parametrize("split_kw", [{}, dict(guide_chunk=1, decode_chunk=1)],
                          ids=["whole", "chunked"])
-def test_split_and_chunked_expand_match_jax(pipelines, split_kw):
+def test_split_and_chunked_expand_match_jax(pipelines, split_kw, request):
     """SplitExpand, whole and with the guidance and the decode on one-sample
-    chunks of the {"ctx", "add"} dicts, against the JAX package's
-    SplitExpand built alike, and against the port's own make_expand_fn on
-    the same draws (the same arithmetic: 1e-5)."""
+    chunks of the {"ctx", "add"} dicts, against the JAX package and against
+    the port's own make_expand_fn on the same draws (the same arithmetic:
+    1e-5). Chunked, the JAX reference is its SplitExpand built alike (the
+    chunks draw from per-sample keys). Whole, it is the JAX
+    ``make_expand_fn`` run of ``fused_transform`` on the same key: the JAX
+    package's ``tests/test_sdxl_guided.py`` (``test_sdxl_split_matches_fused``)
+    holds its SplitExpand to its ``make_expand_fn``."""
     jpipe, params, tpipe = pipelines
-    ref, got, (targs, kw) = run_both(jpipe, params, tpipe, "split",
-                                     conds=_conds(jpipe, params), split_kw=split_kw)
+    if split_kw:
+        ref, got, (targs, kw) = run_both(jpipe, params, tpipe, "split",
+                                         conds=_conds(jpipe, params), split_kw=split_kw)
+        fused = tpipe.make_expand_fn()(*targs, **kw).numpy()
+    else:
+        ref, fused, (targs, kw) = request.getfixturevalue("fused_transform")
+        got = tpipe.make_split_expand()(*targs, **kw).numpy()
     np.testing.assert_allclose(got, ref, atol=TOL_RUN, rtol=0)
-    fused = tpipe.make_expand_fn()(*targs, **kw)
-    np.testing.assert_allclose(got, fused.numpy(), atol=1e-5, rtol=0)
+    np.testing.assert_allclose(got, fused, atol=1e-5, rtol=0)
 
 
 @pytest.mark.parametrize("option", ["dpmpp", "deep_cache"])

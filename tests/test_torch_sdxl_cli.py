@@ -124,7 +124,14 @@ def test_sd_dataset_and_collate_on_dict_conditioning(toy_files, encoders, tmp_pa
     (_, jt, ji), (_, tt, ti) = encoders
     kw = dict(size=SAMPLE, data_root=data, encode_batch=2)
     want = JSDDataset("breastmnist", jt, ji, cache_root=str(tmp_path / "jax"), **kw)
-    got = SDDataset("breastmnist", tt, ti, cache_root=str(tmp_path / "port"), **kw)
+    got = SDDataset("breastmnist", tt, ti, cache_root=str(tmp_path / "port"), model="sdxl",
+                    **kw)
+    # the same contents under the JAX package's name plus the model
+    ckpt = "CompVis/stable-diffusion-v1-4"
+    assert got.cache_path(ckpt, "port") == want._cache_path(ckpt, "port").replace(
+        ".npy", "_sdxl.npy")
+    np.testing.assert_array_equal(np.load(got.cache_path(ckpt, str(tmp_path / "port"))),
+                                  got.latents)
     assert set(got.class_embeds) == {"ctx", "add"}
     assert got.class_embeds["ctx"].shape == (2, 16, 48)
     for k in ("ctx", "add"):
@@ -155,17 +162,20 @@ def test_tiny_sdxl_cli_matches_the_jax_cli(toy_files, tmp_path, monkeypatch):
     monkeypatch.chdir(port)
     stats = cli.main(_argv(toy_files))
     assert stats["written"] == jstats["written"] == 4
-    # the same PNGs, latent cache and prototype cache, at the same paths
+    # the same PNGs, latent cache and prototype cache, at the same paths,
+    # but for the latent cache, whose name the port keys on the model
+    lat = "save/vae_embedding/breastmnist/CompVis--stable-diffusion-v1-4/image_latents_32.npy"
+    port_lat = lat.replace(".npy", "_sdxl.npy")
     got = _outputs(str(port))
-    assert got == _outputs(str(jwork))
+    assert got == sorted(port_lat if p == lat else p for p in _outputs(str(jwork)))
     pngs = [p for p in got if p.endswith(".png")]
     assert len(pngs) == 4 and all("_expand_" in p for p in pngs)
     for p in pngs:
         img, ref = read_png(os.path.join(port, p)), read_png(os.path.join(jwork, p))
         assert img.shape == ref.shape == (SAMPLE, SAMPLE, 3) and img.max() > img.min()
-    lat = "save/vae_embedding/breastmnist/CompVis--stable-diffusion-v1-4/image_latents_32.npy"
     # fp32 VAE encoders on the same checkpoint and crops: summation order
-    np.testing.assert_allclose(np.load(port / lat), np.load(jwork / lat), atol=1e-5, rtol=0)
+    np.testing.assert_allclose(np.load(port / port_lat), np.load(jwork / lat), atol=1e-5,
+                               rtol=0)
     proto = "save/prototypes/tiny_resnet/breastmnist/class_wise_prototype_K2.npz"
     got_p, want_p = np.load(port / proto), np.load(jwork / proto)
     for key in ("global_prototypes", "local_prototypes"):
