@@ -3,7 +3,7 @@
 
 Run from the repository root: ``python3 chip_smoke.py``. It needs one CUDA
 card, ``nvcc`` and ``nvidia-smi``; it imports nothing of JAX or of the JAX
-package. Eleven phases, any failure exits non-zero:
+package. Twelve phases, any failure exits non-zero:
 
 1. Device: the card's name and power limit, torch/CUDA versions, the
    time to build the CUDA kernels from ``distdiff_tpu_torch/csrc`` (one
@@ -105,7 +105,7 @@ package. Eleven phases, any failure exits non-zero:
    batch already on the card. Then ``cli.train.main`` at the JAX defaults
    (ResNet-50, 224^2, batch 64, SGD lr 0.1 Nesterov, fp32) on a caltech-101
    PNG tree written first (100 classes, 3 train and 1 test image each, half
-   with Paeth and Average rows) for 2 epochs, a resume for a third, and
+   with Paeth and Average rows) for one epoch, a resume for a second, and
    ``cli.train_expanded.main`` with a tree of 100 512^2 PNGs in
    ``ExpansionDriver``'s layout for one epoch: ``log.txt``,
    ``results.yaml`` and both ``.pth.tar`` files checked (the trainer
@@ -115,12 +115,13 @@ package. Eleven phases, any failure exits non-zero:
    (an epoch's images over its wall time), each epoch's seconds and its
    share waiting on the loader, and the peak
    device memory, each beside the card's name and power limit. Then
-   ``cli.train_transform.main`` on the same tree at the same defaults, cut
-   to one epoch at ``--expand_num 0`` (the original-only control, 300
-   images) under each of the 8 ``--transform_type`` values, and ``default``
-   at ``--expand_num 1`` over a tree of one 512^2 ``_expand_0`` PNG an
-   original (600 items): each run's artifacts checked and its steps
-   counted, its images/s, loader share and epoch seconds printed.
+   ``cli.train_transform.main`` at the same defaults on a tree cut to 1
+   train image a class, cut to one epoch at ``--expand_num 0`` (the
+   original-only control, 100 images) under each of the 8
+   ``--transform_type`` values, and ``default`` at ``--expand_num 1`` over
+   a tree of one 512^2 ``_expand_0`` PNG an original (200 items): each
+   run's artifacts checked and its steps counted, its images/s, loader
+   share and epoch seconds printed.
 8. SD-2.1 768-v, DPM-Solver++(2M), DeepCache and the rollout_remat modes,
    after phases 4-6's pipelines are freed. SD-2.1 at full width (UNet
    865.9M, heads 64 wide, linear projections, v-prediction; seeded random
@@ -169,15 +170,36 @@ package. Eleven phases, any failure exits non-zero:
    shape against the plan: flash_fwd 10 and flash_bwd_fused 5 at each of
    [64,4096,40] and [64,1024,80], the norms by gn_plan, peak memory) and
    10 steps timed by CUDA events; then ``cli.train_lora.main`` from
-   phase 6's writers' files (the caltech-101 tree cut to 1 train image a
-   class), cut to 20 steps with an adapter every 10 (both files' keys,
+   phase 6's SD-1.5 checkpoint and its writers' other files (the
+   caltech-101 tree cut to 1 train image a class), cut to 20 steps with an adapter every 10 (both files' keys,
    shapes and alpha, the launches, each stage's seconds, steps/s), and
    ``cli.generate_data.main --lora`` on that adapter through the published
    recipe cut to 2 images (every adapted UNet leaf equals the merge of
    the written weight bit for bit, every other leaf the written weight,
    and an adapter with b = 0 leaves the bytes as they were). Each counted
    run fails on a launched shape phase 2 did not hold.
-11. The card line, the kernels' JSON line (one entry per kernel; its times
+11. The guide zoo (no kernel of its own: the ViT's 50 tokens take the
+   plain attention, the CNNs cuDNN). ResNeXt-50 (32x4d), Wide ResNet-50-2,
+   MobileNetV2 and the OpenCLIP ViT-B/32 image tower at full width, fp32,
+   100 classes, seeded weights: ``encode_image`` and the input gradient of
+   the per-sample hierarchical energy (batch 2, 224^2) on the card against
+   the same guide on the CPU with TF32 off (features within ZOO_FEAT_TOL of
+   their largest, the gradient ZOO_CNN_GRAD_TOL in l2, the ViT's, smooth,
+   ZOO_GRAD_TOL), then with TF32 on, a control that must exceed both;
+   then each guide as the guide of the phase-4 recipe in one SD-1.5
+   pipeline: a first call, a counted call (flash and GroupNorm launches by
+   shape against phase 4's plan, peak memory) and two more timed, the warm
+   call against phase 4's. Then ``cli.generate_data.main`` with the
+   default ``-a open_clip_vit_b32`` from phase 6's synth SD-1.5
+   checkpoint and files it writes: a full-layout
+   OpenCLIP ViT-B/32 ``.safetensors`` (151,277,313 values), a minimal
+   merges file as ``--bpe_path`` and a caltech-101 tree cut to 1 train
+   image a class, 2 images: the image tower's loaded tensors, the zero-shot
+   head ([100, 512], finite), the PNGs, the caches, the launches against
+   the plan. Then ``cli.train -a mobilenetv2 --train_fc`` on phase 7's
+   tree for one epoch: the backbone unchanged, the BatchNorm statistics
+   and ``classifier.*`` moved. Then the whole script's seconds.
+12. The card line, the kernels' JSON line (one entry per kernel; its times
    are the means over that kernel's launches in the counted runs, and
    ``shapes`` holds each timed shape's own numbers), and the
    ``{"ok": true, ...}`` line.
@@ -2098,10 +2120,11 @@ def loaded_matches(module, written: dict, keys, what: str) -> None:
                 f"{what} {k}: the loaded tensor differs from the written one")
 
 
-def cli_phase() -> dict:
+def cli_phase(checkpoint: str) -> dict:
     """``distdiff_tpu_torch.cli.generate_data.main`` on the published recipe,
     in a temporary working directory: an SD-1.5 fp16 diffusers-layout
-    checkpoint (``weights/synth.py``, with its CLIP tokenizer files), a
+    checkpoint written to ``checkpoint`` (``weights/synth.py``, with its
+    CLIP tokenizer files; phases 10 and 11 read it too), a
     ResNet-50 ``.pth.tar`` guide of 100 classes and a caltech-101 tree of
     PNGs written first; then the loaded weights, the tokenizer, the PNGs,
     the latent and prototype caches and the kernels' launches checked. The
@@ -2127,7 +2150,7 @@ def cli_phase() -> dict:
     secs, seen = {}, {}
     with tempfile.TemporaryDirectory(dir=root, prefix=".smoke_cli_") as work:
         t0 = time.time()
-        ckpt = write_synth_checkpoint(os.path.join(work, "sd15"), seed=0)
+        ckpt = write_synth_checkpoint(checkpoint, seed=0)
         secs["write checkpoint"] = time.time() - t0
         t0 = time.time()
         guide_path = os.path.join(work, "checkpoint", "model_best.pth.tar")
@@ -2224,8 +2247,9 @@ def cli_phase() -> dict:
 
 # ------------------------------------------------------------- phase 7
 
-TRAIN_EPOCHS = 2          # the first run; a resume adds a third
+TRAIN_EPOCHS = 1          # the first run; a resume adds a second
 TRAIN_EXPANDED_EPOCHS = 1
+TRANSFORM_TRAIN = 1       # train images a class in the cli.train_transform runs
 # card against CPU, fp32 with TF32 off, each step from the CPU's state; each
 # limit lies between the sound run's reading and the TF32 control's (NVIDIA
 # H100, PERF.md's PR 15 section): loss 1.1e-7 / 7.95e-5, statistics 1.19e-7
@@ -2630,7 +2654,7 @@ class TrainerProbe:
 def train_phase(card: str, work: str) -> dict:
     """``cli.train.main`` at ResNet-50 width on a caltech-101 PNG tree written
     first under ``work`` (100 classes, 3 train and 1 test image each, half
-    with Paeth and Average rows), 2 epochs; a resume for a third;
+    with Paeth and Average rows), one epoch; a resume for a second;
     ``cli.train_expanded.main`` with a tree of 100 512^2 PNGs in
     ``ExpansionDriver``'s layout for one epoch; every artifact checked,
     the best checkpoint loaded as a guide against the module it saved,
@@ -2721,14 +2745,15 @@ def train_phase(card: str, work: str) -> dict:
     return out
 
 
-def train_transform_phase(card: str, work: str, data: str, classes) -> dict:
+def train_transform_phase(card: str, work: str) -> dict:
     """``cli.train_transform.main`` at the JAX defaults (ResNet-50, 224^2,
-    batch 64, fp32) on phase 7's caltech-101 tree, cut to one epoch at
-    ``--expand_num 0`` (the defaults: 100 epochs, 5): the original-only
-    control of 300 images under each of the 8 ``--transform_type`` values;
-    then ``default`` over original ⊕ expanded at ``--expand_num 1``, a tree
-    of one 512^2 ``_expand_0`` PNG an original image written first (600
-    items, the CLI's ratio assert). Each run's ``log.txt``,
+    batch 64, fp32) on a caltech-101 tree written first under ``work``
+    (100 classes, TRANSFORM_TRAIN train and 1 test image each), cut to one
+    epoch at ``--expand_num 0`` (the defaults: 100 epochs, 5): the
+    original-only control of 100 images under each of the 8
+    ``--transform_type`` values; then ``default`` over original ⊕ expanded
+    at ``--expand_num 1``, a tree of one 512^2 ``_expand_0`` PNG an
+    original image written first (200 items, the CLI's ratio assert). Each run's ``log.txt``,
     ``results.yaml`` and checkpoints checked and its steps counted; its
     images/s (items over the epoch's wall time; an AugMix item is three
     views), loader share and epoch seconds printed."""
@@ -2739,11 +2764,13 @@ def train_transform_phase(card: str, work: str, data: str, classes) -> dict:
     from distdiff_tpu_torch.cli import train_transform as transform_cli
 
     t0 = time.time()
+    data = os.path.join(work, "data_transform")
+    classes = write_caltech_tree(data, train=TRANSFORM_TRAIN)
     expanded = os.path.join(work, "expanded_per_image")
     n_exp = write_expanded_tree(expanded, [c.replace("_", " ") for c in classes],
-                                stems=CLI_TRAIN)
+                                stems=TRANSFORM_TRAIN)
     out = {"write_s": time.time() - t0}
-    n_orig = CLI_CLASSES * CLI_TRAIN
+    n_orig = CLI_CLASSES * TRANSFORM_TRAIN
     require(n_exp == n_orig, f"{n_exp} expanded images for {n_orig} originals")
     runs = [(t, ["--transform_type", t, "--expand_num", "0"], n_orig)
             for t in transform_cli.TRANSFORM_TYPES]
@@ -3957,11 +3984,12 @@ class StepRecords(logging.Handler):
             self.records.append(record.args)
 
 
-def lora_cli_phase(records, card: str) -> dict:
+def lora_cli_phase(records, card: str, ckpt: str) -> dict:
     """``cli.train_lora.main`` at its defaults (SD-1.5, batch 8, 512^2,
-    rank 8) from files written first (phase 6's writers: an SD-1.5 fp16
-    diffusers-layout checkpoint, a ResNet-50 guide of 100 classes, a
-    caltech-101 PNG tree cut to LORA_CLI_TRAIN train images a class), cut
+    rank 8) from phase 6's SD-1.5 fp16 diffusers-layout checkpoint
+    ``ckpt`` and files written first (phase 6's writers: a ResNet-50 guide
+    of 100 classes, a caltech-101 PNG tree cut to LORA_CLI_TRAIN train
+    images a class), cut
     to LORA_CLI_STEPS steps with an adapter saved every LORA_CLI_SAVE: both
     files' keys, shapes and alpha, the launches by shape against the plan,
     each stage's seconds and the steps/s. Then ``cli.generate_data.main
@@ -3981,7 +4009,7 @@ def lora_cli_phase(records, card: str) -> dict:
     from distdiff_tpu_torch.parallel import read_png
     from distdiff_tpu_torch.train.lora import load_lora, lora_table, merge_lora
     from distdiff_tpu_torch.weights.safetensors import load_file
-    from distdiff_tpu_torch.weights.synth import COMPONENT_FILES, write_synth_checkpoint
+    from distdiff_tpu_torch.weights.synth import COMPONENT_FILES
 
     dev = torch.device("cuda")
     root = os.path.dirname(os.path.abspath(__file__))
@@ -4005,9 +4033,6 @@ def lora_cli_phase(records, card: str) -> dict:
         return sd
 
     with tempfile.TemporaryDirectory(dir=root, prefix=".smoke_lora_") as work:
-        t0 = time.time()
-        ckpt = write_synth_checkpoint(os.path.join(work, "sd15"), cfg, seed=4)
-        secs["write checkpoint"] = time.time() - t0
         t0 = time.time()
         guide_path = os.path.join(work, "checkpoint", "model_best.pth.tar")
         os.makedirs(os.path.dirname(guide_path))
@@ -4124,6 +4149,358 @@ def lora_cli_phase(records, card: str) -> dict:
     return {"secs": secs, "steps_per_s": steps_per_s, "stats": stats,
             "by_shape": train_shapes + gen_shapes, "train_peak_bytes": train_peak,
             "generate_peak_bytes": gen_peak}
+
+
+# ------------------------------------------------------------- phase 11
+
+ZOO = ("resnext50", "wideresnet50", "mobilenetv2", "open_clip_vit_b32")
+# card against CPU, fp32 with TF32 off, the same guide and inputs; the
+# TF32-on control must exceed both limits. First readings (NVIDIA H100,
+# ResNeXt-50, Wide ResNet-50-2, MobileNetV2, the ViT): features 2.8e-7,
+# 3.2e-7, 3.0e-7, 9.2e-7, TF32 4.8e-4, 4.4e-4, 3.2e-4, 7.9e-4. The CNNs'
+# input gradient 4.3e-4, 1.5e-3, 3.1e-4 (a ReLU mask or a max-pool choice
+# that the last bits flip moves it locally), TF32 4.8e-2, 4.2e-2, 7.2e-2;
+# the ViT's, smooth in the rounding, 1.7e-6, TF32 1.3e-3
+ZOO_FEAT_TOL = 1e-4  # max |card - CPU| of the features over their max |CPU|
+# l2 of card - CPU of the energy's input gradient over the CPU's l2
+ZOO_GRAD_TOL = {"open_clip_vit_b32": 1e-4}
+ZOO_CNN_GRAD_TOL = 1e-2
+ZOO_SIDE = 224
+ZOO_CLI_TRAIN = 1    # train images a class: 100 latents
+ZOO_CLI_UNITS = 2
+ZOO_MERGES = "#version: 0.2\nc l</w>\na s\nas s</w>\n"
+
+
+def zoo_guide(arch: str, dev, seed: int = 0):
+    """A frozen guide of ``arch`` at full width with 100 classes on
+    ``dev``: flax-style seeded weights (``init_weights``) and seeded
+    BatchNorm running statistics, drawn on the CPU, so the same on every
+    device."""
+    import torch
+
+    from distdiff_tpu_torch.models.guide import create_model
+    from distdiff_tpu_torch.models.init import init_weights
+
+    gm = create_model(arch, CLI_CLASSES, device="cpu")
+    gen = torch.Generator().manual_seed(seed)
+    init_weights(gm.module, gen)
+    with torch.no_grad():
+        for k, v in gm.module.state_dict().items():
+            if k.endswith("running_mean"):
+                v.copy_(torch.randn(v.shape, generator=gen) * 0.1)
+            elif k.endswith("running_var"):
+                v.copy_(torch.rand(v.shape, generator=gen) + 0.5)
+    gm.module.to(dev)
+    return gm
+
+
+def zoo_agreement(arch: str, card_gm, seed: int) -> dict:
+    """``encode_image`` and the input gradient of the summed per-sample
+    hierarchical energy of the guide on the card against the same guide on
+    the CPU (batch 2, 224^2, seeded inputs and prototypes), with TF32 off;
+    then the TF32-on control, which must exceed both limits."""
+    import torch
+
+    from distdiff_tpu_torch.device import disable_tf32
+    from distdiff_tpu_torch.guidance import hierarchical_energy_per_sample
+
+    cpu_gm = zoo_guide(arch, "cpu", seed)
+    gen = torch.Generator().manual_seed(seed + 100)
+    x = torch.rand(BATCH, ZOO_SIDE, ZOO_SIDE, 3, generator=gen) * 2 - 1
+    t = torch.randint(0, CLI_CLASSES, (BATCH,), generator=gen)
+    gp = torch.randn(CLI_CLASSES, cpu_gm.feature_dim, generator=gen)
+    lp = torch.randn(CLI_CLASSES, CLI_K, cpu_gm.feature_dim, generator=gen)
+
+    def run(gm):
+        dev = next(gm.module.parameters()).device
+        xx = x.to(dev).requires_grad_(True)
+        f = gm.encode_image(xx)
+        e = hierarchical_energy_per_sample(f, t.to(dev), gp.to(dev), lp.to(dev))
+        (g,) = torch.autograd.grad(e.sum(), xx)
+        return f.detach().cpu(), g.cpu()
+
+    def errors(got, want):
+        (f, g), (wf, wg) = got, want
+        return (float((f - wf).abs().max() / wf.abs().max()),
+                float((g - wg).norm() / wg.norm()))
+
+    want = run(cpu_gm)
+    disable_tf32()
+    feat, grad = errors(run(card_gm), want)
+    torch.backends.cuda.matmul.allow_tf32 = True
+    torch.backends.cudnn.allow_tf32 = True
+    try:
+        tf_feat, tf_grad = errors(run(card_gm), want)
+    finally:
+        disable_tf32()
+    grad_tol = ZOO_GRAD_TOL.get(arch, ZOO_CNN_GRAD_TOL)
+    print(f"  {arch}: card against CPU, fp32: features {feat:.3e} of their largest, the "
+          f"energy's input gradient {grad:.3e} (l2); TF32 on: {tf_feat:.3e}, {tf_grad:.3e} "
+          f"(limits {ZOO_FEAT_TOL}, {grad_tol})")
+    require(feat <= ZOO_FEAT_TOL and grad <= grad_tol,
+            f"{arch}: card against CPU, features {feat:.3e} (limit {ZOO_FEAT_TOL}), gradient "
+            f"{grad:.3e} (limit {grad_tol})")
+    require(tf_feat > ZOO_FEAT_TOL and tf_grad > grad_tol,
+            f"{arch}: the TF32 control passed a limit ({tf_feat:.3e}, {tf_grad:.3e}): it would "
+            f"not catch a lower precision")
+    return {"feat_err": feat, "grad_err": grad, "tf32_feat_err": tf_feat,
+            "tf32_grad_err": tf_grad}
+
+
+def zoo_recipe(records, pipe, inputs, gm, card: str) -> dict:
+    """The phase-4 recipe (SD-1.5, batch 2, 512^2, DDIM-50 at strength
+    0.5, transform guidance) with ``gm`` as the guide and seeded random
+    prototypes of its width: a first call, a counted call (launches by
+    shape against phase 4's plan: the guides launch no flash or GroupNorm
+    kernel of their own) and two more timed calls, the counted call's peak
+    memory."""
+    import torch
+
+    from distdiff_tpu_torch.ops import groupnorm as gn
+
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(5)
+    pipe.guide = gm
+    pipe.global_protos = torch.randn(CLI_CLASSES, gm.feature_dim, generator=gen, device=dev)
+    pipe.local_protos = torch.randn(CLI_CLASSES, CLI_K, gm.feature_dim, generator=gen,
+                                    device=dev)
+    expand = pipe.make_expand_fn()
+
+    def g(seed):
+        return torch.Generator(device=dev).manual_seed(seed)
+
+    cold = wall_s(lambda: expand(*inputs, g(1)))
+    (img, aux), by_shape, secs, peak = counted_call(
+        lambda: expand(*inputs, g(2), return_aux=True))
+    runs = [secs] + [wall_s(lambda s=s: expand(*inputs, g(s))) for s in (3, 4)]
+    warm = statistics.median(runs)
+    what = f"phase 11 {gm.arch}"
+    check_images(img, 512, what)
+    for name in ("grad_gamma", "grad_beta"):
+        require(bool(torch.isfinite(aux[name]).all()) and float(aux[name].abs().max()) > 0.0,
+                f"{what}: {name} is zero or not finite")
+    moved = float((aux["latents_after"] - aux["latents_before"]).abs().max())
+    require(moved > 0.0, f"{what}: guidance left the latents unchanged")
+    check_flash_plan(by_shape, flash_plan(pipe, BATCH), what)
+    check_gn_plan(gn_only(by_shape), gn_plan(expand_gn_calls(pipe, BATCH),
+                                             smem_limit=gn._device_limits(dev)[0]))
+    require_timed(records, by_shape, what)
+    print(f"  {gm.arch} guide ({sum(p.numel() for p in gm.module.parameters()) / 1e6:.1f}M): "
+          f"first call {cold:.2f} s, warm {warm:.3f} s/batch (median of "
+          f"{[round(r, 3) for r in runs]}), peak memory {peak / 2**30:.2f} GiB; latents moved "
+          f"up to {moved:.4f} ({card})")
+    return {"warm_s": warm, "runs": runs, "cold_s": cold, "peak_bytes": peak,
+            "by_shape": by_shape}
+
+
+def write_openclip_checkpoint(path: str, seed: int = 7, shapes=None) -> dict:
+    """An OpenCLIP ViT-B/32 state (laion's: no OpenAI markers) as
+    ``.safetensors``, fp32: every key of ``openclip_vit_b32_state_shapes``
+    (``shapes``, default the full layout: 151,277,313 values), normal with
+    std 0.02 but the LayerNorm scales (1 + normal * 0.1) and the logit
+    scale (log 100). Returns the state."""
+    import torch
+
+    from distdiff_tpu_torch.weights.openclip import (
+        CLIP_VIT_B32_TOTAL,
+        openclip_vit_b32_state_shapes,
+        state_size,
+    )
+    from distdiff_tpu_torch.weights.safetensors import save_file
+
+    if shapes is None:
+        shapes = openclip_vit_b32_state_shapes()
+        require(state_size(shapes) == CLIP_VIT_B32_TOTAL, "the OpenCLIP enumeration's total")
+    gen = torch.Generator().manual_seed(seed)
+    state = {}
+    for k, s in shapes.items():
+        if k == "logit_scale":
+            state[k] = torch.tensor(math.log(100.0))
+        elif ".ln_" in k and k.endswith("weight") or k.startswith("ln_final.weight"):
+            state[k] = 1 + 0.1 * torch.randn(s, generator=gen)
+        else:
+            state[k] = 0.02 * torch.randn(s, generator=gen)
+    save_file(state, path)
+    return state
+
+
+def zoo_cli_plans(pipe) -> tuple:
+    """(flash launches by (kernel, shape), GroupNorm calls) of phase 11's
+    CLI run: one SplitExpand call at CLI_BATCH, after the dataset encode of
+    CLI_CLASSES * ZOO_CLI_TRAIN images, CLI_ENCODE_BATCH a call (the VAE
+    mid-block's attention, D = 512). The guide adds none."""
+    encodes = -(-CLI_CLASSES * ZOO_CLI_TRAIN // CLI_ENCODE_BATCH)
+    cfg = pipe.config
+    t = cfg.latent_size ** 2
+    want = flash_plan(pipe, CLI_BATCH)
+    want[("flash_fwd", (CLI_ENCODE_BATCH, t, t, cfg.vae.block_out_channels[-1]))] += encodes
+    return want, expand_gn_calls(pipe, CLI_BATCH) + [
+        (encodes, CLI_ENCODE_BATCH, vae_encode_norms(cfg.vae, cfg.sample_size))]
+
+
+def zoo_cli_phase(records, card: str, ckpt: str) -> dict:
+    """``cli.generate_data.main`` with the default ``-a``
+    (``open_clip_vit_b32``) on the published recipe, from phase 6's synth
+    SD-1.5 checkpoint ``ckpt`` and files written first: a full-layout OpenCLIP
+    ViT-B/32 ``.safetensors`` (``--encoder_weight_path``), a minimal merges
+    file (``--bpe_path``) and a caltech-101 PNG tree cut to ZOO_CLI_TRAIN
+    train images a class, ZOO_CLI_UNITS images. The image tower's loaded
+    tensors against the written ones, the zero-shot head ([100, 512],
+    finite, class rows apart), the PNGs, the caches and the launches by
+    shape against the plan."""
+    import numpy as np
+    import torch
+
+    from distdiff_tpu_torch.cli import generate_data as cli
+    from distdiff_tpu_torch.ops import groupnorm as gn
+    from distdiff_tpu_torch.parallel import read_png
+    from distdiff_tpu_torch.weights.openclip import convert_openclip
+
+    dev = torch.device("cuda")
+    root = os.path.dirname(os.path.abspath(__file__))
+    secs, seen = {}, {}
+    with tempfile.TemporaryDirectory(dir=root, prefix=".smoke_zoo_") as work:
+        t0 = time.time()
+        clip_path = os.path.join(work, "open_clip_vit_b32_laion2b.safetensors")
+        written = write_openclip_checkpoint(clip_path)
+        secs["write OpenCLIP checkpoint"] = time.time() - t0
+        bpe = os.path.join(work, "merges.txt")
+        with open(bpe, "w") as f:
+            f.write(ZOO_MERGES)
+        data = os.path.join(work, "data")
+        t0 = time.time()
+        write_caltech_tree(data, train=ZOO_CLI_TRAIN)
+        secs["write PNG tree"] = time.time() - t0
+        argv = cli_argv(data, ckpt, clip_path, "out", units=ZOO_CLI_UNITS)
+        i = argv.index("-a")
+        argv = argv[:i] + argv[i + 2:] + ["--bpe_path", bpe]  # the default -a
+        require(cli.parse_args(argv).arch == "open_clip_vit_b32", "the CLI's default -a")
+        build, prepare = cli.build_pipeline, cli.prepare_guide_and_prototypes
+
+        def keep_pipe(*a, **kw):
+            seen["pipe"] = build(*a, **kw)
+            return seen["pipe"]
+
+        def keep_guide(*a, **kw):
+            t = time.time()
+            seen["guide"] = prepare(*a, **kw)
+            secs["guide, zero-shot head and prototypes"] = time.time() - t
+            return seen["guide"]
+
+        cwd = os.getcwd()
+        cli.build_pipeline, cli.prepare_guide_and_prototypes = keep_pipe, keep_guide
+        try:
+            os.chdir(work)
+            stats, by_shape, secs["whole CLI"], peak = counted_call(lambda: cli.main(argv))
+        finally:
+            os.chdir(cwd)
+            cli.build_pipeline, cli.prepare_guide_and_prototypes = build, prepare
+        pipe, (guide, _, _) = seen["pipe"], seen["guide"]
+        require(guide.arch == "open_clip_vit_b32" and guide.text_activation == "gelu"
+                and guide.text_state is not None, f"the CLI's guide: {guide.arch}, text "
+                f"activation {guide.text_activation}")
+        visual = convert_openclip({k: v for k, v in written.items() if k.startswith("visual.")})[0]
+        loaded_matches(guide.module, visual, sorted(visual)[::7], "OpenCLIP image tower")
+        head = guide.class_text_features
+        require(tuple(head.shape) == (CLI_CLASSES, 512) and bool(torch.isfinite(head).all()),
+                f"zero-shot head {tuple(head.shape)}, finite {bool(torch.isfinite(head).all())}")
+        spread = float((head - head[:1]).abs().max())
+        require(spread > 0.0, "the zero-shot head's class rows are all equal")
+        pngs = sorted(os.path.join(d, f) for d, _, fs in os.walk(os.path.join(work, "out"))
+                      for f in fs if f.endswith(".png"))
+        require(stats["written"] == len(pngs) == ZOO_CLI_UNITS,
+                f"{stats['written']} written, {len(pngs)} PNGs, {ZOO_CLI_UNITS} units")
+        for path in pngs:
+            png = read_png(path)
+            require(png.shape == (512, 512, 3) and png.max() > png.min(),
+                    f"{path}: {png.shape}, flat {png.max() == png.min()}")
+        protos = np.load(os.path.join(work, cli.prototype_cache_path(
+            "open_clip_vit_b32", "caltech-101", CLI_K)))
+        gshape, lshape = protos["global_prototypes"].shape, protos["local_prototypes"].shape
+        require(gshape == (CLI_CLASSES, 512) and lshape == (CLI_CLASSES, CLI_K, 512),
+                f"prototype cache global {gshape}, local {lshape}")
+    secs["driver"] = stats["seconds"]
+    want, gn_calls = zoo_cli_plans(pipe)
+    check_flash_plan(by_shape, want, "phase 11 CLI")
+    check_gn_plan(gn_only(by_shape), gn_plan(gn_calls, smem_limit=gn._device_limits(dev)[0]))
+    require_timed(records, by_shape, "phase 11 (CLI)")
+    for stage, s in secs.items():
+        print(f"  {stage}: {s:.2f} s ({card})")
+    print(f"  zero-shot head [{CLI_CLASSES}, 512], class rows up to {spread:.3e} apart; "
+          f"{len(pngs)} PNGs of 512x512x3; prototype cache global {gshape}, local {lshape}; "
+          f"peak memory {peak / 2**30:.2f} GiB")
+    del seen, pipe, guide
+    gc.collect()
+    torch.cuda.empty_cache()
+    return {"secs": secs, "stats": stats, "by_shape": by_shape, "peak_bytes": peak}
+
+
+def zoo_train_phase(card: str, data: str) -> dict:
+    """``cli.train -a mobilenetv2 --train_fc`` at phase 7's cuts (the JAX
+    defaults on phase 7's caltech-101 tree ``data``: 100 classes, 3 train
+    and 1 test image each) for one epoch, from a seeded MobileNetV2
+    ``.pth.tar``: the run's artifacts, and in its checkpoint every backbone
+    parameter as written, every BatchNorm's running statistics moved,
+    ``classifier.*`` moved."""
+    import torch
+
+    from distdiff_tpu_torch.cli import train as train_cli
+
+    root = os.path.dirname(os.path.abspath(__file__))
+    out = {}
+    with tempfile.TemporaryDirectory(dir=root, prefix=".smoke_zoo_train_") as work:
+        t0 = time.time()
+        start = os.path.join(work, "mobilenetv2.pth.tar")
+        state = {k: v.clone() for k, v in zoo_guide("mobilenetv2", "cpu", 8).module.state_dict()
+                 .items()}
+        torch.save({"state_dict": state}, start)
+        out["write_s"] = time.time() - t0
+        run = os.path.join(work, "checkpoint", "mobilenetv2_fc")
+        t0 = time.time()
+        out["result"] = train_cli.main(train_argv(data, run, 1, [
+            "-a", "mobilenetv2", "--train_fc", "--encoder_weight_path", start]))
+        torch.cuda.synchronize()
+        out["main_s"] = time.time() - t0
+        check_run(run, epoch_lrs(1))
+        saved = torch.load(os.path.join(run, "checkpoint.pth.tar"), map_location="cpu",
+                           weights_only=True)["state_dict"]
+    moved = {k for k in state if not torch.equal(saved[k], state[k])}
+    head = {k for k in state if k.startswith("classifier.")}
+    stats = {k for k in state if k.endswith(("running_mean", "running_var",
+                                             "num_batches_tracked"))}
+    require(head <= moved and stats <= moved and moved <= head | stats,
+            f"train_fc: moved {sorted(moved - head - stats)[:4]} of the backbone, kept "
+            f"{sorted((head | stats) - moved)[:4]}")
+    print(f"  cli.train -a mobilenetv2 --train_fc, one epoch: main {out['main_s']:.2f} s (start "
+          f"written in {out['write_s']:.2f} s); backbone unchanged, {len(stats)} "
+          f"BatchNorm buffers and {len(head)} classifier tensors moved ({card})")
+    return out
+
+
+def zoo_phase(records, card: str, ckpt: str, data: str) -> dict:
+    """Phase 11: each guide of the zoo at full width on the card against the
+    CPU and through the phase-4 recipe, then ``cli.generate_data`` with the
+    default ``-a`` from phase 6's checkpoint ``ckpt`` and ``cli.train -a
+    mobilenetv2 --train_fc`` on phase 7's tree ``data``."""
+    import torch
+
+    pipe, _, inputs = build_path()
+    out = {"guides": {}}
+    for i, arch in enumerate(ZOO):
+        gm = zoo_guide(arch, torch.device("cuda"), seed=20 + i)
+        read = zoo_agreement(arch, gm, seed=20 + i)
+        out["guides"][arch] = dict(read, **zoo_recipe(records, pipe, inputs, gm, card))
+        del gm
+        pipe.guide = None
+        torch.cuda.empty_cache()
+    del pipe, inputs
+    gc.collect()
+    torch.cuda.empty_cache()
+    print("  -- cli.generate_data with the default -a (open_clip_vit_b32) from files on disk")
+    out["cli"] = zoo_cli_phase(records, card, ckpt)
+    print("  -- cli.train -a mobilenetv2 --train_fc (phase 7's cuts, one epoch)")
+    out["train"] = zoo_train_phase(card, data)
+    return out
 
 
 def check_gn_plan(got: dict, want) -> None:
@@ -4312,6 +4689,7 @@ def profile_path(expand, inputs, json_path=None) -> None:
 def main(argv) -> int:
     import torch
 
+    script_t0 = time.time()
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 2
@@ -4440,7 +4818,11 @@ def main(argv) -> int:
 
     print("== 6. generate_data CLI: the published recipe from files on disk")
     t0 = time.time()
-    cli = cli_phase()
+    # phase 6's SD-1.5 checkpoint, which phases 10 and 11 read as well
+    files = tempfile.TemporaryDirectory(dir=os.path.dirname(os.path.abspath(__file__)),
+                                        prefix=".smoke_files_")
+    sd15_ckpt = os.path.join(files.name, "sd15")
+    cli = cli_phase(sd15_ckpt)
     require_timed(records, cli["by_shape"], "phase 6")
     for stage, s in cli["secs"].items():
         print(f"  {stage}: {s:.2f} s ({card})")
@@ -4457,16 +4839,17 @@ def main(argv) -> int:
     print("  -- the train step alone at ResNet-50 width")
     step_timing = train_step_timing(card)
     print("  -- ResNet-50 at full width through the CLIs")
-    root = os.path.dirname(os.path.abspath(__file__))
-    with tempfile.TemporaryDirectory(dir=root, prefix=".smoke_train_") as work:
-        trainer = train_phase(card, work)
-        print("  -- cli.train_transform: each --transform_type, one epoch at --expand_num 0 "
-              "(cut from 100 epochs and 5), then default over the expanded tree")
-        t1 = time.time()
-        transform = train_transform_phase(card, work, trainer["data"], trainer["classes"])
-        transform["phase_s"] = time.time() - t1
-        print(f"  cli.train_transform runs: {transform['phase_s']:.1f} s, the expanded tree "
-              f"written in {transform['write_s']:.2f} s ({card})")
+    work = os.path.join(files.name, "train")  # phase 11 trains on its tree too
+    os.makedirs(work)
+    trainer = train_phase(card, work)
+    print(f"  -- cli.train_transform: each --transform_type, one epoch at --expand_num 0 "
+          f"(cut from 100 epochs and 5) on {TRANSFORM_TRAIN} train image a class, then "
+          f"default over the expanded tree")
+    t1 = time.time()
+    transform = train_transform_phase(card, work)
+    transform["phase_s"] = time.time() - t1
+    print(f"  cli.train_transform runs: {transform['phase_s']:.1f} s, the trees written in "
+          f"{transform['write_s']:.2f} s ({card})")
     print(f"  phase 7: {time.time() - t0:.1f} s ({card})")
 
     print("== 8. SD-2.1 768-v, DPM-Solver++(2M), DeepCache and the rollout_remat modes")
@@ -4511,16 +4894,28 @@ def main(argv) -> int:
     lora_step = lora_step_phase(records, card)
     print(f"  -- cli.train_lora ({LORA_CLI_STEPS} steps, cut from 1000) and generate_data "
           f"--lora from files on disk")
-    lora_cli = lora_cli_phase(records, card)
+    lora_cli = lora_cli_phase(records, card, sd15_ckpt)
     print(f"  phase 10: {time.time() - t0:.1f} s ({card})")
 
-    print("== 11. result")
+    print("== 11. the guide zoo: ResNeXt-50, Wide ResNet-50-2, MobileNetV2, OpenCLIP ViT-B/32")
+    t0 = time.time()
+    zoo = zoo_phase(records, card, sd15_ckpt, trainer["data"])
+    files.cleanup()
+    print(f"  warm call against phase 4's (ResNet-50, {warm_s:.3f} s): " + ", ".join(
+        f"{a} {zoo['guides'][a]['warm_s'] / warm_s:.3f}x" for a in ZOO) + f" ({card})")
+    zoo_s = time.time() - t0
+    print(f"  phase 11: {zoo_s:.1f} s ({card})")
+    print(f"  the whole script: {time.time() - script_t0:.1f} s ({card})")
+
+    print("== 12. result")
     print(card)
     print(json.dumps({
         "kernels": summarize(records, by_shape + front["by_shape"] + cli["by_shape"]
                              + sd21["by_shape"] + sd21_cli["by_shape"] + solver_shapes
                              + mode_shapes + sdxl["by_shape"] + sdxl_cli["by_shape"]
-                             + lora_step["by_shape"] + lora_cli["by_shape"]),
+                             + lora_step["by_shape"] + lora_cli["by_shape"]
+                             + sum((g["by_shape"] for g in zoo["guides"].values()),
+                                   collections.Counter()) + zoo["cli"]["by_shape"]),
         "fp32_flash": fp32_records, "expand_warm_s": warm_s,
         "expand_warm_s_runs": warm_runs, "expand_peak_bytes": peak,
         "split_expand_warm_s": split["warm_s"], "split_expand_warm_s_runs": split["runs"],
@@ -4553,7 +4948,11 @@ def main(argv) -> int:
                  "cli_seconds": lora_cli["secs"], "cli_steps_per_s": lora_cli["steps_per_s"],
                  "cli_peak_bytes": lora_cli["train_peak_bytes"],
                  "generate_driver": lora_cli["stats"],
-                 "generate_peak_bytes": lora_cli["generate_peak_bytes"]}}))
+                 "generate_peak_bytes": lora_cli["generate_peak_bytes"]},
+        "guides": {a: {k: v for k, v in g.items() if k != "by_shape"}
+                   for a, g in zoo["guides"].items()}
+        | {"phase_s": zoo_s, "cli_seconds": zoo["cli"]["secs"], "cli_driver": zoo["cli"]["stats"],
+           "cli_peak_bytes": zoo["cli"]["peak_bytes"], "train_fc_main_s": zoo["train"]["main_s"]}}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

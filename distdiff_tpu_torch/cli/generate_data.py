@@ -9,7 +9,11 @@ random weights with a loud warning otherwise), sampled by DDIM or
 ``--scheduler dpmpp`` (DPM-Solver++(2M)), optionally with ``--deep_cache``
 -> ``SDDataset`` with its text-embedding and VAE-latent caches -> the guide
 (``--encoder_weight_path``) and its cached prototypes -> ``ExpansionDriver``
-writing ``{output_dir}/{classname}/{stem}_expand_{i}.png``.
+writing ``{output_dir}/{classname}/{stem}_expand_{i}.png``. The guide is any
+of the JAX package's archs (``-a``; the default ``open_clip_vit_b32``, whose
+OpenCLIP checkpoint also brings the text tower that encodes the zero-shot
+head from the dataset's template and class names, tokenised with
+``--bpe_path``).
 
 It runs on the card; ``DISTDIFF_PLATFORM=cpu`` runs it on the CPU (with
 ``--tiny``, the toy config; with ``--tiny --model sd21`` the toy config in
@@ -19,8 +23,7 @@ both towers fed the same tokenization. ``--lora FILE`` (``cli.train_lora``'s
 adapter, or the JAX package's: the same ``.npz``) is merged into the UNet
 after the checkpoint load and the bf16 cast. A flag whose module is not
 ported (``--int8``, ``--params_path``, ``--save_params``, ``--mesh_model`` >
-1, a guide arch other than ``resnet50``) raises ``NotImplementedError``
-naming its ROADMAP item.
+1) raises ``NotImplementedError`` naming its ROADMAP item.
 
 Usage (the reference recipe, ``scripts/exps/expand_diff.sh``):
   python -m distdiff_tpu_torch.cli.generate_data -d caltech-101 -a resnet50 \
@@ -288,11 +291,6 @@ def check_ported(args) -> None:
             unported.append(f"--{flag}")
     if args.mesh_model != 1:
         unported.append(f"--mesh_model {args.mesh_model}")
-    if args.guidance_type != "none" and not args.tiny:
-        from distdiff_tpu_torch.models.guide.factory import ARCHS
-
-        if args.arch not in ARCHS:
-            unported.append(f"-a {args.arch} (the port has {', '.join(ARCHS)})")
     if unported:
         raise NotImplementedError(f"not ported: {'; '.join(unported)} ({TODO})")
 
@@ -394,7 +392,11 @@ def prototype_cache_path(arch: str, dataset: str, k: int) -> str:
 def prepare_guide_and_prototypes(args, pipe, sd):
     """The guide (``--encoder_weight_path``) and its prototypes, read from
     the cache ``save/prototypes/{arch}/{dataset}/class_wise_prototype_K{K}.npz``
-    or extracted over the train images and cached there."""
+    or extracted over the train images and cached there. An
+    ``open_clip_vit_b32`` guide whose checkpoint brought a text tower gets
+    its zero-shot head: the dataset's template filled with each class name,
+    tokenised with ``--bpe_path`` (or the SD checkpoint's merges file),
+    through that tower with its detected activation."""
     from distdiff_tpu_torch.data.datasets import BatchLoader, ImageListDataset
     from distdiff_tpu_torch.data.transforms import prototype_transform
     from distdiff_tpu_torch.models.guide import create_model
@@ -410,6 +412,14 @@ def prepare_guide_and_prototypes(args, pipe, sd):
     size = pipe.guidance_cfg.guide_input_size
     guide = create_model(arch, num_classes=num_classes, weight_path=args.encoder_weight_path,
                          input_size=size, device=pipe.device)
+    if arch == "open_clip_vit_b32" and guide.text_state is not None:
+        from distdiff_tpu_torch.data.templates import template_for
+        from distdiff_tpu_torch.models.guide.factory import build_zero_shot_text_features
+
+        guide.class_text_features = torch.as_tensor(build_zero_shot_text_features(
+            sd.class_names, template=template_for(args.dataset), state=guide.text_state,
+            bpe_path=args.bpe_path, checkpoint_dir=args.sd_checkpoint,
+            activation=guide.text_activation, device=pipe.device), device=pipe.device)
     proto_path = prototype_cache_path(arch, args.dataset, args.K)
     if os.path.exists(proto_path):
         gp, lp = load_prototypes(proto_path)

@@ -46,6 +46,29 @@ def hierarchical_energy_per_sample(
     return score
 
 
+def global_energy(features, targets, global_protos) -> torch.Tensor:
+    """The batch mean of ``global_energy_per_sample``."""
+    return global_energy_per_sample(features.float(), targets, global_protos).mean()
+
+
+def local_energy(features, targets, local_protos) -> torch.Tensor:
+    """The batch mean of ``local_energy_per_sample``."""
+    return local_energy_per_sample(features.float(), targets, local_protos).mean()
+
+
+def hierarchical_energy(
+    features: torch.Tensor,
+    targets: torch.Tensor,
+    global_protos: Optional[torch.Tensor],
+    local_protos: Optional[torch.Tensor],
+    gs: float = 1.0,
+    ls: float = 1.0,
+) -> torch.Tensor:
+    """The batch-mean scalar energy (the reference's reduction)."""
+    return hierarchical_energy_per_sample(features, targets, global_protos, local_protos,
+                                          gs, ls).mean()
+
+
 def normalize(features: torch.Tensor, eps: float = 1e-12) -> torch.Tensor:
     """L2 row-normalisation (direct guidance only)."""
     return features / (torch.linalg.vector_norm(features, dim=-1, keepdim=True) + eps)

@@ -1,7 +1,9 @@
 """ResNet family for the guide classifier (port of
-``distdiff_tpu/models/guide/resnet.py``): ResNet-50 and the test miniature,
-with torchvision's state-dict names (``conv1``, ``bn1``, ``layer1.0.conv1``,
-``layer1.0.downsample.0``, ``fc``).
+``distdiff_tpu/models/guide/resnet.py``): ResNet-50, ResNeXt-50 (32x4d),
+Wide ResNet-50-2 and the test miniature, with torchvision's state-dict
+names (``conv1``, ``bn1``, ``layer1.0.conv1``, ``layer1.0.downsample.0``,
+``fc``), so ``resnet50``, ``resnext50_32x4d`` and ``wide_resnet50_2``
+checkpoints load key for key.
 
 The guide runs in eval mode (BatchNorm on its running statistics, eps
 1e-5), in fp32; ``encode_image`` takes NHWC images and returns pooled
@@ -24,6 +26,9 @@ import torch.nn.functional as F
 class ResNetConfig:
     stage_sizes: Tuple[int, ...] = (3, 4, 6, 3)
     base_width: int = 64
+    groups: int = 1
+    width_per_group: int = 64
+    width_mult: float = 1.0  # wide_resnet50_2 doubles the bottleneck width
     num_classes: int = 1000
 
     @property
@@ -33,6 +38,14 @@ class ResNetConfig:
 
 def resnet50_config(num_classes: int) -> ResNetConfig:
     return ResNetConfig(num_classes=num_classes)
+
+
+def resnext50_config(num_classes: int) -> ResNetConfig:
+    return ResNetConfig(num_classes=num_classes, groups=32, width_per_group=4)
+
+
+def wideresnet50_config(num_classes: int) -> ResNetConfig:
+    return ResNetConfig(num_classes=num_classes, width_mult=2.0)
 
 
 def tiny_resnet_config(num_classes: int) -> ResNetConfig:
@@ -75,15 +88,16 @@ def _bn(c, device):
 
 
 class Bottleneck(nn.Module):
-    def __init__(self, cin, planes, stride, device=None):
+    def __init__(self, cfg: ResNetConfig, cin, planes, stride, device=None):
         super().__init__()
         out = planes * 4
-        self.conv1 = nn.Conv2d(cin, planes, 1, bias=False, device=device)
-        self.bn1 = _bn(planes, device)
-        self.conv2 = nn.Conv2d(planes, planes, 3, stride=stride, padding=1,
+        width = int(planes * (cfg.width_per_group / 64.0) * cfg.width_mult) * cfg.groups
+        self.conv1 = nn.Conv2d(cin, width, 1, bias=False, device=device)
+        self.bn1 = _bn(width, device)
+        self.conv2 = nn.Conv2d(width, width, 3, stride=stride, padding=1, groups=cfg.groups,
                                bias=False, device=device)
-        self.bn2 = _bn(planes, device)
-        self.conv3 = nn.Conv2d(planes, out, 1, bias=False, device=device)
+        self.bn2 = _bn(width, device)
+        self.conv3 = nn.Conv2d(width, out, 1, bias=False, device=device)
         self.bn3 = _bn(out, device)
         self.downsample = None
         if cin != out or stride != 1:
@@ -112,7 +126,7 @@ class ResNet(nn.Module):
             blocks = []
             for bi in range(n_blocks):
                 stride = 2 if (si > 0 and bi == 0) else 1
-                blocks.append(Bottleneck(cin, planes, stride, device=device))
+                blocks.append(Bottleneck(cfg, cin, planes, stride, device=device))
                 cin = planes * 4
             setattr(self, f"layer{si + 1}", nn.Sequential(*blocks))
         self.fc = nn.Linear(cin, cfg.num_classes, device=device)

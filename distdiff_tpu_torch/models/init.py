@@ -13,7 +13,8 @@ import torch.nn as nn
 def init_weights(module: nn.Module, generator: torch.Generator) -> None:
     """The reference's initialisers: lecun-normal (truncated at 2 sigma)
     kernels, zero biases, unit norm scales; BatchNorm running mean 0 and
-    variance 1; embeddings normal with std 0.02."""
+    variance 1; embeddings, and the raw parameters a module names in
+    ``NORMAL_PARAMS`` (the CLIP ViT's), normal with std 0.02."""
     for m in module.modules():
         if isinstance(m, nn.Embedding):
             nn.init.normal_(m.weight, std=0.02, generator=generator)
@@ -31,6 +32,8 @@ def init_weights(module: nn.Module, generator: torch.Generator) -> None:
             m.weight.fill_(1.0)
             if getattr(m, "bias", None) is not None:
                 m.bias.zero_()
+        for name in getattr(m, "NORMAL_PARAMS", ()):
+            nn.init.normal_(getattr(m, name), std=0.02, generator=generator)
 
 
 # the value every floating tensor of build_diffusion_modules(lazy=True) holds

@@ -6,8 +6,8 @@ Nesterov and weight decay, the learning rate on a cosine over every
 optimiser update of the run, cross-entropy. ``Optimizer`` is the JAX
 package's optax chain (``add_decayed_weights`` then ``sgd``) as torch's SGD,
 whose ``momentum_buffer`` is optax's trace; ``accumulate`` keeps
-``optax.MultiSteps``' rules; ``train_fc_only`` trains the fc layer on a
-frozen backbone.
+``optax.MultiSteps``' rules; ``train_fc_only`` trains the head (``fc`` or
+``classifier``) on a frozen backbone.
 
 Padded-tail batches are handled by a boolean mask weighting the loss and
 metrics; the padded rows still enter BatchNorm's batch statistics, as in
@@ -40,11 +40,19 @@ class TrainConfig:
 
 
 def freeze_backbone(module: torch.nn.Module) -> None:
-    """A linear probe: every parameter but the fc layer's takes no gradient.
-    BatchNorm still updates its running statistics in training, as the JAX
-    package's step writes ``batch_stats`` back on every step."""
+    """A linear probe: every parameter but the head's (``fc.``, or
+    MobileNetV2's ``classifier.``, as the JAX mask takes) takes no
+    gradient. BatchNorm still updates its running statistics in training,
+    as the JAX package's step writes ``batch_stats`` back on every step.
+    A module with no such head (the CLIP ViT) raises: the JAX mask selects
+    nothing there, and its optimiser then passes every gradient through
+    as the update."""
+    heads = 0
     for name, p in module.named_parameters():
-        p.requires_grad_(name.startswith("fc."))
+        p.requires_grad_(name.startswith(("fc.", "classifier.")))
+        heads += p.requires_grad
+    if not heads:
+        raise ValueError("--train_fc trains the fc or classifier head, and this model has none")
 
 
 class Optimizer:

@@ -2,9 +2,11 @@
 
 Walks the port's own ``state_dict()`` keys (diffusers' names for the UNet and
 VAE, transformers' for the CLIP text encoder, torchvision's for the guide
-ResNet), maps each to its path in the JAX tree with copies of the
-reference's key maps (``weights/convert.py`` ``map_unet_key``/``map_vae_key``/
-``map_text_key``, ``models/guide/factory.py`` ``_torch_key_to_ours``), and
+CNNs, the JAX tree's for the guide CLIP ViT), maps each to its path in the
+JAX tree with copies of the reference's key maps (``weights/convert.py``
+``map_unet_key``/``map_vae_key``/``map_text_key``,
+``models/guide/factory.py`` ``_torch_key_to_ours`` and
+``_mobilenet_torch_key``), and
 undoes the reference's layout transform
 (``convert.py:transform_tensor``): HWIO -> OIHW, ``[in, out]`` -> ``[out, in]``,
 a channel ``Dense`` -> ``[O, I, 1, 1]`` where diffusers stores a 1x1 conv, and
@@ -24,9 +26,13 @@ import numpy as np
 import torch
 
 from distdiff_tpu_torch.config import TextEncoderConfig, UNetConfig, VAEConfig
+from distdiff_tpu_torch.models.guide.clip_vit import CLIPViT, CLIPViTConfig
+from distdiff_tpu_torch.models.guide.mobilenet import MobileNetV2, MobileNetV2Config
 from distdiff_tpu_torch.models.guide.resnet import ResNet, ResNetConfig
 
-Config = Union[UNetConfig, VAEConfig, TextEncoderConfig, ResNetConfig]
+Config = Union[UNetConfig, VAEConfig, TextEncoderConfig, ResNetConfig, MobileNetV2Config,
+               CLIPViTConfig]
+_GUIDES = {ResNetConfig: ResNet, MobileNetV2Config: MobileNetV2, CLIPViTConfig: CLIPViT}
 
 
 # ------------------------------------------------ key maps (reference copies)
@@ -106,9 +112,16 @@ def map_text_key(key: str) -> Optional[str]:
 
 
 def map_guide_key(key: str) -> Optional[str]:
-    """torchvision ResNet name -> the JAX ResNet path (``/``-joined, leaf
-    still torch's)."""
+    """A guide's state-dict name (torchvision's ResNet and MobileNetV2
+    names, the CLIP ViT's) -> its JAX path (``/``-joined, leaf still
+    torch's)."""
     parts = key.split(".")
+    if parts[0] == "features":  # torchvision mobilenet_v2
+        return _mobilenet_key(parts)
+    if parts[0] == "classifier" and len(parts) == 3:
+        return f"classifier/{parts[2]}"  # classifier.1 (index 0 is Dropout)
+    if parts[0] == "resblocks":  # the CLIP ViT's blocks
+        return f"resblocks_{parts[1]}/{'/'.join(parts[2:])}"
     if parts[0].startswith("layer") and len(parts) >= 3:
         block = f"{parts[0]}_{parts[1]}"
         rest = parts[2:]
@@ -117,6 +130,25 @@ def map_guide_key(key: str) -> Optional[str]:
             return f"{block}/{sub}/{rest[2]}"
         return f"{block}/{'/'.join(rest)}"
     return "/".join(parts)
+
+
+def _mobilenet_key(parts) -> str:
+    """torchvision ``features.*`` -> the JAX MobileNetV2 names: features.0
+    the stem, features.1..17 the inverted residuals (features.1 has no
+    expand conv), features.18 the head."""
+    fi, leaf = int(parts[1]), parts[-1]
+    if fi == 0:
+        return f"{'stem_conv' if parts[2] == '0' else 'stem_bn'}/{leaf}"
+    if fi == 18:
+        return f"{'head_conv' if parts[2] == '0' else 'head_bn'}/{leaf}"
+    if fi == 1:  # expand 1: conv.0.0 dw, conv.0.1 dw_bn, conv.1, conv.2
+        table = {("0", "0"): "dw_conv", ("0", "1"): "dw_bn",
+                 ("1",): "project_conv", ("2",): "project_bn"}
+    else:
+        table = {("0", "0"): "expand_conv", ("0", "1"): "expand_bn",
+                 ("1", "0"): "dw_conv", ("1", "1"): "dw_bn",
+                 ("2",): "project_conv", ("3",): "project_bn"}
+    return f"block_{fi - 1}/{table[tuple(parts[3:-1])]}/{leaf}"
 
 
 # ------------------------------------------------------- layout transforms
@@ -195,8 +227,8 @@ def _port_model(config: Config):
         return "unet", UNet2DConditionModel(config, device="meta")
     if isinstance(config, VAEConfig):
         return "vae", AutoencoderKL(config, device="meta")
-    if isinstance(config, ResNetConfig):
-        return "guide", ResNet(config, device="meta")
+    if type(config) in _GUIDES:
+        return "guide", _GUIDES[type(config)](config, device="meta")
     raise TypeError(f"no port model for {type(config).__name__}")
 
 
@@ -260,8 +292,9 @@ def _convert(params_np: Dict[str, Any], table: Dict[str, Entry]) -> Dict[str, to
 
 def state_dict_from_jax(params_np: Dict[str, Any], config: Config) -> Dict[str, torch.Tensor]:
     """A strict state dict for the port's module of ``config`` from the JAX
-    parameter tree (numpy leaves). For a guide ``ResNetConfig``, pass the
-    JAX variables ``{"params": ..., "batch_stats": ...}``."""
+    parameter tree (numpy leaves). For a guide config, pass the JAX
+    variables (``{"params": ..., "batch_stats": ...}``; the CLIP ViT has
+    ``params`` only)."""
     kind, model = _port_model(config)
     out = _convert(params_np, _module_table(kind, model))
     for k in model.state_dict():

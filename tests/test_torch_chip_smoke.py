@@ -896,3 +896,68 @@ def test_lora_step_plans_follow_the_ports_step(smoke):
         long = collections.Counter((h, tok) for h, tok in attn if tok > 256)
         assert {(bh // 2, tq): c for (name, (bh, tq, _, _)), c in plan.items()
                 if name == "flash_fwd"} == dict(long) and long, remat
+
+
+# ------------------------------------------------------- phase 11: the guide zoo
+
+def test_phase2_holds_every_shape_phase11_launches(smoke):
+    """Phase 11's counted runs: the phase-4 recipe (each guide adds no
+    kernel launch of its own) and the default-``-a`` CLI run, whose plan is
+    one SplitExpand call at batch 2 after 13 dataset encodes of 8 images."""
+    timed = {(name, (b * h, tq, tk, d)) for _, b, h, tq, tk, d, names, t in smoke.flash_shapes()
+             if t is True for name in names}
+    pipe = _pipe(PipelineConfig.sd15())
+    want, gn_calls = smoke.zoo_cli_plans(pipe)
+    recipe = smoke.flash_plan(pipe, 2)
+    assert want - recipe == collections.Counter(
+        {("flash_fwd", (smoke.CLI_ENCODE_BATCH, 4096, 4096, 512)): 13})
+    assert smoke.CLI_CLASSES * smoke.ZOO_CLI_TRAIN == 100 and smoke.ZOO_CLI_UNITS == 2
+    for plan in (recipe, want):
+        assert set(plan) <= timed, set(plan) - timed
+    held = set(smoke.gn_shapes(smoke.main_gn_calls()))
+    launched = smoke.gn_plan(smoke.expand_gn_calls(pipe, 2) + gn_calls)
+    assert {shape for _, shape in launched} <= held
+    assert gn_calls[-1][:2] == (13, smoke.CLI_ENCODE_BATCH)
+
+
+@pytest.mark.parametrize("arch", ["resnext50", "mobilenetv2"])
+def test_zoo_guides_are_seeded_alike_on_every_build(smoke, arch):
+    a, b = smoke.zoo_guide(arch, "cpu", 3), smoke.zoo_guide(arch, "cpu", 3)
+    sa, sb = a.module.state_dict(), b.module.state_dict()
+    assert all(torch.equal(sa[k], sb[k]) for k in sa)
+    assert not a.module.training and not any(p.requires_grad for p in a.module.parameters())
+    var = [v for k, v in sa.items() if k.endswith("running_var")]
+    assert var and min(float(v.min()) for v in var) >= 0.5  # the seeded statistics
+    c = smoke.zoo_guide(arch, "cpu", 4).module.state_dict()
+    assert not all(torch.equal(sa[k], c[k]) for k in sa)
+
+
+def test_openclip_writer_loads_as_the_default_guide(smoke, tmp_path):
+    """``write_openclip_checkpoint`` (at a shrunk layout here) through the
+    guide loader: the image tower equal to the converted written tensors,
+    the text tower's weights beside it, laion's activation, the logit
+    scale 100; ``loaded_matches`` refuses another tower."""
+    from distdiff_tpu_torch.models.guide.clip_vit import CLIPViT, tiny_clip_vit_config
+    from distdiff_tpu_torch.models.guide.factory import GuideModel, load_weights
+    from distdiff_tpu_torch.weights.openclip import (
+        convert_openclip,
+        openclip_vit_b32_state_shapes,
+    )
+
+    shapes = openclip_vit_b32_state_shapes(image_size=32, patch=8, vw=32, vlayers=2, tw=32,
+                                           tlayers=2, embed=16, vocab=600, ctx_len=32)
+    path = str(tmp_path / "clip.safetensors")
+    written = smoke.write_openclip_checkpoint(path, shapes=shapes)
+    assert {k: tuple(v.shape) for k, v in written.items()} == shapes
+    assert all(v.dtype == torch.float32 for v in written.values())
+    assert float(written["ln_final.weight"].mean()) == pytest.approx(1, abs=0.1)
+    gm = GuideModel(arch="open_clip_vit_b32", module=CLIPViT(tiny_clip_vit_config()),
+                    feature_dim=16, num_classes=3)
+    load_weights(gm, path)
+    visual = convert_openclip({k: v for k, v in written.items() if k.startswith("visual.")})[0]
+    smoke.loaded_matches(gm.module, visual, sorted(visual), "image tower")
+    assert gm.text_activation == "gelu" and gm.logit_scale == pytest.approx(100.0, rel=1e-6)
+    assert set(gm.text_state) == set(convert_openclip(written)[1])
+    with pytest.raises(SystemExit, match="differs"):
+        smoke.loaded_matches(CLIPViT(tiny_clip_vit_config()), visual, ["proj"], "image tower")
+

@@ -5,6 +5,8 @@ tensor reaches a kernel's plain version."""
 import ast
 import math
 import os
+import subprocess
+import sys
 import types
 
 import numpy as np
@@ -19,6 +21,7 @@ from distdiff_tpu_torch.config import (
 )
 from distdiff_tpu_torch.models import AutoencoderKL, CLIPTextEncoder, UNet2DConditionModel
 from distdiff_tpu_torch.models.guide import create_model
+from distdiff_tpu_torch.models.guide.factory import build_zero_shot_text_features
 from distdiff_tpu_torch.ops import _build, attention, flash
 from distdiff_tpu_torch.ops import groupnorm as gn
 from distdiff_tpu_torch.parallel import ExpansionDriver
@@ -111,9 +114,44 @@ def test_port_imports_no_yaml_or_orbax_and_matplotlib_only_to_plot():
     assert not bad, "\n".join(bad)
 
 
+GUIDE_ZOO = ("distdiff_tpu_torch.models.guide.clip_vit",
+             "distdiff_tpu_torch.models.guide.mobilenet",
+             "distdiff_tpu_torch.models.guide.factory",
+             "distdiff_tpu_torch.weights.openclip",
+             "distdiff_tpu_torch.utils.classnames",
+             "distdiff_tpu_torch.utils.imagenet_tables",
+             "distdiff_tpu_torch.utils.prompts",
+             "distdiff_tpu_torch.utils.visualize",
+             "distdiff_tpu_torch.utils.profiling")
+
+
+def test_the_guide_zoo_imports_without_jax_pil_or_matplotlib():
+    """The guide zoo's modules are among the sources the checks above walk,
+    and import, with the OpenCLIP file reader and the grid writer, with
+    JAX, the JAX package, PIL, matplotlib and safetensors absent (each set
+    to None in ``sys.modules``), as on the card's machine."""
+    walked = {os.path.relpath(p, ROOT) for p in _port_sources()}
+    for mod in GUIDE_ZOO:
+        assert mod.replace(".", os.sep) + ".py" in walked, mod
+    code = (
+        "import sys\n"
+        "for m in ('jax', 'flax', 'distdiff_tpu', 'PIL', 'matplotlib', 'safetensors'):\n"
+        "    sys.modules[m] = None\n"
+        + "".join(f"import {m}\n" for m in GUIDE_ZOO)
+        + "from distdiff_tpu_torch.weights.openclip import load_openclip_checkpoint\n"
+        "from distdiff_tpu_torch.utils.visualize import save_image_grid\n"
+        "from distdiff_tpu_torch.models.guide.factory import ARCHS\n"
+        "assert len(ARCHS) == 6\n"
+        "print('imported')\n")
+    out = subprocess.run([sys.executable, "-c", code], cwd=ROOT, capture_output=True,
+                         text=True, timeout=300)
+    assert out.returncode == 0 and "imported" in out.stdout, out.stderr
+
+
 @pytest.mark.parametrize("entry", ["pipeline", "unet", "vae", "guide", "text_encoder",
                                    "driver", "trainable_guide", "sdxl_pipeline",
-                                   "sdxl_expansion"])
+                                   "sdxl_expansion", "clip_guide", "mobilenet_guide",
+                                   "zero_shot_head"])
 def test_entry_points_default_to_cuda_and_raise_without_it(monkeypatch, entry):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     build = {
@@ -126,6 +164,10 @@ def test_entry_points_default_to_cuda_and_raise_without_it(monkeypatch, entry):
         "trainable_guide": lambda: create_model("tiny_resnet", num_classes=3, trainable=True),
         "sdxl_pipeline": lambda: SDXLPipeline.create(PipelineConfig.sdxl_tiny()),
         "sdxl_expansion": lambda: ExpansionPipeline.create(PipelineConfig.sdxl_tiny()),
+        "clip_guide": lambda: create_model("open_clip_vit_b32", num_classes=3),
+        "mobilenet_guide": lambda: create_model("mobilenetv2", num_classes=3, trainable=True),
+        "zero_shot_head": lambda: build_zero_shot_text_features(
+            ["a"], config=TextEncoderConfig.tiny()),
     }[entry]
     with pytest.raises(RuntimeError, match="device='cpu'"):
         build()

@@ -131,7 +131,11 @@ def test_expanded_tree_reader_matches_jax(tree):
 
 
 @pytest.mark.parametrize("drop_last", [False, True])
-def test_shuffled_loader_matches_jax_over_epochs(tree, drop_last):
+def test_shuffled_loader_matches_jax_over_epochs(tree, drop_last, monkeypatch):
+    # the per-item draws follow each package's data seed, which a CLI run
+    # earlier in the same process may have set (set_seed): the same here
+    for pkg in (ds, jds):
+        monkeypatch.setattr(pkg, "_DATA_SEED", [0])
     port, jax_ = _both(tree, expand_num=2)
     assert len(port) == len(jax_) == 9 + 4 + 3
     pl = ds.BatchLoader(port, 5, shuffle=True, seed=3, drop_last=drop_last, num_threads=2)

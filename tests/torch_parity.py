@@ -1,6 +1,7 @@
 """Helpers shared by the port's parity tests of the tiny expansion: a JAX
 pipeline and the port's on the JAX package's weights, guide and prototypes,
-the inputs, and the JAX expand's own random draws."""
+the inputs, and the JAX expand's own random draws; and seeded variables for
+a JAX guide module."""
 
 import jax
 import jax.numpy as jnp
@@ -112,3 +113,37 @@ def run_both(jpipe, params, tpipe, path, key=7, seed=1, conds=None, split_kw=Non
         ref = np.asarray(jpipe.make_split_expand(**(split_kw or {}))(*jargs))
         got = tpipe.make_split_expand(**(split_kw or {}))(*targs, **kw)
     return ref, got.numpy(), (targs, kw)
+
+
+def seeded_variables(jmodule, x, seed):
+    """The JAX module's variable tree (shapes from ``jax.eval_shape``, no
+    init program compiled) filled with seeded numpy draws: kernels normal
+    over the square root of their fan-in, biases and BatchNorm shifts
+    normal * 0.1, scales 1 + normal * 0.1, running means normal * 0.1,
+    running variances uniform in [0.5, 1.5]."""
+    rng = np.random.default_rng(seed)
+    shapes = jax.eval_shape(jmodule.init, jax.random.PRNGKey(0), jnp.asarray(x))
+
+    def draw(path, s):
+        name = path[-1].key
+        if name == "kernel":
+            return rng.standard_normal(s.shape) / np.sqrt(np.prod(s.shape[:-1]))
+        if name == "var":
+            return rng.uniform(0.5, 1.5, s.shape)
+        if name == "scale":
+            return 1 + 0.1 * rng.standard_normal(s.shape)
+        return 0.1 * rng.standard_normal(s.shape)
+    tree = jax.tree_util.tree_map_with_path(draw, shapes)
+    return jax.tree.map(lambda a: np.asarray(a, np.float32), tree)
+
+
+def flat_variables(tree, prefix=""):
+    """A variable tree as the JAX package's flat ``.npz`` keys
+    (``params/conv1/kernel``)."""
+    out = {}
+    for k, v in tree.items():
+        if isinstance(v, dict):
+            out.update(flat_variables(v, f"{prefix}{k}/"))
+        else:
+            out[prefix + k] = v
+    return out
