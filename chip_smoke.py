@@ -3,7 +3,7 @@
 
 Run from the repository root: ``python3 chip_smoke.py``. It needs one CUDA
 card, ``nvcc`` and ``nvidia-smi``; it imports nothing of JAX or of the JAX
-package. Twelve phases, any failure exits non-zero:
+package. Thirteen phases, any failure exits non-zero:
 
 1. Device: the card's name and power limit, torch/CUDA versions, the
    time to build the CUDA kernels from ``distdiff_tpu_torch/csrc`` (one
@@ -127,7 +127,7 @@ package. Twelve phases, any failure exits non-zero:
    865.9M, heads 64 wide, linear projections, v-prediction; seeded random
    weights) at batch 2, 768^2, the phase-4 recipe: a warm-up call, a
    counted call (each flash kernel's launches by shape and each GroupNorm
-   kernel's by shape against the plan, peak memory) and two more timed.
+   kernel's by shape against the plan, peak memory) and one more timed.
    Then ``cli.generate_data.main --model sd21 --scheduler dpmpp
    --resolution 768`` from an SD-2.1 fp16 checkpoint (2.6 GB), a ResNet-50
    guide and a caltech-101 tree written first, cut to 1 train image a
@@ -146,7 +146,7 @@ package. Twelve phases, any failure exits non-zero:
    conditioning, the OpenCLIP-bigG and CLIP-L towers, the SDXL VAE;
    seeded random weights), batch 2, 1024^2, the phase-4 recipe, its
    conditioning from both towers on the card: a first call, a counted call
-   (launches by shape against the plan, peak memory) and two more timed;
+   (launches by shape against the plan, peak memory) and one more timed;
    then ``SDXLPipeline`` text-to-image (DDIM-50) on the same modules,
    counted and timed; then ``cli.generate_data.main --model sdxl
    --resolution 1024`` from an SDXL fp16 checkpoint (6.9 GB, all four
@@ -188,7 +188,7 @@ package. Twelve phases, any failure exits non-zero:
    ZOO_GRAD_TOL), then with TF32 on, a control that must exceed both;
    then each guide as the guide of the phase-4 recipe in one SD-1.5
    pipeline: a first call, a counted call (flash and GroupNorm launches by
-   shape against phase 4's plan, peak memory) and two more timed, the warm
+   shape against phase 4's plan, peak memory) and one more timed, the warm
    call against phase 4's. Then ``cli.generate_data.main`` with the
    default ``-a open_clip_vit_b32`` from phase 6's synth SD-1.5
    checkpoint and files it writes: a full-layout
@@ -199,7 +199,31 @@ package. Twelve phases, any failure exits non-zero:
    the plan. Then ``cli.train -a mobilenetv2 --train_fc`` on phase 7's
    tree for one epoch: the backbone unchanged, the BatchNorm statistics
    and ``classifier.*`` moved. Then the whole script's seconds.
-12. The card line, the kernels' JSON line (one entry per kernel; its times
+12. int8 and the parameter files (no kernel of the port of its own: the
+   int8 products are ``torch._int_mm``), run inside phase 4's and phase
+   9's live pipelines and on phase 6's files, printed as 12a-e where they
+   run. 12e (in phase 6): its CLI run adds ``--save_params``; a second
+   ``generate_data.main`` on the same tree passes ``--params_path`` and
+   no ``--sd_checkpoint``, for 2 images: its loaded tensors and its PNGs
+   (byte for byte) equal the first run's. 12a (after phase 6): ``qconv``
+   and ``qdot`` at every int8 layer shape of one SD-1.5 batch-2 call, the
+   card's quantization against the CPU's and the int32 accumulator and the
+   output against the plain version (float64 products) on the card, bit
+   for bit, each timed beside the bf16 layer and its bound. 12b: SD-1.5
+   ``--int8`` on phase 4's pipeline (a warm-up, a counted call: flash and
+   GroupNorm launches by shape against phase 4's plan, int8 products
+   against theirs, peak memory; a timed call), then ``--int8
+   --deep_cache`` through SplitExpand, counted; the int8 images' mean
+   distance in 8-bit levels from phase 4's exact ones on the same draws.
+   12d: the fp32 tiny() int8 guided expand on the card, each int8 layer
+   call against the CPU's layer on its input (bit for bit), the CPU's
+   expand with each int8 layer given the card's input against the card
+   (phase 3's tolerance, at least 10x below the card's int8-versus-exact
+   gap; the quantizer is discontinuous), and one guidance update under
+   ``config.int8`` equal to the exact one bit for bit. 12c (in phase 9):
+   one SDXL ``--int8`` call at 1024^2 on phase 9's pipeline, launches
+   against phase 9's plan, time and peak memory.
+13. The card line, the kernels' JSON line (one entry per kernel; its times
    are the means over that kernel's launches in the counted runs, and
    ``shapes`` holds each timed shape's own numbers), and the
    ``{"ok": true, ...}`` line.
@@ -2143,6 +2167,7 @@ def cli_phase(checkpoint: str) -> dict:
     from distdiff_tpu_torch.ops import flash
     from distdiff_tpu_torch.ops import groupnorm as gn
     from distdiff_tpu_torch.parallel import read_png
+    from distdiff_tpu_torch.weights import params_io
     from distdiff_tpu_torch.weights.convert import COMPONENTS
     from distdiff_tpu_torch.weights.synth import write_synth_checkpoint
 
@@ -2175,7 +2200,9 @@ def cli_phase(checkpoint: str) -> dict:
                     timed("prototypes", cli.prepare_guide_and_prototypes, "guide")),
                    (data_pkg, "SDDataset", timed("dataset encode", data_pkg.SDDataset, "sd")),
                    (models_pkg, "load_tokenizer",
-                    timed("tokenizer", models_pkg.load_tokenizer, "tokenizer"))]
+                    timed("tokenizer", models_pkg.load_tokenizer, "tokenizer")),
+                   (params_io, "save_params",
+                    timed("save parameter files", params_io.save_params))]
         saved = [(obj, name, getattr(obj, name)) for obj, name, _ in patches]
         cwd = os.getcwd()
         flash.reset_launch_counts()
@@ -2185,7 +2212,9 @@ def cli_phase(checkpoint: str) -> dict:
                 setattr(obj, name, fn)
             os.chdir(work)
             t0 = time.time()
-            stats = cli.main(cli_argv(os.path.join(work, "data"), ckpt, guide_path, "out"))
+            params_dir = os.path.join(work, "params")  # phase 12e reads it back
+            stats = cli.main(cli_argv(os.path.join(work, "data"), ckpt, guide_path, "out")
+                             + ["--save_params", params_dir])
             torch.cuda.synchronize()
             secs["whole CLI"] = time.time() - t0
         finally:
@@ -2238,11 +2267,18 @@ def cli_phase(checkpoint: str) -> dict:
             decode_ms[kind] = (time.perf_counter() - t0) * 1e3 / len(paths)
             print(f"  PNG decode, one thread, {kind} rows: {decode_ms[kind]:.2f} ms an image "
                   f"(mean of {len(paths)}, {px / len(paths):.0f} pixels)")
+        save_s = secs["save parameter files"]
+        print(f"== 12e. the parameter files: phase 6's --save_params ({save_s:.2f} s), then "
+              f"--params_path on the same tree")
+        t0 = time.time()
+        params = params_phase(work, ckpt, guide_path, params_dir, pipe)
+        params["phase_s"] = time.time() - t0
+        params["save_s"] = save_s
     for name in REPLACES:
         require(counts.get(name, 0) > 0, f"{name} was not launched by the CLI run: {counts}")
     print(f"  launches over the CLI run: {counts}")
     return {"counts": counts, "by_shape": by_shape, "secs": secs, "stats": stats,
-            "decode_ms": decode_ms}
+            "decode_ms": decode_ms, "params": params}
 
 
 # ------------------------------------------------------------- phase 7
@@ -2932,7 +2968,7 @@ def sd21_phase(records, card: str) -> dict:
     random weights, batch 2, 768^2, DDIM-50 at strength 0.5, CFG 7.5,
     transform guidance at plan index 30 over 2 steps: a warm-up call, a
     counted call (each kernel's launches by shape against the plan, peak
-    memory) and two more timed calls."""
+    memory) and one more timed calls."""
     import torch
 
     from distdiff_tpu_torch.config import PipelineConfig
@@ -2948,7 +2984,7 @@ def sd21_phase(records, card: str) -> dict:
     cold = wall_s(lambda: expand(*inputs, gen(1)))
     (img, aux), by_shape, secs, peak = counted_call(
         lambda: expand(*inputs, gen(2), return_aux=True))
-    runs = [secs] + [wall_s(lambda s=s: expand(*inputs, gen(s))) for s in (3, 4)]
+    runs = [secs, wall_s(lambda: expand(*inputs, gen(3)))]
     warm = statistics.median(runs)
     print(f"  SD-2.1 768^2 expand batch {BATCH}: first call {cold:.2f} s, warm {warm:.3f} s/batch "
           f"(median of {[round(r, 3) for r in runs]}), peak memory {peak / 2**30:.2f} GiB "
@@ -3072,7 +3108,7 @@ def sd21_cli_phase(records, card: str) -> dict:
 def sd15_solver_phase(records, card: str) -> dict:
     """SD-1.5 at batch 2 under ``dpmpp`` and under ``deep_cache`` (interval
     3, branch 0), each through ``make_expand_fn`` (a warm-up, a counted
-    call, two more timed) and ``SplitExpand`` (a counted call, one more
+    call, one more timed) and ``SplitExpand`` (a counted call, one more
     timed), each counted call's flash launches by shape against the plan.
     Returns the timings, the pipeline and its inputs."""
     import dataclasses
@@ -3102,7 +3138,7 @@ def sd15_solver_phase(records, card: str) -> dict:
         check_images(img, 512, label)
         check_flash_plan(shapes, flash_plan(vp, BATCH), f"phase 8 {label}, make_expand_fn")
         require_timed(records, shapes, f"phase 8 ({label})")
-        runs = [secs] + [wall_s(lambda s=s: fused(*inputs, gen(s))) for s in (3, 4)]
+        runs = [secs, wall_s(lambda: fused(*inputs, gen(3)))]
         simg, sshapes, ssecs, speak = counted_call(lambda: split(*inputs, gens(10)))
         check_images(simg, 512, f"{label} SplitExpand")
         check_flash_plan(sshapes, flash_plan(vp, BATCH), f"phase 8 {label}, SplitExpand")
@@ -3122,7 +3158,7 @@ def modes_phase(records, pipe, inputs, card: str) -> tuple:
     """The transform guidance update alone at SD-1.5 batch 2, plan index
     30, under each of the eight rollout_remat modes on the same latents and
     draws: a counted call (its flash launches by shape against the mode's
-    plan, its peak memory) and two more timed; its updated latents,
+    plan, its peak memory) and one more timed; its updated latents,
     gradients and scores against "step_nr"'s."""
     import dataclasses
 
@@ -3153,7 +3189,7 @@ def modes_phase(records, pipe, inputs, card: str) -> tuple:
                              f"phase 8 rollout_remat={mode}")
             require_timed(records, shapes, f"phase 8 ({mode})")
             by_shape += shapes
-            runs = [secs] + [wall_s(run) for _ in range(2)]
+            runs = [secs, wall_s(run)]
             got = {"latents": up.float(), "gamma": grads[0], "beta": grads[1],
                    "score": score}
             if ref is None:
@@ -3334,7 +3370,7 @@ def sdxl_phase(records, card: str) -> dict:
     cold = wall_s(lambda: expand(*inputs, gen(1)))
     (img, aux), by_shape, secs, peak = counted_call(
         lambda: expand(*inputs, gen(2), return_aux=True))
-    runs = [secs] + [wall_s(lambda s=s: expand(*inputs, gen(s))) for s in (3, 4)]
+    runs = [secs, wall_s(lambda: expand(*inputs, gen(3)))]
     warm = statistics.median(runs)
     print(f"  SDXL {SDXL_SIDE}^2 guided expand batch {BATCH}: first call {cold:.2f} s, warm "
           f"{warm:.3f} s/batch (median of {[round(r, 3) for r in runs]}), peak memory "
@@ -3353,6 +3389,10 @@ def sdxl_phase(records, card: str) -> dict:
     check_gn_plan(gn_only(by_shape), gn_plan(expand_gn_calls(pipe, BATCH), smem_limit=smem))
     require_timed(records, by_shape, "phase 9 (SDXL)")
     kernels = kernel_ms_of_call(records, by_shape, "SDXL call:")
+    print("== 12c. SDXL --int8 on phase 9's pipeline")
+    t0 = time.time()
+    int8 = sdxl_int8_call(records, pipe, inputs, img, card)
+    int8["phase_s"] = time.time() - t0
     del img, aux
 
     print("  -- SDXLPipeline text-to-image, the same modules")
@@ -3375,8 +3415,9 @@ def sdxl_phase(records, card: str) -> dict:
     gc.collect()
     torch.cuda.empty_cache()
     return {"warm_s": warm, "runs": runs, "cold_s": cold, "peak_bytes": peak,
-            "build_s": build_s, "by_shape": by_shape + t2i_shapes, "kernels": kernels,
-            "t2i_warm_s": t2i_s, "t2i_cold_s": t2i_cold, "t2i_peak_bytes": t2i_peak}
+            "build_s": build_s, "by_shape": by_shape + t2i_shapes + int8.pop("by_shape"),
+            "kernels": kernels, "t2i_warm_s": t2i_s, "t2i_cold_s": t2i_cold,
+            "t2i_peak_bytes": t2i_peak, "int8": int8}
 
 
 def sdxl_cli_phase(records, card: str) -> dict:
@@ -4252,7 +4293,7 @@ def zoo_recipe(records, pipe, inputs, gm, card: str) -> dict:
     0.5, transform guidance) with ``gm`` as the guide and seeded random
     prototypes of its width: a first call, a counted call (launches by
     shape against phase 4's plan: the guides launch no flash or GroupNorm
-    kernel of their own) and two more timed calls, the counted call's peak
+    kernel of their own) and one more timed calls, the counted call's peak
     memory."""
     import torch
 
@@ -4272,7 +4313,7 @@ def zoo_recipe(records, pipe, inputs, gm, card: str) -> dict:
     cold = wall_s(lambda: expand(*inputs, g(1)))
     (img, aux), by_shape, secs, peak = counted_call(
         lambda: expand(*inputs, g(2), return_aux=True))
-    runs = [secs] + [wall_s(lambda s=s: expand(*inputs, g(s))) for s in (3, 4)]
+    runs = [secs, wall_s(lambda: expand(*inputs, g(3)))]
     warm = statistics.median(runs)
     what = f"phase 11 {gm.arch}"
     check_images(img, 512, what)
@@ -4501,6 +4542,516 @@ def zoo_phase(records, card: str, ckpt: str, data: str) -> dict:
     print("  -- cli.train -a mobilenetv2 --train_fc (phase 7's cuts, one epoch)")
     out["train"] = zoo_train_phase(card, data)
     return out
+
+
+# ------------------------------------------------------------- phase 12
+
+PEAK_INT8_OPS = 1979e12  # dense int8 tensor-core rate (H100 SXM data sheet)
+# the guidance update with config.int8 against the exact one on the card, the
+# largest difference over its outputs relative to each output's largest:
+# bit for bit on the CPU (tests/test_torch_int8.py), on the card within the
+# run-to-run spread of the fused backward's dq sum (fp32 order, ~1e-7)
+GUIDE_SPREAD_TOL = 1e-5
+# the --params_path run's guided PNGs against the first run's, the mean of
+# |difference| in 8-bit levels: two identical guided calls on the card
+# differ (the dq sum's order moves the update; phase 12b prints by how
+# much), so the byte-for-byte check is the unguided pair's
+PARAMS_LEVELS_TOL = 1.0
+INT8_DEEP_CACHE = dict(deep_cache=True, cache_interval=3, cache_branch=0)
+INT8_TIMED = 20  # CUDA-event launches a shape
+
+
+def unet_int8_layers(ucfg, side: int, batch: int, branch=None) -> list:
+    """The int8 layers of one UNet forward at ``batch`` on a side^2 latent,
+    in call order (models/unet.py): ("conv", batch, C_in, C_out, input
+    side, stride) for the resnets' and the resamplers' 3x3 convolutions,
+    ("dot", rows, K, N) for the feed-forward projections. With ``branch``,
+    a DeepCache shallow call at that cache branch: the down levels up to
+    it (no downsample at the branch) and the up groups from the one the
+    cache enters."""
+    boc, n, L = ucfg.block_out_channels, len(ucfg.block_out_channels), ucfg.layers_per_block
+    out, skips, x_ch, s = [], [boc[0]], boc[0], side
+
+    def res(cin, cout, s):
+        out.extend([("conv", batch, cin, cout, s, 1), ("conv", batch, cout, cout, s, 1)])
+
+    def ff(ch, s, depth):  # each transformer block's GEGLU and output projections
+        for _ in range(depth):
+            out.extend([("dot", batch * s * s, ch, 8 * ch), ("dot", batch * s * s, 4 * ch, ch)])
+
+    def attn(bi, ch, s):
+        if ucfg.cross_attention[bi]:
+            ff(ch, s, ucfg.depth_at(bi))
+
+    for bi, ch in enumerate(boc):
+        if branch is not None and bi > branch:
+            break
+        for _ in range(L):
+            res(x_ch, ch, s)
+            x_ch = ch
+            attn(bi, ch, s)
+            skips.append(ch)
+        if bi < n - 1 and not (branch is not None and bi == branch):
+            out.append(("conv", batch, ch, ch, s, 2))
+            skips.append(ch)
+            s = _down(s)
+    first = 0
+    if branch is None:
+        mid = boc[-1]
+        res(mid, mid, s)
+        ff(mid, s, ucfg.depth_at(n - 1))  # the mid block always has its transformer
+        res(mid, mid, s)
+    else:  # the cached feature: the output of up group n - 2 - branch, upsampled
+        first = n - 1 - branch
+        x_ch = boc[branch + 1]
+    for ui in range(first, n):
+        bi = n - 1 - ui
+        ch = boc[bi]
+        for _ in range(L + 1):
+            res(x_ch + skips.pop(), ch, s)
+            x_ch = ch
+            attn(bi, ch, s)
+        if bi > 0:
+            s *= 2
+            out.append(("conv", batch, ch, ch, s, 1))
+    return out
+
+
+def int8_mkn(layer) -> tuple:
+    """(M, K, N) of a layer's int8 product, before padding."""
+    if layer[0] == "dot":
+        return layer[1:]
+    _, b, cin, cout, s, stride = layer
+    so = _down(s) if stride == 2 else s
+    return b * so * so, 9 * cin, cout
+
+
+def int8_plan(pipe, batch: int) -> collections.Counter:
+    """``torch._int_mm`` calls by padded (M, K, N) of one expand call at
+    ``batch`` under ``config.int8``: the plain spans' UNet calls on the CFG
+    pair (full, or DeepCache's shallow ones); the guidance and the decode
+    run none."""
+    from distdiff_tpu_torch.ops.quant import int_mm_padding
+    from distdiff_tpu_torch.schedulers import guidance_window, img2img_start_index
+
+    cfg, gcfg = pipe.config, pipe.guidance_cfg
+    n = pipe.sched.num_inference_steps
+    start = img2img_start_index(pipe.sched, pipe.strength)
+    g0, _ = guidance_window(pipe.sched, gcfg.guidance_step, gcfg.guidance_period)
+    full, shallow = (a + b for a, b in zip(span_unet_calls(pipe, start, g0),
+                                           span_unet_calls(pipe, g0, n)))
+    plan = collections.Counter()
+    for calls, branch in ((full, None), (shallow, cfg.cache_branch)):
+        if calls:
+            for layer in unet_int8_layers(cfg.unet, cfg.latent_size, 2 * batch, branch):
+                plan[int_mm_padding(*int8_mkn(layer))] += calls
+    return plan
+
+
+def int8_bound(layer) -> tuple:
+    """(bound_ms, bound_by) of one int8 layer as a function of its bf16
+    input and weight to its bf16 output: those bytes once over the memory
+    rate, or its products over the int8 tensor-core rate."""
+    m, k, n = int8_mkn(layer)
+    if layer[0] == "dot":
+        nbytes = 2 * (m * k + k * n + m * n)
+    else:
+        _, b, cin, cout, s, _ = layer
+        nbytes = 2 * (b * cin * s * s + 9 * cin * cout + m * n)
+    t_bytes, t_ops = nbytes / PEAK_BYTES, 2.0 * m * k * n / PEAK_INT8_OPS
+    return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes > t_ops else "operations")
+
+
+def int8_op_phase(card: str) -> list:
+    """Phase 12a: ``qconv``/``qdot`` at every int8 layer shape of one SD-1.5
+    batch-2 call (the CFG pair: batch 4 at 64^2), seeded bf16 inputs on the
+    card: the quantized operands against the same quantization on the CPU,
+    the ``torch._int_mm`` accumulator and the layer's output against the
+    plain version on the card (float64 products), bit for bit; then the
+    route, ``_int_mm`` alone, the plain product and the bf16 cuDNN/cuBLAS
+    layer timed (medians of CUDA events) beside the layer's bound."""
+    import torch
+    import torch.nn.functional as F
+
+    from distdiff_tpu_torch.config import PipelineConfig
+    from distdiff_tpu_torch.ops import quant
+
+    dev = torch.device("cuda")
+    cfg = PipelineConfig.sd15()
+    layers = collections.Counter(unet_int8_layers(cfg.unet, cfg.latent_size, 2 * BATCH))
+    gen = torch.Generator(device=dev).manual_seed(12)
+    out = []
+    for layer, count in sorted(layers.items()):
+        m, k, n = int8_mkn(layer)
+        if layer[0] == "dot":
+            x = torch.randn(4, m // 4, k, generator=gen, device=dev).to(torch.bfloat16)
+            w = (torch.randn(n, k, generator=gen, device=dev) / k ** 0.5).to(torch.bfloat16)
+            bias = torch.randn(n, generator=gen, device=dev).to(torch.bfloat16)
+            qx, sx = quant.quant_act(x)
+            qw, sw = quant.quant_w(w)
+            a, wm = qx.reshape(-1, k), qw
+            route = lambda: quant.qdot(x, w, torch.bfloat16) + bias  # noqa: E731
+            library = lambda: F.linear(x, w, bias)  # noqa: E731
+        else:
+            _, b, cin, cout, s, stride = layer
+            x = torch.randn(b, s, s, cin, generator=gen, device=dev).to(
+                torch.bfloat16).permute(0, 3, 1, 2)  # channels-last, as the UNet holds it
+            w = (torch.randn(cout, cin, 3, 3, generator=gen, device=dev)
+                 / (9 * cin) ** 0.5).to(torch.bfloat16)
+            bias = torch.randn(cout, generator=gen, device=dev).to(torch.bfloat16)
+            qx, sx = quant.quant_act(x)
+            qw, sw = quant.quant_w(w)
+            a, _ = quant.im2col(qx.permute(0, 2, 3, 1), (3, 3), (stride, stride), (1, 1))
+            wm = qw.permute(0, 2, 3, 1).reshape(cout, -1)
+            route = lambda: (quant.qconv(x, w, (stride, stride), (1, 1), torch.bfloat16)  # noqa: E731
+                             + bias[:, None, None])
+            library = lambda: F.conv2d(x, w, bias, stride, 1)  # noqa: E731
+        cq, csx = quant.quant_act(x.cpu())
+        cw, csw = quant.quant_w(w.cpu())
+        require(torch.equal(qx.cpu(), cq) and torch.equal(qw.cpu(), cw)
+                and torch.equal(sx.cpu(), csx) and torch.equal(sw.cpu(), csw),
+                f"int8 {layer}: the card's quantization differs from the CPU's")
+        quant.reset_counts()
+        acc = quant.int_mm(a, wm)
+        require(sum(quant.product_shapes.values()) == 1,
+                f"int8 {layer}: the product did not go to torch._int_mm")
+        plain = quant.int_mm_reference(a, wm)
+        require(torch.equal(acc, plain), f"int8 {layer}: the int32 accumulator differs from "
+                f"the plain product")
+        y = route()
+        want = quant.rescale(plain, sx, sw, torch.bfloat16)
+        want = (want + bias) if layer[0] == "dot" else (
+            want.reshape(y.shape[0], y.shape[2], y.shape[3], -1).permute(0, 3, 1, 2)
+            + bias[:, None, None])
+        require(torch.equal(y, want.reshape(y.shape)), f"int8 {layer}: the output differs from "
+                f"the plain version's")
+        mp, kp, np_ = quant.int_mm_padding(m, k, n)
+        ap = torch.nn.functional.pad(a, (0, kp - k, 0, mp - m)).contiguous()
+        wp = torch.nn.functional.pad(wm, (0, kp - k, 0, np_ - n)).contiguous()
+        rec = {"layer": list(layer), "mkn": [m, k, n], "launches": count,
+               "route_ms": time_ms(route, INT8_TIMED),
+               "int_mm_ms": time_ms(lambda: torch._int_mm(ap, wp.t()), INT8_TIMED),
+               "plain_ms": time_ms(lambda: quant.int_mm_reference(a, wm), 5),
+               "library_ms": time_ms(library, INT8_TIMED)}
+        rec["bound_ms"], rec["bound_by"] = int8_bound(layer)
+        out.append(rec)
+        print(f"  {layer[0]} {list(layer[1:])} (M,K,N {m},{k},{n}) x{count}: route "
+              f"{rec['route_ms']:.4f} ms (_int_mm {rec['int_mm_ms']:.4f}), bf16 layer "
+              f"{rec['library_ms']:.4f}, plain product {rec['plain_ms']:.3f}, bound "
+              f"{rec['bound_ms']:.4f} ({rec['bound_by']})")
+    total = {key: sum(r[key] * r["launches"] for r in out)
+             for key in ("route_ms", "int_mm_ms", "library_ms", "bound_ms")}
+    print(f"  one UNet call's {sum(layers.values())} int8 layers at these times: route "
+          f"{total['route_ms']:.2f} ms (_int_mm {total['int_mm_ms']:.2f}), bf16 layers "
+          f"{total['library_ms']:.2f}, bound {total['bound_ms']:.2f} ({card})")
+    return out
+
+
+def int8_levels(a, b) -> float:
+    """Mean |difference| of two [0, 1] image batches in 8-bit levels."""
+    return float(((a.float() * 255).round() - (b.float() * 255).round()).abs().mean())
+
+
+def check_int8_plan(what: str, pipe) -> None:
+    from distdiff_tpu_torch.ops import quant
+
+    got, want = collections.Counter(quant.product_shapes), int8_plan(pipe, BATCH)
+    require(got == want, f"{what}: int8 products {dict(got)}, the plan says {dict(want)}")
+    print(f"  {what}: {sum(got.values())} int8 products over {len(got)} shapes (plan held)")
+
+
+def int8_path_phase(records, pipe, inputs, exact_img, card: str) -> dict:
+    """Phase 12b: SD-1.5 ``--int8`` on phase 4's live pipeline (its modules,
+    recipe and inputs): a warm-up, a counted call (flash and GroupNorm
+    launches by shape against phase 4's plan, int8 products against theirs,
+    peak memory), a timed call, then ``--int8 --deep_cache`` (interval 3,
+    branch 0) through SplitExpand, counted against its plan; the int8
+    images' mean distance from phase 4's exact images on the same draws."""
+    import dataclasses
+
+    import torch
+
+    from distdiff_tpu_torch.ops import groupnorm as gn
+    from distdiff_tpu_torch.ops import quant
+
+    dev = torch.device("cuda")
+
+    def gen(seed):
+        return torch.Generator(device=dev).manual_seed(seed)
+
+    again = pipe.make_expand_fn()(*inputs, gen(2))  # phase 4's counted call, again
+    rerun = int8_levels(again, exact_img)
+    print(f"  phase 4's exact call again on the same draws: {rerun:.4f} 8-bit levels from its "
+          f"first images (mean), {float((again - exact_img).abs().max()) * 255:.2f} at most")
+    del again
+    vp = dataclasses.replace(pipe, config=dataclasses.replace(pipe.config, int8=True))
+    fused = vp.make_expand_fn()
+    cold = wall_s(lambda: fused(*inputs, gen(1)))
+    quant.reset_counts()
+    img, by_shape, secs, peak = counted_call(lambda: fused(*inputs, gen(2)))
+    check_images(img, 512, "SD-1.5 --int8")
+    check_flash_plan(by_shape, flash_plan(vp, BATCH), "phase 12 SD-1.5 --int8")
+    check_gn_plan(gn_only(by_shape), gn_plan(expand_gn_calls(vp, BATCH),
+                                             smem_limit=gn._device_limits(dev)[0]))
+    require_timed(records, by_shape, "phase 12 (SD-1.5 --int8)")
+    check_int8_plan("SD-1.5 --int8 make_expand_fn", vp)
+    timed = wall_s(lambda: fused(*inputs, gen(3)))
+    levels = int8_levels(img, exact_img)
+    require(math.isfinite(levels) and levels > 0, f"--int8 images {levels} levels from exact")
+    print(f"  SD-1.5 --int8 batch {BATCH}: first call {cold:.2f} s, counted {secs:.3f} s, timed "
+          f"{timed:.3f} s, peak {peak / 2**30:.2f} GiB; images {levels:.3f} 8-bit levels (mean "
+          f"|difference|) from phase 4's exact ones on the same draws ({card})")
+    vdc = dataclasses.replace(vp, config=dataclasses.replace(vp.config, **INT8_DEEP_CACHE))
+    split = vdc.make_split_expand()
+    quant.reset_counts()
+    dimg, dshapes, dsecs, dpeak = counted_call(
+        lambda: split(*inputs, [gen(20 + i) for i in range(BATCH)]))
+    check_images(dimg, 512, "SD-1.5 --int8 --deep_cache")
+    check_flash_plan(dshapes, flash_plan(vdc, BATCH), "phase 12 --int8 --deep_cache SplitExpand")
+    require_timed(records, dshapes, "phase 12 (--int8 --deep_cache)")
+    check_int8_plan("SD-1.5 --int8 --deep_cache SplitExpand", vdc)
+    print(f"  SD-1.5 --int8 --deep_cache SplitExpand batch {BATCH}: {dsecs:.3f} s, peak "
+          f"{dpeak / 2**30:.2f} GiB ({card})")
+    return {"cold_s": cold, "counted_s": secs, "timed_s": timed, "peak_bytes": peak,
+            "levels_from_exact": levels, "exact_rerun_levels": rerun, "deep_cache_s": dsecs,
+            "deep_cache_peak_bytes": dpeak, "by_shape": by_shape + dshapes}
+
+
+def sdxl_int8_call(records, pipe, expand_inputs, exact_img, card: str) -> dict:
+    """Phase 12c: one SDXL-base ``--int8`` call at 1024^2, batch 2, on phase
+    9's live pipeline and draws: launches by shape against phase 9's plan,
+    int8 products against theirs, time, peak memory and the images'
+    distance from phase 9's exact ones."""
+    import dataclasses
+
+    import torch
+
+    from distdiff_tpu_torch.ops import groupnorm as gn
+    from distdiff_tpu_torch.ops import quant
+
+    dev = torch.device("cuda")
+    vp = dataclasses.replace(pipe, config=dataclasses.replace(pipe.config, int8=True))
+    fused = vp.make_expand_fn()
+    quant.reset_counts()
+    img, by_shape, secs, peak = counted_call(
+        lambda: fused(*expand_inputs, torch.Generator(device=dev).manual_seed(2)))
+    check_images(img, SDXL_SIDE, "SDXL --int8")
+    check_flash_plan(by_shape, flash_plan(vp, BATCH), "phase 12 SDXL --int8")
+    check_gn_plan(gn_only(by_shape), gn_plan(expand_gn_calls(vp, BATCH),
+                                             smem_limit=gn._device_limits(dev)[0]))
+    require_timed(records, by_shape, "phase 12 (SDXL --int8)")
+    check_int8_plan("SDXL --int8 make_expand_fn", vp)
+    levels = int8_levels(img, exact_img)
+    require(math.isfinite(levels) and levels > 0, f"SDXL --int8 images {levels} levels off")
+    print(f"  SDXL --int8 {SDXL_SIDE}^2 batch {BATCH}: {secs:.3f} s (the first int8 call), peak "
+          f"{peak / 2**30:.2f} GiB; images {levels:.3f} 8-bit levels from phase 9's exact ones "
+          f"({card})")
+    return {"s": secs, "peak_bytes": peak, "levels_from_exact": levels, "by_shape": by_shape}
+
+
+class Int8Inputs:
+    """Forward pre-hooks on a UNet's int8 layers, active while the route is
+    on: ``record`` keeps each call's (module name, input, output) on the
+    CPU; ``pin`` hands each call, in order, the recorded input in place of
+    its own (the quantizer is discontinuous: see tests/test_torch_int8.py)."""
+
+    def __init__(self, unet, pinned=None):
+        from distdiff_tpu_torch.models.layers import QConv2d, QLinear
+        from distdiff_tpu_torch.ops import quant
+
+        self.quant, self.pinned, self.calls, self.handles = quant, pinned, [], []
+        for name, m in unet.named_modules():
+            if isinstance(m, (QConv2d, QLinear)):
+                self.handles.append(m.register_forward_pre_hook(
+                    lambda mod, args, name=name: self.pre(name, args)))
+                self.handles.append(m.register_forward_hook(
+                    lambda mod, args, out, name=name: self.post(name, args, out)))
+
+    def pre(self, name, args):
+        if not self.quant.int8_enabled() or self.pinned is None:
+            return None
+        want, x, _ = self.pinned[len(self.calls)]
+        require(want == name, f"pinned int8 call {len(self.calls)}: {name}, recorded {want}")
+        return (x.to(args[0].device),) + tuple(args[1:])
+
+    def post(self, name, args, out):
+        if self.quant.int8_enabled():
+            self.calls.append((name, args[0].detach().float().cpu(), out.detach().float().cpu()))
+
+    def close(self):
+        for h in self.handles:
+            h.remove()
+
+
+def int8_fp32_phase() -> dict:
+    """Phase 12d: the fp32 tiny() guided expand under int8 on the card
+    against the port on the CPU, the same weights and draws. The card's
+    run records each int8 layer call; each is held against the CPU's layer
+    on the same input (bit for bit), and the CPU's expand is run with each
+    int8 layer given the card's input for that call: its images, updated
+    latents and score within phase 3's tolerance, which must be at least
+    10x below the card's int8-versus-exact gap. One guidance update with
+    ``config.int8`` set equals the one without, bit for bit."""
+    import dataclasses
+
+    import torch
+
+    from distdiff_tpu_torch.guidance import transform_guidance
+    from distdiff_tpu_torch.ops import quant
+
+    dev = torch.device("cuda")
+    pipes, inputs, gen = tiny_fp32_pipes(seed=13, edit=lambda c: dataclasses.replace(c, int8=True))
+    draws = dict(zip(("noise", "gamma0", "beta0"), pipes[0].draw_inputs(inputs[0], gen)))
+    rec = Int8Inputs(pipes[1].unet)
+    try:
+        got = tiny_expand(pipes[1], dev, inputs, draws)
+    finally:
+        rec.close()
+    layers = dict(pipes[0].unet.named_modules())
+    with quant.int8_inference(), torch.no_grad():
+        for i, (name, x, y) in enumerate(rec.calls):
+            require(torch.equal(layers[name](x), y),
+                    f"int8 call {i} ({name}): the card's output differs from the CPU's")
+    print(f"  {len(rec.calls)} int8 layer calls of the card's expand equal the CPU's layers on "
+          f"their inputs, bit for bit")
+    pin = Int8Inputs(pipes[0].unet, pinned=rec.calls)
+    try:
+        want = tiny_expand(pipes[0], "cpu", inputs, draws)
+    finally:
+        pin.close()
+    require(len(pin.calls) == len(rec.calls), "the pinned CPU run made other int8 calls")
+    exact = tiny_expand(dataclasses.replace(
+        pipes[1], config=dataclasses.replace(pipes[1].config, int8=False)), dev, inputs, draws)
+    gap = float((got[0] - exact[0]).abs().max())
+    print(f"  int8 against exact on the card: images {gap:.3e} apart (at least "
+          f"{10 * FP32_TOL:.1e} needed)")
+    require(gap >= 10 * FP32_TOL, f"int8 moved the tiny images by {gap}, under 10x the tolerance")
+    agree_fp32(zip(("int8 image", "int8 updated latents", "int8 guidance score"), got, want))
+    card = pipes[1]
+    exact_pipe = dataclasses.replace(card, config=dataclasses.replace(card.config, int8=False))
+    lat = inputs[0].to(dev) * 3
+    cond, uncond, targets = (t.to(dev) for t in inputs[1:])
+    g0 = card.window()[3]
+
+    def update(p):
+        new, score, grads = transform_guidance(p.guidance_context(), lat, cond, uncond,
+                                               targets, g0, draws["gamma0"].to(dev),
+                                               draws["beta0"].to(dev))
+        return (new, score) + tuple(grads)
+
+    def rel(a, b):
+        return max(float((x - y).abs().max()) / max(float(y.abs().max()), 1e-30)
+                   for x, y in zip(a, b))
+
+    quant.reset_counts()
+    upd8 = update(card)
+    products = sum(quant.product_shapes.values())
+    exact_a, exact_b = update(exact_pipe), update(exact_pipe)
+    diff, spread = rel(upd8, exact_a), rel(exact_b, exact_a)
+    print(f"  the guidance update under config.int8: {products} int8 products; against the "
+          f"exact update {diff:.3e} of each output's largest, two exact updates {spread:.3e} "
+          f"apart (the fused backward's dq sums in an order that varies)")
+    require(products == 0, "the guidance update ran int8 products")
+    require(diff <= GUIDE_SPREAD_TOL, f"the guidance update moved with config.int8 ({diff})")
+    return {"calls": len(rec.calls), "gap": gap, "err": float((got[0] - want[0]).abs().max()),
+            "guidance_diff": diff, "guidance_spread": spread}
+
+
+def params_phase(work: str, ckpt: str, guide_path: str, saved: str, first_pipe) -> dict:
+    """Phase 12e, on phase 6's tree: ``generate_data.main`` with
+    ``--params_path`` (the directory phase 6's run wrote with
+    ``--save_params``) and no ``--sd_checkpoint``, for 2 images of the
+    published recipe: its loaded tensors equal the first run's, bit for
+    bit; its PNGs at the first run's paths, within PARAMS_LEVELS_TOL of
+    them (a guided call does not repeat itself bit for bit on the card).
+    Then the same 2 units unguided, from ``--sd_checkpoint`` and from
+    ``--params_path``: their PNGs equal byte for byte. The directory's size
+    and the load seconds (the save's are phase 6's)."""
+    import os
+
+    import numpy as np
+    import torch
+
+    from distdiff_tpu_torch.cli import generate_data as cli
+    from distdiff_tpu_torch.parallel import read_png
+    from distdiff_tpu_torch.weights import params_io
+
+    bpe = ["--bpe_path", os.path.join(ckpt, "tokenizer", "merges.txt")]
+
+    def argv(out, from_params, guided=True):
+        a = cli_argv(os.path.join(work, "data"), ckpt, guide_path, out, units=2) + bpe
+        if from_params:
+            i = a.index("--sd_checkpoint")
+            a[i:i + 2] = ["--params_path", saved]
+        if not guided:
+            a[a.index("--guidance_type") + 1] = "none"
+        return a
+
+    def pngs(out):
+        root = os.path.join(work, out)
+        return sorted(os.path.relpath(os.path.join(d, f), root)
+                      for d, _, fs in os.walk(root) for f in fs if f.endswith(".png"))
+
+    def read(out, rel):
+        with open(os.path.join(work, out, rel), "rb") as f:
+            return f.read()
+
+    seen, secs = {}, {}
+    build, load = cli.build_pipeline, params_io.load_params
+
+    def timed_load(*a, **kw):
+        t = time.time()
+        out = load(*a, **kw)
+        torch.cuda.synchronize()
+        secs.setdefault("load", time.time() - t)
+        return out
+
+    cwd = os.getcwd()
+    try:
+        cli.build_pipeline = lambda *a, **kw: seen.setdefault("pipe", build(*a, **kw))
+        params_io.load_params = timed_load
+        os.chdir(work)
+        t0 = time.time()
+        stats = cli.main(argv("out_params", True))
+        secs["whole CLI"] = time.time() - t0
+        pipe = seen.pop("pipe")
+        for name in ("unet", "vae", "text_encoder"):
+            want = getattr(first_pipe, name).state_dict()
+            for k, v in getattr(pipe, name).state_dict().items():
+                require(torch.equal(v, want[k]), f"--params_path {name} {k}: the loaded tensor "
+                        f"differs from the first run's")
+        del pipe
+        t0 = time.time()
+        for out, from_params in (("out_unguided_ckpt", False), ("out_unguided_params", True)):
+            cli.main(argv(out, from_params, guided=False))
+            seen.pop("pipe")
+        secs["unguided pair"] = time.time() - t0
+    finally:
+        os.chdir(cwd)
+        cli.build_pipeline, params_io.load_params = build, load
+    got = pngs("out_params")
+    require(stats["written"] == len(got) == 2 and set(got) <= set(pngs("out")),
+            f"--params_path run wrote {got}")
+    levels = [np.abs(read_png(os.path.join(work, "out_params", rel)).astype(int)
+                     - read_png(os.path.join(work, "out", rel)).astype(int)) for rel in got]
+    mean = float(np.mean([d.mean() for d in levels]))
+    same = sum(read("out_params", rel) == read("out", rel) for rel in got)
+    print(f"  --params_path run: loaded tensors equal the first run's; PNGs at its paths, "
+          f"{same} of {len(got)} byte for byte, {mean:.4f} 8-bit levels from them (mean), "
+          f"{max(int(d.max()) for d in levels)} at most")
+    require(mean <= PARAMS_LEVELS_TOL, f"--params_path PNGs {mean} levels from the first run's")
+    unguided = pngs("out_unguided_params")
+    require(len(unguided) == 2 and unguided == pngs("out_unguided_ckpt"),
+            f"the unguided pair wrote {unguided}")
+    for rel in unguided:
+        require(read("out_unguided_params", rel) == read("out_unguided_ckpt", rel),
+                f"unguided PNG {rel}: --params_path differs from --sd_checkpoint")
+    size = sum(os.path.getsize(os.path.join(saved, f)) for f in os.listdir(saved))
+    print(f"  unguided, --params_path against --sd_checkpoint: {len(unguided)} PNGs equal byte "
+          f"for byte; {size / 1e9:.3f} GB of parameter files loaded in {secs['load']:.2f} s, "
+          f"the guided main {secs['whole CLI']:.2f} s, the unguided pair "
+          f"{secs['unguided pair']:.2f} s")
+    return {"bytes": size, "secs": secs, "guided_levels": mean, "guided_same": same}
 
 
 def check_gn_plan(got: dict, want) -> None:
@@ -4832,6 +5383,16 @@ def main(argv) -> int:
     t2i_offset_phase()
     print(f"  phase 6: {time.time() - t0:.1f} s ({card})")
 
+    print("== 12a. the int8 route at every int8 shape of one SD-1.5 call")
+    t0 = time.time()
+    int8_ops = int8_op_phase(card)
+    print("== 12b. SD-1.5 --int8 on phase 4's pipeline")
+    int8_path = int8_path_phase(records, pipe, inputs, img, card)
+    print("== 12d. the fp32 tiny() --int8 expand on the card against the CPU")
+    int8_fp32 = int8_fp32_phase()
+    int8_s = time.time() - t0
+    print(f"  phase 12a, 12b, 12d: {int8_s:.1f} s ({card})")
+
     print("== 7. the classifier trainer (cli.train, cli.train_expanded)")
     t0 = time.time()
     print("  -- tiny_resnet steps, fp32, card against CPU")
@@ -4905,12 +5466,16 @@ def main(argv) -> int:
         f"{a} {zoo['guides'][a]['warm_s'] / warm_s:.3f}x" for a in ZOO) + f" ({card})")
     zoo_s = time.time() - t0
     print(f"  phase 11: {zoo_s:.1f} s ({card})")
+    phase12_s = (int8_s + sdxl["int8"]["phase_s"] + cli["params"]["phase_s"]
+                 + cli["params"]["save_s"])
+    print(f"  phase 12 (12a-e, the save in phase 6's run included): {phase12_s:.1f} s ({card})")
     print(f"  the whole script: {time.time() - script_t0:.1f} s ({card})")
 
-    print("== 12. result")
+    print("== 13. result")
     print(card)
     print(json.dumps({
         "kernels": summarize(records, by_shape + front["by_shape"] + cli["by_shape"]
+                             + int8_path["by_shape"]
                              + sd21["by_shape"] + sd21_cli["by_shape"] + solver_shapes
                              + mode_shapes + sdxl["by_shape"] + sdxl_cli["by_shape"]
                              + lora_step["by_shape"] + lora_cli["by_shape"]
@@ -4952,7 +5517,10 @@ def main(argv) -> int:
         "guides": {a: {k: v for k, v in g.items() if k != "by_shape"}
                    for a, g in zoo["guides"].items()}
         | {"phase_s": zoo_s, "cli_seconds": zoo["cli"]["secs"], "cli_driver": zoo["cli"]["stats"],
-           "cli_peak_bytes": zoo["cli"]["peak_bytes"], "train_fc_main_s": zoo["train"]["main_s"]}}))
+           "cli_peak_bytes": zoo["cli"]["peak_bytes"], "train_fc_main_s": zoo["train"]["main_s"]},
+        "int8": {"ops": int8_ops, "sd15": {k: v for k, v in int8_path.items() if k != "by_shape"},
+                 "sdxl": sdxl["int8"], "fp32": int8_fp32, "params": cli["params"],
+                 "phase_s": phase12_s}}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

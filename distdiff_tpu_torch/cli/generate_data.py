@@ -21,9 +21,14 @@ v-prediction, with ``--tiny --model sdxl`` ``PipelineConfig.sdxl_tiny``).
 SDXL's conditioning is the ``{"ctx", "add"}`` dict of ``encode_text_pair``,
 both towers fed the same tokenization. ``--lora FILE`` (``cli.train_lora``'s
 adapter, or the JAX package's: the same ``.npz``) is merged into the UNet
-after the checkpoint load and the bf16 cast. A flag whose module is not
-ported (``--int8``, ``--params_path``, ``--save_params``, ``--mesh_model`` >
-1) raises ``NotImplementedError`` naming its ROADMAP item.
+after the checkpoint load and the bf16 cast. ``--int8`` runs the UNet of
+the plain denoise spans on the int8 w8a8 route (``ops/quant.py``;
+approximate, with or without ``--deep_cache``). ``--save_params DIR``
+writes the pipeline's parameters after the load, the cast and the merge;
+``--params_path`` reads such a directory, or a flat ``.npz`` of the JAX
+package's tree, in place of ``--sd_checkpoint`` (``weights/params_io.py``).
+``--mesh_model`` > 1 (the parallel modules are not ported) raises
+``NotImplementedError`` naming its ROADMAP item.
 
 Usage (the reference recipe, ``scripts/exps/expand_diff.sh``):
   python -m distdiff_tpu_torch.cli.generate_data -d caltech-101 -a resnet50 \
@@ -81,8 +86,9 @@ def build_parser():
                         "towers, additive conditioning; pass --resolution "
                         "1024)")
     p.add_argument("--params_path", type=str, default=None,
-                   help="the JAX package's orbax parameter tree (not read by "
-                        "the port: ROADMAP queue 1 item 8)")
+                   help="parameters written by --save_params (or a flat .npz "
+                        "of the JAX package's tree); takes precedence over "
+                        "--sd_checkpoint")
     p.add_argument("--arch", "-a", type=str, default="open_clip_vit_b32")
     p.add_argument("--encoder_weight_path", type=str, default=None)
     p.add_argument("--guidance_type", type=str, default=None,
@@ -108,8 +114,9 @@ def build_parser():
                    help="down level the cache cuts below (0 = shallowest "
                         "= fastest)")
     p.add_argument("--int8", action="store_true",
-                   help="w8a8 int8 UNet denoise spans (not ported: "
-                        "ROADMAP queue 1 item 8)")
+                   help="w8a8 int8 UNet denoise spans (ops/quant.py; "
+                        "approximate, opt-in; the guidance steps and the VAE "
+                        "stay exact)")
     p.add_argument("--K", type=int, default=3)
     p.add_argument("--guidance_step", type=int, default=1)
     p.add_argument("--guidance_period", type=int, default=1)
@@ -174,8 +181,9 @@ def build_parser():
     p.add_argument("--lora_alpha", type=float, default=None,
                    help="override the alpha stored in the --lora file")
     p.add_argument("--save_params", type=str, default=None,
-                   help="save the parameter tree as orbax (not ported: "
-                        "ROADMAP queue 1 item 8)")
+                   help="write the pipeline's parameters (after the checkpoint "
+                        "load and the --lora merge) to this directory, for "
+                        "--params_path")
     # --- vestigial reference flags: accepted for drop-in compatibility so
     # published commands (e.g. the reference's expand_diff.sh passes
     # --gradient_checkpointing) run unchanged; each is a no-op here.
@@ -283,23 +291,23 @@ def _warn_compat_flags(args) -> None:
 
 
 def check_ported(args) -> None:
-    """Raise ``NotImplementedError``, naming the ROADMAP item, for a flag
-    whose module the port does not have yet; none is ignored quietly."""
-    unported = []
-    for flag in ("int8", "params_path", "save_params"):
-        if getattr(args, flag):
-            unported.append(f"--{flag}")
+    """Raise ``NotImplementedError`` before anything is written: for
+    ``--mesh_model`` > 1, naming the ROADMAP item (the parallel modules are
+    not ported), and for a ``--params_path`` the port does not read (an
+    orbax directory), naming the ``.npz`` route; none is ignored quietly."""
     if args.mesh_model != 1:
-        unported.append(f"--mesh_model {args.mesh_model}")
-    if unported:
-        raise NotImplementedError(f"not ported: {'; '.join(unported)} ({TODO})")
+        raise NotImplementedError(f"not ported: --mesh_model {args.mesh_model} ({TODO})")
+    if args.params_path:
+        from distdiff_tpu_torch.weights.params_io import params_route
+
+        params_route(args.params_path)
 
 
 def build_pipeline(args, device=None):
     """The pipeline of ``args`` (``--model``, ``--scheduler``,
-    ``--deep_cache``) on ``device`` (default: ``cli_device()``), with the
-    weights of ``--sd_checkpoint`` when given and the ``--lora`` adapter
-    merged into its UNet."""
+    ``--deep_cache``, ``--int8``) on ``device`` (default: ``cli_device()``),
+    with the weights of ``--params_path`` or else ``--sd_checkpoint`` when
+    given and the ``--lora`` adapter merged into its UNet."""
     from distdiff_tpu_torch.config import GuidanceConfig, PipelineConfig
     from distdiff_tpu_torch.sampling import ExpansionPipeline, SamplerConfig, cast_params_bf16
 
@@ -331,6 +339,8 @@ def build_pipeline(args, device=None):
         if config.scheduler != "ddim":  # refused before any cache is built
             raise NotImplementedError(
                 "deep_cache composes with the DDIM solver only (config.scheduler='ddim')")
+    if args.int8:
+        config = dataclasses.replace(config, int8=True)
     gcfg = GuidanceConfig(
         guidance_type=args.guidance_type,
         guidance_step=args.guidance_step,
@@ -353,7 +363,13 @@ def build_pipeline(args, device=None):
         seed=args.seed, device=device)
     if config.unet.dtype == torch.bfloat16:
         cast_params_bf16(pipe)
-    if args.sd_checkpoint:
+    if args.params_path:
+        from distdiff_tpu_torch.weights.params_io import load_params
+
+        # strict, as the checkpoint load; it takes precedence, as in the JAX CLI
+        load_params(args.params_path, pipe, args.model)
+        log.info("loaded the pipeline's parameters from %s (validated)", args.params_path)
+    elif args.sd_checkpoint:
         from distdiff_tpu_torch.weights.convert import load_sd_checkpoint, load_sdxl_checkpoint
 
         # strict: a missing, extra or mis-shaped key raises
@@ -361,7 +377,7 @@ def build_pipeline(args, device=None):
         log.info("loaded SD checkpoint from %s (validated)", args.sd_checkpoint)
     else:
         log.warning("NO SD WEIGHTS PROVIDED — using random init. Pass --sd_checkpoint "
-                    "(a local diffusers directory) for real generation.")
+                    "(a local diffusers directory) or --params_path for real generation.")
     if args.lora:
         # baked into the stored (bf16 at full width) weights once, before sampling
         from distdiff_tpu_torch.train.lora import load_lora, merge_lora
@@ -452,12 +468,17 @@ def main(argv=None):
     from distdiff_tpu_torch.parallel import ExpansionDriver
 
     pipe = build_pipeline(args, device)
+    if args.save_params:
+        from distdiff_tpu_torch.weights.params_io import save_params
+
+        size = save_params(args.save_params, pipe, args.model)
+        log.info("saved the pipeline's parameters to %s (%d bytes)", args.save_params, size)
     tokenizer = load_tokenizer(
         args.bpe_path, max_length=pipe.config.text_encoder.max_length,
         vocab_size=pipe.config.text_encoder.vocab_size, checkpoint_dir=args.sd_checkpoint,
         # real weights with hash-tokenized prompts would be silently wrong
         # text conditioning; refuse unless this is a toy run
-        strict=bool(args.sd_checkpoint) and not args.tiny)
+        strict=bool(args.sd_checkpoint or args.params_path) and not args.tiny)
 
     if pipe.is_sdxl:
         from distdiff_tpu_torch.sampling.conditioning import cond_asarray

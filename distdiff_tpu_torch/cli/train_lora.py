@@ -24,8 +24,10 @@ from ``torch.Generator``s seeded from ``--seed`` where JAX uses
 package's ``.npz``, so either package's ``generate_data --lora`` takes it.
 
 It runs on the card; ``DISTDIFF_PLATFORM=cpu`` runs it on the CPU (with
-``--tiny``, the toy config). ``--params_path`` (the JAX package's orbax
-tree) raises ``NotImplementedError`` naming ROADMAP queue 1 item 8.
+``--tiny``, the toy config). ``--params_path`` takes the weights that
+``generate_data --save_params`` wrote, or a flat ``.npz`` of the JAX
+package's tree, in place of ``--sd_checkpoint`` (``weights/params_io.py``;
+an orbax directory raises and names the ``.npz`` route).
 """
 
 from __future__ import annotations
@@ -118,13 +120,13 @@ def main(argv=None):
     )
 
     pargs = _pipeline_args(args)
-    check_ported(pargs)  # before any file is written
+    check_ported(pargs)  # before any file is written (an orbax --params_path raises)
     os.makedirs(args.output_dir, exist_ok=True)
     pipe = build_pipeline(pargs, device)
     tokenizer = load_tokenizer(
         args.bpe_path, max_length=pipe.config.text_encoder.max_length,
         vocab_size=pipe.config.text_encoder.vocab_size, checkpoint_dir=args.sd_checkpoint,
-        strict=bool(args.sd_checkpoint) and not args.tiny)
+        strict=bool(args.sd_checkpoint or args.params_path) and not args.tiny)
 
     if pipe.is_sdxl:
         def encode_text_fn(prompts):

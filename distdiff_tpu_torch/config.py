@@ -3,8 +3,7 @@
 
 The SD-1.x, SD-2.1, SDXL-base and tiny geometries of the guided expansion
 path (the UNet, the VAE, the CLIP or OpenCLIP text encoders) are carried
-over; dtypes are ``torch.dtype``s. The JAX package's ``int8`` switch waits
-for ``ops/quant.py`` (ROADMAP queue 1 item 8).
+over, with the JAX package's switches; dtypes are ``torch.dtype``s.
 """
 
 from __future__ import annotations
@@ -205,6 +204,9 @@ class PipelineConfig:
     deep_cache: bool = False
     cache_interval: int = 3
     cache_branch: int = 0
+    # int8 w8a8 UNet denoise spans (ops/quant.py), opt-in and approximate;
+    # the guidance steps and the VAE stay exact
+    int8: bool = False
     # text context length (CLIP's 77 tokens for SD-1.x)
     max_text_length: int = 77
 

@@ -9,7 +9,10 @@ NCHW inside the models; the public model calls take the reference's NHWC.
 Precision follows the reference: every layer computes in its ``dtype``
 (bf16 at SD-1.5 geometry), casting its input and weights to it, as flax's
 ``nn.Dense(dtype=...)`` promotes; normalisation statistics are fp32; the
-timestep MLP is fp32.
+timestep MLP is fp32. The layers where the reference has ``QConv`` and
+``QDense`` (the resnets' convolutions, the resamplers' and the feed-forward
+projections) are ``QConv2d``/``QLinear``: the same layers, taking the int8
+route of ``ops/quant.py`` while ``int8_inference()`` is on.
 """
 
 from __future__ import annotations
@@ -25,6 +28,7 @@ import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
 from distdiff_tpu_torch.ops import attention as attn_op
+from distdiff_tpu_torch.ops import quant
 from distdiff_tpu_torch.ops.groupnorm import group_norm
 
 
@@ -76,6 +80,32 @@ class Conv2d(nn.Conv2d):
         dt = self.compute_dtype
         return F.conv2d(x.to(dt), self.weight.to(dt), self.bias.to(dt),
                         self.stride, self.padding)
+
+
+class QConv2d(Conv2d):
+    """The reference's ``QConv``: a ``Conv2d`` (same parameters and dtype
+    numerics) that takes the int8 w8a8 route (``ops/quant.py`` ``qconv``)
+    while ``int8_inference()`` is on; the bias is added after, in
+    ``dtype``."""
+
+    def forward(self, x):
+        if not quant.int8_enabled():
+            return super().forward(x)
+        dt = self.compute_dtype
+        y = quant.qconv(x, self.weight, self.stride, self.padding, out_dtype=dt)
+        return y + self.bias.to(dt)[:, None, None]
+
+
+class QLinear(Linear):
+    """The reference's ``QDense``: a ``Linear`` with the same int8 switch
+    (``qdot``)."""
+
+    def forward(self, x):
+        if not quant.int8_enabled():
+            return super().forward(x)
+        dt = self.compute_dtype
+        y = quant.qdot(x, self.weight, out_dtype=dt)
+        return y if self.bias is None else y + self.bias.to(dt)
 
 
 class SmallConv3x3(nn.Conv2d):
@@ -144,13 +174,13 @@ class ResnetBlock2D(nn.Module):
                  device=None):
         super().__init__()
         self.norm1 = GroupNorm(cin, act="silu", device=device)
-        self.conv1 = Conv2d(cin, cout, 3, padding=1, dtype=dtype, device=device)
+        self.conv1 = QConv2d(cin, cout, 3, padding=1, dtype=dtype, device=device)
         if temb_channels is not None:
             self.time_emb_proj = Linear(temb_channels, cout, dtype=dtype, device=device)
         else:
             self.time_emb_proj = None
         self.norm2 = GroupNorm(cout, act="silu", device=device)
-        self.conv2 = Conv2d(cout, cout, 3, padding=1, dtype=dtype, device=device)
+        self.conv2 = QConv2d(cout, cout, 3, padding=1, dtype=dtype, device=device)
         self.conv_shortcut = (Conv2d(cin, cout, 1, dtype=dtype, device=device)
                               if cin != cout else None)
 
@@ -166,7 +196,7 @@ class ResnetBlock2D(nn.Module):
 class Downsample2D(nn.Module):
     def __init__(self, c, dtype=torch.float32, device=None):
         super().__init__()
-        self.conv = Conv2d(c, c, 3, stride=2, padding=1, dtype=dtype, device=device)
+        self.conv = QConv2d(c, c, 3, stride=2, padding=1, dtype=dtype, device=device)
 
     def forward(self, x):
         return self.conv(x)
@@ -175,7 +205,7 @@ class Downsample2D(nn.Module):
 class Upsample2D(nn.Module):
     def __init__(self, c, dtype=torch.float32, device=None):
         super().__init__()
-        self.conv = Conv2d(c, c, 3, padding=1, dtype=dtype, device=device)
+        self.conv = QConv2d(c, c, 3, padding=1, dtype=dtype, device=device)
 
     def forward(self, x):
         return self.conv(F.interpolate(x, scale_factor=2.0, mode="nearest"))
@@ -215,7 +245,7 @@ class Attention(nn.Module):
 class GEGLU(nn.Module):
     def __init__(self, dim, dim_out, dtype=torch.float32, device=None):
         super().__init__()
-        self.proj = Linear(dim, dim_out * 2, dtype=dtype, device=device)
+        self.proj = QLinear(dim, dim_out * 2, dtype=dtype, device=device)
 
     def forward(self, x):
         h, gate = self.proj(x).chunk(2, dim=-1)
@@ -230,7 +260,7 @@ class FeedForward(nn.Module):
         self.net = nn.ModuleList([
             GEGLU(dim, dim * mult, dtype=dtype, device=device),
             nn.Identity(),
-            Linear(dim * mult, dim, dtype=dtype, device=device),
+            QLinear(dim * mult, dim, dtype=dtype, device=device),
         ])
 
     def forward(self, x):

@@ -10,7 +10,8 @@ which every function here passes on as an opaque value
 
 Noise cached latents to the img2img start, denoise with CFG (DDIM or
 DPM-Solver++(2M), ``config.scheduler``; DeepCache under
-``config.deep_cache``), splice the DistDiff guidance in at the window,
+``config.deep_cache``; the int8 w8a8 UNet under ``config.int8``, in the
+plain spans only), splice the DistDiff guidance in at the window,
 decode to images in [0, 1]. Eager PyTorch: the plain denoise runs without
 autograd, the guidance leg with it, its recompute placed by
 ``GuidanceConfig.rollout_remat``.
@@ -24,6 +25,7 @@ guide ResNet-50 and the energy run in fp32 (with TF32 off on CUDA, see
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import functools
 from typing import Callable, Dict, Optional, Sequence, Tuple, Union
@@ -44,6 +46,7 @@ from distdiff_tpu_torch.models.layers import with_remat
 from distdiff_tpu_torch.models.text_encoder import CLIPTextEncoder
 from distdiff_tpu_torch.models.unet import UNet2DConditionModel
 from distdiff_tpu_torch.models.vae import AutoencoderKL
+from distdiff_tpu_torch.ops.quant import int8_inference
 from distdiff_tpu_torch.sampling.conditioning import cond_slice
 from distdiff_tpu_torch.sampling.sampler import (
     SamplerConfig,
@@ -168,21 +171,36 @@ class ExpansionPipeline:
     def is_sdxl(self) -> bool:
         return self.config.text_encoder_2 is not None
 
+    def span_context(self):
+        """The context of a plain-span UNet call: ``int8_inference()`` under
+        ``config.int8`` (the w8a8 route of ``ops/quant.py``), else none."""
+        return int8_inference() if self.config.int8 else contextlib.nullcontext()
+
     def eps_fn(self) -> Callable:
-        return make_eps_fn(functools.partial(unet_apply, self.unet), self.sampler_cfg)
+        """The CFG epsilon of the plain denoise spans, on the int8 route
+        under ``config.int8``. The guidance leg builds its own, exact one
+        (``guidance_context``), as the JAX package's ``eps_fn(exact=True)``."""
+        def unet(x, t, ctx):
+            with self.span_context():
+                return unet_apply(self.unet, x, t, ctx)
+
+        return make_eps_fn(unet, self.sampler_cfg)
 
     def cached_eps_fns(self) -> Tuple[Callable, Callable]:
         """(eps_full, eps_shallow) of the DeepCache loop at
-        ``config.cache_branch``; the guidance rollout never takes them."""
+        ``config.cache_branch``, both on the int8 route under
+        ``config.int8``; the guidance rollout never takes them."""
         from distdiff_tpu_torch.sampling.deepcache import make_cached_eps_fns
 
         branch = self.config.cache_branch
 
         def unet_full(x, t, ctx):
-            return unet_apply(self.unet, x, t, ctx, return_cache=True, cache_branch=branch)
+            with self.span_context():
+                return unet_apply(self.unet, x, t, ctx, return_cache=True, cache_branch=branch)
 
         def unet_shallow(x, t, ctx, cache):
-            return unet_apply(self.unet, x, t, ctx, deep_cache=cache, cache_branch=branch)
+            with self.span_context():
+                return unet_apply(self.unet, x, t, ctx, deep_cache=cache, cache_branch=branch)
 
         return make_cached_eps_fns(unet_full, unet_shallow, self.sampler_cfg)
 

@@ -9,7 +9,8 @@ conditioning.
   and width, crop top and left, target height and width), 256 wide each:
   ``[B, 2816]``, through the UNet's ``add_embedding``.
 * The denoise is ``sampler.denoise_range`` with CFG, so DDIM and
-  DPM-Solver++ dispatch as on SD-1.x, then the VAE decode.
+  DPM-Solver++ dispatch as on SD-1.x (the UNet on the int8 route of
+  ``ops/quant.py`` under ``config.int8``), then the VAE decode.
 
 ``encode_text_pair`` gives the ``{"ctx", "add"}`` conditioning, to
 ``SDXLPipeline.encode_prompt`` and to ``ExpansionPipeline.encode_text_pair``,
@@ -18,8 +19,8 @@ through which the guided expansion on SDXL goes.
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
-import functools
 from typing import Callable, Dict, Optional, Union
 
 import torch
@@ -31,6 +32,7 @@ from distdiff_tpu_torch.models.layers import timestep_embedding
 from distdiff_tpu_torch.models.text_encoder import CLIPTextEncoder
 from distdiff_tpu_torch.models.unet import UNet2DConditionModel
 from distdiff_tpu_torch.models.vae import AutoencoderKL
+from distdiff_tpu_torch.ops.quant import int8_inference
 from distdiff_tpu_torch.sampling.sampler import (
     SamplerConfig,
     denoise_range,
@@ -128,7 +130,13 @@ class SDXLPipeline:
         sched = self.sched
         start = 0 if text_to_img else img2img_start_index(sched, self.strength)
         n = sched.num_inference_steps
-        eps_fn = make_eps_fn(functools.partial(unet_apply, self.unet), self.sampler_cfg)
+        span = int8_inference if self.config.int8 else contextlib.nullcontext
+
+        def unet(x, t, ctx):
+            with span():  # the w8a8 route of ops/quant.py under config.int8
+                return unet_apply(self.unet, x, t, ctx)
+
+        eps_fn = make_eps_fn(unet, self.sampler_cfg)
 
         @torch.no_grad()
         def sample(latents, cond, uncond, generator=None, *, noise=None):

@@ -961,3 +961,121 @@ def test_openclip_writer_loads_as_the_default_guide(smoke, tmp_path):
     with pytest.raises(SystemExit, match="differs"):
         smoke.loaded_matches(CLIPViT(tiny_clip_vit_config()), visual, ["proj"], "image tower")
 
+
+
+# ------------------------------------------------------------- phase 12
+
+def _narrow_sd15_unet():
+    """SD-1.5's UNet topology (four levels, attention at the first three,
+    two resnets a level, one transformer a stage) at narrow widths."""
+    import dataclasses
+
+    from distdiff_tpu_torch.config import UNetConfig
+
+    return dataclasses.replace(UNetConfig.sd15(), block_out_channels=(16, 32, 32, 32),
+                               num_attention_heads=2, cross_attention_dim=24,
+                               dtype=torch.float32, remat=False)
+
+
+@pytest.mark.parametrize("topology", ["sd15", "sdxl_tiny", "tiny"])
+@pytest.mark.parametrize("branch", [None, 0])
+def test_int8_layer_plan_follows_the_ports_unet(smoke, monkeypatch, topology, branch):
+    """unet_int8_layers, from which phase 12 plans the int8 products and
+    takes the shapes it holds and times, against the int8 products one UNet
+    call of the port runs (a full call, or a DeepCache shallow one at branch
+    0), in order, at SD-1.5's topology (narrow widths, 16^2 latents),
+    sdxl_tiny's and tiny()'s."""
+    from distdiff_tpu_torch.models import UNet2DConditionModel
+    from distdiff_tpu_torch.ops import quant
+
+    cfg = {"sd15": _narrow_sd15_unet(), "sdxl_tiny": PipelineConfig.sdxl_tiny().unet,
+           "tiny": PipelineConfig.tiny().unet}[topology]
+    side, batch = 16, 3
+    unet = UNet2DConditionModel(cfg, device="cpu")
+    gen = torch.Generator().manual_seed(0)
+    args = [torch.randn(batch, side, side, 4, generator=gen), 10,
+            torch.randn(batch, 5, cfg.cross_attention_dim, generator=gen)]
+    if cfg.addition_embed_dim:
+        args.append(torch.randn(batch, cfg.addition_embed_dim, generator=gen))
+    seen = []
+    real = quant.int_mm
+    monkeypatch.setattr(quant, "int_mm", lambda a, w: seen.append(
+        (a.shape[0], a.shape[1], w.shape[0])) or real(a, w))
+    with torch.no_grad(), quant.int8_inference():
+        if branch is None:
+            unet(*args)
+        else:
+            _, cache = unet(*args, return_cache=True, cache_branch=branch)
+            seen.clear()
+            unet(*args, deep_cache=cache, cache_branch=branch)
+    want = [smoke.int8_mkn(layer) for layer in smoke.unet_int8_layers(cfg, side, batch, branch)]
+    assert seen == want and len(seen) > 0
+
+
+def test_int8_plan_of_the_sd15_recipe(smoke):
+    """One SD-1.5 batch-2 call: 82 int8 layers a UNet call (44 resnet
+    convolutions, 6 resamplers, 32 feed-forward projections), 25 plain
+    steps on the CFG pair; under DeepCache (interval 3, branch 0) 9 full
+    calls and 16 shallow ones of 20 layers (the first level's 8, the last up
+    group's 12)."""
+    import dataclasses
+
+    cfg = dataclasses.replace(PipelineConfig.sd15(), int8=True)
+    layers = smoke.unet_int8_layers(cfg.unet, 64, 4)
+    kinds = collections.Counter((lay[0], lay[-1] if lay[0] == "conv" else 0) for lay in layers)
+    assert len(layers) == 82 and kinds == {("conv", 1): 47, ("conv", 2): 3, ("dot", 0): 32}
+    assert smoke.int8_mkn(layers[0]) == (16384, 2880, 320)
+    pipe = types.SimpleNamespace(config=cfg, guidance_cfg=GuidanceConfig(),
+                                 sched=make_schedule(50), strength=0.5)
+    plan = smoke.int8_plan(pipe, 2)
+    # the 64^2 resnets' 320-wide convolutions: 4 in the down level, 3 conv2 in the up
+    assert sum(plan.values()) == 25 * 82 and plan[(16384, 2880, 320)] == 25 * 7
+    cached = types.SimpleNamespace(**dict(vars(pipe), config=dataclasses.replace(
+        cfg, **smoke.INT8_DEEP_CACHE)))
+    full, shallow = (a + b for a, b in zip(smoke.span_unet_calls(cached, 25, 30),
+                                           smoke.span_unet_calls(cached, 30, 50)))
+    assert (full, shallow) == (9, 16)
+    assert sum(smoke.int8_plan(cached, 2).values()) == 9 * 82 + 16 * 20
+    # the bound of the 64^2 resnet convolution: its products at the int8 rate
+    # (15.3 us; its 22.8 MB of bf16 input, weight and output take 6.8 us)
+    ms, by = smoke.int8_bound(layers[0])
+    assert by == "operations" and ms == pytest.approx(
+        2 * 16384 * 2880 * 320 / smoke.PEAK_INT8_OPS * 1e3)
+    assert 2 * (2 * 16384 * 320 + 9 * 320 * 320) / smoke.PEAK_BYTES * 1e3 < ms
+    # a feed-forward projection at 8^2 is bound by its weight's bytes
+    assert smoke.int8_bound(("dot", 256, 5120, 1280))[1] == "bytes"
+
+
+def test_int8_pins_hold_a_perturbed_run_to_its_recording(smoke):
+    """Int8Inputs, with which phase 12d holds the CPU's int8 expand to the
+    card's: a tiny UNet whose conv_in moved by 1e-7 (as a card's sums
+    move) lands as far from the recorded run as int8 is from exact when
+    left alone, and within fp32 noise of it when each int8 layer is given
+    the recorded input; the pins are taken in order, one a call."""
+    from distdiff_tpu_torch.models import UNet2DConditionModel
+    from distdiff_tpu_torch.ops import quant
+
+    cfg = PipelineConfig.tiny().unet
+    unet = UNet2DConditionModel(cfg, device="cpu")
+    moved = UNet2DConditionModel(cfg, device="cpu")
+    moved.load_state_dict(unet.state_dict())
+    gen = torch.Generator().manual_seed(1)
+    with torch.no_grad():
+        for p in moved.conv_in.parameters():
+            p.mul_(1 + 1e-7 * torch.randn(p.shape, generator=gen))
+    args = (torch.randn(4, 16, 16, 4, generator=gen), 500, torch.randn(4, 5, 32, generator=gen))
+    rec = smoke.Int8Inputs(unet)
+    with torch.no_grad():
+        with quant.int8_inference():
+            want = unet(*args)
+        rec.close()
+        exact = unet(*args)
+        with quant.int8_inference():
+            loose = moved(*args)
+            pin = smoke.Int8Inputs(moved, pinned=rec.calls)
+            pinned = moved(*args)
+            pin.close()
+    assert len(rec.calls) == len(pin.calls) == 26
+    gap = float((want - exact).abs().max())
+    assert float((pinned - want).abs().max()) <= 1e-5 < gap / 100
+    assert float((loose - want).abs().max()) > float((pinned - want).abs().max())

@@ -44,33 +44,42 @@ def test_parser_has_the_jax_parsers_dests_and_defaults():
         assert vars(cli.parse_args(argv)) == vars(j_cli.parse_args(argv))
 
 
+# --int8, --params_path and --save_params are ported (tests/test_torch_int8.py,
+# tests/test_torch_params_io.py): each case that was built on one of them
+# adds --mesh_model 2, which still raises, and keeps its id
 UNPORTED = [
-    # SDXL is ported; its int8 spans are not (the case keeps its id)
-    pytest.param(["--model", "sdxl", "--int8"], id="model_sdxl"), ["--int8"],
-    # --lora is ported (tests/test_torch_lora_cli.py); --save_params beside
-    # it still raises (the case keeps its id)
-    pytest.param(["--lora", "adapter.npz", "--save_params", "params"], id="lora_adapter.npz"),
-    ["--params_path", "params"],
-    ["--save_params", "params"], ["--mesh_model", "2"],
+    pytest.param(["--model", "sdxl", "--int8", "--mesh_model", "2"], id="model_sdxl"),
+    pytest.param(["--int8", "--mesh_model", "2"], id="int8"),
+    pytest.param(["--lora", "adapter.npz", "--save_params", "params", "--mesh_model", "2"],
+                 id="lora_adapter.npz"),
+    pytest.param(["--params_path", "params", "--mesh_model", "2"], id="params_path_params"),
+    pytest.param(["--save_params", "params", "--mesh_model", "2"], id="save_params_params"),
+    ["--mesh_model", "2"],
     # every guide arch is ported (test_every_guide_arch_passes_check_ported);
     # beside one, an unported flag still raises (the cases keep their ids;
     # open_clip_vit_b32 is the default -a)
-    pytest.param(["--guidance_type", "transform_guidance", "--int8"],
+    pytest.param(["--guidance_type", "transform_guidance", "--int8", "--mesh_model", "2"],
                  id="guidance_type_transform_guidance"),
     pytest.param(["--guidance_type", "direct_guidance", "-a", "mobilenetv2", "--mesh_model", "2"],
                  id="guidance_type_direct_guidance_-a_mobilenetv2"),
     pytest.param(["--guidance_type", "transform_guidance", "-a", "resnext50", "--params_path",
-                  "params"], id="guidance_type_transform_guidance_-a_resnext50"),
+                  "params", "--mesh_model", "2"],
+                 id="guidance_type_transform_guidance_-a_resnext50"),
     pytest.param(["--guidance_type", "transform_guidance", "-a", "wideresnet50", "--save_params",
-                  "params"], id="guidance_type_transform_guidance_-a_wideresnet50"),
+                  "params", "--mesh_model", "2"],
+                 id="guidance_type_transform_guidance_-a_wideresnet50"),
 ]
 
 
 @pytest.mark.parametrize("argv", UNPORTED, ids=lambda a: "_".join(a).strip("-"))
 def test_every_unported_option_raises_naming_its_roadmap_item(argv, monkeypatch):
     monkeypatch.setenv("DISTDIFF_PLATFORM", "cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP queue 1 item 8"):
+    with pytest.raises(NotImplementedError, match="ROADMAP queue 1 item 8") as err:
         cli.main(argv + ["--output_dir", "never_written"])
+    # the ported flags are no longer named: only the mesh is refused
+    msg = str(err.value)
+    assert "--mesh_model 2" in msg
+    assert not any(flag in msg for flag in ("--int8", "--params_path", "--save_params"))
     assert not os.path.exists("never_written")
 
 

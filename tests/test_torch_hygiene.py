@@ -320,6 +320,69 @@ def test_groupnorm_plain_version_is_reached_only_from_a_cpu_branch():
         assert not (names & plain), f"{src} reaches a plain GroupNorm"
 
 
+def test_int8_plain_product_is_reached_only_from_a_cpu_branch():
+    """In ``ops/quant.py`` the plain int8 product ``int_mm_reference`` is
+    reached only inside ``int_mm``'s ``if _on_cpu(...)`` branch; no
+    ``except`` can turn a refused ``torch._int_mm`` into another route (the
+    one ``try`` restores the flag in its ``finally``); no other module of
+    the port but chip_smoke.py names it."""
+    path = os.path.join(PACKAGE, "ops", "quant.py")
+    tree = ast.parse(open(path).read())
+    assert not [n for n in ast.walk(tree) if isinstance(n, ast.Try) and n.handlers]
+    reached = []
+    for fn in tree.body:
+        if not isinstance(fn, ast.FunctionDef) or fn.name == "int_mm_reference":
+            continue
+        for stmt in fn.body:
+            on_cpu = (isinstance(stmt, ast.If) and isinstance(stmt.test, ast.Call)
+                      and getattr(stmt.test.func, "id", None) == "_on_cpu")
+            if "int_mm_reference" in _calls(stmt):
+                reached.append((fn.name, on_cpu))
+    assert reached == [("int_mm", True)]
+    for src in _port_sources():
+        if src == path or os.path.basename(src) == "chip_smoke.py":
+            continue
+        tree = ast.parse(open(src).read())
+        names = {n.attr for n in ast.walk(tree) if isinstance(n, ast.Attribute)}
+        names |= {n.id for n in ast.walk(tree) if isinstance(n, ast.Name)}
+        assert "int_mm_reference" not in names, f"{src} reaches the plain int8 product"
+
+
+def test_int8_route_refuses_other_devices_before_any_product():
+    from distdiff_tpu_torch.ops import quant
+
+    quant.reset_counts()
+    a = torch.zeros(32, 16, dtype=torch.int8)
+    with pytest.raises(ValueError, match="CUDA or CPU"):
+        quant.int_mm(a.to("meta"), a.to("meta"))
+    assert not quant.product_shapes
+
+
+def test_int8_ops_and_parameter_files_import_without_jax_orbax_or_pil():
+    """``ops/quant.py``, the layers that call it and ``weights/params_io.py``
+    import, and save and read a parameter directory, with JAX, the JAX
+    package, orbax, PIL and yaml absent (each set to None in
+    ``sys.modules``), as on the card's machine."""
+    walked = {os.path.relpath(p, ROOT) for p in _port_sources()}
+    for mod in ("ops/quant.py", "weights/params_io.py"):
+        assert os.path.join("distdiff_tpu_torch", mod) in walked
+    code = (
+        "import sys, tempfile, os\n"
+        "for m in ('jax', 'flax', 'distdiff_tpu', 'orbax', 'PIL', 'yaml'):\n"
+        "    sys.modules[m] = None\n"
+        "from distdiff_tpu_torch.ops import quant\n"
+        "from distdiff_tpu_torch.weights import params_io\n"
+        "from distdiff_tpu_torch.config import PipelineConfig\n"
+        "from distdiff_tpu_torch.sampling import ExpansionPipeline\n"
+        "pipe = ExpansionPipeline.create(PipelineConfig.tiny(), device='cpu')\n"
+        "d = os.path.join(tempfile.mkdtemp(), 'params')\n"
+        "params_io.save_params(d, pipe, 'sd15')\n"
+        "print(sorted(params_io.load_params(d, pipe, 'sd15')))\n")
+    out = subprocess.run([sys.executable, "-c", code], cwd=ROOT, capture_output=True,
+                         text=True, timeout=300)
+    assert out.returncode == 0 and "['text_encoder', 'unet', 'vae']" in out.stdout, out.stderr
+
+
 @pytest.mark.parametrize("d,want", [(1, 48), (16, 48), (33, 48), (40, 48), (48, 48), (49, 64),
                                     (64, 64), (65, 80), (80, 80), (81, 96), (96, 96), (97, 128),
                                     (128, 128), (129, 0), (512, 0)])

@@ -1,6 +1,6 @@
 """``cli.train_lora`` and ``generate_data --lora`` in the port against the
 JAX package's CLIs on the CPU: the parser's dests and defaults, the refusal
-of ``--params_path``, a ``--tiny`` run of both trainers on one toy PNG tree
+of an orbax ``--params_path``, a ``--tiny`` run of both trainers on one toy PNG tree
 and one synth checkpoint, the port's on the JAX run's own draws (the
 adapter's init from ``PRNGKey(seed)``, each step's timesteps and noise
 from ``fold_in(PRNGKey(seed + 1), step)``, patched into the port CLI's
@@ -86,12 +86,18 @@ def test_parser_has_the_jax_parsers_dests_and_defaults(monkeypatch):
 
 
 def test_params_path_is_refused_naming_its_roadmap_item(tmp_path, monkeypatch):
+    """``--params_path`` is ported (``tests/test_torch_params_io.py``); an
+    orbax directory of the JAX package (``save_pytree``) is refused before
+    anything is written, naming the ``.npz`` route."""
+    from distdiff_tpu.utils.checkpoints import save_pytree
+
     monkeypatch.setenv("DISTDIFF_PLATFORM", "cpu")
     monkeypatch.chdir(tmp_path)
-    with pytest.raises(NotImplementedError, match="--params_path.*ROADMAP queue 1 item 8"):
+    save_pytree(str(tmp_path / "orbax"), {"unet": {"conv_in": {"bias": np.zeros(4, np.float32)}}})
+    with pytest.raises(NotImplementedError, match=r"orbax checkpoint .*\.npz"):
         cli.main(["--dataset", "breastmnist", "--output_dir", "never_written", "--tiny",
-                  "--params_path", "params"])
-    assert os.listdir(tmp_path) == []
+                  "--params_path", str(tmp_path / "orbax")])
+    assert os.listdir(tmp_path) == ["orbax"]
 
 
 @pytest.fixture(scope="module")
