@@ -3,7 +3,7 @@
 
 Run from the repository root: ``python3 chip_smoke.py``. It needs one CUDA
 card, ``nvcc`` and ``nvidia-smi``; it imports nothing of JAX or of the JAX
-package. Thirteen phases, any failure exits non-zero:
+package. Fourteen phases, any failure exits non-zero:
 
 1. Device: the card's name and power limit, torch/CUDA versions, the
    time to build the CUDA kernels from ``distdiff_tpu_torch/csrc`` (one
@@ -223,6 +223,30 @@ package. Thirteen phases, any failure exits non-zero:
    ``config.int8`` equal to the exact one bit for bit. 12c (in phase 9):
    one SDXL ``--int8`` call at 1024^2 on phase 9's pipeline, launches
    against phase 9's plan, time and peak memory.
+14. The parallel modules on virtual meshes of cuda:0 (a device may repeat
+   in a mesh: one card, one copy of each weight). 14g (in phase 6):
+   ``cli.generate_data.main --mesh_model 2`` on phase 6's tree, caches,
+   checkpoint and guide, ``parallel.mesh.local_devices`` giving cuda:0
+   twice: every UNet transformer block tensor-parallel over the 1 x 2
+   mesh (its attention calls counted by group size), every kernel launched
+   (counted by shape, each shape held in phase 2), the PNGs against phase
+   6's on the same draws (within PARAMS_LEVELS_TOL, mean), the expand
+   calls timed and the peak memory beside phase 4's. Then (after 12d) 14a: ``flash_attention_lse`` against
+   its plain version, o, lse and the gradients under a nonzero lse
+   cotangent, at SD-1.5's self-attention shapes cut in two along the
+   tokens and at D = 512, timed beside phase 2's ``flash_fwd`` there; 14b:
+   ``sp_attention`` on a 2-way seq mesh against the unsharded
+   ``flash_attention`` at [2, 4096, 8, 40], output and gradients (these
+   at twice phase 2's tolerance: the ring sums two bf16 partials); 14c/d:
+   on phase 4's SD-1.5 UNet, a 2-stage ``PipelinedUNet`` against the whole
+   call and microbatched against the whole call on each microbatch (both
+   bit for bit), then the UNet turned into its tensor-parallel form (no
+   device memory added) against the unsharded call, within TP_SPREAD
+   times the unsharded call's own bf16 spread (the whole batch against
+   its two halves), each timed; 14e: the fp32 tiny() guided SplitExpand under tensor
+   parallelism on the card against the CPU; 14f: ``tiny_resnet`` steps on a
+   2-way data mesh, data-parallel and FSDP, against the one-device CPU
+   step at phase 7's limits.
 13. The card line, the kernels' JSON line (one entry per kernel; its times
    are the means over that kernel's launches in the counted runs, and
    ``shapes`` holds each timed shape's own numbers), and the
@@ -569,6 +593,11 @@ def flash_shapes() -> list:
         # (no CFG), 8 heads at the 64^2 and 32^2 levels
         ("lora64", LORA_BATCH, 8, 4096, 4096, 40, ["flash_fwd", "flash_bwd_fused"], True),
         ("lora32", LORA_BATCH, 8, 1024, 1024, 80, ["flash_fwd", "flash_bwd_fused"], True),
+        # phase 14: one ring step of a 2-way seq mesh (the tokens cut in
+        # two) at SD-1.5's two self-attention widths and the VAE's D = 512
+        ("sp64", BATCH, 8, 2048, 2048, 40, ["flash_fwd", "flash_bwd_fused"], True),
+        ("sp32", BATCH, 8, 512, 512, 80, ["flash_fwd", "flash_bwd_fused"], True),
+        ("sp_vae", 1, 1, 2048, 2048, 512, ["flash_fwd"] + split, True),
         ("ragged", 1, 3, 300, 130, 40, every, False),
         ("cross", 2, 2, 200, 77, 64, every, False),
         ("odd", 2, 1, 129, 70, 33, every, False),
@@ -2274,11 +2303,13 @@ def cli_phase(checkpoint: str) -> dict:
         params = params_phase(work, ckpt, guide_path, params_dir, pipe)
         params["phase_s"] = time.time() - t0
         params["save_s"] = save_s
+        print("== 14g. generate_data --mesh_model 2 on the same tree and caches")
+        mesh_run = mesh_cli_phase(work, ckpt, guide_path)
     for name in REPLACES:
         require(counts.get(name, 0) > 0, f"{name} was not launched by the CLI run: {counts}")
     print(f"  launches over the CLI run: {counts}")
     return {"counts": counts, "by_shape": by_shape, "secs": secs, "stats": stats,
-            "decode_ms": decode_ms, "params": params}
+            "decode_ms": decode_ms, "params": params, "mesh": mesh_run}
 
 
 # ------------------------------------------------------------- phase 7
@@ -5054,6 +5085,382 @@ def params_phase(work: str, ckpt: str, guide_path: str, saved: str, first_pipe) 
     return {"bytes": size, "secs": secs, "guided_levels": mean, "guided_same": same}
 
 
+# ------------------------------------------------------------- phase 14
+
+# flash_attention_lse at SD-1.5's self-attention shapes cut in two along the
+# tokens (one ring step of a 2-way seq mesh), and at the VAE's D = 512
+# (label, B, H, T of q and of kv, D); phase 2 holds and times flash_fwd there
+LSE_SHAPES = [("sp64", BATCH, 8, 2048, 40), ("sp32", BATCH, 8, 512, 80),
+              ("sp_vae", 1, 1, 2048, 512)]
+MESH_DEVICES = 2  # the virtual meshes: cuda:0 twice
+TP_SPREAD = 2.0  # the TP UNet's distance from the unsharded call, in bf16 spreads
+
+
+def _bf16_err(got, want) -> tuple:
+    """(max |got - want|, phase 2's bf16 tolerance: 2^-7 of want's largest
+    magnitude)."""
+    got, want = got.detach().float(), want.detach().float()
+    return float((got - want).abs().max()), 2.0 ** -7 * float(want.abs().max())
+
+
+def _hold(what: str, got, want, tol=None) -> float:
+    err, bf16_tol = _bf16_err(got, want)
+    tol = bf16_tol if tol is None else tol
+    ok = math.isfinite(err) and err <= tol
+    print(f"  {what}: max_abs_err {err:.3e} (tol {tol:.3e}) {'ok' if ok else 'FAIL'}")
+    require(ok, f"{what} disagrees")
+    return err
+
+
+def lse_phase(records, card: str) -> dict:
+    """``flash_attention_lse`` against its plain version (``parallel.sp
+    .xla_attention_lse`` in fp32 on the same bf16 inputs): o, lse, and the
+    q, k, v gradients of sum(o * w_o) + sum(lse * w_l) with a random
+    nonzero lse cotangent, at phase 2's bf16 tolerances; the op's time
+    (forward, and forward + backward) beside phase 2's flash_fwd kernel at
+    the same shape."""
+    import torch
+
+    from distdiff_tpu_torch.ops import flash
+    from distdiff_tpu_torch.parallel.sp import xla_attention_lse
+
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(14)
+    out = {}
+    for label, b, h, t, d in LSE_SHAPES:
+        q, k, v = (torch.randn(b, t, h, d, generator=gen, device=dev).to(torch.bfloat16)
+                   .requires_grad_(True) for _ in range(3))
+        w_o = torch.randn(b, t, h, d, generator=gen, device=dev)
+        w_l = torch.randn(b, t, h, generator=gen, device=dev)
+        before = dict(flash.launch_counts)
+        o, lse = flash.flash_attention_lse(q, k, v)
+        grads = torch.autograd.grad((o.float() * w_o).sum() + (lse * w_l).sum(), (q, k, v))
+        torch.cuda.synchronize()
+        launched = {n: flash.launch_counts[n] - before[n] for n in before
+                    if flash.launch_counts[n] > before[n]}
+        want_bwd = {"flash_bwd_fused"} if d <= flash.FUSED_BWD_MAX_D else \
+            {"flash_bwd_dq", "flash_bwd_dkv"}
+        require(set(launched) == {"flash_fwd"} | want_bwd,
+                f"flash_attention_lse at {label} launched {launched}")
+        q32, k32, v32 = (x.detach().float().requires_grad_(True) for x in (q, k, v))
+        ro, rl = xla_attention_lse(q32, k32, v32)
+        rgrads = torch.autograd.grad((ro * w_o).sum() + (rl * w_l).sum(), (q32, k32, v32))
+        _hold(f"flash_attention_lse {label} [{b},{t},{h},{d}] o", o, ro)
+        _hold(f"flash_attention_lse {label} lse", lse, rl, tol=1e-4)
+        for name, g, r in zip(("dq", "dk", "dv"), grads, rgrads):
+            _hold(f"flash_attention_lse {label} {name} (lse cotangent nonzero)", g, r)
+        qd, kd, vd = (x.detach() for x in (q, k, v))
+        fwd_ms = time_ms(lambda: flash.flash_attention_lse(qd, kd, vd), 10)
+
+        def both():
+            oo, ll = flash.flash_attention_lse(q, k, v)
+            torch.autograd.grad((oo.float() * w_o).sum() + (ll * w_l).sum(), (q, k, v))
+
+        both_ms = time_ms(both, 5)
+        rec = next(r for r in records if r["name"] == "flash_fwd"
+                   and r["shape"] == [b * h, t, t, d])
+        print(f"  flash_attention_lse {label}: forward op {fwd_ms:.3f} ms, forward + backward "
+              f"{both_ms:.3f} ms; phase 2's flash_fwd kernel at [{b * h},{t},{t},{d}] "
+              f"{rec['ms']:.3f} ms ({card})")
+        out[label] = {"fwd_ms": fwd_ms, "fwd_bwd_ms": both_ms, "flash_fwd_ms": rec["ms"],
+                      "launches": launched}
+    return out
+
+
+def sp_phase(card: str) -> dict:
+    """``sp_attention`` on a 2-way seq mesh of cuda:0 against the unsharded
+    ``flash_attention`` at [2, 4096, 8, 40] bf16: the output at phase 2's
+    bf16 tolerance, the q, k, v gradients (each a bf16 sum of two ring
+    steps' partials) at twice it."""
+    import torch
+
+    from distdiff_tpu_torch.ops import flash
+    from distdiff_tpu_torch.parallel.sp import make_sp_mesh, sp_attention
+
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(15)
+    q, k, v = (torch.randn(BATCH, 4096, 8, 40, generator=gen, device=dev).to(torch.bfloat16)
+               .requires_grad_(True) for _ in range(3))
+    w = torch.randn(BATCH, 4096, 8, 40, generator=gen, device=dev)
+    mesh = make_sp_mesh(MESH_DEVICES, ["cuda:0"] * MESH_DEVICES)
+    flash.reset_launch_counts()
+    t0 = time.time()
+    o = sp_attention(q, k, v, mesh)
+    grads = torch.autograd.grad((o.float() * w).sum(), (q, k, v))
+    torch.cuda.synchronize()
+    ring_s = time.time() - t0
+    shapes = dict(flash.launch_shapes)
+    ref = flash.flash_attention(q, k, v)
+    rgrads = torch.autograd.grad((ref.float() * w).sum(), (q, k, v))
+    _hold("sp_attention [2,4096,8,40] on 2 seq shards: out", o, ref)
+    for name, g, r in zip(("dq", "dk", "dv"), grads, rgrads):
+        # each gradient is the bf16 sum of the two ring steps' partials, one
+        # rounding more than the unsharded kernel's: twice phase 2's limit
+        _hold(f"sp_attention {name}", g, r, tol=2.0 * _bf16_err(g, r)[1])
+    want = {("flash_fwd", (16, 2048, 2048, 40)): MESH_DEVICES ** 2,
+            ("flash_bwd_fused", (16, 2048, 2048, 40)): MESH_DEVICES ** 2}
+    require(shapes == want, f"the ring launched {shapes}, want {want}")
+    print(f"  the ring's launches {shapes}; forward + backward {ring_s * 1e3:.1f} ms wall, "
+          f"first call ({card})")
+    return {"launches": {f"{n} {list(sh)}": c for (n, sh), c in shapes.items()},
+            "wall_ms": ring_s * 1e3}
+
+
+def pp_tp_unet_phase(pipe, card: str) -> dict:
+    """On phase 4's SD-1.5 UNet (bf16, on the card): a 2-stage
+    ``PipelinedUNet`` over cuda:0 twice against the whole call, and
+    microbatched against the whole call on each microbatch, both bit for bit
+    (the same operations in the same order); then the UNet turned into its
+    tensor-parallel form on a 1 x 2 mesh of cuda:0 (the shards are views:
+    the device memory must not grow) against the unsharded call. Tensor
+    parallelism rounds its partial sums to bf16 before the all-reduce, so it
+    is held to the bf16 spread of the unsharded call itself: the distance
+    between the whole batch and the same batch in two halves (other
+    cuBLAS/cuDNN choices, the same function), at most TP_SPREAD times it.
+    Each form is timed."""
+    import torch
+
+    from distdiff_tpu_torch.parallel.mesh import make_expand_mesh
+    from distdiff_tpu_torch.parallel.pp import PipelinedUNet
+    from distdiff_tpu_torch.parallel.tp import tensor_parallel, unet_param_shardings
+
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(16)
+    unet = pipe.unet
+    cfg_b = 2 * BATCH
+    x = torch.randn(cfg_b, 64, 64, 4, generator=gen, device=dev)
+    ctx = torch.randn(cfg_b, 77, 768, generator=gen, device=dev)
+    t = torch.full((cfg_b,), 501, device=dev)
+    out = {}
+    with torch.no_grad():
+        ref = unet(x, t, ctx)
+        halves = torch.cat([unet(x[i:i + BATCH], t[i:i + BATCH], ctx[i:i + BATCH])
+                            for i in (0, BATCH)])
+        pp = PipelinedUNet(unet, n_stages=2, devices=["cuda:0"] * MESH_DEVICES)
+        got = pp(x, t, ctx)
+        micro = pp.microbatched(x, t, ctx)
+        torch.cuda.synchronize()
+        out["pp_bitwise"] = torch.equal(got, ref)
+        out["pp_micro_bitwise"] = torch.equal(micro, halves)
+        print(f"  PipelinedUNet, 2 stages {pp.boundaries} on cuda:0 twice: "
+              f"{'bit for bit' if out['pp_bitwise'] else 'NOT bit for bit'} the whole call; "
+              f"microbatched: {'bit for bit' if out['pp_micro_bitwise'] else 'NOT bit for bit'} "
+              f"the whole call on each microbatch")
+        require(out["pp_bitwise"] and out["pp_micro_bitwise"],
+                "the pipelined UNet is not the whole UNet's arithmetic")
+        spread, _ = _bf16_err(halves, ref)
+        out["bf16_spread"] = spread
+        out["unet_ms"] = time_ms(lambda: unet(x, t, ctx), 3)
+        out["pp_ms"] = time_ms(lambda: pp(x, t, ctx), 3)
+        out["pp_micro_ms"] = time_ms(lambda: pp.microbatched(x, t, ctx), 3)
+        mesh = make_expand_mesh(MESH_DEVICES, ["cuda:0"] * MESH_DEVICES)
+        torch.cuda.synchronize()
+        mem0 = torch.cuda.memory_allocated()
+        tensor_parallel(unet, mesh, shardings=unet_param_shardings(mesh, unet))
+        grew = torch.cuda.memory_allocated() - mem0
+        require(grew < 2 ** 20, f"the tensor-parallel form allocated {grew} bytes")
+        got = unet(x, t, ctx)
+        err, _ = _bf16_err(got, ref)
+        rel = float((got - ref).norm() / ref.norm())
+        rel_spread = float((halves - ref).norm() / ref.norm())
+        out.update(tp_err=err, tp_rel_l2=rel, spread_rel_l2=rel_spread)
+        ok = math.isfinite(err) and err <= TP_SPREAD * spread
+        print(f"  tensor-parallel SD-1.5 UNet on a 1 x 2 mesh against the unsharded call: "
+              f"max_abs_err {err:.3e}, rel l2 {rel:.3e}; the unsharded call's own bf16 spread "
+              f"(whole batch against two halves) {spread:.3e}, rel l2 {rel_spread:.3e} "
+              f"(limit {TP_SPREAD} x the spread) {'ok' if ok else 'FAIL'}")
+        require(ok, "the tensor-parallel UNet strays beyond the bf16 spread")
+        out["tp_ms"] = time_ms(lambda: unet(x, t, ctx), 3)
+    print(f"  SD-1.5 UNet at batch {cfg_b}: whole {out['unet_ms']:.2f} ms, 2 stages "
+          f"{out['pp_ms']:.2f} ms, microbatched {out['pp_micro_ms']:.2f} ms, tensor-parallel "
+          f"{out['tp_ms']:.2f} ms; the form added {grew} bytes ({card})")
+    return out
+
+
+def tp_fp32_phase() -> None:
+    """The fp32 tiny() guided SplitExpand under tensor parallelism (a 1 x 2
+    mesh: cuda:0 twice on the card, the CPU twice on the CPU) on the card
+    against the same port on the CPU, at phase 3's fp32 tolerance."""
+    import torch
+
+    from distdiff_tpu_torch.parallel.mesh import make_expand_mesh
+    from distdiff_tpu_torch.parallel.tp import TPAttention, unet_param_shardings
+
+    pipes, inputs, gen = tiny_fp32_pipes(seed=21)
+    draws = dict(zip(("noise", "gamma0", "beta0"), pipes[0].draw(inputs[0], gen)))
+    outs = []
+    for pipe, dev in zip(pipes, ("cpu", "cuda:0")):
+        mesh = make_expand_mesh(MESH_DEVICES, [dev] * MESH_DEVICES)
+        split = pipe.make_split_expand(mesh=mesh,
+                                       param_shardings=unet_param_shardings(mesh, pipe.unet))
+        require(isinstance(pipe.unet.mid_block.attentions[0].transformer_blocks[0].attn1,
+                           TPAttention), "the UNet is not in its tensor-parallel form")
+        img = split(*(t.to(dev) for t in inputs), **{k: v.to(dev) for k, v in draws.items()})
+        outs.append(img.float().cpu())
+    agree_fp32([("tensor-parallel tiny guided image", outs[1], outs[0])])
+
+
+def mesh_train_phase() -> dict:
+    """``tiny_resnet`` steps on a 2-way data mesh of cuda:0, data-parallel
+    and FSDP, each card step from the CPU one-device step's state on the
+    same batch, held to phase 7's limits (the loss relative, the running
+    statistics absolute, each parameter's step relative to its size)."""
+    import copy
+
+    import torch
+
+    from distdiff_tpu_torch.models.guide import create_model
+    from distdiff_tpu_torch.models.init import init_weights
+    from distdiff_tpu_torch.parallel.fsdp import make_fsdp_train_step
+    from distdiff_tpu_torch.parallel.mesh import make_mesh
+    from distdiff_tpu_torch.train import (
+        TrainConfig,
+        create_train_state,
+        make_optimizer,
+        make_train_step,
+    )
+
+    gen = torch.Generator().manual_seed(22)
+    n_cls, b = 10, 16
+    batches = [(torch.rand(b, 32, 32, 3, generator=gen).numpy(),
+                torch.randint(0, n_cls, (b,), generator=gen).numpy(), torch.ones(b).numpy())
+               for _ in range(3)]
+    base = create_model("tiny_resnet", n_cls, device="cpu", trainable=True)
+    init_weights(base.module, gen)
+    start = base.module.state_dict()
+    cfg = TrainConfig(lr=0.1, epochs=2)
+    mesh = make_mesh(["cuda:0"] * MESH_DEVICES)
+    reads = {}
+    for kind in ("data-parallel", "fsdp"):
+        cpu = create_model("tiny_resnet", n_cls, device="cpu", trainable=True)
+        cpu.module.load_state_dict(start)
+        ctx = make_optimizer(cpu.module, cfg, len(batches))
+        cstate, cstep = create_train_state(cpu.module, ctx), make_train_step(cpu.module, ctx)
+        read = {"loss": 0.0, "stats": 0.0, "update": 0.0}
+        for x, y, m in batches:
+            card = create_model("tiny_resnet", n_cls, device="cuda", trainable=True)
+            card.module.load_state_dict(cpu.module.state_dict())
+            ttx = make_optimizer(card.module, cfg, len(batches))
+            ttx.load_state_dict(copy.deepcopy(ctx.state_dict()))
+            tstate = create_train_state(card.module, ttx)
+            before = {k: v.detach().clone() for k, v in cpu.module.state_dict().items()}
+            if kind == "fsdp":
+                step, fs = make_fsdp_train_step(card.module, ttx, tstate, mesh=mesh,
+                                                min_shard_elems=512)
+                require(any(len(p) == MESH_DEVICES for p in fs.shards.values()),
+                        "FSDP split no parameter")
+                fs, got = step(fs, x, y, m)
+                after = {k: v.cpu() for k, v in fs.unshard().state_dict().items()}
+            else:
+                tstep = make_train_step(card.module, ttx, mesh=mesh)
+                tstate, got = tstep(tstate, x, y, m)
+                after = {k: v.cpu() for k, v in tstate.module.state_dict().items()}
+            cstate, want = cstep(cstate, x, y, m)
+            read["loss"] = max(read["loss"], abs(float(got["loss"]) / float(want["loss"]) - 1))
+            params = {k for k, _ in cpu.module.named_parameters()}
+            for k, v in cpu.module.state_dict().items():
+                if not v.is_floating_point():
+                    continue
+                if k in params:
+                    stepn = float((v - before[k]).norm())
+                    read["update"] = max(read["update"], float((after[k] - v).norm()) / stepn)
+                else:
+                    read["stats"] = max(read["stats"], float((after[k] - v).abs().max()))
+        ok = (read["loss"] <= TRAIN_LOSS_TOL and read["stats"] <= TRAIN_STATS_TOL
+              and read["update"] <= TRAIN_UPDATE_TOL)
+        print(f"  tiny_resnet {kind} steps on cuda:0 twice against the one-device CPU step: "
+              f"loss {read['loss']:.2e} (tol {TRAIN_LOSS_TOL:.0e}), statistics "
+              f"{read['stats']:.2e} (tol {TRAIN_STATS_TOL:.0e}), steps {read['update']:.2e} "
+              f"(tol {TRAIN_UPDATE_TOL:.0e}) {'ok' if ok else 'FAIL'}")
+        require(ok, f"the {kind} mesh step strays from the one-device CPU step")
+        reads[kind] = read
+    return reads
+
+
+def mesh_cli_phase(work: str, ckpt: str, guide_path: str) -> dict:
+    """``cli.generate_data.main --mesh_model 2`` on phase 6's tree, its
+    latent and prototype caches, checkpoint and guide, with
+    ``parallel.mesh.local_devices`` giving cuda:0 twice: every transformer
+    block's attention tensor-parallel over the 1 x 2 mesh, every kernel
+    launched (counted, by shape), the PNGs against phase 6's on the same
+    draws, each expand call timed, the run's peak memory."""
+    import numpy as np
+    import torch
+
+    from distdiff_tpu_torch.cli import generate_data as cli
+    from distdiff_tpu_torch.ops import flash
+    from distdiff_tpu_torch.ops import groupnorm as gn
+    from distdiff_tpu_torch.parallel import mesh, read_png, tp
+    from distdiff_tpu_torch.sampling.pipeline import SplitExpand
+
+    calls, groups = [], collections.Counter()
+    split_call, attn_fwd = SplitExpand.__call__, tp.TPAttention.forward
+
+    def timed_call(self, *a, **kw):
+        t = time.time()
+        img = split_call(self, *a, **kw)
+        if self.mesh is not None:  # the mesh's call, not its data index's inside it
+            torch.cuda.synchronize()
+            calls.append(time.time() - t)
+        return img
+
+    def counted_attn(self, *a, **kw):
+        groups[len(self.group)] += 1
+        return attn_fwd(self, *a, **kw)
+
+    local = mesh.local_devices
+    cwd = os.getcwd()
+    flash.reset_launch_counts()
+    gn.reset_launch_counts()
+    torch.cuda.synchronize()
+    held = torch.cuda.memory_allocated()  # earlier phases' live tensors
+    torch.cuda.reset_peak_memory_stats()
+    try:
+        SplitExpand.__call__, tp.TPAttention.forward = timed_call, counted_attn
+        mesh.local_devices = lambda: [torch.device("cuda", 0)] * MESH_DEVICES
+        os.chdir(work)
+        t0 = time.time()
+        stats = cli.main(cli_argv(os.path.join(work, "data"), ckpt, guide_path, "out_mesh")
+                         + ["--mesh_model", str(MESH_DEVICES)])
+        torch.cuda.synchronize()
+        whole_s = time.time() - t0
+    finally:
+        os.chdir(cwd)
+        SplitExpand.__call__, tp.TPAttention.forward = split_call, attn_fwd
+        mesh.local_devices = local
+    peak = torch.cuda.max_memory_allocated()
+    counts = dict(flash.launch_counts, **gn.launch_counts)
+    by_shape = collections.Counter(flash.launch_shapes) + collections.Counter(gn.launch_shapes)
+    require(dict(groups) and set(groups) == {MESH_DEVICES},
+            f"tensor-parallel attention calls by group size: {dict(groups)}")
+    for name in REPLACES:
+        require(counts.get(name, 0) > 0, f"{name} was not launched by the --mesh_model run")
+    levels = []
+    for d, _, fs in os.walk(os.path.join(work, "out_mesh")):
+        for f in fs:
+            got = read_png(os.path.join(d, f)).astype(int)
+            want = read_png(os.path.join(d.replace("out_mesh", "out"), f)).astype(int)
+            require(got.shape == want.shape == (512, 512, 3), f"{f}: {got.shape}")
+            levels.append(float(np.abs(got - want).mean()))
+    require(stats["written"] == len(levels) == CLI_UNITS,
+            f"{stats['written']} written, {len(levels)} PNGs")
+    # the same draws through the same function, its partial sums rounded
+    # to bf16 in another order: held as phase 12e holds a guided rerun
+    require(max(levels) <= PARAMS_LEVELS_TOL,
+            f"--mesh_model 2's PNGs are {max(levels):.3f} levels (mean) from phase 6's")
+    for (name, shape), c in sorted(flash.launch_shapes.items()):
+        print(f"  --mesh_model 2: {name} {list(shape)}: {c}")
+    print(f"  --mesh_model 2: {stats['written']} PNGs, each against phase 6's on the same "
+          f"draws: {[round(v, 3) for v in levels]} levels mean; {sum(groups.values())} "
+          f"tensor-parallel attention calls; launches {counts}")
+    print(f"  --mesh_model 2: whole CLI {whole_s:.1f} s, expand calls "
+          f"{[round(c, 3) for c in calls]} s, peak {(peak - held) / 2**30:.2f} GiB above the "
+          f"{held / 2**30:.2f} GiB earlier phases hold ({card_line()})")
+    return {"counts": counts, "by_shape": by_shape, "stats": stats, "whole_s": whole_s,
+            "calls_s": calls, "warm_s": calls[-1], "peak_bytes": peak - held,
+            "held_bytes": held, "png_levels": levels}
+
+
 def check_gn_plan(got: dict, want) -> None:
     """Every GroupNorm kernel's launches by shape against the plan."""
     totals = {k: [0, 0] for k in GN_KERNELS}
@@ -5393,6 +5800,27 @@ def main(argv) -> int:
     int8_s = time.time() - t0
     print(f"  phase 12a, 12b, 12d: {int8_s:.1f} s ({card})")
 
+    print("== 14. the parallel modules on virtual meshes of cuda:0 (14g ran in phase 6)")
+    t0 = time.time()
+    mesh_cli = cli["mesh"]
+    require_timed(records, mesh_cli["by_shape"], "phase 14g")
+    print(f"  14g --mesh_model 2: warm expand call {mesh_cli['warm_s']:.3f} s, peak "
+          f"{mesh_cli['peak_bytes'] / 2**30:.2f} GiB (the CLI's pipeline and its calls); "
+          f"phase 4: warm {warm_s:.3f} s, peak {peak / 2**30:.2f} GiB (its pipeline and "
+          f"its call) ({card})")
+    print("  -- 14a. flash_attention_lse against its plain version")
+    lse = lse_phase(records, card)
+    print("  -- 14b. sp_attention on a 2-way seq mesh against flash_attention")
+    sp = sp_phase(card)
+    print("  -- 14c/d. PipelinedUNet and the tensor-parallel UNet at SD-1.5 width")
+    pp_tp = pp_tp_unet_phase(pipe, card)
+    print("  -- 14e. the fp32 tiny() guided expand under tensor parallelism, card against CPU")
+    tp_fp32_phase()
+    print("  -- 14f. tiny_resnet on a 2-way data mesh, data-parallel and FSDP, card against CPU")
+    mesh_train = mesh_train_phase()
+    parallel_s = time.time() - t0 + mesh_cli["whole_s"]
+    print(f"  phase 14: {parallel_s:.1f} s, 14g's CLI run included ({card})")
+
     print("== 7. the classifier trainer (cli.train, cli.train_expanded)")
     t0 = time.time()
     print("  -- tiny_resnet steps, fp32, card against CPU")
@@ -5475,7 +5903,7 @@ def main(argv) -> int:
     print(card)
     print(json.dumps({
         "kernels": summarize(records, by_shape + front["by_shape"] + cli["by_shape"]
-                             + int8_path["by_shape"]
+                             + int8_path["by_shape"] + mesh_cli["by_shape"]
                              + sd21["by_shape"] + sd21_cli["by_shape"] + solver_shapes
                              + mode_shapes + sdxl["by_shape"] + sdxl_cli["by_shape"]
                              + lora_step["by_shape"] + lora_cli["by_shape"]
@@ -5520,7 +5948,10 @@ def main(argv) -> int:
            "cli_peak_bytes": zoo["cli"]["peak_bytes"], "train_fc_main_s": zoo["train"]["main_s"]},
         "int8": {"ops": int8_ops, "sd15": {k: v for k, v in int8_path.items() if k != "by_shape"},
                  "sdxl": sdxl["int8"], "fp32": int8_fp32, "params": cli["params"],
-                 "phase_s": phase12_s}}))
+                 "phase_s": phase12_s},
+        "parallel": {"lse": lse, "sp": sp, "pp_tp_unet": pp_tp, "mesh_train": mesh_train,
+                     "mesh_cli": {k: v for k, v in mesh_cli.items() if k != "by_shape"},
+                     "phase_s": parallel_s}}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

@@ -27,8 +27,12 @@ approximate, with or without ``--deep_cache``). ``--save_params DIR``
 writes the pipeline's parameters after the load, the cast and the merge;
 ``--params_path`` reads such a directory, or a flat ``.npz`` of the JAX
 package's tree, in place of ``--sd_checkpoint`` (``weights/params_io.py``).
-``--mesh_model`` > 1 (the parallel modules are not ported) raises
-``NotImplementedError`` naming its ROADMAP item.
+The expansion runs on a mesh of the process's devices
+(``parallel.mesh.make_expand_mesh``): the batch splits over its ``data``
+axis, and ``--mesh_model N`` > 1 makes it ``data x model``, each model
+group of N devices holding one UNet whose transformer blocks are
+tensor-parallel (``parallel/tp.py``); N must divide the device count. One
+card is a one-device mesh.
 
 Usage (the reference recipe, ``scripts/exps/expand_diff.sh``):
   python -m distdiff_tpu_torch.cli.generate_data -d caltech-101 -a resnet50 \
@@ -56,8 +60,6 @@ from distdiff_tpu_torch.cli.common import (
 )
 
 log = logging.getLogger("distdiff.generate")
-
-TODO = "ROADMAP queue 1 item 8"
 
 
 def _str2bool(v: str) -> bool:
@@ -132,8 +134,9 @@ def build_parser():
                         "process (run one process per GPU with --split)")
     p.add_argument("--split", type=int, default=0)
     p.add_argument("--mesh_model", type=int, default=1,
-                   help="tensor-parallel group size; only 1 is ported "
-                        "(ROADMAP queue 1 item 8)")
+                   help="tensor-parallel group size: each UNet's transformer "
+                        "blocks shard over this many devices (data x model "
+                        "mesh, parallel/tp.py); must divide the device count")
     p.add_argument("--num_images_per_prompt", type=int, default=4)
     p.add_argument("--first_image_index", type=int, default=0)
     p.add_argument("--optimize_targets", type=str, default=None,
@@ -291,12 +294,15 @@ def _warn_compat_flags(args) -> None:
 
 
 def check_ported(args) -> None:
-    """Raise ``NotImplementedError`` before anything is written: for
-    ``--mesh_model`` > 1, naming the ROADMAP item (the parallel modules are
-    not ported), and for a ``--params_path`` the port does not read (an
-    orbax directory), naming the ``.npz`` route; none is ignored quietly."""
+    """Raise before anything is written: ``ValueError`` for a
+    ``--mesh_model`` that does not divide the device count (as the JAX
+    package's ``make_expand_mesh`` asserts), ``NotImplementedError`` for a
+    ``--params_path`` the port does not read (an orbax directory), naming
+    the ``.npz`` route; none is ignored quietly."""
     if args.mesh_model != 1:
-        raise NotImplementedError(f"not ported: --mesh_model {args.mesh_model} ({TODO})")
+        from distdiff_tpu_torch.parallel.mesh import make_expand_mesh
+
+        make_expand_mesh(args.mesh_model)
     if args.params_path:
         from distdiff_tpu_torch.weights.params_io import params_route
 
@@ -508,18 +514,37 @@ def main(argv=None):
         pipe.global_protos = torch.as_tensor(gp, device=device)
         pipe.local_protos = torch.as_tensor(lp, device=device)
 
+    from distdiff_tpu_torch.ops.attention import set_tp_attention
+    from distdiff_tpu_torch.parallel.mesh import make_expand_mesh
+
+    mesh = make_expand_mesh(args.mesh_model)
+    param_shardings = None
+    if args.mesh_model > 1:
+        # tensor-parallel expansion: the reference's column/row rules on the
+        # UNet's transformer layers, everything else replicated; attention
+        # runs on each model device's own heads (ops/attention.py)
+        from distdiff_tpu_torch.parallel.tp import unet_param_shardings
+
+        param_shardings = unet_param_shardings(mesh, pipe.unet)
+        set_tp_attention(mesh)
+        log.info("tensor-parallel expansion: mesh %s", mesh.shape)
+    run_mesh = mesh if mesh.size > 1 else None
     if args.fused_program:
-        expand_fn = pipe.make_expand_fn(text_to_img=args.text_to_img)
+        expand_fn = pipe.make_expand_fn(text_to_img=args.text_to_img, mesh=run_mesh,
+                                        param_shardings=param_shardings)
     else:
-        expand_fn = pipe.make_split_expand(text_to_img=args.text_to_img)
+        expand_fn = pipe.make_split_expand(text_to_img=args.text_to_img, mesh=run_mesh,
+                                           param_shardings=param_shardings)
     driver = ExpansionDriver(expand_fn, sd, args.output_dir,
-                             batch_size=args.train_batch_size, seed=args.seed, device=device)
+                             batch_size=args.train_batch_size, seed=args.seed, device=device,
+                             mesh=run_mesh)
     try:
         stats = driver.run(num_images_per_prompt=args.num_images_per_prompt,
                            first_image_index=args.first_image_index, split=args.split,
                            total_split=args.total_split, max_units=args.max_units)
     finally:
         driver.close()
+        set_tp_attention(None)  # the routing ends with the run
     print(f"expansion finished: {stats['written']} images in {stats['seconds']:.1f}s "
           f"({stats['images_per_sec_per_device']:.3f} img/s/device)")
     return stats

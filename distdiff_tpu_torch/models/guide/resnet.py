@@ -59,7 +59,9 @@ class BatchNorm2d(nn.BatchNorm2d):
     (momentum 0.9) does: ``r = 0.9 r + 0.1 s`` with the batch's *biased*
     variance, where torch's own update takes the unbiased one (a factor
     n / (n - 1)). A frozen backbone (``train_fc``) updates them too, as the
-    JAX package's step and the reference's linear probe do."""
+    JAX package's step and the reference's linear probe do. Inside a mesh
+    train step it normalises every shard with the whole batch's statistics
+    (``parallel.mesh.BatchNormSync``)."""
 
     FLAX_MOMENTUM = 0.9
 
@@ -69,6 +71,11 @@ class BatchNorm2d(nn.BatchNorm2d):
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         if not self.training:
             return super().forward(x)
+        from distdiff_tpu_torch.parallel.mesh import batch_norm_sync
+
+        sync = batch_norm_sync()
+        if sync is not None:  # a mesh step: the statistics of the whole batch
+            return sync(self, x)
         # momentum 1 makes the fused kernel write the batch's mean and
         # unbiased variance into these two per-channel vectors
         mean = torch.zeros_like(self.running_mean)

@@ -4,9 +4,9 @@ SD-2.1, SDXL-base and tiny geometries, with diffusers' state-dict names.
 The public call takes NHWC latents ``[B, h, w, C_in]`` and returns the fp32
 prediction in NHWC; inside, the network runs NCHW. It takes SDXL's additive
 conditioning (``added_cond``, through ``add_embedding`` in fp32 into the
-time embedding) and the JAX package's DeepCache arguments
-(``return_cache``, ``deep_cache``, ``cache_branch``); its pipeline-parallel
-``segment``/``skips`` are not ported. With ``config.remat``, and only while
+time embedding), the JAX package's DeepCache arguments (``return_cache``,
+``deep_cache``, ``cache_branch``) and its pipeline-parallel
+``segment``/``skips`` (``parallel/pp.py``). With ``config.remat``, and only while
 autograd records, each ``ResnetBlock2D`` and ``Transformer2DModel`` runs
 under a non-reentrant ``torch.utils.checkpoint``, where the JAX package
 puts its ``nn.remat``; the values are the same either way.
@@ -14,7 +14,7 @@ puts its ``nn.remat``; the values are the same either way.
 
 from __future__ import annotations
 
-from typing import Optional, Union
+from typing import Optional, Sequence, Tuple, Union
 
 import torch
 import torch.nn as nn
@@ -108,7 +108,8 @@ class UNet2DConditionModel(nn.Module):
     def forward(self, sample: torch.Tensor, timestep, encoder_hidden_states: torch.Tensor,
                 added_cond: Optional[torch.Tensor] = None,
                 deep_cache: Optional[torch.Tensor] = None, return_cache: bool = False,
-                cache_branch: int = 0):
+                cache_branch: int = 0, segment: Optional[Tuple[int, int]] = None,
+                skips: Sequence[torch.Tensor] = ()):
         """``sample [B, h, w, C_in]`` (NHWC), ``timestep`` int or ``[B]``,
         ``encoder_hidden_states [B, T, D_ctx]`` -> fp32 ``[B, h, w, C_out]``.
         ``added_cond [B, addition_embed_dim]`` (SDXL's [pooled | time ids])
@@ -121,11 +122,33 @@ class UNet2DConditionModel(nn.Module):
         only down levels ``<= cache_branch``, stopping before that level's
         downsample, takes the cached feature in place of the deep
         subnetwork and runs the remaining up groups. The feature is NCHW,
-        as the network holds it."""
+        as the network holds it.
+
+        ``segment=(a, b)`` runs only units ``a <= u < b`` of the linear unit
+        list (pipeline parallelism, ``parallel/pp.py``): unit 0 ``conv_in``,
+        units 1..N down level ``u - 1``, unit N + 1 the mid block, units
+        N + 2..2N + 1 up group ``u - N - 2``, unit 2N + 2 ``conv_norm_out``
+        and ``conv_out`` (N levels, 2N + 3 units). A segment after the first
+        takes the carried hidden state (NCHW, as the network holds it) as
+        ``sample`` and the ``skips`` produced so far; a segment before the
+        last returns ``(hidden, skips)``, the last the prediction. Not with
+        the DeepCache arguments."""
         cfg = self.config
         dt = cfg.dtype
         b = sample.shape[0]
         n_blocks = len(cfg.block_out_channels)
+        n_units = 2 * n_blocks + 3
+        if segment is not None:
+            assert deep_cache is None and not return_cache, (
+                "segment (pipeline parallelism) and deep_cache are mutually exclusive")
+            seg_a, seg_b = segment
+            assert 0 <= seg_a < seg_b <= n_units, (segment, n_units)
+        else:
+            seg_a, seg_b = 0, n_units
+
+        def runs(u):
+            return seg_a <= u < seg_b
+
         shallow = deep_cache is not None
         if shallow or return_cache:
             if not 0 <= cache_branch < n_blocks - 1:
@@ -142,11 +165,16 @@ class UNet2DConditionModel(nn.Module):
                                  "conditioning)")
             temb = temb + self.add_embedding(added_cond.float())
         context = encoder_hidden_states.to(dt)
-        x = self.conv_in(sample.permute(0, 3, 1, 2).to(dt))
-
-        skips = [x]
+        if runs(0):
+            x = self.conv_in(sample.permute(0, 3, 1, 2).to(dt))
+            skips = [x]
+        else:  # a later pipeline segment: the carried hidden state
+            x = sample
+            skips = list(skips)
         down = self.down_blocks[:cache_branch + 1] if shallow else self.down_blocks
         for bi, blk in enumerate(down):
+            if not runs(1 + bi):
+                continue
             for li, res in enumerate(blk.resnets):
                 x = self._block(res, x, temb)
                 if len(blk.attentions):
@@ -162,13 +190,16 @@ class UNet2DConditionModel(nn.Module):
             x = deep_cache.to(dt)
             up_groups = range(cache_ui, n_blocks)
         else:
-            x = self._block(self.mid_block.resnets[0], x, temb)
-            x = self._block(self.mid_block.attentions[0], x, context)
-            x = self._block(self.mid_block.resnets[1], x, temb)
+            if runs(n_blocks + 1):
+                x = self._block(self.mid_block.resnets[0], x, temb)
+                x = self._block(self.mid_block.attentions[0], x, context)
+                x = self._block(self.mid_block.resnets[1], x, temb)
             up_groups = range(n_blocks)
 
         cache_out = None
         for ui in up_groups:
+            if not runs(n_blocks + 2 + ui):
+                continue
             blk = self.up_blocks[ui]
             if return_cache and ui == cache_ui:
                 cache_out = x
@@ -178,6 +209,8 @@ class UNet2DConditionModel(nn.Module):
                     x = self._block(blk.attentions[li], x, context)
             if hasattr(blk, "upsamplers"):
                 x = blk.upsamplers[0](x)
+        if seg_b < n_units:  # a pipeline segment before the last
+            return x, tuple(skips)
         assert not skips, f"unconsumed skip states: {len(skips)}"
 
         x = self.conv_out(self.conv_norm_out(x))

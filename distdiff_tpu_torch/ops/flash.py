@@ -30,7 +30,8 @@ function in fp32. There is no fallback from the kernel.
 
 ``FlashAttention`` is the ``torch.autograd.Function``; ``flash_attention``
 (``[B, T, H, D]``) and ``flash_attention_hm`` (``[B, H, T, D]``) are the
-public ops.
+public ops. ``flash_attention_lse`` (``FlashAttentionLSE``) also returns
+the row lse, differentiably, over the same kernels.
 """
 
 from __future__ import annotations
@@ -356,10 +357,15 @@ def _reference_grads(q, k, v, do, lse, delta):
     return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
 
 
-def flash_bwd(q, k, v, o, lse, do):
+def flash_bwd(q, k, v, o, lse, do, dlse=None):
     """The reference's dispatch (flash.py:466-474): fused when D <= 128,
-    the split dq + dkv pair otherwise."""
+    the split dq + dkv pair otherwise. ``dlse``, the cotangent of the row
+    lse (``FlashAttentionLSE``), enters the same kernels as delta - dlse
+    (the reference's ``delta_sub``, flash.py:411-420,478-485): d lse / d s
+    is p, so it folds into ds = p (dp - delta)."""
     delta = attention_delta(o, do)
+    if dlse is not None:
+        delta = delta - dlse.float()
     if q.shape[-1] <= FUSED_BWD_MAX_D:
         return flash_bwd_fused(q, k, v, do, lse, delta)
     dq = flash_bwd_dq(q, k, v, do, lse, delta)
@@ -381,6 +387,23 @@ class FlashAttention(torch.autograd.Function):
     def backward(ctx, do):
         q, k, v, o, lse = ctx.saved_tensors
         return flash_bwd(q, k, v, o, lse, do.contiguous())
+
+
+class FlashAttentionLSE(torch.autograd.Function):
+    """``FlashAttention`` that also returns the row lse ``[BH, Tq]`` fp32,
+    differentiable in both outputs: the lse cotangent goes into the same
+    backward kernels as delta - dlse. No kernel of its own."""
+
+    @staticmethod
+    def forward(ctx, q, k, v):
+        o, lse = flash_fwd(q, k, v)
+        ctx.save_for_backward(q, k, v, o, lse)
+        return o, lse
+
+    @staticmethod
+    def backward(ctx, do, dlse):
+        q, k, v, o, lse = ctx.saved_tensors
+        return flash_bwd(q, k, v, o, lse, do.contiguous(), dlse.contiguous())
 
 
 # ------------------------------------------------------------- public ops
@@ -405,3 +428,21 @@ def flash_attention_hm(q, k, v) -> torch.Tensor:
                              k.reshape(b * h, tk, d).contiguous(),
                              v.reshape(b * h, tk, d).contiguous())
     return o.reshape(b, h, tq, d)
+
+
+def flash_attention_lse(q, k, v) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Flash attention that also returns the row logsumexp (port of the
+    reference's ``flash_attention_lse``, flash.py:689-744):
+    ``q [B, Tq, H, D], k/v [B, Tk, H, D] -> (out [B, Tq, H, D],
+    lse [B, Tq, H] fp32)`` with ``lse = logsumexp_k(q.k / sqrt(D))``. It
+    launches ``flash_fwd``, and in the backward ``flash_bwd_fused`` (D <=
+    128) or the ``flash_bwd_dq``/``flash_bwd_dkv`` pair; the building block
+    of ``parallel.sp.ring_attention``."""
+    b, tq, h, d = q.shape
+    tk = k.shape[1]
+
+    def to3d(x, t):
+        return x.transpose(1, 2).reshape(b * h, t, d).contiguous()
+
+    o, lse = FlashAttentionLSE.apply(to3d(q, tq), to3d(k, tk), to3d(v, tk))
+    return o.reshape(b, h, tq, d).transpose(1, 2), lse.reshape(b, h, tq).transpose(1, 2)

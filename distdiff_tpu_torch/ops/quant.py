@@ -82,10 +82,16 @@ def quant_act(x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
 def quant_w(w: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
     """Per-output-channel symmetric quantization of a ``[O, ...]`` weight:
     (int8 values of w's shape, fp32 scales ``[O]``)."""
-    wf = w.float()
-    s = torch.clamp_min(_per_level(wf.abs().amax(dim=tuple(range(1, w.ndim)))), 1e-8)
-    q = torch.round(wf / s.view(-1, *([1] * (w.ndim - 1))))
-    return torch.clamp(q, -127, 127).to(torch.int8), s
+    s = torch.clamp_min(_per_level(w.float().abs().amax(dim=tuple(range(1, w.ndim)))), 1e-8)
+    return quantize_w(w, s), s
+
+
+def quantize_w(w: torch.Tensor, s: torch.Tensor) -> torch.Tensor:
+    """The int8 values of a ``[O, ...]`` weight at per-output-channel
+    scales ``s [O]`` (``quant_w``'s, or a row-parallel shard's global ones,
+    ``parallel/tp.py``)."""
+    q = torch.round(w.float() / s.view(-1, *([1] * (w.ndim - 1))))
+    return torch.clamp(q, -127, 127).to(torch.int8)
 
 
 def _on_cpu(x: torch.Tensor) -> bool:

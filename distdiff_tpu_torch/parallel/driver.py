@@ -1,6 +1,13 @@
-"""Expansion driver on one device: manifest -> batches -> PNGs (port of
-``distdiff_tpu/parallel/driver.py``; the mesh and its sharding wait for the
-multi-GPU slice).
+"""Expansion driver: manifest -> batches -> PNGs (port of
+``distdiff_tpu/parallel/driver.py``).
+
+With a mesh (``parallel.mesh``) the batch is ``batch_size`` per index of
+its ``data`` axis, and ``expand_fn`` (a ``SplitExpand`` or expand function
+built with that mesh) splits it there; on a ``data x model`` mesh each
+model group works on one share, so the batch grows with the data axis,
+not with the device count. Under an initialised process group
+(``parallel.distributed``) each process takes its rank's share of the
+manifest (``split_range``): a process's mesh holds its own devices only.
 
 One ``torch.Generator`` per work unit, seeded from (seed, dataset index,
 image_i), makes a unit's draws, so its image does not depend on the batch
@@ -29,7 +36,12 @@ import torch
 
 from distdiff_tpu_torch.data.datasets import PNG_SIGNATURE, read_png  # noqa: F401 (re-exported)
 from distdiff_tpu_torch.device import resolve_device
-from distdiff_tpu_torch.parallel.manifest import WorkUnit, build_manifest, chunk_units
+from distdiff_tpu_torch.parallel.manifest import (
+    WorkUnit,
+    build_manifest,
+    chunk_units,
+    split_range,
+)
 from distdiff_tpu_torch.sampling.conditioning import cond_stack, cond_to
 
 log = logging.getLogger("distdiff.driver")
@@ -68,6 +80,18 @@ def unit_seed(seed: int, unit: WorkUnit) -> int:
                .generate_state(1)[0])
 
 
+def rank_share(units: Sequence[WorkUnit]) -> List[WorkUnit]:
+    """This process's share of ``units`` under an initialised process group
+    of several ranks (``split_range`` by rank), else all of them."""
+    from distdiff_tpu_torch.parallel.distributed import process_count, process_index
+
+    n = process_count()
+    if n == 1:
+        return list(units)
+    lo, hi = split_range(len(units), process_index(), n)
+    return list(units[lo:hi])
+
+
 class ExpansionDriver:
     """Runs the expansion over a manifest of (image, image_i) work units.
 
@@ -80,14 +104,20 @@ class ExpansionDriver:
 
     def __init__(self, expand_fn: Callable, sd_dataset, output_dir: str,
                  batch_size: int = 1, seed: int = 0, writer_threads: int = 4,
-                 device: Union[str, torch.device, None] = None):
+                 device: Union[str, torch.device, None] = None, mesh=None):
         self._expand = expand_fn
         self.sd = sd_dataset
         self.output_dir = output_dir
-        self.global_batch = batch_size
         self.seed = seed
-        self.device = resolve_device("cuda" if device is None else device)
-        self.n_devices = 1
+        self.mesh = mesh
+        if mesh is None:
+            self.device = resolve_device("cuda" if device is None else device)
+            self.n_devices = self.n_data = 1
+        else:
+            self.device = mesh.device_list()[0]
+            self.n_devices = mesh.size
+            self.n_data = mesh.shape.get("data", mesh.size)
+        self.global_batch = batch_size * self.n_data
         self._writers = ThreadPoolExecutor(max_workers=writer_threads)
 
     def close(self) -> None:
@@ -115,9 +145,12 @@ class ExpansionDriver:
                                skip_existing)
         if max_units is not None:
             units = units[:max_units]
+        units = rank_share(units)
         chunks = chunk_units(units, self.global_batch)
-        log.info("expansion manifest: %d pending units in %d batches of %d",
-                 len(units), len(chunks), self.global_batch)
+        log.info("expansion manifest: %d pending units in %d batches of %d "
+                 "(%d data shards x %d a shard, %d devices)", len(units), len(chunks),
+                 self.global_batch, self.n_data, self.global_batch // self.n_data,
+                 self.n_devices)
         t0 = time.time()
         written = 0
         pending = []

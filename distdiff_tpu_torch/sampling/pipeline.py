@@ -26,6 +26,7 @@ guide ResNet-50 and the energy run in fp32 (with TF32 off on CUDA, see
 from __future__ import annotations
 
 import contextlib
+import copy
 import dataclasses
 import functools
 from typing import Callable, Dict, Optional, Sequence, Tuple, Union
@@ -316,12 +317,40 @@ class ExpansionPipeline:
         return tuple(torch.cat(d, dim=0) for d in zip(*draws))
 
     def make_split_expand(self, text_to_img: bool = False, guide_chunk: Optional[int] = None,
-                          decode_chunk: Optional[int] = None) -> "SplitExpand":
+                          decode_chunk: Optional[int] = None, mesh=None,
+                          param_shardings=None) -> "SplitExpand":
         """The expansion as its three parts (see ``SplitExpand``), with the
         guidance update and the final span + decode run on sub-batches of
-        ``guide_chunk`` and ``decode_chunk`` samples."""
+        ``guide_chunk`` and ``decode_chunk`` samples; with ``mesh``, the
+        batch split over its ``data`` axis, and with ``param_shardings``
+        (``parallel.tp.unet_param_shardings``) the UNet tensor-parallel
+        over each model group."""
         return SplitExpand(self, text_to_img=text_to_img, guide_chunk=guide_chunk,
-                           decode_chunk=decode_chunk)
+                           decode_chunk=decode_chunk, mesh=mesh,
+                           param_shardings=param_shardings)
+
+    def on_device(self, device) -> "ExpansionPipeline":
+        """This pipeline with its modules and prototypes on ``device``: the
+        pipeline itself when they lie there, else copies."""
+        from distdiff_tpu_torch.parallel.mesh import canonical_device
+
+        device = canonical_device(device)
+        if device == canonical_device(self.device):
+            return self
+
+        def move(m):
+            return None if m is None else copy.deepcopy(m).to(device)
+
+        guide = None if self.guide is None else dataclasses.replace(
+            self.guide, module=move(self.guide.module),
+            class_text_features=None if self.guide.class_text_features is None
+            else self.guide.class_text_features.to(device))
+        return dataclasses.replace(
+            self, device=device, unet=move(self.unet), vae=move(self.vae),
+            text_encoder=move(self.text_encoder), text_encoder_2=move(self.text_encoder_2),
+            guide=guide,
+            global_protos=None if self.global_protos is None else self.global_protos.to(device),
+            local_protos=None if self.local_protos is None else self.local_protos.to(device))
 
     def draw_inputs(self, image_latents: torch.Tensor, generator: torch.Generator,
                     text_to_img: bool = False
@@ -361,7 +390,8 @@ class ExpansionPipeline:
         return img2img_init(self.sched, image_latents, noise, self.strength)[0]
 
     # ---- the hot path ----
-    def make_expand_fn(self, text_to_img: bool = False) -> Callable:
+    def make_expand_fn(self, text_to_img: bool = False, mesh=None,
+                       param_shardings=None) -> Callable:
         """Build ``expand(image_latents, cond, uncond, targets, generator=None,
         *, noise=None, gamma0=None, beta0=None, return_aux=False)`` -> images
         ``[B, H, W, 3]`` in [0, 1].
@@ -375,7 +405,15 @@ class ExpansionPipeline:
         included, and under ``text_to_img`` the initial latents). With
         ``return_aux`` it returns ``(images, aux)``, where aux holds the
         guidance score, the gradient on gamma/beta and the latents before
-        and after the update."""
+        and after the update.
+
+        With ``mesh`` (and ``param_shardings``), the batch splits over the
+        mesh's ``data`` axis as in ``SplitExpand``: the draws are made here,
+        each share runs this function of the pipeline on its group's first
+        device, and the images are gathered on the mesh's first device
+        (``return_aux`` is not taken then)."""
+        if mesh is not None:
+            return self._mesh_expand_fn(text_to_img, mesh, param_shardings)
         ranged = self.denoise_ranged()
         gcfg = self.guidance_cfg
         start, n, guided, g0, g1 = self.window(text_to_img)
@@ -417,11 +455,86 @@ class ExpansionPipeline:
 
         return expand
 
+    def _mesh_expand_fn(self, text_to_img: bool, mesh, param_shardings) -> Callable:
+        from distdiff_tpu_torch.parallel.mesh import all_gather
+
+        rows = _mesh_rows(self, mesh, param_shardings,
+                          lambda rpipe: rpipe.make_expand_fn(text_to_img))
+
+        @torch.no_grad()
+        def expand(image_latents, cond, uncond, targets, generator=None, *,
+                   noise=None, gamma0=None, beta0=None, return_aux=False):
+            if return_aux:
+                raise ValueError("return_aux is not taken under a mesh")
+            given = [t is not None for t in (noise, gamma0, beta0)]
+            if not all(given):
+                if any(given) or generator is None:
+                    raise ValueError("pass a generator, or all of noise, gamma0 and beta0")
+                noise, gamma0, beta0 = self.draw(image_latents, generator, text_to_img)
+            shares = _shard_rows(rows, image_latents, cond, uncond, targets, noise, gamma0, beta0)
+            return all_gather([fn(lat, c, u, t, noise=nz, gamma0=g, beta0=bt)
+                               for (_, fn), (lat, c, u, t, nz, g, bt) in zip(rows, shares)],
+                              0, rows[0][0])
+
+        return expand
+
+
+def _mesh_rows(pipe: ExpansionPipeline, mesh, param_shardings, build: Callable) -> list:
+    """``[(device, build(row_pipe))]``, one per index of the mesh's ``data``
+    axis: the pipeline on its group's first device (``on_device``), its
+    UNet tensor-parallel over the group under ``param_shardings``. Indices
+    whose groups hold the same devices share one."""
+    from distdiff_tpu_torch.parallel.mesh import data_groups
+    from distdiff_tpu_torch.parallel.tp import tensor_parallel
+
+    made, rows = {}, []
+    for r, group in enumerate(data_groups(mesh)):
+        key = tuple(str(d) for d in group)
+        if key not in made:
+            rpipe = pipe.on_device(group[0])
+            if param_shardings is not None:
+                tensor_parallel(rpipe.unet, mesh, row=r, shardings=param_shardings)
+            made[key] = build(rpipe)
+        rows.append((group[0], made[key]))
+    return rows
+
+
+def _shard_rows(rows: list, *args) -> list:
+    """Each data index's share of the batch-leading ``args`` (tensors or
+    conditionings), on its device."""
+    from distdiff_tpu_torch.sampling.conditioning import cond_leading_dim, cond_to
+
+    b = cond_leading_dim(args[0])
+    if b % len(rows):
+        raise ValueError(f"batch {b} does not split over the data axis of {len(rows)}")
+    per = b // len(rows)
+    return [tuple(cond_to(cond_slice(a, r * per, (r + 1) * per), dev) for a in args)
+            for r, (dev, _) in enumerate(rows)]
+
+
+def _make_chunked_guide(guide_body: Callable, chunk: int) -> Callable:
+    """The guidance update over chunks of ``chunk`` samples, one after the
+    other, each chunk split over the mesh's ``data`` axis by ``guide_body``:
+    one chunk's guidance backward is live at a time on each device, as on
+    one device (the reference's scan over chunks, pipeline.py:497-520)."""
+    def chunked(x, cond, uncond, targets, gamma0, beta0):
+        b = x.shape[0]
+        if b <= chunk:
+            return guide_body(x, cond, uncond, targets, gamma0, beta0)
+        if b % chunk:
+            raise ValueError(f"batch {b} is not a multiple of the chunk {chunk}")
+        return torch.cat([
+            guide_body(x[i:i + chunk], cond_slice(cond, i, i + chunk),
+                       cond_slice(uncond, i, i + chunk), targets[i:i + chunk],
+                       gamma0[i:i + chunk], beta0[i:i + chunk])
+            for i in range(0, b, chunk)], dim=0)
+    return chunked
+
 
 class SplitExpand:
-    """The expansion as three parts (port of the reference's ``SplitExpand``,
-    single device): init + the plain span to the window, the guidance
-    update, then the span from the window + the decode.
+    """The expansion as three parts (port of the reference's ``SplitExpand``):
+    init + the plain span to the window, the guidance update, then the span
+    from the window + the decode.
 
     ``guide_chunk`` runs the guidance update, and ``decode_chunk`` the final
     span + decode, on sub-batches of that many samples; samples are
@@ -433,19 +546,44 @@ class SplitExpand:
     keys, so a sample's image does not depend on the batch it was in; or
     all of noise, gamma0 and beta0 are handed in, as to ``make_expand_fn``.
     ``text_to_img`` starts from pure noise, as in ``make_expand_fn``.
+
+    With ``mesh`` (``parallel.mesh``), the batch splits over the ``data``
+    axis: each data index runs the parts on its share, on its group's first
+    device, with the pipeline there (``on_device``: the pipeline itself on
+    its own device); the images are gathered on the mesh's first device.
+    ``param_shardings`` (``parallel.tp.unet_param_shardings``) turns each
+    group's UNet into its tensor-parallel form (``parallel.tp``).
+    ``guide_chunk`` must then be a multiple of the data-axis size, each
+    chunk split over it; ``decode_chunk`` is not used, as in the
+    reference.
     """
 
     def __init__(self, pipe: ExpansionPipeline, text_to_img: bool = False,
-                 guide_chunk: Optional[int] = None, decode_chunk: Optional[int] = None):
+                 guide_chunk: Optional[int] = None, decode_chunk: Optional[int] = None,
+                 mesh=None, param_shardings=None):
         self.pipe = pipe
         self.text_to_img = text_to_img
         self.guide_chunk = guide_chunk
-        self.decode_chunk = decode_chunk
+        self.decode_chunk = decode_chunk if mesh is None else None
+        self.mesh = mesh
         self.start, self.n, self.guided, self.g0, self.g1 = pipe.window(text_to_img)
-        self.ranged = pipe.denoise_ranged()
-        self.ctx = pipe.guidance_context() if self.guided else None
         transform = pipe.guidance_cfg.guidance_type == "transform_guidance"
         self.resume = self.g0 if transform else self.g1
+        if mesh is not None:
+            self._init_mesh(param_shardings)
+            return
+        self.ranged = pipe.denoise_ranged()
+        self.ctx = pipe.guidance_context() if self.guided else None
+
+    def _init_mesh(self, param_shardings) -> None:
+        self.rows = _mesh_rows(self.pipe, self.mesh, param_shardings,
+                               lambda rpipe: SplitExpand(rpipe, self.text_to_img))
+        if self.guide_chunk is not None and self.guide_chunk % len(self.rows):
+            raise ValueError(f"guide_chunk {self.guide_chunk} must be a multiple of the "
+                             f"data-axis size {len(self.rows)} (mesh {self.mesh.shape})")
+        self.home = self.rows[0][0]
+        self._chunked_guide = None if self.guide_chunk is None else \
+            _make_chunked_guide(self._mesh_guide, self.guide_chunk)
 
     @staticmethod
     def _chunks(b: int, chunk: Optional[int]):
@@ -474,6 +612,28 @@ class SplitExpand:
         x = self._span(x, cond, uncond, lo, self.n)
         return torch.clamp(self.pipe.decode_latents(x) / 2.0 + 0.5, 0.0, 1.0)
 
+    # ---- the mesh branch: the batch split over the data axis ----
+    def _gather(self, outs):
+        from distdiff_tpu_torch.parallel.mesh import all_gather
+
+        return all_gather(outs, 0, self.home)
+
+    def _mesh_guide(self, x, cond, uncond, targets, gamma0, beta0):
+        shares = _shard_rows(self.rows, x, cond, uncond, targets, gamma0, beta0)
+        return self._gather([se.guide(*a) for (_, se), a in zip(self.rows, shares)])
+
+    def _mesh_call(self, image_latents, cond, uncond, targets, noise, gamma0, beta0):
+        shares = _shard_rows(self.rows, image_latents, cond, uncond, targets, noise, gamma0,
+                             beta0)
+        if not self.guided or self._chunked_guide is None:
+            return self._gather([se(lat, c, u, t, noise=nz, gamma0=g, beta0=bt)
+                                 for (_, se), (lat, c, u, t, nz, g, bt) in zip(self.rows, shares)])
+        x = self._gather([se.init_span(a[0], a[1], a[2], a[4], se.g0)
+                          for (_, se), a in zip(self.rows, shares)])
+        x = self._chunked_guide(x, cond, uncond, targets, gamma0, beta0)
+        return self._gather([se.span_decode(xs, c, u, se.resume) for (_, se), (xs, c, u)
+                             in zip(self.rows, _shard_rows(self.rows, x, cond, uncond))])
+
     @torch.no_grad()
     def __call__(self, image_latents, cond, uncond, targets,
                  generators: Optional[Sequence[torch.Generator]] = None, *,
@@ -487,6 +647,8 @@ class SplitExpand:
                 raise ValueError(f"{len(generators)} generators for a batch of "
                                  f"{image_latents.shape[0]}")
             noise, gamma0, beta0 = self.pipe.draw(image_latents, generators, self.text_to_img)
+        if self.mesh is not None:
+            return self._mesh_call(image_latents, cond, uncond, targets, noise, gamma0, beta0)
         b = image_latents.shape[0]
         if not self.guided:
             x = self.init_span(image_latents, cond, uncond, noise, self.start)

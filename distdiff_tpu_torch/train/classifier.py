@@ -1,5 +1,6 @@
-"""Classifier training on one device (port of
-``distdiff_tpu/train/classifier.py``; the reference's ``train.py`` engine).
+"""Classifier training (port of ``distdiff_tpu/train/classifier.py``; the
+reference's ``train.py`` engine), on one device or data-parallel over a
+mesh's ``data`` axis.
 
 Optimisation recipe (reference ``train.py:155-158``): SGD with momentum 0.9,
 Nesterov and weight decay, the learning rate on a cosine over every
@@ -12,19 +13,30 @@ whose ``momentum_buffer`` is optax's trace; ``accumulate`` keeps
 Padded-tail batches are handled by a boolean mask weighting the loss and
 metrics; the padded rows still enter BatchNorm's batch statistics, as in
 the JAX package.
+
+On a mesh (``make_train_step(mesh=...)``) the batch splits over the
+devices of its ``data`` axis, each shard's forward runs in a thread of its
+own on its device, and the shards meet at every BatchNorm layer
+(``parallel.mesh.BatchNormSync``) so that each normalises with the whole
+batch's statistics, as the reference's sharded step does; the loss is
+taken over the gathered logits, and autograd sums each parameter's
+gradient over the shards (the transpose of its broadcast). The state
+decides where the parameters come from (``params_on``): a ``TrainState``
+broadcasts its module's, an ``FSDPState`` (``parallel/fsdp.py``) gathers
+its shards. Under a process group of several ranks the gradients are
+averaged, and the BatchNorm sums added, over the ranks.
 """
 
 from __future__ import annotations
 
+import copy
 import dataclasses
 import math
-from typing import Callable, Optional
+from typing import Callable, Dict, Optional
 
 import numpy as np
 import torch
 import torch.nn.functional as F
-
-SHARDED = "ROADMAP queue 1 item 8"
 
 
 @dataclasses.dataclass
@@ -69,10 +81,13 @@ class Optimizer:
     (so a run's cosine goes 1/k of its way), and a part-filled
     accumulation carries over into the next epoch."""
 
-    def __init__(self, module: torch.nn.Module, cfg: TrainConfig, steps_per_epoch: int):
+    def __init__(self, module: torch.nn.Module, cfg: TrainConfig, steps_per_epoch: int,
+                 params=None):
         self.cfg = cfg
         self.decay_steps = max(cfg.epochs * steps_per_epoch, 1)
-        self.params = [p for p in module.parameters() if p.requires_grad]
+        # the module's trainable parameters, or the tensors given (FSDP's shards)
+        self.params = [p for p in (module.parameters() if params is None else params)
+                       if p.requires_grad]
         self.sgd = torch.optim.SGD(self.params, lr=cfg.lr, momentum=cfg.momentum,
                                    nesterov=cfg.nesterov, weight_decay=cfg.weight_decay)
         self.count = 0       # updates made: the schedule's step
@@ -134,6 +149,10 @@ class TrainState:
     module: torch.nn.Module
     tx: Optimizer
 
+    def params_on(self, device) -> Dict[str, torch.Tensor]:
+        """The parameters on ``device`` (the module's own there)."""
+        return {n: p.to(device) for n, p in self.module.named_parameters()}
+
 
 def create_train_state(module: torch.nn.Module, tx: Optimizer) -> TrainState:
     return TrainState(module=module, tx=tx)
@@ -162,10 +181,78 @@ def _batch(images, targets, mask, device):
     return put(images), put(targets).long(), put(mask)
 
 
-def _single_device(mesh, state_shardings) -> None:
-    if mesh is not None or state_shardings is not None:
-        raise NotImplementedError(f"the port's trainer runs on one device; a mesh or "
-                                  f"sharded state waits for {SHARDED}")
+def _data_devices(mesh):
+    """The first device of each index of the mesh's ``data`` axis."""
+    from distdiff_tpu_torch.parallel.mesh import data_groups
+
+    return [g[0] for g in data_groups(mesh)]
+
+
+def _shell(module: torch.nn.Module) -> torch.nn.Module:
+    """A copy of ``module``'s module tree that shares every tensor: its own
+    module objects, so threads can call ``functional_call`` on it side by
+    side."""
+    memo = {id(t): t for t in list(module.parameters()) + list(module.buffers())}
+    return copy.deepcopy(module, memo)
+
+
+def _loss_and_metrics(logits, t, m, loss_fn, label_smoothing):
+    loss = cross_entropy(logits, t, m, label_smoothing) if loss_fn is None \
+        else loss_fn(logits, t, m)
+    with torch.no_grad():
+        w = m.float()
+        acc = ((logits.argmax(-1) == t) * w).sum() / w.sum().clamp_min(1.0)
+    return loss, acc
+
+
+def _mesh_train_step(module, devices, label_smoothing, loss_fn, sharded: bool):
+    """The data-parallel step over ``devices`` (see the module docstring)."""
+    from torch.func import functional_call
+
+    from distdiff_tpu_torch.parallel import distributed
+    from distdiff_tpu_torch.parallel import mesh as mesh_lib
+
+    shells = [_shell(module) for _ in devices]
+    home = devices[0]
+
+    def step(state, images, targets, mask):
+        if sharded != hasattr(state, "shards"):
+            raise TypeError("this step takes " + ("an FSDPState (parallel.fsdp.shard_state)"
+                                                  if sharded else "a TrainState"))
+        x, t, m = _batch(images, targets, mask, home)
+        n = len(devices)
+        xs = mesh_lib.split(x, n, 0)
+        buffers = dict(state.module.named_buffers())
+        state.module.train()
+        sync = mesh_lib.BatchNormSync(devices)
+
+        def shard(r):
+            dev = devices[r]
+            sync.enter(r)
+            try:
+                shells[r].train()
+                tensors = state.params_on(dev)
+                tensors.update({k: b.to(dev) for k, b in buffers.items()})
+                return functional_call(shells[r], tensors, (xs[r].to(dev),))
+            except BaseException:
+                sync.abort()
+                raise
+
+        with mesh_lib.synced_batch_norm(sync):
+            outs = mesh_lib.parallel_apply(shard, [(r,) for r in range(n)], devices)
+        logits = mesh_lib.all_gather(outs, 0, home)
+        loss, acc = _loss_and_metrics(logits, t, m, loss_fn, label_smoothing)
+        state.tx.zero_grad()
+        loss.backward()
+        world = distributed.process_count()
+        if world > 1:  # the ranks' mean gradient
+            for p in state.tx.params:
+                if p.grad is not None:
+                    p.grad = distributed.all_reduce_sum(p.grad) / world
+        state.tx.step()
+        return state, {"loss": loss.detach(), "acc": acc * 100.0}
+
+    return step
 
 
 def make_train_step(module: torch.nn.Module, tx: Optimizer, mesh=None,
@@ -178,24 +265,28 @@ def make_train_step(module: torch.nn.Module, tx: Optimizer, mesh=None,
     accuracy in percent against ``targets``, as device scalars.
     ``loss_fn(logits, targets, mask) -> scalar`` replaces cross-entropy
     (the cutmix, augmix and mixup trainers); the step runs eagerly, so it
-    is called anew on every batch."""
-    _single_device(mesh, state_shardings)
+    is called anew on every batch.
+
+    With ``mesh`` (of more than one data index), or under a process group
+    of several ranks, the step is data-parallel (the module docstring);
+    ``state_shardings`` (``parallel.fsdp.fsdp_sharding``) makes it the FSDP
+    step, which takes the ``FSDPState`` of ``parallel.fsdp.shard_state``."""
+    from distdiff_tpu_torch.parallel.distributed import process_count
+
     device = _device_of(module)
+    devices = [device] if mesh is None else _data_devices(mesh)
+    if state_shardings is not None or len(devices) > 1 or process_count() > 1:
+        return _mesh_train_step(module, devices, label_smoothing, loss_fn,
+                                sharded=state_shardings is not None)
 
     def step(state: TrainState, images, targets, mask):
         x, t, m = _batch(images, targets, mask, device)
         state.module.train()
         logits = state.module(x)
-        if loss_fn is None:
-            loss = cross_entropy(logits, t, m, label_smoothing)
-        else:
-            loss = loss_fn(logits, t, m)
+        loss, acc = _loss_and_metrics(logits, t, m, loss_fn, label_smoothing)
         state.tx.zero_grad()
         loss.backward()
         state.tx.step()
-        with torch.no_grad():
-            w = m.float()
-            acc = ((logits.argmax(-1) == t) * w).sum() / w.sum().clamp_min(1.0)
         return state, {"loss": loss.detach(), "acc": acc * 100.0}
 
     return step
@@ -205,15 +296,31 @@ def make_eval_step(module: torch.nn.Module, mesh=None):
     """``eval(images, targets, mask) -> (correct top-1, correct
     top-min(5, C), rows, loss sum)`` over the mask's rows, with BatchNorm on
     its running statistics. Ties rank by class index, as the JAX package's
-    stable ``argsort`` ranks them."""
-    _single_device(mesh, None)
-    device = _device_of(module)
+    stable ``argsort`` ranks them. With ``mesh``, the batch splits over its
+    ``data`` axis and the counts are summed on its first device."""
+    from torch.func import functional_call
+
+    from distdiff_tpu_torch.parallel import mesh as mesh_lib
+
+    devices = [_device_of(module)] if mesh is None else _data_devices(mesh)
+    shells = [module] + [_shell(module) for _ in devices[1:]]
 
     @torch.no_grad()
     def step(images, targets, mask):
-        x, t, m = _batch(images, targets, mask, device)
+        home = devices[0]
+        x, t, m = _batch(images, targets, mask, home)
         module.eval()
-        logits = module(x)
+        outs = []
+        for sh, xr in zip(shells, mesh_lib.split(x, len(devices), 0)):
+            dev = devices[len(outs)]
+            if sh is module:
+                outs.append(module(xr))
+                continue
+            sh.eval()
+            tensors = {k: v.to(dev) for k, v in list(module.named_parameters())
+                       + list(module.named_buffers())}
+            outs.append(functional_call(sh, tensors, (xr.to(dev),)))
+        logits = mesh_lib.all_gather(outs, 0, home)
         w = m.float()
         k = min(5, logits.shape[-1])
         hit = torch.argsort(-logits, dim=-1, stable=True)[:, :k] == t[:, None]

@@ -45,8 +45,9 @@ def test_parser_has_the_jax_parsers_dests_and_defaults():
 
 
 # --int8, --params_path and --save_params are ported (tests/test_torch_int8.py,
-# tests/test_torch_params_io.py): each case that was built on one of them
-# adds --mesh_model 2, which still raises, and keeps its id
+# tests/test_torch_params_io.py), and --mesh_model (tests/test_torch_parallel_*.py):
+# each case keeps its id and pairs its options with --mesh_model 2, which a
+# process with one CPU device refuses
 UNPORTED = [
     pytest.param(["--model", "sdxl", "--int8", "--mesh_model", "2"], id="model_sdxl"),
     pytest.param(["--int8", "--mesh_model", "2"], id="int8"),
@@ -55,9 +56,6 @@ UNPORTED = [
     pytest.param(["--params_path", "params", "--mesh_model", "2"], id="params_path_params"),
     pytest.param(["--save_params", "params", "--mesh_model", "2"], id="save_params_params"),
     ["--mesh_model", "2"],
-    # every guide arch is ported (test_every_guide_arch_passes_check_ported);
-    # beside one, an unported flag still raises (the cases keep their ids;
-    # open_clip_vit_b32 is the default -a)
     pytest.param(["--guidance_type", "transform_guidance", "--int8", "--mesh_model", "2"],
                  id="guidance_type_transform_guidance"),
     pytest.param(["--guidance_type", "direct_guidance", "-a", "mobilenetv2", "--mesh_model", "2"],
@@ -73,12 +71,16 @@ UNPORTED = [
 
 @pytest.mark.parametrize("argv", UNPORTED, ids=lambda a: "_".join(a).strip("-"))
 def test_every_unported_option_raises_naming_its_roadmap_item(argv, monkeypatch):
+    """The name is from when ``--mesh_model`` was not ported. On one CPU
+    device the port refuses ``--mesh_model 2`` before it writes anything, as
+    the JAX package's ``make_expand_mesh`` asserts that the model axis
+    divides the device count; the message names no ROADMAP item and none of
+    the other flags."""
     monkeypatch.setenv("DISTDIFF_PLATFORM", "cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP queue 1 item 8") as err:
+    with pytest.raises(ValueError, match="--mesh_model 2 does not divide 1 devices") as err:
         cli.main(argv + ["--output_dir", "never_written"])
-    # the ported flags are no longer named: only the mesh is refused
     msg = str(err.value)
-    assert "--mesh_model 2" in msg
+    assert "item 8" not in msg and "ROADMAP" not in msg
     assert not any(flag in msg for flag in ("--int8", "--params_path", "--save_params"))
     assert not os.path.exists("never_written")
 
@@ -184,6 +186,61 @@ def test_tiny_cli_on_the_cpu_matches_the_jax_cli(toy_files, jax_run, tmp_path, m
     for key in ("global_prototypes", "local_prototypes"):
         assert got[key].shape == want[key].shape
         # fp32 guides on the same weights and images: summation order only
+        np.testing.assert_allclose(got[key], want[key], atol=1e-5, rtol=0)
+
+
+def test_tiny_cli_under_mesh_model_2_matches_the_jax_cli(toy_files, jax_run, tmp_path,
+                                                         monkeypatch):
+    """``--mesh_model 2`` on a 2-device CPU mesh (``parallel.mesh.local_devices``
+    patched: the one function that lists the devices), every transformer
+    block of the UNet tensor-parallel, on the JAX run's own draws (its
+    per-unit keys, ``fold_in(fold_in(PRNGKey(seed), dataset index),
+    image_i)``, in place of the port's generators): the JAX CLI's files,
+    its latent and prototype caches within 1e-5, its PNGs within one level
+    (the images agree to about 2e-4 before the 8-bit rounding)."""
+    from torch_parity import jax_draws
+
+    from distdiff_tpu_torch.parallel import driver, mesh, read_png, tp
+    from distdiff_tpu_torch.sampling import pipeline
+
+    jwork, jstats = jax_run
+    monkeypatch.setenv("DISTDIFF_PLATFORM", "cpu")
+    monkeypatch.chdir(tmp_path)
+    monkeypatch.setattr(mesh, "local_devices", lambda: [torch.device("cpu")] * 2)
+    base = jax.random.PRNGKey(0)  # --seed 0
+
+    def unit_keys(self, units):
+        return [np.asarray(jax.random.fold_in(jax.random.fold_in(base, u.dataset_index),
+                                              u.image_i)) for u in units]
+
+    def draw(self, image_latents, keys, text_to_img=False):
+        return tuple(torch.from_numpy(a) for a in jax_draws(np.stack(keys),
+                                                             image_latents.numpy()))
+
+    groups = []
+    forward = tp.TPAttention.forward
+
+    def counted(self, *a, **k):
+        groups.append(len(self.group))
+        return forward(self, *a, **k)
+
+    monkeypatch.setattr(driver.ExpansionDriver, "generators", unit_keys)
+    monkeypatch.setattr(pipeline.ExpansionPipeline, "draw", draw)
+    monkeypatch.setattr(tp.TPAttention, "forward", counted)
+    stats = cli.main(_argv(toy_files, ["--mesh_model", "2"]))
+    assert stats["written"] == jstats["written"] == 5
+    assert groups and set(groups) == {2}
+    assert _outputs(str(tmp_path)) == _outputs(jwork)
+    for p in _outputs(jwork):
+        if p.endswith(".png"):
+            got, want = read_png(str(tmp_path / p)), read_png(os.path.join(jwork, p))
+            assert np.abs(got.astype(int) - want.astype(int)).max() <= 1, p
+    lat = "save/vae_embedding/breastmnist/CompVis--stable-diffusion-v1-4/image_latents_32.npy"
+    np.testing.assert_allclose(np.load(tmp_path / lat), np.load(os.path.join(jwork, lat)),
+                               atol=1e-5, rtol=0)
+    proto = "save/prototypes/tiny_resnet/breastmnist/class_wise_prototype_K2.npz"
+    got, want = np.load(tmp_path / proto), np.load(os.path.join(jwork, proto))
+    for key in ("global_prototypes", "local_prototypes"):
         np.testing.assert_allclose(got[key], want[key], atol=1e-5, rtol=0)
 
 

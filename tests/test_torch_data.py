@@ -40,6 +40,7 @@ from distdiff_tpu_torch.models import HashTokenizer
 from distdiff_tpu_torch.parallel import save_png
 from distdiff_tpu_torch.sampling import ExpansionPipeline
 from distdiff_tpu_torch.weights.from_jax import state_dict_from_jax
+from torch_parity import jax_init_params
 
 torch.set_num_threads(1)
 
@@ -308,7 +309,8 @@ def toy(tmp_path_factory):
     with open(root / "breastmnist_le.pkl", "wb") as f:
         pickle.dump({"alpha": ["a photo of alpha", "alpha again", "third"],
                      "beta_cat": ["one beta cat"]}, f)
-    jpipe = JExpansionPipeline.create(JPipelineConfig.tiny(sample_size=SAMPLE))
+    jcfg = JPipelineConfig.tiny(sample_size=SAMPLE)
+    jpipe = JExpansionPipeline.create(jcfg, params=jax_init_params(jcfg))
     params = jax.tree.map(np.asarray, jpipe.params)
     cfg = PipelineConfig.tiny(sample_size=SAMPLE)
     tpipe = ExpansionPipeline.create(cfg, device="cpu")

@@ -95,10 +95,23 @@ def test_interval_one_equals_the_uncached_loop(pipelines):
     assert (cached - want).abs().max() > 1e-4  # shallow steps approximate
 
 
+@pytest.fixture(scope="module")
+def fused_run(pipelines):
+    """``run_both``'s fused run (the JAX ``make_expand_fn``'s images, the
+    port's, the port's inputs and draws): the split case holds the port's
+    SplitExpand to the same JAX run on the same key, as the JAX package's
+    tests hold its SplitExpand to its ``make_expand_fn``
+    (``test_torch_sdxl.py`` does the same)."""
+    return run_both(*pipelines, "fused")
+
+
 @pytest.mark.parametrize("path", ["fused", "split"])
-def test_cached_expand_matches_jax(pipelines, path):
+def test_cached_expand_matches_jax(pipelines, fused_run, path):
     jpipe, params, tpipe = pipelines
-    ref, got, (targs, kw) = run_both(jpipe, params, tpipe, path)
+    ref, got, (targs, kw) = fused_run
+    if path == "split":  # the same arithmetic as the port's make_expand_fn: 1e-5
+        fused, got = got, tpipe.make_split_expand()(*targs, **kw).numpy()
+        np.testing.assert_allclose(got, fused, atol=1e-5, rtol=0)
     assert got.shape == ref.shape == (2, SAMPLE, SAMPLE, 3)
     # fp32 throughout, as the uncached expand of test_torch_guided_expand.py
     np.testing.assert_allclose(got, ref, atol=2e-4, rtol=0)

@@ -69,6 +69,33 @@ def test_port_imports_no_jax_and_nothing_of_the_jax_package():
     assert not bad, "\n".join(bad)
 
 
+PARALLEL = ("mesh", "distributed", "sp", "tp", "pp", "fsdp", "driver", "manifest")
+
+
+def test_the_parallel_modules_import_nothing_of_jax():
+    """Every module of ``parallel/`` imports nothing of JAX, read from its
+    source; the int8 test below imports them all with JAX and the JAX
+    package absent."""
+    walked = {os.path.relpath(p, PACKAGE) for p in _port_sources()}
+    for mod in PARALLEL:
+        path = os.path.join(PACKAGE, "parallel", f"{mod}.py")
+        assert os.path.relpath(path, PACKAGE) in walked
+        for lineno, module in _imported_modules(path):
+            assert module.split(".")[0] not in FORBIDDEN, f"parallel/{mod}.py:{lineno}"
+
+
+def test_no_refusal_names_the_parallel_modules_roadmap_item():
+    """The parallel surface is ported: no ``NotImplementedError`` (nor any
+    line) of the port names ROADMAP queue 1 item 8 any more."""
+    bad = []
+    for path in _port_sources():
+        with open(path) as f:
+            for lineno, line in enumerate(f, 1):
+                if "item 8" in line:
+                    bad.append(f"{os.path.relpath(path, ROOT)}:{lineno}")
+    assert not bad, bad
+
+
 def test_port_imports_no_pil_and_no_torchvision():
     """The machine with the card has neither: image I/O is the standard
     library's (``parallel/driver.py``)."""
@@ -359,10 +386,10 @@ def test_int8_route_refuses_other_devices_before_any_product():
 
 
 def test_int8_ops_and_parameter_files_import_without_jax_orbax_or_pil():
-    """``ops/quant.py``, the layers that call it and ``weights/params_io.py``
-    import, and save and read a parameter directory, with JAX, the JAX
-    package, orbax, PIL and yaml absent (each set to None in
-    ``sys.modules``), as on the card's machine."""
+    """``ops/quant.py``, the layers that call it, ``weights/params_io.py``
+    and the parallel modules import, and save and read a parameter
+    directory, with JAX, the JAX package, orbax, PIL and yaml absent (each
+    set to None in ``sys.modules``), as on the card's machine."""
     walked = {os.path.relpath(p, ROOT) for p in _port_sources()}
     for mod in ("ops/quant.py", "weights/params_io.py"):
         assert os.path.join("distdiff_tpu_torch", mod) in walked
@@ -372,6 +399,7 @@ def test_int8_ops_and_parameter_files_import_without_jax_orbax_or_pil():
         "    sys.modules[m] = None\n"
         "from distdiff_tpu_torch.ops import quant\n"
         "from distdiff_tpu_torch.weights import params_io\n"
+        + "".join(f"import distdiff_tpu_torch.parallel.{m}\n" for m in PARALLEL) +
         "from distdiff_tpu_torch.config import PipelineConfig\n"
         "from distdiff_tpu_torch.sampling import ExpansionPipeline\n"
         "pipe = ExpansionPipeline.create(PipelineConfig.tiny(), device='cpu')\n"

@@ -299,12 +299,13 @@ def _guided(gtype):
 @pytest.fixture(scope="module")
 def fused_transform(pipelines):
     """The JAX package's and the port's ``make_expand_fn`` under transform
-    guidance (``pipelines``' guidance) on the same inputs and draws:
-    (JAX's images, the port's, the port's inputs and draws)."""
+    guidance (``pipelines``' guidance) on the same inputs and draws, one
+    key a sample: (JAX's images, the port's, the port's inputs and
+    draws)."""
     jpipe, params, tpipe = pipelines
     assert tpipe.guidance_cfg.guidance_type == jpipe.guidance_cfg.guidance_type == \
         "transform_guidance"
-    return run_both(jpipe, params, tpipe, "fused", conds=_conds(jpipe, params))
+    return run_both(jpipe, params, tpipe, "fused", conds=_conds(jpipe, params), per_sample=True)
 
 
 @pytest.mark.parametrize("gtype", ["transform_guidance", "direct_guidance"])
@@ -328,19 +329,14 @@ def test_split_and_chunked_expand_match_jax(pipelines, split_kw, request):
     """SplitExpand, whole and with the guidance and the decode on one-sample
     chunks of the {"ctx", "add"} dicts, against the JAX package and against
     the port's own make_expand_fn on the same draws (the same arithmetic:
-    1e-5). Chunked, the JAX reference is its SplitExpand built alike (the
-    chunks draw from per-sample keys). Whole, it is the JAX
-    ``make_expand_fn`` run of ``fused_transform`` on the same key: the JAX
-    package's ``tests/test_sdxl_guided.py`` (``test_sdxl_split_matches_fused``)
-    holds its SplitExpand to its ``make_expand_fn``."""
+    1e-5). The JAX reference is the ``make_expand_fn`` run of
+    ``fused_transform`` on the same per-sample keys: the JAX package's
+    ``tests/test_sdxl_guided.py`` (``test_sdxl_split_matches_fused``) holds
+    its SplitExpand to its ``make_expand_fn``, and a chunk's samples are
+    independent of the others (one key a sample)."""
     jpipe, params, tpipe = pipelines
-    if split_kw:
-        ref, got, (targs, kw) = run_both(jpipe, params, tpipe, "split",
-                                         conds=_conds(jpipe, params), split_kw=split_kw)
-        fused = tpipe.make_expand_fn()(*targs, **kw).numpy()
-    else:
-        ref, fused, (targs, kw) = request.getfixturevalue("fused_transform")
-        got = tpipe.make_split_expand()(*targs, **kw).numpy()
+    ref, fused, (targs, kw) = request.getfixturevalue("fused_transform")
+    got = tpipe.make_split_expand(**split_kw)(*targs, **kw).numpy()
     np.testing.assert_allclose(got, ref, atol=TOL_RUN, rtol=0)
     np.testing.assert_allclose(got, fused, atol=1e-5, rtol=0)
 

@@ -38,6 +38,7 @@ from distdiff_tpu_torch.parallel import (
 from distdiff_tpu_torch.parallel.driver import unit_seed
 from distdiff_tpu_torch.sampling import ExpansionPipeline, SamplerConfig, SplitExpand
 from distdiff_tpu_torch.weights.from_jax import state_dict_from_jax
+from torch_parity import jax_init_params
 
 torch.set_num_threads(1)
 
@@ -53,7 +54,8 @@ def _np(tree):
 def pipelines():
     """The JAX pipeline (no guide) and the port's on the same weights, and
     a guided port pipeline for the split tests."""
-    jpipe = JExpansionPipeline.create(JPipelineConfig.tiny(sample_size=SAMPLE))
+    jcfg = JPipelineConfig.tiny(sample_size=SAMPLE)
+    jpipe = JExpansionPipeline.create(jcfg, params=jax_init_params(jcfg))
     params = _np(jpipe.params)
     cfg = PipelineConfig.tiny(sample_size=SAMPLE)
     gen = torch.Generator().manual_seed(0)

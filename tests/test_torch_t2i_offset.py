@@ -25,6 +25,7 @@ from distdiff_tpu_torch.models.guide.resnet import tiny_resnet_config
 from distdiff_tpu_torch.sampling import ExpansionPipeline, SamplerConfig, SplitExpand
 from distdiff_tpu_torch.schedulers import make_schedule
 from distdiff_tpu_torch.weights.from_jax import state_dict_from_jax
+from torch_parity import jax_init_params
 
 torch.set_num_threads(1)
 
@@ -43,8 +44,9 @@ def pipelines():
     j_guide = j_create_model("tiny_resnet", num_classes=3, input_size=32)
     gp = rng.randn(3, j_guide.feature_dim).astype(np.float32)
     lp = rng.randn(3, 2, j_guide.feature_dim).astype(np.float32)
+    jcfg = JPipelineConfig.tiny(sample_size=SAMPLE)
     jpipe = JExpansionPipeline.create(
-        JPipelineConfig.tiny(sample_size=SAMPLE), sampler_cfg=JSamplerConfig(guidance_scale=3.0),
+        jcfg, params=jax_init_params(jcfg), sampler_cfg=JSamplerConfig(guidance_scale=3.0),
         guidance_cfg=JGuidanceConfig(**GUIDE_KW), guide=j_guide, global_protos=gp,
         local_protos=lp, strength=0.5)
     params = jpipe.full_params()

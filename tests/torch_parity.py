@@ -3,6 +3,10 @@ pipeline and the port's on the JAX package's weights, guide and prototypes,
 the inputs, and the JAX expand's own random draws; and seeded variables for
 a JAX guide module."""
 
+import hashlib
+import os
+import tempfile
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -21,6 +25,43 @@ from distdiff_tpu_torch.weights.from_jax import state_dict_from_jax
 GUIDE_KW = dict(guidance_step=4, guidance_period=2, K=2, guide_input_size=32, rho=0.5)
 
 
+def jax_init_params(jcfg, seed=0):
+    """``distdiff_tpu.sampling.pipeline.init_params`` of ``jcfg`` (its UNet,
+    VAE and text encoder), as numpy: the JAX init's own values, which
+    ``ExpansionPipeline.create(jcfg)`` would make. The processes of one
+    test session share them: the first to need a configuration's runs the
+    init programs and writes them to a ``.npz`` in a directory named by the
+    session's ``PYTEST_XDIST_TESTRUNUID``, the others read that file (a
+    JAX init of the tiny pipeline is 13-28 s, most of it tracing)."""
+    from distdiff_tpu.models import AutoencoderKL, CLIPTextEncoder, UNet2DCondition
+    from distdiff_tpu.sampling.pipeline import init_params
+
+    assert jcfg.text_encoder_2 is None, "SD-1.x/2.x configurations only"
+    uid = os.environ.get("PYTEST_XDIST_TESTRUNUID")
+    key = hashlib.sha1(repr((jcfg.unet, jcfg.vae, jcfg.text_encoder, seed)).encode())
+    path = None if uid is None else os.path.join(
+        tempfile.gettempdir(), f"distdiff-jax-init-{uid}", key.hexdigest()[:16] + ".npz")
+    if path is not None and os.path.exists(path):
+        tree = {}
+        with np.load(path) as flat:
+            for name in flat.files:
+                *parents, leaf = name.split("/")
+                node = tree
+                for part in parents:
+                    node = node.setdefault(part, {})
+                node[leaf] = flat[name]
+        return tree
+    params = jax.tree.map(np.asarray, init_params(
+        jcfg, UNet2DCondition(jcfg.unet), AutoencoderKL(jcfg.vae),
+        CLIPTextEncoder(jcfg.text_encoder), seed))
+    if path is not None:
+        os.makedirs(os.path.dirname(path), exist_ok=True)
+        part = f"{path}.{os.getpid()}.npz"
+        np.savez(part, **flat_variables(params))
+        os.replace(part, path)  # whole files only: a reader never sees a partial one
+    return params
+
+
 def tiny_pipelines(jcfg, tcfg, guide_kw=GUIDE_KW, params=None):
     """(jpipe, numpy params, tpipe): both guided by a 3-class tiny_resnet
     with seeded prototypes, CFG scale 3, strength 0.5; the port's pipeline
@@ -33,7 +74,8 @@ def tiny_pipelines(jcfg, tcfg, guide_kw=GUIDE_KW, params=None):
     lp = rng.randn(3, guide_kw["K"], j_guide.feature_dim).astype(np.float32)
     given = params is not None
     jpipe = JExpansionPipeline.create(
-        jcfg, params=params, sampler_cfg=JSamplerConfig(guidance_scale=3.0),
+        jcfg, params=params if given else jax_init_params(jcfg),
+        sampler_cfg=JSamplerConfig(guidance_scale=3.0),
         guidance_cfg=JGuidanceConfig(**guide_kw), guide=j_guide,
         global_protos=gp, local_protos=lp, strength=0.5)
     params = jax.tree.map(np.asarray, jpipe.full_params())
@@ -88,18 +130,21 @@ def to_torch(x):
     return torch.from_numpy(np.asarray(x))
 
 
-def run_both(jpipe, params, tpipe, path, key=7, seed=1, conds=None, split_kw=None):
+def run_both(jpipe, params, tpipe, path, key=7, seed=1, conds=None, split_kw=None,
+             per_sample=False):
     """The JAX pipeline's and the port's images (numpy) on the same inputs
     and draws, through ``make_expand_fn`` (path "fused") or ``SplitExpand``
     (path "split", built by both with ``split_kw``: ``guide_chunk``,
     ``decode_chunk``). ``conds`` replaces the random text contexts with a
-    given (cond, uncond) pair, numpy arrays or SDXL's dicts of them."""
+    given (cond, uncond) pair, numpy arrays or SDXL's dicts of them. The
+    draws come from one key, or with ``per_sample`` (and always with
+    ``split_kw``) from one key a sample, as the driver's work units draw."""
     lat, cond, uncond, targets = inputs(tpipe.config.latent_size,
                                         tpipe.config.unet.cross_attention_dim, seed)
     if conds is not None:
         cond, uncond = conds
     key = jax.random.key(key)
-    if split_kw:  # the JAX SplitExpand slices the keys with the batch: per-sample keys
+    if split_kw or per_sample:  # a chunked SplitExpand slices the keys with the batch
         key = jax.random.split(key, len(lat))
     kw = dict(zip(("noise", "gamma0", "beta0"),
                   (torch.from_numpy(a) for a in jax_draws(key, lat))))
