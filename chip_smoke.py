@@ -3,7 +3,7 @@
 
 Run from the repository root: ``python3 chip_smoke.py``. It needs one CUDA
 card, ``nvcc`` and ``nvidia-smi``; it imports nothing of JAX or of the JAX
-package. Fourteen phases, any failure exits non-zero:
+package. Fifteen phases, any failure exits non-zero:
 
 1. Device: the card's name and power limit, torch/CUDA versions, the
    time to build the CUDA kernels from ``distdiff_tpu_torch/csrc`` (one
@@ -247,10 +247,30 @@ package. Fourteen phases, any failure exits non-zero:
    parallelism on the card against the CPU; 14f: ``tiny_resnet`` steps on a
    2-way data mesh, data-parallel and FSDP, against the one-device CPU
    step at phase 7's limits.
+15. The quality loop (``cli/quality_loop.py``), after phase 11. 15a: three
+   VAE steps and three UNet steps of its pre-training (``vae_train_step``,
+   ``unet_train_step``: full-batch Adam at 2e-3) in fp32 on the card
+   against the CPU from one tree (the seeded tiny() pipeline), on the toy
+   tree's 12 images and one set of draws: each step's loss within
+   QL_LOSS_TOL, the trained parameters within QL_PARAM_TOL past the first
+   step's gradient noise (``held_training``). 15c: the GroupNorm kernels
+   of the first card step of each counted by shape against the CPU step's
+   GroupNorm calls (the inner checkpoints' recomputations included; every
+   shape held in phase 2), added to the kernels' line, and a VAE step's
+   device kernels listed by ``torch.profiler``. 15b:
+   ``cli.quality_loop.main`` at a short recipe (QL_RECIPE: 2 seeds, 2
+   epochs, the guide, 50 VAE and 50 UNet steps): n = 2 for every variant,
+   12 PNGs in each expansion tree, the VAE's reconstruction mse below its
+   step-0 value, ``quality_loop.json``; its seconds.
 13. The card line, the kernels' JSON line (one entry per kernel; its times
    are the means over that kernel's launches in the counted runs, and
    ``shapes`` holds each timed shape's own numbers), and the
    ``{"ok": true, ...}`` line.
+
+``python3 chip_smoke.py --calibrated cal11 [cal14] [--seeds 1 2 3] [--log_dir DIR]``
+runs phase 1, then the calibrated quality-loop recipes (CALIBRATED) through
+``python -m distdiff_tpu_torch.cli.quality_loop``, each timed, its output
+in ``DIR/{name}.log`` (default ``calibrated_logs``), its table printed.
 
 ``python3 chip_smoke.py --profile [--sd21 | --sdxl | --lora] [--json PATH]``
 runs phase 1, builds the main path (with ``--sd21`` phase 8's SD-2.1
@@ -5461,6 +5481,351 @@ def mesh_cli_phase(work: str, ckpt: str, guide_path: str) -> dict:
             "held_bytes": held, "png_levels": levels}
 
 
+QL_CLASSES = 2  # the quality loop's default toy tree: 2 classes of 6 train images
+QL_TRAIN = 6
+QL_STEPS = 3           # pre-training steps held card against CPU
+QL_LR = 2e-3           # the pre-trainings' Adam rate
+QL_LOSS_TOL = 1e-5     # relative, each step's loss card against CPU
+QL_PARAM_TOL = 1e-4    # |card - CPU| of a trained element past the gradient noise (lr / 20)
+QL_SHARE_TOL = 1e-4    # the share of those elements past QL_PARAM_TOL
+QL_NOISE = 1e-6        # a first-step gradient at most this share of the module's largest
+QL_RECIPE = ["--seeds", "1", "2", "--epochs", "2", "--train_guide", "--train_vae",
+             "--vae_steps", "50", "--train_unet", "--unet_steps", "50"]
+
+
+def pretrain_gn_calls(batch: int = QL_CLASSES * QL_TRAIN) -> list:
+    """(times, batch, norms) of the GroupNorms of one pre-training step of
+    the quality loop (the tiny VAE's encode and decode, the tiny UNet on its
+    latents), the shapes phase 2 holds for phase 15."""
+    from distdiff_tpu_torch.config import PipelineConfig
+
+    cfg = PipelineConfig.tiny()
+    return [(1, batch, vae_encode_norms(cfg.vae, cfg.sample_size)),
+            (1, batch, vae_decode_norms(cfg.vae, cfg.latent_size)),
+            (1, batch, unet_norms(cfg.unet, cfg.latent_size))]
+
+
+def norm_calls(module, fn) -> collections.Counter:
+    """The GroupNorm module calls of ``fn()`` by (input shape, groups), the
+    recomputations of the inner checkpoints included (forward hooks)."""
+    from distdiff_tpu_torch.models.layers import GroupNorm
+
+    calls = collections.Counter()
+    hooks = [m.register_forward_hook(
+        lambda m, args, out: calls.update([(tuple(args[0].shape), m.groups)]))
+        for m in module.modules() if isinstance(m, GroupNorm)]
+    try:
+        fn()
+    finally:
+        for h in hooks:
+            h.remove()
+    return calls
+
+
+def norm_plan(calls, itemsize: int, smem_limit: int) -> collections.Counter:
+    """The GroupNorm kernel launches of ``norm_calls`` by (kernel, shape):
+    gn_fused where a span fits a block's shared memory, else the pair."""
+    from distdiff_tpu_torch.ops.groupnorm import fused_fits
+
+    plan = collections.Counter()
+    for (shape, groups), n in calls.items():
+        b, c = shape[:2]
+        names = (("gn_fused",) if fused_fits(c, groups, math.prod(shape[2:]), itemsize,
+                                             smem_limit) else ("gn_stats", "gn_apply"))
+        for name in names:
+            plan[(name, shape)] += n
+    return plan
+
+
+def first_grads(opt, module) -> dict:
+    """Each parameter's gradient at the optimiser's first step, by name
+    (filled by a step pre-hook)."""
+    names = {id(p): k for k, p in module.named_parameters()}
+    grads = {}
+
+    def keep(optimizer, args, kwargs):
+        if not grads:
+            grads.update({names[id(p)]: p.grad.detach().cpu().clone()
+                          for g in optimizer.param_groups for p in g["params"]})
+    opt.register_step_pre_hook(keep)
+    return grads
+
+
+def held_training(what: str, card_mod, cpu_mod, grads: dict) -> dict:
+    """The card's trained parameters against the CPU's. An element whose
+    first-step gradient is within fp32 noise of 0 (at most QL_NOISE of the
+    module's largest: a bias or time projection that a one-channel
+    GroupNorm cancels) moves by up to lr a step either way on either device:
+    held to 2 lr a step. Every other element: QL_PARAM_TOL, but for a share
+    QL_SHARE_TOL."""
+    import torch
+
+    got = {k: v.detach().cpu() for k, v in card_mod.named_parameters()}
+    want = {k: v.detach() for k, v in cpu_mod.named_parameters()}
+    top = max(float(g.abs().max()) for g in grads.values())
+    diff = torch.cat([(got[k] - want[k]).abs().flatten() for k in want])
+    noise = torch.cat([(grads[k].abs() <= QL_NOISE * top).flatten() for k in want])
+    worst = float(diff[~noise].max())
+    share = float((diff[~noise] > QL_PARAM_TOL).float().mean())
+    print(f"  {what}: {diff.numel()} parameters, max |card - CPU| {worst:.3e} past the "
+          f"gradient noise (limit {QL_PARAM_TOL}, share over it {share:.2e}, limit "
+          f"{QL_SHARE_TOL}), {float(diff.max()):.3e} over all (limit "
+          f"{2 * QL_LR * QL_STEPS:.0e}; {int(noise.sum())} elements at noise level)")
+    require(math.isfinite(worst) and share <= QL_SHARE_TOL,
+            f"{what}: {share:.2e} of the parameters past {QL_PARAM_TOL} from the CPU's")
+    require(float(diff.max()) <= 2 * QL_LR * QL_STEPS + 1e-6,
+            f"{what}: a parameter {float(diff.max()):.3e} from the CPU's")
+    return {"max_abs_err": worst, "share_past_tol": share, "max_abs_err_all": float(diff.max()),
+            "noise_elements": int(noise.sum())}
+
+
+def held_losses(what: str, card, cpu) -> float:
+    rel = max(abs(a - b) / max(abs(b), 1e-12) for a, b in zip(card, cpu))
+    print(f"  {what} losses: card {[f'{x:.7f}' for x in card]}, CPU "
+          f"{[f'{x:.7f}' for x in cpu]} (max relative {rel:.2e}, limit {QL_LOSS_TOL})")
+    require(rel <= QL_LOSS_TOL, f"{what}: a step's loss {rel:.2e} from the CPU's")
+    return rel
+
+
+def quality_parity_phase(work: str) -> dict:
+    """15a/c: three VAE steps and three UNet steps of the quality loop's
+    pre-training (``cli.quality_loop.vae_train_step``, ``unet_train_step``)
+    in fp32 on the card against the CPU, from one tree (the seeded tiny()
+    pipeline, copied to the card), on the toy tree's images and one set of
+    draws; the GroupNorm kernels of the first step of each counted against
+    the GroupNorm module calls of the CPU's step, and the step's device
+    kernels listed by ``torch.profiler``."""
+    import glob
+
+    import torch
+
+    from distdiff_tpu_torch.cli import quality_loop as ql
+    from distdiff_tpu_torch.config import PipelineConfig
+    from distdiff_tpu_torch.device import disable_tf32
+    from distdiff_tpu_torch.models import load_tokenizer
+    from distdiff_tpu_torch.ops import groupnorm as gn
+    from distdiff_tpu_torch.sampling import ExpansionPipeline
+
+    dev = torch.device("cuda")
+    disable_tf32()
+    cfg = PipelineConfig.tiny()
+    root = os.path.join(work, "parity")
+    ql.fabricate_toy_dataset(root, n_classes=QL_CLASSES, n_train=QL_TRAIN)
+    files = sorted(glob.glob(os.path.join(root, "medmnist", "breastmnist", "train", "*",
+                                          "*.png")))
+    labels = [int(os.path.basename(os.path.dirname(f))[-2:]) for f in files]
+    cpu = ExpansionPipeline.create(cfg, device="cpu", seed=15)
+    card = cpu.on_device(dev)
+    x = ql._images(files, cfg.sample_size, "cpu")
+    sf = cfg.vae.scaling_factor
+    smem_limit = gn._device_limits(dev)[0]
+    out, by_shape = {}, collections.Counter()
+
+    def counted(step, want, what):
+        """The card's step with the GroupNorm launches counted, against the
+        plan from the CPU step's GroupNorm module calls."""
+        gn.reset_launch_counts()
+        r = step()
+        torch.cuda.synchronize()
+        got = collections.Counter(gn.launch_shapes)
+        for key in sorted(set(got) | set(want)):
+            require(got[key] == want[key], f"15c {what}: {key[0]} {list(key[1])} launched "
+                    f"{got[key]} times, the step's norms say {want[key]}")
+        totals = {k: sum(c for (n, _), c in got.items() if n == k) for k in GN_KERNELS}
+        print(f"  15c {what} step: GroupNorm launches {totals} over "
+              f"{len({s for _, s in got})} shapes, as the CPU step's GroupNorm calls plan "
+              f"them; by shape {dict(sorted(got.items()))}")
+        require(sum(totals.values()) > 0, f"15c {what}: no GroupNorm kernel launched")
+        by_shape.update(got)
+        return r
+
+    def run_steps(what, module_of, steps):
+        """``steps`` (one callable a step) on the CPU then on the card, each
+        device's losses; the CPU's first step counts its GroupNorm calls,
+        the card's first is counted against them."""
+        losses, plan = {}, None
+        for name, p in (("cpu", cpu), ("card", card)):
+            losses[name] = []
+            for i, step in enumerate(steps[name]):
+                if i == 0 and name == "cpu":
+                    kept = []
+                    plan = norm_plan(norm_calls(module_of(p), lambda: kept.append(step())), 4,
+                                     smem_limit)
+                    r = kept[0]
+                elif i == 0:
+                    r = counted(step, plan, what)
+                else:
+                    r = step()
+                losses[name].append(float(r[0] if isinstance(r, tuple) else r))
+        return losses
+
+    # the VAE: both devices from one tree, three steps each
+    opts = {name: ql.make_adam(p.vae) for name, p in (("cpu", cpu), ("card", card))}
+    opts_vae = opts["card"]
+    grads = first_grads(opts["cpu"], cpu.vae)
+    xs = {"cpu": x, "card": x.to(dev)}
+    steps = {name: [lambda p=p, name=name: ql.vae_train_step(p.vae, opts[name], xs[name], sf)]
+             * QL_STEPS for name, p in (("cpu", cpu), ("card", card))}
+    losses = run_steps("VAE", lambda p: p.vae, steps)
+    out["vae_loss_rel"] = held_losses("15a VAE", losses["card"], losses["cpu"])
+    out["vae"] = held_training("15a VAE", card.vae, cpu.vae, grads)
+    names = device_kernels(lambda: ql.vae_train_step(card.vae, opts["card"], xs["card"], sf))
+    gn_names = [n for n in names if "gn_fused" in n or "gn_stats" in n or "gn_apply" in n]
+    print(f"  15c a VAE step's device kernels (torch.profiler): {len(names)} kinds, the "
+          f"GroupNorm ones {gn_names}")
+    require(gn_names, "15c: the profiler saw no GroupNorm kernel in a VAE step")
+
+    # the UNet: latents and contexts from the CPU's trained VAE and text
+    # encoder, one set of draws, both devices from one UNet
+    with torch.no_grad():
+        latents = cpu.vae.encode_moments(x)[0] * sf
+    tok = load_tokenizer(max_length=cfg.text_encoder.max_length,
+                         vocab_size=cfg.text_encoder.vocab_size, strict=False)
+    prompts = [f"a photo of a class_{i:02d}." for i in range(QL_CLASSES)] + [""]
+    ctx_bank = cpu.encode_text(torch.as_tensor(tok(prompts)).long())
+    y = torch.as_tensor(labels)
+    gen = torch.Generator().manual_seed(15)
+    draws = [ql.draw_unet_inputs(gen, latents.shape, len(cpu.sched.alphas_cumprod))
+             for _ in range(QL_STEPS)]
+    opts = {name: ql.make_adam(p.unet) for name, p in (("cpu", cpu), ("card", card))}
+    grads = first_grads(opts["cpu"], cpu.unet)
+    steps = {}
+    for name, p in (("cpu", cpu), ("card", card)):
+        inputs = [tuple(a.to(p.device) for a in (latents, y, ctx_bank) + draw)
+                  for draw in draws]
+        steps[name] = [lambda p=p, name=name, a=a: ql.unet_train_step(
+            p.unet, opts[name], p.sched, *a) for a in inputs]
+    losses = run_steps("UNet", lambda p: p.unet, steps)
+    out["unet_loss_rel"] = held_losses("15a UNet", losses["card"], losses["cpu"])
+    out["unet"] = held_training("15a UNet", card.unet, cpu.unet, grads)
+    out["by_shape"] = by_shape
+
+    # where a pre-training step's time goes: the host clock over 10 steps,
+    # then one step under torch.profiler (device busy, idle share)
+    card_steps = {"VAE": lambda: ql.vae_train_step(card.vae, opts_vae, xs["card"], sf),
+                  "UNet": steps["card"][-1]}
+    for what, step in card_steps.items():
+        step()
+        torch.cuda.synchronize()
+        t0 = time.time()
+        for _ in range(10):
+            step()
+        torch.cuda.synchronize()
+        ms = (time.time() - t0) * 100
+        print(f"  15a the {what} step on the card: {ms:.1f} ms a step (host clock over 10, "
+              f"batch {len(files)})")
+        out[f"{what.lower()}_step_ms"] = ms
+        profile_path(lambda gen, step=step: step(), ())
+    return out
+
+
+def quality_loop_phase(work: str, card: str) -> dict:
+    """15b: ``cli.quality_loop.main`` on the card at a short recipe
+    (QL_RECIPE) in ``work``: n = 2 for every variant, n_classes x n_train x
+    num_images_per_prompt PNGs in each expansion tree, the VAE's
+    reconstruction mse below its value at step 0, ``quality_loop.json``."""
+    import torch
+
+    from distdiff_tpu_torch.cli import quality_loop as ql
+    from distdiff_tpu_torch.ops import groupnorm as gn
+
+    mses = []
+    real_step = ql.vae_train_step
+
+    def recording(vae, opt, x, sf):
+        r = real_step(vae, opt, x, sf)
+        mses.append(r[1])
+        return r
+
+    cwd = os.getcwd()
+    ql.vae_train_step = recording
+    gn.reset_launch_counts()
+    t0 = time.time()
+    try:
+        os.chdir(work)  # the expansions' save/ caches land here
+        table = ql.main(["--workdir", "ql"] + QL_RECIPE)
+    finally:
+        os.chdir(cwd)
+        ql.vae_train_step = real_step
+    torch.cuda.synchronize()
+    secs = time.time() - t0
+    launches = {k: v for k, v in gn.launch_counts.items() if v}
+    for v in ("original", "unguided", "guided"):
+        require(table[v]["n"] == 2, f"15b: {v} has {table[v]['n']} results, not 2")
+    want_pngs = QL_CLASSES * QL_TRAIN * 1
+    pngs = {}
+    for arm in ("guided", "unguided"):
+        tree = os.path.join(work, "ql", f"expanded_{arm}")
+        pngs[arm] = sum(f.endswith(".png") for _, _, fs in os.walk(tree) for f in fs)
+        require(pngs[arm] == want_pngs, f"15b: {pngs[arm]} PNGs in {tree}, not {want_pngs}")
+    mse = [float(m) for m in mses]
+    require(len(mse) == 50 and mse[-1] < mse[0],
+            f"15b: the VAE's reconstruction mse went {mse[:1]} -> {mse[-1:]}")
+    require(os.path.exists(os.path.join(work, "ql", "quality_loop.json")),
+            "15b: no quality_loop.json")
+    print(f"  15b the loop ({' '.join(QL_RECIPE)}): {secs:.1f} s, table "
+          f"{json.dumps(table)}, PNGs {pngs}, VAE mse {mse[0]:.4f} -> {mse[-1]:.4f}, "
+          f"GroupNorm launches {launches} ({card})")
+    return {"seconds": secs, "table": table, "pngs": pngs, "vae_mse": [mse[0], mse[-1]],
+            "launches": launches}
+
+
+# The calibrated recipes of the JAX package's quality-loop artefact
+# (docs/quality_loop_v5e_r4.md: cal11 its headline run, cal14 its
+# full-ordering run), as tests/test_quality_ordering.py runs them.
+CALIBRATED = {
+    "cal11": ["--seeds", "1", "2", "3", "4", "5", "--epochs", "12", "--train_batch", "16",
+              "--input_size", "16", "--num_images_per_prompt", "4", "--n_classes", "4",
+              "--n_train", "8", "--n_test", "40", "--toy_noise", "30", "--toy_jitter", "55",
+              "--strength", "0.5", "--guidance_scale", "1.0", "--steps", "20",
+              "--train_guide", "--train_vae", "--train_unet"],
+    "cal14": ["--seeds", "1", "2", "3", "4", "5", "--epochs", "12", "--train_batch", "16",
+              "--input_size", "16", "--num_images_per_prompt", "5", "--n_classes", "4",
+              "--n_train", "5", "--n_test", "50", "--toy_noise", "30", "--toy_jitter", "55",
+              "--strength", "0.45", "--guidance_scale", "1.0", "--steps", "20",
+              "--train_guide", "--guide_epochs", "40", "--train_vae", "--train_unet"],
+}
+
+
+def calibrated_run(name: str, log_dir: str, seeds=None) -> dict:
+    """``python -m distdiff_tpu_torch.cli.quality_loop`` on a calibrated
+    recipe (``seeds`` in place of its five where given), in a temporary
+    directory under the checkout (its own ``save/`` caches), its output
+    to ``{log_dir}/{name}.log``: the table, its wall seconds and the card
+    line before and after."""
+    argv = list(CALIBRATED[name])
+    if seeds:
+        i = argv.index("--seeds")
+        argv[i + 1:i + 6] = [str(s) for s in seeds]
+    root = os.path.dirname(os.path.abspath(__file__))
+    os.makedirs(log_dir, exist_ok=True)
+    log = os.path.join(log_dir, f"{name}.log")
+    before = card_line()
+    with tempfile.TemporaryDirectory(dir=root, prefix=f".smoke_{name}_") as work:
+        env = dict(os.environ, PYTHONPATH=root + os.pathsep + os.environ.get("PYTHONPATH", ""))
+        t0 = time.time()
+        with open(log, "w") as f:
+            rc = subprocess.run(
+                [sys.executable, "-m", "distdiff_tpu_torch.cli.quality_loop", "--workdir",
+                 os.path.join(work, "ql")] + argv, cwd=work, env=env, stdout=f,
+                stderr=subprocess.STDOUT).returncode
+        wall = time.time() - t0
+        table = None
+        if rc == 0:
+            with open(os.path.join(work, "ql", "quality_loop.json")) as f:
+                table = json.load(f)
+    after = card_line()
+    print(f"  {name}: rc {rc}, {wall:.1f} s wall; card {before} before, {after} after")
+    print(f"  {name} argv: {' '.join(argv)}")
+    with open(log) as f:
+        lines = f.read().splitlines()
+    start = next((i for i, l in enumerate(lines) if l.startswith("=== quality loop")), None)
+    for line in lines[start:] if start is not None else lines[-20:]:
+        print(f"  | {line}")
+    return {"name": name, "rc": rc, "wall_s": wall, "card": before, "card_after": after,
+            "argv": argv, "table": table}
+
+
 def check_gn_plan(got: dict, want) -> None:
     """Every GroupNorm kernel's launches by shape against the plan."""
     totals = {k: [0, 0] for k in GN_KERNELS}
@@ -5667,6 +6032,22 @@ def main(argv) -> int:
     print(f"  kernel build {time.time() - t0:.1f} s ({_build.build_info})")
     ptxas_phase()
 
+    if "--calibrated" in argv:
+        # the calibrated quality-loop recipes, each timed through the CLI
+        names = [a for a in argv[argv.index("--calibrated") + 1:] if a in CALIBRATED]
+        seeds = None
+        if "--seeds" in argv:
+            i = argv.index("--seeds") + 1
+            seeds = []
+            while i < len(argv) and argv[i].isdigit():
+                seeds.append(int(argv[i]))
+                i += 1
+        log_dir = (argv[argv.index("--log_dir") + 1] if "--log_dir" in argv
+                   else "calibrated_logs")
+        runs = [calibrated_run(n, log_dir, seeds) for n in names]
+        print(json.dumps({"calibrated": runs}))
+        return 0 if runs and all(r["rc"] == 0 for r in runs) else 1
+
     if "--profile" in argv and "--lora" in argv:
         from distdiff_tpu_torch.train.lora import draw_t_noise
 
@@ -5699,7 +6080,7 @@ def main(argv) -> int:
     fp32_records = flash_f32_phase()
     print("  -- GroupNorm")
     records += gn_kernel_phase(gn_shapes(main_gn_calls() + sd21_gn_calls() + sdxl_gn_calls()
-                                         + lora_main_gn_calls()))
+                                         + lora_main_gn_calls() + pretrain_gn_calls()))
 
     print("== 3. agreement at a small geometry")
     agreement_phase()
@@ -5897,6 +6278,17 @@ def main(argv) -> int:
     phase12_s = (int8_s + sdxl["int8"]["phase_s"] + cli["params"]["phase_s"]
                  + cli["params"]["save_s"])
     print(f"  phase 12 (12a-e, the save in phase 6's run included): {phase12_s:.1f} s ({card})")
+
+    print("== 15. the quality loop: pre-training card against CPU, the loop at a short recipe")
+    t0 = time.time()
+    ql_work = tempfile.TemporaryDirectory(dir=os.path.dirname(os.path.abspath(__file__)),
+                                          prefix=".smoke_ql_")
+    ql_parity = quality_parity_phase(ql_work.name)
+    require_timed(records, ql_parity["by_shape"], "phase 15")
+    ql_loop = quality_loop_phase(ql_work.name, card)
+    ql_work.cleanup()
+    ql_s = time.time() - t0
+    print(f"  phase 15: {ql_s:.1f} s ({card})")
     print(f"  the whole script: {time.time() - script_t0:.1f} s ({card})")
 
     print("== 13. result")
@@ -5908,7 +6300,8 @@ def main(argv) -> int:
                              + mode_shapes + sdxl["by_shape"] + sdxl_cli["by_shape"]
                              + lora_step["by_shape"] + lora_cli["by_shape"]
                              + sum((g["by_shape"] for g in zoo["guides"].values()),
-                                   collections.Counter()) + zoo["cli"]["by_shape"]),
+                                   collections.Counter()) + zoo["cli"]["by_shape"]
+                             + ql_parity["by_shape"]),
         "fp32_flash": fp32_records, "expand_warm_s": warm_s,
         "expand_warm_s_runs": warm_runs, "expand_peak_bytes": peak,
         "split_expand_warm_s": split["warm_s"], "split_expand_warm_s_runs": split["runs"],
@@ -5951,7 +6344,11 @@ def main(argv) -> int:
                  "phase_s": phase12_s},
         "parallel": {"lse": lse, "sp": sp, "pp_tp_unet": pp_tp, "mesh_train": mesh_train,
                      "mesh_cli": {k: v for k, v in mesh_cli.items() if k != "by_shape"},
-                     "phase_s": parallel_s}}))
+                     "phase_s": parallel_s},
+        "quality_loop": {"parity": {k: v for k, v in ql_parity.items() if k != "by_shape"},
+                         "pretrain_gn_launches": {f"{n} {list(s)}": c for (n, s), c in
+                                                  sorted(ql_parity["by_shape"].items())},
+                         "loop": ql_loop, "phase_s": ql_s}}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

@@ -1,8 +1,8 @@
 """Dataset primitives (port of ``distdiff_tpu/data/datasets.py``):
 ``load_image``, the per-item augmentation seed, ``ImageListDataset``,
 ``ArrayDataset``, the expanded-tree reader ``DatasetByClassNames``, the
-``ConcatDataset``, ``RepeatDataset`` and ``SubsetDataset`` combinators, and
-``BatchLoader``.
+``ConcatDataset``, ``RepeatDataset`` and ``SubsetDataset`` combinators,
+``BatchLoader``, and the PNG codec (``read_png``, ``write_png``).
 
 Images are ``[H, W, 3]`` uint8 numpy arrays. The machine with the card has
 neither PIL nor torchvision, so ``load_image`` decodes PNG with the standard
@@ -169,6 +169,36 @@ def read_png(path: str) -> np.ndarray:
         table[:len(palette)] = palette[:256]
         return table[pixels[:, :, 0]]
     return pixels
+
+
+_COLOR_TYPES = {1: 0, 3: 2, 4: 6}  # channels -> PNG colour type
+
+
+def _png_chunk(tag: bytes, data: bytes) -> bytes:
+    return (struct.pack(">I", len(data)) + tag + data
+            + struct.pack(">I", zlib.crc32(tag + data) & 0xFFFFFFFF))
+
+
+def write_png(path: str, arr: np.ndarray, level: int = 6) -> None:
+    """``[H, W]`` or ``[H, W, C]`` uint8 (C = 1, 3 or 4) -> an 8-bit,
+    non-interlaced PNG at ``path``, every row with filter 0, compressed at
+    zlib ``level``; ``read_png`` gives the same array back."""
+    arr = np.asarray(arr)
+    if arr.dtype != np.uint8:
+        raise TypeError(f"write_png takes uint8, got {arr.dtype}")
+    if arr.ndim == 2:
+        arr = arr[:, :, None]
+    h, w, c = arr.shape
+    if c not in _COLOR_TYPES:
+        raise ValueError(f"write_png takes 1, 3 or 4 channels, got {c}")
+    os.makedirs(os.path.dirname(path) or ".", exist_ok=True)
+    rows = np.concatenate([np.zeros((h, 1), np.uint8), arr.reshape(h, w * c)], axis=1)
+    header = struct.pack(">IIBBBBB", w, h, 8, _COLOR_TYPES[c], 0, 0, 0)
+    data = (PNG_SIGNATURE + _png_chunk(b"IHDR", header)
+            + _png_chunk(b"IDAT", zlib.compress(rows.tobytes(), level))
+            + _png_chunk(b"IEND", b""))
+    with open(path, "wb") as f:
+        f.write(data)
 
 
 def load_image(path: str) -> np.ndarray:

@@ -5,7 +5,8 @@ The JAX package resizes and rotates with PIL, which the machine with the
 card lacks. ``Resize`` reproduces Pillow's ``BILINEAR`` resampling bit for
 bit: a triangle filter widened by the scale factor when it downscales,
 coefficients normalised and rounded to 22-bit fixed point, a horizontal
-pass then a vertical pass, each rounded to uint8. ``affine`` reproduces
+pass then a vertical pass, each rounded to uint8. ``resize_bicubic`` does
+the same with Pillow's ``BICUBIC`` filter (a = -0.5, support 2). ``affine`` reproduces
 ``Image.transform(AFFINE)`` at ``BILINEAR`` and ``NEAREST`` bit for bit,
 and ``rotate`` (``RandomRotation``) ``Image.rotate`` through it.
 The random transforms draw from the caller's ``np.random.Generator`` in
@@ -38,20 +39,34 @@ class Compose:
         return img
 
 
-def _bilinear_coeffs(in_size: int, out_size: int):
-    """Pillow's ``precompute_coeffs`` + ``normalize_coeffs_8bpc`` for the
-    bilinear filter (support 1): the first input index of each output and
+def _triangle(x: np.ndarray) -> np.ndarray:
+    """Pillow's bilinear filter (support 1)."""
+    return np.where(np.abs(x) < 1.0, 1.0 - np.abs(x), 0.0)
+
+
+def _bicubic(x: np.ndarray) -> np.ndarray:
+    """Pillow's bicubic filter (``Resample.c`` ``bicubic_filter``, a = -0.5,
+    support 2), in its order of operations."""
+    a = -0.5
+    x = np.abs(x)
+    near = ((a + 2.0) * x - (a + 3.0)) * x * x + 1
+    far = (((x - 5) * x + 8) * x - 4) * a
+    return np.where(x < 1.0, near, np.where(x < 2.0, far, 0.0))
+
+
+def _coeffs(in_size: int, out_size: int, kernel=_triangle, support: float = 1.0):
+    """Pillow's ``precompute_coeffs`` + ``normalize_coeffs_8bpc`` for a
+    filter of the given support: the first input index of each output and
     its fixed-point weights ``[out_size, ksize]``, zero past the window."""
     scale = in_size / out_size
     filterscale = max(scale, 1.0)
-    support = 1.0 * filterscale
+    support = support * filterscale
     ksize = int(math.ceil(support)) * 2 + 1
     center = (np.arange(out_size) + 0.5) * scale
     xmin = np.maximum(np.trunc(center - support + 0.5), 0).astype(np.int64)
     xmax = np.minimum(np.trunc(center + support + 0.5), in_size).astype(np.int64) - xmin
     taps = np.arange(ksize)
-    x = ((taps[None, :] + xmin[:, None]) - center[:, None] + 0.5) * (1.0 / filterscale)
-    w = np.where(np.abs(x) < 1.0, 1.0 - np.abs(x), 0.0)
+    w = kernel(((taps[None, :] + xmin[:, None]) - center[:, None] + 0.5) * (1.0 / filterscale))
     w = np.where(taps[None, :] < xmax[:, None], w, 0.0)
     ww = np.zeros(out_size)
     for k in range(ksize):  # Pillow sums the taps in order
@@ -61,12 +76,15 @@ def _bilinear_coeffs(in_size: int, out_size: int):
     return xmin, fixed.astype(np.int64)
 
 
-def _resample_axis(img: np.ndarray, out_size: int, axis: int) -> np.ndarray:
+def _resample_axis(img: np.ndarray, out_size: int, axis: int, kernel=_triangle,
+                   support: float = 1.0) -> np.ndarray:
     """One pass of Pillow's 8-bit resampling along ``axis`` (1: width,
-    0: height), rounded and clipped to uint8. The sums fit int32, as in
-    Pillow: the weights are non-negative and add up to about 2^22."""
+    0: height), rounded and clipped to uint8 (``clip8``: a negative sum,
+    which the bicubic lobes allow, reads 0). The sums fit int32, as in
+    Pillow: the weights add up to about 2^22, their magnitudes to less than
+    2^23."""
     in_size = img.shape[axis]
-    xmin, kk = _bilinear_coeffs(in_size, out_size)
+    xmin, kk = _coeffs(in_size, out_size, kernel, support)
     kk = kk.astype(np.int32)
     shape = [1] * img.ndim
     shape[axis] = out_size
@@ -77,16 +95,26 @@ def _resample_axis(img: np.ndarray, out_size: int, axis: int) -> np.ndarray:
     return np.clip(acc >> _PRECISION_BITS, 0, 255).astype(np.uint8)
 
 
+def _resize(img: np.ndarray, size_hw, kernel, support: float) -> np.ndarray:
+    h, w = size_hw
+    if img.shape[1] != w:
+        img = _resample_axis(img, w, 1, kernel, support)
+    if img.shape[0] != h:
+        img = _resample_axis(img, h, 0, kernel, support)
+    return img
+
+
 def resize_bilinear(img: np.ndarray, size_hw) -> np.ndarray:
     """``[H, W, C]`` uint8 -> ``[h, w, C]`` as Pillow's
     ``resize((w, h), BILINEAR)``: the horizontal pass first, each pass only
     where its size changes."""
-    h, w = size_hw
-    if img.shape[1] != w:
-        img = _resample_axis(img, w, axis=1)
-    if img.shape[0] != h:
-        img = _resample_axis(img, h, axis=0)
-    return img
+    return _resize(img, size_hw, _triangle, 1.0)
+
+
+def resize_bicubic(img: np.ndarray, size_hw) -> np.ndarray:
+    """``[H, W, C]`` uint8 -> ``[h, w, C]`` as Pillow's
+    ``resize((w, h), BICUBIC)``, bit for bit, in the same two passes."""
+    return _resize(img, size_hw, _bicubic, 2.0)
 
 
 class Resize:

@@ -25,16 +25,18 @@ from __future__ import annotations
 import collections
 import logging
 import os
-import struct
 import time
-import zlib
 from concurrent.futures import ThreadPoolExecutor
 from typing import Callable, List, Optional, Sequence, Union
 
 import numpy as np
 import torch
 
-from distdiff_tpu_torch.data.datasets import PNG_SIGNATURE, read_png  # noqa: F401 (re-exported)
+from distdiff_tpu_torch.data.datasets import (  # noqa: F401 (re-exported)
+    PNG_SIGNATURE,
+    read_png,
+    write_png,
+)
 from distdiff_tpu_torch.device import resolve_device
 from distdiff_tpu_torch.parallel.manifest import (
     WorkUnit,
@@ -46,31 +48,12 @@ from distdiff_tpu_torch.sampling.conditioning import cond_stack, cond_to
 
 log = logging.getLogger("distdiff.driver")
 
-_COLOR_TYPES = {1: 0, 3: 2, 4: 6}  # channels -> PNG colour type
-
-
-def _chunk(tag: bytes, data: bytes) -> bytes:
-    return (struct.pack(">I", len(data)) + tag + data
-            + struct.pack(">I", zlib.crc32(tag + data) & 0xFFFFFFFF))
-
-
 def save_png(path: str, image01: np.ndarray) -> None:
     """image01: ``[H, W, 3]`` float in [0, 1] -> an 8-bit PNG, rounded as
     the reference rounds (``clip(x * 255 + 0.5, 0, 255)`` then truncation to
     uint8). zlib level 1: the writer threads share the host's CPU."""
-    os.makedirs(os.path.dirname(path) or ".", exist_ok=True)
     arr = np.clip(np.asarray(image01) * 255.0 + 0.5, 0, 255).astype(np.uint8)
-    if arr.ndim == 2:
-        arr = arr[:, :, None]
-    h, w, c = arr.shape
-    if c not in _COLOR_TYPES:
-        raise ValueError(f"save_png takes 1, 3 or 4 channels, got {c}")
-    rows = np.concatenate([np.zeros((h, 1), np.uint8), arr.reshape(h, w * c)], axis=1)
-    header = struct.pack(">IIBBBBB", w, h, 8, _COLOR_TYPES[c], 0, 0, 0)
-    data = (PNG_SIGNATURE + _chunk(b"IHDR", header)
-            + _chunk(b"IDAT", zlib.compress(rows.tobytes(), 1)) + _chunk(b"IEND", b""))
-    with open(path, "wb") as f:
-        f.write(data)
+    write_png(path, arr, level=1)
 
 
 def unit_seed(seed: int, unit: WorkUnit) -> int:

@@ -1079,3 +1079,44 @@ def test_int8_pins_hold_a_perturbed_run_to_its_recording(smoke):
     gap = float((want - exact).abs().max())
     assert float((pinned - want).abs().max()) <= 1e-5 < gap / 100
     assert float((loose - want).abs().max()) > float((pinned - want).abs().max())
+
+
+def test_pretraining_norms_are_phase_2s_shapes(smoke):
+    """Phase 15: every GroupNorm call of one VAE step and one UNet step of
+    the quality loop's pre-training (the inner checkpoints' recomputations
+    included), counted by ``norm_calls`` on the CPU, is at a shape that
+    ``pretrain_gn_calls`` gives phase 2 to hold (at the step's batch), with
+    its groups; the checks of the card's run read zero for the CPU against
+    itself."""
+    from distdiff_tpu_torch.cli import quality_loop as ql
+    from distdiff_tpu_torch.sampling import ExpansionPipeline
+
+    cfg = PipelineConfig.tiny()
+    pipe = ExpansionPipeline.create(cfg, device="cpu", seed=15)
+    b = 2  # the card's steps take smoke.QL_CLASSES * smoke.QL_TRAIN images
+    gen = torch.Generator().manual_seed(0)
+    x = torch.rand((b, cfg.sample_size, cfg.sample_size, 3), generator=gen) * 2 - 1
+    sf = cfg.vae.scaling_factor
+    opt = ql.make_adam(pipe.vae)
+    grads = smoke.first_grads(opt, pipe.vae)
+    vae_calls = smoke.norm_calls(pipe.vae, lambda: ql.vae_train_step(pipe.vae, opt, x, sf))
+    lat = torch.randn((b, cfg.latent_size, cfg.latent_size, 4), generator=gen)
+    ctx = torch.randn((3, cfg.max_text_length, cfg.unet.cross_attention_dim), generator=gen)
+    y = torch.arange(b) % 2
+    t, noise, drop = ql.draw_unet_inputs(gen, lat.shape, 1000)
+    uopt = ql.make_adam(pipe.unet)
+    unet_calls = smoke.norm_calls(pipe.unet, lambda: ql.unet_train_step(
+        pipe.unet, uopt, pipe.sched, lat, y, ctx, t, noise, drop))
+    held = smoke.gn_shapes(smoke.pretrain_gn_calls(b))
+    for calls in (vae_calls, unet_calls):
+        assert calls and all(n > 0 for n in calls.values())
+        for (shape, groups), _ in calls.items():
+            assert shape in held and held[shape][0] == groups, shape
+    # the inner checkpoints re-run the decoder's and the UNet's blocks
+    assert sum(vae_calls.values()) > len(smoke.vae_encode_norms(cfg.vae, cfg.sample_size)) + len(
+        smoke.vae_decode_norms(cfg.vae, cfg.latent_size))
+    plan = smoke.norm_plan(vae_calls, 4, smoke.H100_SMEM_OPTIN)
+    assert sum(plan.values()) >= sum(vae_calls.values())
+    assert sorted(grads) == sorted(k for k, _ in pipe.vae.named_parameters())
+    assert smoke.held_training("self", pipe.vae, pipe.vae, grads)["max_abs_err"] == 0.0
+    assert smoke.held_losses("self", [1.0, 2.0], [1.0, 2.0]) == 0.0

@@ -267,14 +267,29 @@ OPTIONS = {"sd21": ["--model", "sd21"], "dpmpp": ["--scheduler", "dpmpp"],
            "deep_cache": ["--deep_cache", "--cache_interval", "2"]}
 
 
+def _unused_images(self, params, image_latents, cond, uncond, targets, keys):
+    """The JAX ``SplitExpand`` call's output shape, in zeros: the option runs
+    below read the JAX CLI's files, caches and counts, never its images, so
+    its expand (most of a minute of tracing and compiling an option's
+    programs) is not run."""
+    import jax.numpy as jnp
+
+    side = self.pipe.config.sample_size
+    return jnp.zeros((image_latents.shape[0], side, side, 3), jnp.float32)
+
+
 @pytest.mark.parametrize("option", list(OPTIONS))
 def test_tiny_cli_option_matches_the_jax_cli(toy_files, port_default_pngs, option, tmp_path,
                                              monkeypatch):
+    from distdiff_tpu.sampling import pipeline as j_pipeline
+
     extra = OPTIONS[option]
     jwork = tmp_path / "jax"
     os.makedirs(jwork)
     monkeypatch.chdir(jwork)
-    jstats = j_cli.main(_argv(toy_files, extra))
+    with monkeypatch.context() as mp:
+        mp.setattr(j_pipeline.SplitExpand, "__call__", _unused_images)
+        jstats = j_cli.main(_argv(toy_files, extra))
     monkeypatch.setenv("DISTDIFF_PLATFORM", "cpu")
     monkeypatch.chdir(tmp_path)
     args = cli.parse_args(_argv(toy_files, extra))

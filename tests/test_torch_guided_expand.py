@@ -18,12 +18,10 @@ import torch
 
 from distdiff_tpu.config import GuidanceConfig as JGuidanceConfig
 from distdiff_tpu.config import PipelineConfig as JPipelineConfig
-from distdiff_tpu.guidance import transform_guidance as j_transform_guidance
 from distdiff_tpu.models.guide import create_model as j_create_model
 from distdiff_tpu.sampling import ExpansionPipeline as JExpansionPipeline
 from distdiff_tpu.sampling import SamplerConfig as JSamplerConfig
-from distdiff_tpu.sampling.sampler import denoise_range as j_denoise_range
-from distdiff_tpu.sampling.sampler import img2img_init as j_img2img_init
+from distdiff_tpu.sampling import pipeline as j_pipeline
 from distdiff_tpu_torch.config import GuidanceConfig, PipelineConfig
 from distdiff_tpu_torch.models.guide import create_model
 from distdiff_tpu_torch.models.guide.resnet import tiny_resnet_config
@@ -91,7 +89,7 @@ def _jax_draws(key, lat):
 
 
 @pytest.mark.parametrize("gtype", ["transform_guidance", "direct_guidance", "none"])
-def test_expand_matches_jax(pipelines, gtype):
+def test_expand_matches_jax(pipelines, gtype, monkeypatch):
     jpipe, params, tpipe = pipelines
     jpipe.guidance_cfg = dataclasses.replace(jpipe.guidance_cfg, guidance_type=gtype)
     tpipe.guidance_cfg = dataclasses.replace(tpipe.guidance_cfg, guidance_type=gtype)
@@ -99,6 +97,20 @@ def test_expand_matches_jax(pipelines, gtype):
     key = jax.random.key(7)
     k_guide, (noise, gamma0, beta0) = _jax_draws(key, lat)
 
+    # the JAX expand's own guidance update at g0 (its input latents, the
+    # updated latents, the score), recorded from inside the compiled expand
+    # by a debug callback on the update it calls: no second program
+    seen = {}
+    j_update = j_pipeline.transform_guidance
+
+    def recorded(ctx, params, x, cond, uncond, targets, key, step):
+        updated, score = j_update(ctx, params, x, cond, uncond, targets, key, step)
+        jax.debug.callback(lambda *a: seen.update(zip(("x", "updated", "score", "step"),
+                                                      map(np.asarray, a))),
+                           x, updated, score, step)
+        return updated, score
+
+    monkeypatch.setattr(j_pipeline, "transform_guidance", recorded)
     ref = np.asarray(jax.jit(jpipe.make_expand_fn())(
         params, jnp.asarray(lat), jnp.asarray(cond), jnp.asarray(uncond),
         jnp.asarray(targets), key))
@@ -116,24 +128,15 @@ def test_expand_matches_jax(pipelines, gtype):
     np.testing.assert_allclose(img, ref, atol=2e-4, rtol=0)
 
     if gtype == "transform_guidance":
-        sched = jpipe.sched
-        g0 = 6  # 10-step plan, guidance_step 4
-        x, start = j_img2img_init(sched, jnp.asarray(lat),
-                                  jax.random.split(key)[0], 0.5)
-        eps_fn = jpipe.eps_fn()
-        x = j_denoise_range(sched, eps_fn, params, x, jnp.asarray(cond),
-                            jnp.asarray(uncond), start, g0)
-        ctx = jpipe.guidance_context()
-        updated, score = jax.jit(
-            lambda p, x, c, u, tg, k: j_transform_guidance(ctx, p, x, c, u, tg, k, g0))(
-            params, x, jnp.asarray(cond), jnp.asarray(uncond), jnp.asarray(targets),
-            k_guide)
-        np.testing.assert_allclose(aux["latents_before"].numpy(), np.asarray(x),
+        assert int(seen["step"]) == 6  # g0 of the 10-step plan at guidance_step 4
+        np.testing.assert_allclose(aux["latents_before"].numpy(), seen["x"],
                                    atol=1e-5, rtol=0)
         # the energy is a norm of 64-wide guide features (~O(10)): relative
-        np.testing.assert_allclose(aux["score"].numpy(), np.asarray(score),
+        np.testing.assert_allclose(aux["score"].numpy(), seen["score"],
                                    rtol=1e-5)
         # latents ~O(1) after one SGD step on gamma/beta (rho 0.5)
         np.testing.assert_allclose(aux["latents_after"].numpy(),
-                                   np.asarray(updated), atol=2e-5, rtol=0)
-        assert np.abs(aux["latents_after"].numpy() - np.asarray(x)).max() > 1e-6
+                                   seen["updated"], atol=2e-5, rtol=0)
+        assert np.abs(aux["latents_after"].numpy() - seen["x"]).max() > 1e-6
+    else:
+        assert not seen

@@ -96,6 +96,34 @@ def test_no_refusal_names_the_parallel_modules_roadmap_item():
     assert not bad, bad
 
 
+QUALITY_LOOP = os.path.join(PACKAGE, "cli", "quality_loop.py")
+
+
+def test_the_quality_loop_imports_nothing_of_jax_optax_pil_orbax_or_yaml():
+    """``cli/quality_loop.py`` (the JAX script's port) is among the sources
+    the checks here walk, and imports none of what the JAX script does:
+    JAX, optax, PIL, orbax, yaml or the JAX package; the subprocess test
+    below imports it with all of them absent."""
+    assert QUALITY_LOOP in _port_sources()
+    tops = {m.split(".")[0] for _, m in _imported_modules(QUALITY_LOOP)}
+    assert "torch" in tops
+    assert not tops & set(FORBIDDEN + ("optax", "PIL", "orbax", "yaml")), tops
+
+
+def test_quality_loop_defaults_to_cuda_and_raises_without_it(monkeypatch, tmp_path):
+    """``main`` on a toy tree with no card and no ``DISTDIFF_PLATFORM``
+    raises before it writes anything, as the other CLIs do."""
+    from distdiff_tpu_torch.cli import quality_loop
+
+    quality_loop.fabricate_toy_dataset(str(tmp_path / "data"), n_train=1, n_test=1)
+    monkeypatch.delenv("DISTDIFF_PLATFORM", raising=False)
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="DISTDIFF_PLATFORM=cpu"):
+        quality_loop.main(["--data_root", str(tmp_path / "data"),
+                           "--workdir", str(tmp_path / "ql"), "--train_vae"])
+    assert not os.path.exists(tmp_path / "ql")
+
+
 def test_port_imports_no_pil_and_no_torchvision():
     """The machine with the card has neither: image I/O is the standard
     library's (``parallel/driver.py``)."""
@@ -386,19 +414,21 @@ def test_int8_route_refuses_other_devices_before_any_product():
 
 
 def test_int8_ops_and_parameter_files_import_without_jax_orbax_or_pil():
-    """``ops/quant.py``, the layers that call it, ``weights/params_io.py``
-    and the parallel modules import, and save and read a parameter
-    directory, with JAX, the JAX package, orbax, PIL and yaml absent (each
-    set to None in ``sys.modules``), as on the card's machine."""
+    """``ops/quant.py``, the layers that call it, ``weights/params_io.py``,
+    the parallel modules and ``cli/quality_loop.py`` import, and save and
+    read a parameter directory, with JAX, the JAX package, optax, orbax, PIL
+    and yaml absent (each set to None in ``sys.modules``), as on the card's
+    machine."""
     walked = {os.path.relpath(p, ROOT) for p in _port_sources()}
-    for mod in ("ops/quant.py", "weights/params_io.py"):
+    for mod in ("ops/quant.py", "weights/params_io.py", "cli/quality_loop.py"):
         assert os.path.join("distdiff_tpu_torch", mod) in walked
     code = (
         "import sys, tempfile, os\n"
-        "for m in ('jax', 'flax', 'distdiff_tpu', 'orbax', 'PIL', 'yaml'):\n"
+        "for m in ('jax', 'flax', 'distdiff_tpu', 'optax', 'orbax', 'PIL', 'yaml'):\n"
         "    sys.modules[m] = None\n"
         "from distdiff_tpu_torch.ops import quant\n"
         "from distdiff_tpu_torch.weights import params_io\n"
+        "from distdiff_tpu_torch.cli import quality_loop\n"
         + "".join(f"import distdiff_tpu_torch.parallel.{m}\n" for m in PARALLEL) +
         "from distdiff_tpu_torch.config import PipelineConfig\n"
         "from distdiff_tpu_torch.sampling import ExpansionPipeline\n"
